@@ -1,0 +1,109 @@
+"""User-facing session: the port of myscaledb_tpu/session.py (``Session``,
+``connect``).
+
+A Session owns its registered tables, per-session Settings, access control
+and the per-(table, column, epoch) vector-scan sidecars, and it owns the
+device every tensor of the session lives on: ``connect()`` means the CUDA
+card, and a caller that wants the CPU says so with ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from typing import Optional
+
+import torch
+
+from myscaledb_tpu_torch.config import Settings, TableSettings
+from myscaledb_tpu_torch.core.table import Table
+from myscaledb_tpu_torch.errors import NotPortedError
+from myscaledb_tpu_torch.runtime.access import AccessControl
+
+
+class Session:
+    def __init__(self, settings: Optional[Settings] = None, *, device):
+        self.device = torch.device(device)
+        self.settings = settings or Settings()
+        self.tables: dict[str, Table] = {}
+        self.table_settings: dict[str, TableSettings] = {}
+        self.query_log = deque(maxlen=10_000)
+        self._mutation_epoch = 0
+        self._query_cache = {}
+        # per-(table, column, epoch) scan artifacts: squared norms + SQ8
+        # quantized sidecar
+        self._vector_sidecars = {}
+        self.access = AccessControl()
+        self.current_user = "default"
+
+    def read_table_checked(self, name: str) -> Table:
+        """get_table + SELECT-privilege check + row-policy filtering for the
+        current user."""
+        t = self.get_table(name)
+        self.access.check(self.current_user, "SELECT", name)
+        has_pol, exprs = self.access.row_policy_exprs(self.current_user, name)
+        if not has_pol:
+            return t
+        if not exprs:
+            return t.head(0)
+        from myscaledb_tpu_torch.exec.expr import Env, eval_expr, \
+            as_bool_mask
+        from myscaledb_tpu_torch.ops.filter import compact_table_host
+        env = Env(t, device=self.device)
+        mask = None
+        for e in exprs:   # permissive policies: union of matching rows
+            m = as_bool_mask(eval_expr(e, env), t.n_rows)
+            mask = m if mask is None else mask | m
+        out, _ = compact_table_host(t, mask)
+        out.name = name
+        return out
+
+    def bump_epoch(self) -> None:
+        """Any mutation invalidates cached query results."""
+        self._mutation_epoch += 1
+        self._query_cache.clear()
+
+    def get_table(self, name: str) -> Table:
+        if name in self.tables:
+            return self.tables[name]
+        if name.startswith("system."):
+            raise NotPortedError(f"system table {name}",
+                                 "storage, formats and runtime state")
+        raise KeyError(f"unknown table {name!r}")
+
+    def register(self, name: str, table: Table, settings=None) -> None:
+        table.name = name
+        self.tables[name] = table
+        if settings is not None:
+            self.table_settings[name] = settings
+        self.bump_epoch()
+
+    def create_table(self, name: str, data: dict, dtypes=None,
+                     settings=None) -> Table:
+        t = Table.from_dict(data, name=name, dtypes=dtypes,
+                            hbm_budget_bytes=self.settings
+                            .max_hbm_bytes_per_column, device=self.device)
+        self.register(name, t, settings)
+        return t
+
+    def sql(self, query: str, **params) -> Table:
+        """Parse, plan and execute a SQL query; returns a result Table."""
+        from myscaledb_tpu_torch.sql.driver import execute_query
+        return execute_query(self, query, params)
+
+    def sql_tsv(self, query: str) -> str:
+        """Execute and format as ClickHouse-style TSV."""
+        from myscaledb_tpu_torch.sql.format import format_tsv
+        return format_tsv(self.sql(query))
+
+
+def connect(settings: Optional[Settings] = None, device=None) -> Session:
+    """Open a session on ``device`` — the CUDA card unless the caller asks
+    for another device.  Without a CUDA device, ``connect()`` raises rather
+    than run on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "myscaledb_tpu_torch.connect(): no CUDA device is available; "
+                "pass device=\"cpu\" to run on the CPU")
+        device = "cuda"
+    return Session(settings, device=device)

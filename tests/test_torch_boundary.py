@@ -1,0 +1,64 @@
+"""Package boundary of the PyTorch port: it never imports jax or the JAX
+package, and its entry point defaults to the CUDA card."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+PKG = pathlib.Path(__file__).resolve().parents[1] / "myscaledb_tpu_torch"
+ROOT = PKG.parent
+
+
+def test_import_loads_no_jax():
+    code = ("import sys, myscaledb_tpu_torch\n"
+            "import myscaledb_tpu_torch.sql.driver, "
+            "myscaledb_tpu_torch.interop\n"
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m == 'myscaledb_tpu' "
+            "or m.startswith('myscaledb_tpu.')]\n"
+            "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(PKG)))
+def test_no_jax_imports_in_package(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "myscaledb_tpu"), \
+            f"{path.name} imports {mod}"
+
+
+def test_chip_smoke_imports_no_jax():
+    mods = set(_imported_modules(ROOT / "chip_smoke.py"))
+    assert not any(m.split(".")[0] in ("jax", "myscaledb_tpu") for m in mods)
+
+
+def test_connect_defaults_to_cuda(monkeypatch):
+    import myscaledb_tpu_torch as P
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        P.connect()
+    s = P.connect(device="cpu")
+    assert s.device == torch.device("cpu")
+    t = s.create_table("t", {"a": [1, 2, 3]})
+    assert t["a"].data.device == torch.device("cpu")
