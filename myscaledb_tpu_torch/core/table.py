@@ -382,3 +382,45 @@ class Table:
     def __repr__(self) -> str:
         flds = ", ".join(str(f) for f in self.schema())
         return f"Table({self.name!r}, rows={self.n_rows}, [{flds}])"
+
+
+def concat_tables(tables: Sequence[Table], name: str = "") -> Table:
+    """Concatenate row-wise (the union of GROUP BY ROLLUP/CUBE/GROUPING SETS
+    levels); string dictionaries are merged with id remapping.  The port of
+    myscaledb_tpu/core/table.py::concat_tables for scalar columns (ARRAY
+    columns come with the expression and function breadth slice)."""
+    if not tables:
+        return Table([], name=name)
+    first = tables[0]
+    out_cols = []
+    for cname in first.column_names:
+        cols = [t[cname] for t in tables]
+        fld = cols[0].field
+        if any(c.offsets is not None for c in cols):
+            from myscaledb_tpu_torch.errors import NotPortedError
+            raise NotPortedError("concatenating ARRAY columns",
+                                 "expression and function breadth")
+        if fld.dtype is DataType.STRING:
+            base = StringDictionary()
+            datas = []
+            for c in cols:
+                remap = base.merge_from(c.dictionary)
+                # index -1 (NULL_ID) picks the appended NULL_ID
+                lut = to_tensor(np.append(remap, NULL_ID).astype(np.int32),
+                                c.data.device)
+                datas.append(torch.where(c.data == NULL_ID, NULL_ID,
+                                         lut[c.data.long()]))
+            data = torch.cat(datas)
+            dictionary = base
+        else:
+            data = torch.cat([c.data for c in cols])
+            dictionary = None
+        if any(c.valid is not None for c in cols):
+            valid = torch.cat([
+                c.valid if c.valid is not None
+                else torch.ones(len(c), dtype=torch.bool,
+                                device=c.data.device) for c in cols])
+        else:
+            valid = None
+        out_cols.append(Column(fld, data, valid, dictionary, None))
+    return Table(out_cols, name=name or first.name)

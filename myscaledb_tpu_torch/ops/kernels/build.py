@@ -24,14 +24,19 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("errors.cu", "segmin_f32.cu", "segmin_sq8.cu")
+SOURCES = ("errors.cu", "group_agg.cu", "segmin_f32.cu", "segmin_sq8.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # entry point -> argtypes (every pointer and the stream as c_void_p)
 _SIGNATURES = {
+    # gid, mask, arg_ptrs, na, float_bits, n, G, nblocks, rows_per_block,
+    # part_i, part_f, out_i, out_f, stream
+    "msdb_group_agg": [_P, _P, _P, _I, ctypes.c_uint, _L, _I, _I, _L, _P, _P,
+                       _P, _P, _P],
     # x, q, sqn, qaux, mask, out, n, d, nq, metric, stream
     "msdb_segmin_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x8, sides, q8, qside, mv, out, n_pad, d, nq, metric, stream

@@ -1,17 +1,24 @@
-"""Query execution for plain SELECT: the port of the vector slice of
-myscaledb_tpu/sql/executor.py (``VSInfo``, ``_metric_for``,
+"""Query execution for SELECT: the port of the vector and aggregation
+slices of myscaledb_tpu/sql/executor.py (``VSInfo``, ``_metric_for``,
 ``_find_distance_call``, ``analyze_vector_search``, ``_apply_vs_fusion``,
 ``_vector_sidecar``, ``_split_conjuncts``, ``_conjoin``,
 ``_expand_item_aliases``, ``_value_to_column``, ``_sort_key_from_value``,
-``_zonemap_block_mask``, ``_limit_prunable``, ``_materialize_topk``,
-``_project``, ``execute_select``).
+``_zonemap_block_mask``, ``_limit_prunable``, ``_group_ids``,
+``_mask_or_true``, ``_maybe_streaming_aggregate``, ``run_aggregate``,
+``_default_like``, ``_expand_group_levels``, ``_expand_grouping_sets``,
+``_totals_table``, ``_materialize_topk``, ``_project``, ``_distinct_rows``,
+``execute_select``).
 
-Stage order (SQL semantics): PREWHERE/WHERE -> [vector top-k] -> SELECT ->
-ORDER BY -> OFFSET/LIMIT.  ``distance()`` and its metric-named forms fuse
-with ORDER BY <distance> LIMIT k into the exact two-stage scan
-(ops/vector.py).  Everything the JAX executor does beyond that — joins,
-GROUP BY and aggregates, windows, DISTINCT, WITH FILL, LIMIT BY, text and
-hybrid search, binary vectors, batch_distance, subqueries, UNION and table
+Stage order (SQL semantics): PREWHERE/WHERE -> [vector top-k] ->
+[GROUP BY / aggregates -> HAVING] -> SELECT -> DISTINCT -> ORDER BY ->
+OFFSET/LIMIT.  ``distance()`` and its metric-named forms fuse with ORDER BY
+<distance> LIMIT k into the exact two-stage scan (ops/vector.py).
+Aggregates with and without GROUP BY, the -If combinators, HAVING,
+DISTINCT, ROLLUP/CUBE/GROUPING SETS and WITH TOTALS run; sum/count/avg go
+through K3 (ops/kernels/group_agg.py) for up to 256 groups.  Everything
+else the JAX executor does — joins, the special aggregates and the
+-State/-Merge combinators, windows, WITH FILL, LIMIT BY, text and hybrid
+search, binary vectors, batch_distance, subqueries, UNION and table
 functions — raises ``NotPortedError`` naming the slice that brings it.
 Error texts the goldens pin stay byte-equal to the JAX package's.
 """
@@ -24,9 +31,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from myscaledb_tpu_torch.core.types import DataType, Field
+from myscaledb_tpu_torch.core.types import (DataType, Field, physical_dtype,
+                                            torch_dtype)
 from myscaledb_tpu_torch.core.table import (BLOCK_ROWS, Table, Column,
-                                            to_tensor)
+                                            to_tensor, concat_tables)
 from myscaledb_tpu_torch.core.dictionary import StringDictionary
 from myscaledb_tpu_torch.config import TableSettings
 from myscaledb_tpu_torch.errors import ExecError, NotPortedError
@@ -35,11 +43,18 @@ from myscaledb_tpu_torch.sql.ast import (Expr, Literal, VectorLiteral, Ident,
                                          Between, InSubquery, ScalarSubquery,
                                          ExistsSubquery, Lambda, WindowCall,
                                          SelectQuery, UnionQuery, OrderItem,
-                                         walk)
+                                         SelectItem, walk)
 from myscaledb_tpu_torch.sql.render import render, substitute
-from myscaledb_tpu_torch.sql.agg_kinds import AGG_NAMES
+from myscaledb_tpu_torch.sql.agg_kinds import (AGG_NAMES, SPECIAL_AGGS,
+                                               IF_COMBINATORS)
+from myscaledb_tpu_torch.sql.agg_fns import _column_range
 from myscaledb_tpu_torch.exec.expr import (DIST_FNS, Env, Value, eval_expr,
                                            as_bool_mask, EvalError, _dict_map)
+from myscaledb_tpu_torch.ops.hash import float_bits_key
+from myscaledb_tpu_torch.ops.hashtable import build_group_ids, INT32_MAX
+from myscaledb_tpu_torch.ops.aggregate import (partial_aggregate_matmul,
+                                               finalize,
+                                               streaming_group_aggregate)
 from myscaledb_tpu_torch.ops.vector import (distance_scan, rowwise_distance,
                                             distance_scan_streaming,
                                             build_sq8, precompute_sqnorm,
@@ -433,7 +448,413 @@ def _expand_order_tuples(order_by):
 
 
 # ---------------------------------------------------------------------------
+# aggregation
+
+_WIDENED_UNSIGNED = (DataType.UINT16, DataType.UINT32, DataType.UINT64)
+
+
+def _expr_logical_dtype(e: Expr, v: Value, table: Table) -> DataType:
+    """Logical type of an evaluated expression.  A bare column reference
+    keeps its column's type — UInt16/32/64 columns are stored widened to
+    signed tensors, so the tensor alone cannot tell; anything else is typed
+    from its tensor, as ``_logical_dtype_of`` does."""
+    if isinstance(e, Ident):
+        name = e.qualified if e.table else e.name
+        if name in table and v.dictionary is None and v.dt is None:
+            return table[name].dtype
+    return _logical_dtype_of(v.data, v)
+
+
+def _group_ids(key_vals: list, n: int, mask, hint: int):
+    """Dense group ids for arbitrary key expressions.  Strategy dispatch in
+    the spirit of AggregatedDataVariants (Aggregator.h:563): dictionary ids
+    and small integer ranges map directly; everything else goes through
+    the sorted-run grouping (ops/hashtable.py)."""
+    if n == 0:
+        dev = key_vals[0].data.device
+        return torch.zeros(0, dtype=torch.int32, device=dev), 1, ("empty",)
+    if len(key_vals) == 1:
+        v = key_vals[0]
+        if v.dictionary is not None:
+            G = len(v.dictionary) + 1
+            gid = (v.data + 1).to(torch.int32)    # NULL_ID(-1) -> group 0
+            return gid, G, ("dict", v.dictionary)
+        if not v.data.is_floating_point():
+            data = v.data.to(torch.int64)
+            sel = _mask_or_true(mask, n, data.device)
+            lo = int(torch.min(torch.where(sel, data, data[0])))
+            hi = int(torch.max(torch.where(sel, data, data[0])))
+            rng = hi - lo + 1
+            if rng <= max(4 * hint, 1 << 20):
+                gid = (data - lo).to(torch.int32)
+                return gid, int(rng), ("range", lo, v.data.dtype)
+    # hash path
+    arrays = []
+    for v in key_vals:
+        d = v.data
+        if v.dictionary is not None:
+            arrays.append(d.to(torch.int32))
+        elif d.is_floating_point():
+            arrays.append(float_bits_key(d))
+        else:
+            arrays.append(d)
+    _table, gid, cap = build_group_ids(tuple(arrays), mask=mask,
+                                       num_groups_hint=hint)
+    gid = torch.where(gid == INT32_MAX, 0, gid)
+    return gid, cap, ("hash",)
+
+
+def _mask_or_true(mask, n, device):
+    return mask if mask is not None else torch.ones(n, dtype=torch.bool,
+                                                    device=device)
+
+
+def _agg_out_type(fn: str, lt: DataType, v: Value) -> Optional[DataType]:
+    """The result column's type where the state tensor cannot tell it: a
+    sum of an unsigned argument is UInt64 (stored int64), and min/max/any
+    keep a Date/DateTime or a widened unsigned argument's type."""
+    if fn == "sum" and lt in (DataType.UINT8,) + _WIDENED_UNSIGNED:
+        return DataType.UINT64
+    if fn in ("min", "max", "any"):
+        if v.dt is not None:
+            return v.dt
+        if lt in _WIDENED_UNSIGNED:
+            return lt
+    return None
+
+
+def _maybe_streaming_aggregate(env: Env, q: SelectQuery, mask, session,
+                               alias_exprs: dict):
+    """Out-of-device GROUP BY: when the aggregation touches host-resident
+    columns and every piece is mergeable + a plain column reference, stream
+    chunks through the card and merge per-chunk states (reference: external
+    aggregation, Aggregator.cpp:1632 writeToTemporaryFile; here host RAM is
+    the spill tier).  Returns (agg_table, mapping) or None to fall through
+    to the resident path."""
+    table = env.table
+    dev = env.device
+    if table.n_rows == 0:
+        return None
+    MERGEABLE = {"sum", "count", "avg", "min", "max", "any"}
+
+    def _ident_col(e):
+        if not isinstance(e, Ident):
+            return None
+        name = e.qualified if e.table else e.name
+        return table[name] if name in table else None
+
+    # group keys: plain non-null column references
+    key_cols = []
+    key_names = []
+    for k in q.group_by:
+        ke = _expand_item_aliases(k, alias_exprs, table)
+        col = _ident_col(ke)
+        if col is None or col.valid is not None or col.offsets is not None:
+            return None
+        key_cols.append(col)
+        key_names.append(render(ke))
+    # aggregate calls: mergeable over plain column references
+    agg_calls: dict[str, FuncCall] = {}
+    scan_exprs = [it.expr for it in q.items] + [o.expr for o in q.order_by]
+    if q.having is not None:
+        scan_exprs.append(q.having)
+    for e in scan_exprs:
+        e = _expand_item_aliases(e, alias_exprs, table)
+        for node in walk(e):
+            if isinstance(node, FuncCall) and node.name.lower() in AGG_NAMES:
+                agg_calls[render(node)] = node
+    if not agg_calls:
+        return None
+    fns, args, arg_valids, names, out_types = [], [], [], [], {}
+    for r, call in agg_calls.items():
+        name = call.name.lower()
+        if name not in MERGEABLE or call.distinct:
+            return None
+        if name == "count" and (not call.args or
+                                isinstance(call.args[0], Star)):
+            fns.append("count")
+            args.append(None)
+            arg_valids.append(None)
+            names.append(r)
+            continue
+        if len(call.args) != 1:
+            return None
+        col = _ident_col(_expand_item_aliases(call.args[0], alias_exprs,
+                                              table))
+        if col is None or col.offsets is not None or \
+                getattr(col.data, "ndim", 1) != 1:
+            return None
+        fns.append(name)
+        args.append(col)
+        arg_valids.append(col.valid)
+        names.append(r)
+        tag = col.dtype if col.dtype in (DataType.DATE, DataType.DATETIME) \
+            else None
+        out_types[r] = _agg_out_type(name, col.dtype, Value(None, dt=tag))
+    # only stream when a host column is actually involved
+    involved = key_cols + [a for a in args if a is not None]
+    if not any(c.is_host for c in involved):
+        return None
+
+    M.increment("StreamingAggregations")
+    rep_keys, states, gc = streaming_group_aggregate(
+        tuple(c.data for c in key_cols), mask,
+        tuple(a.data if a is not None else None for a in args), tuple(fns),
+        tuple(arg_valids) if any(v is not None for v in arg_valids)
+        else None,
+        chunk_rows=session.settings.stream_chunk_rows, device=dev)
+    outs = finalize(states, gc, tuple(fns))
+    if not key_cols and len(gc) == 0:
+        # global aggregation over an empty selection still yields one row:
+        # finalize the SAME identity states the resident path uses
+        # (present=[0] over untouched slots)
+        def _empty_arg(a):
+            if a is None:
+                return None
+            dt = a.data.dtype if isinstance(a.data, torch.Tensor) \
+                else torch_dtype(a.data.dtype)
+            return torch.zeros(1, dtype=dt, device=dev)
+        id_states, id_gc = partial_aggregate_matmul(
+            torch.zeros(1, dtype=torch.int32, device=dev),
+            torch.zeros(1, dtype=torch.bool, device=dev),
+            tuple(_empty_arg(a) for a in args), tuple(fns), 1,
+            logical_dtypes=tuple(
+                physical_dtype(a.dtype) if a is not None else None
+                for a in args))
+        outs = [o[:1] for o in finalize(id_states, id_gc, tuple(fns))]
+    cols, mapping = [], {}
+    for kname, kcol, rep in zip(key_names, key_cols, rep_keys):
+        cols.append(Column(Field(kname, kcol.dtype, False,
+                                 kcol.field.vector_dim, kcol.field.elem),
+                           to_tensor(rep, dev), None, kcol.dictionary))
+        mapping[kname] = kname
+    for r, out in zip(names, outs):
+        cols.append(Column.from_numpy(r, out, dtype=out_types.get(r),
+                                      build_zonemap=False, device=dev))
+        mapping[r] = r
+    return Table(cols, name=table.name), mapping
+
+
+def run_aggregate(env: Env, q: SelectQuery, mask, session,
+                  alias_exprs: dict) -> tuple[Table, dict]:
+    table = env.table
+    n = table.n_rows
+    dev = env.device
+    streamed = _maybe_streaming_aggregate(env, q, mask, session, alias_exprs)
+    if streamed is not None:
+        return streamed
+    # collect aggregate calls across all clauses
+    agg_calls: dict[str, FuncCall] = {}
+    scan_exprs = [it.expr for it in q.items] + [o.expr for o in q.order_by]
+    if q.having is not None:
+        scan_exprs.append(q.having)
+    for e in scan_exprs:
+        e = _expand_item_aliases(e, alias_exprs, table)
+        for node in walk(e):
+            if isinstance(node, FuncCall) and node.name.lower() in AGG_NAMES:
+                for inner in node.args:
+                    for sub in walk(inner):
+                        if isinstance(sub, FuncCall) and \
+                                sub.name.lower() in AGG_NAMES:
+                            raise ExecError("nested aggregate functions")
+                agg_calls[render(node)] = node
+
+    # per aggregate: fn, argument tensor (None for counts: nothing reads
+    # it), its own validity, zone-map range and logical numpy dtype
+    fns, args, arg_valids, arg_ranges, logical = [], [], [], [], []
+    normal_order: list[str] = []
+    out_types = {}
+    for r, call in agg_calls.items():
+        name = call.name.lower()
+        normal_order.append(r)
+        if name in IF_COMBINATORS:
+            # xIf(args..., cond): fold the condition into the arg validity
+            # (reference: AggregateFunctionIf combinator)
+            base = IF_COMBINATORS[name]
+            if not call.args:
+                raise ExecError(f"{call.name} requires a condition argument")
+            cond_v = eval_expr(_expand_item_aliases(call.args[-1], alias_exprs,
+                                                    table), env)
+            cond = as_bool_mask(cond_v, n)
+            if base == "count" and len(call.args) == 1:
+                fns.append("count")
+                args.append(None)
+                arg_valids.append(cond)
+                arg_ranges.append(None)
+                logical.append(None)
+                continue
+            arg_e = _expand_item_aliases(call.args[0], alias_exprs, table)
+            v = eval_expr(arg_e, env)
+            lt = _expr_logical_dtype(arg_e, v, table)
+            data = v.data.expand(n) if v.is_scalar else v.data
+            valid = cond if v.valid is None else cond & v.valid
+            fns.append(base)
+            args.append(None if base == "count" else data)
+            arg_valids.append(valid)
+            arg_ranges.append(_column_range(call.args[0], table))
+            logical.append(physical_dtype(lt))
+            # the JAX package keeps no Date tag on the -If forms
+            out_types[r] = _agg_out_type(base, lt, Value(None))
+            continue
+        if name == "count" and (not call.args or
+                                isinstance(call.args[0], Star)):
+            fns.append("count")
+            args.append(None)
+            arg_valids.append(None)
+            arg_ranges.append(None)
+            logical.append(None)
+            continue
+        if not call.args:
+            raise ExecError(f"{call.name} requires an argument")
+        arg_e = _expand_item_aliases(call.args[0], alias_exprs, table)
+        v = eval_expr(arg_e, env)
+        lt = _expr_logical_dtype(arg_e, v, table)
+        data = v.data.expand(n) if v.is_scalar else v.data
+        fns.append(name)
+        args.append(None if name == "count" else data)
+        arg_valids.append(v.valid)
+        arg_ranges.append(_column_range(arg_e, table))
+        logical.append(physical_dtype(lt))
+        out_types[r] = _agg_out_type(name, lt, v)
+
+    # group keys
+    key_exprs = [_expand_item_aliases(k, alias_exprs, table)
+                 for k in q.group_by]
+    key_vals = [eval_expr(k, env) for k in key_exprs]
+    for kv in key_vals:
+        if kv.is_scalar:
+            raise ExecError("GROUP BY constant not supported")
+
+    m = _mask_or_true(mask, n, dev)
+    if key_vals:
+        gid, G, _strategy = _group_ids(
+            key_vals, n, m, session.settings.group_by_capacity_hint)
+    else:
+        gid, G = torch.zeros(n, dtype=torch.int32, device=dev), 1
+
+    states, gc = partial_aggregate_matmul(gid, m, tuple(args), tuple(fns), G,
+                                          tuple(arg_valids),
+                                          tuple(arg_ranges), tuple(logical))
+    outs = finalize(states, gc, tuple(fns))
+    gc_np = gc.cpu().numpy()
+    present = np.flatnonzero(gc_np > 0)
+    if not key_vals and len(present) == 0:
+        present = np.array([0])   # global agg over empty set still yields a row
+
+    # representative row per group (scatter-min of row ids) -> group key
+    # output values
+    tgt = torch.where(m & (gid >= 0) & (gid < G), gid.to(torch.int64), G)
+    rep = torch.full((G + 1,), INT32_MAX, dtype=torch.int32, device=dev)
+    rep.scatter_reduce_(0, tgt, torch.arange(n, dtype=torch.int32,
+                                             device=dev), "amin")
+    rep_np = rep[:G].cpu().numpy()[present]
+    rep_np = np.where(rep_np == INT32_MAX, 0, rep_np)
+    rep_dev = torch.as_tensor(rep_np, dtype=torch.int64, device=dev)
+    del tgt, rep, gid
+
+    cols = []
+    mapping = {}
+    for ke, kv in zip(key_exprs, key_vals):
+        name = render(ke)
+        data = kv.data.index_select(0, rep_dev)
+        valid = kv.valid.index_select(0, rep_dev) \
+            if kv.valid is not None else None
+        cols.append(Column(Field(name, _expr_logical_dtype(ke, kv, table),
+                                 valid is not None),
+                           data, valid, kv.dictionary))
+        mapping[name] = name
+    for r, out in zip(normal_order, outs):
+        cols.append(Column.from_numpy(r, out[present],
+                                      dtype=out_types.get(r),
+                                      build_zonemap=False, device=dev))
+        mapping[r] = r
+    return Table(cols, name=table.name), mapping
+
+
+def _default_like(ref_col: Column, rows: int) -> Column:
+    """Default-valued key column for rolled-up subtotal rows (the reference
+    fills subtotal key slots with the type default: 0 / '' — RollupTransform
+    src/Processors/Transforms/RollupTransform.cpp)."""
+    dev = ref_col.data.device
+    if ref_col.dictionary is not None or ref_col.dtype is DataType.STRING:
+        return Column.from_numpy(ref_col.name,
+                                 np.array([""] * rows, dtype=object),
+                                 build_zonemap=False, device=dev)
+    if ref_col.offsets is not None:
+        return Column(ref_col.field, ref_col.data[:0], None,
+                      ref_col.dictionary, None,
+                      np.zeros(rows + 1, dtype=np.int64))
+    data = torch.zeros(rows, dtype=ref_col.data.dtype, device=dev)
+    return Column(Field(ref_col.name, ref_col.dtype), data)
+
+
+def _expand_group_levels(env, q, mask, session, alias_exprs,
+                         agg_table: Table) -> Table:
+    """GROUP BY … WITH ROLLUP / CUBE: re-aggregate every key-subset level and
+    union the levels, missing key columns default-filled (reference:
+    RollupStep/CubeStep re-aggregate keyed states level by level)."""
+    from dataclasses import replace as dc_replace
+    from itertools import combinations
+    keys = list(q.group_by)
+    idx = list(range(len(keys)))
+    if q.group_modifier == "ROLLUP":
+        subsets = [tuple(range(i)) for i in range(len(keys) - 1, -1, -1)]
+    else:   # CUBE: every proper subset, larger levels first
+        subsets = [s for r in range(len(keys) - 1, -1, -1)
+                   for s in combinations(idx, r)]
+    parts = [agg_table]
+    for sub in subsets:
+        q2 = dc_replace(q, group_by=[keys[i] for i in sub],
+                        group_modifier=None, with_totals=False)
+        sub_table, _ = run_aggregate(env, q2, mask, session, alias_exprs)
+        out = [sub_table[nm] if nm in sub_table
+               else _default_like(agg_table[nm], sub_table.n_rows)
+               for nm in agg_table.column_names]
+        parts.append(Table(out, name=agg_table.name))
+    return concat_tables(parts, name=agg_table.name)
+
+
+def _expand_grouping_sets(env, q, mask, session, alias_exprs,
+                          agg_table: Table) -> Table:
+    """GROUP BY GROUPING SETS ((…), …): aggregate once per set and union,
+    key columns missing from a set default-filled (reference:
+    GroupingSetsStep, src/Processors/QueryPlan/AggregatingStep.cpp
+    grouping-sets mode)."""
+    from dataclasses import replace as dc_replace
+    parts = []
+    for st in q.grouping_sets:
+        q2 = dc_replace(q, group_by=list(st), grouping_sets=None,
+                        group_modifier=None, with_totals=False)
+        sub_table, _ = run_aggregate(env, q2, mask, session, alias_exprs)
+        out = [sub_table[nm] if nm in sub_table
+               else _default_like(agg_table[nm], sub_table.n_rows)
+               for nm in agg_table.column_names]
+        parts.append(Table(out, name=agg_table.name))
+    return concat_tables(parts, name=agg_table.name)
+
+
+def _totals_table(env, q, mask, session, alias_exprs,
+                  agg_table: Table) -> Table:
+    """WITH TOTALS: one global-aggregation row, key columns defaulted.
+    Computed over all mask-selected rows (totals_mode=before_having; the
+    reference default after_having_exclusive differs only under HAVING)."""
+    from dataclasses import replace as dc_replace
+    q2 = dc_replace(q, group_by=[], group_modifier=None, with_totals=False)
+    t, _ = run_aggregate(env, q2, mask, session, alias_exprs)
+    out = [t[nm] if nm in t else _default_like(agg_table[nm], t.n_rows)
+           for nm in agg_table.column_names]
+    return Table(out, name="totals")
+
+
+# ---------------------------------------------------------------------------
 # the slice boundary
+
+# the special aggregates (uniqExact, quantiles, argMin, ...; sql/agg_fns.py
+# ``_special_aggregate`` in the JAX package) and the -State/-Merge
+# combinator spellings
+_UNPORTED_AGGS = SPECIAL_AGGS | {n for n in AGG_NAMES
+                                 if n.endswith(("state", "merge"))}
+
 
 def _reject_unported(q: SelectQuery) -> None:
     """Raise NotPortedError for every clause the JAX executor runs and this
@@ -448,11 +869,6 @@ def _reject_unported(q: SelectQuery) -> None:
         raise NotPortedError("JOIN", "joins (config 4)")
     if q.array_joins:
         raise NotPortedError("ARRAY JOIN", "expression and function breadth")
-    if q.group_by or q.grouping_sets is not None or q.having is not None \
-            or q.with_totals:
-        raise NotPortedError("GROUP BY / HAVING", "aggregation (config 2)")
-    if q.distinct:
-        raise NotPortedError("SELECT DISTINCT", "aggregation (config 2)")
     if q.limit_by is not None:
         raise NotPortedError("LIMIT BY", "sort, windows, LIMIT BY")
     if any(o.fill is not None for o in q.order_by):
@@ -461,8 +877,8 @@ def _reject_unported(q: SelectQuery) -> None:
     if q.sample is not None:
         raise NotPortedError("SAMPLE", "storage, formats and runtime state")
     slots = [it.expr for it in q.items] + [o.expr for o in q.order_by] + \
-        [e for e in (q.where, q.prewhere) if e is not None] + \
-        [e for _n, e in q.with_aliases]
+        [e for e in (q.where, q.prewhere, q.having) if e is not None] + \
+        list(q.group_by) + [e for _n, e in q.with_aliases]
     for e in slots:
         for node in walk(e):
             if isinstance(node, WindowCall):
@@ -477,9 +893,12 @@ def _reject_unported(q: SelectQuery) -> None:
                                      "expression and function breadth")
             if isinstance(node, FuncCall):
                 fn = node.name.lower()
-                if fn in AGG_NAMES:
-                    raise NotPortedError(f"aggregate function {node.name}()",
-                                         "aggregation (config 2)")
+                if fn in _UNPORTED_AGGS or (node.distinct and fn in (
+                        "count", "sum", "avg")):
+                    raise NotPortedError(
+                        f"aggregate function {node.name}"
+                        f"({'DISTINCT ...' if node.distinct else ''})",
+                        "expression and function breadth")
                 if fn in TEXT_FNS:
                     raise NotPortedError(f"{node.name}()",
                                          "text and hybrid search")
@@ -654,23 +1073,75 @@ def execute_select(session, q: SelectQuery) -> Table:
             mask = pm if mask is None else mask & pm
             post_terms = []
 
-    items = q.items
-    order_by = q.order_by
-    if mask is not None:
-        table, _ = compact_table_host(table, mask)
-        new_env = Env(table, alias_prefixes, device=dev)
-        # recompute the non-fused distance on the compacted table
-        if vs is not None and not vs.fused and vs.name in env.extra:
-            dist = rowwise_distance(table[vs.col].data, vs.qvec, vs.metric)
-            new_env.extra[vs.name] = Value(dist)
-            if vs.alias:
-                new_env.extra[vs.alias] = Value(dist)
-        env = new_env
+    # 4b. aggregation
+    has_aggs = bool(q.group_by)
+    if not has_aggs:
+        for it in q.items + [SelectItem(o.expr) for o in q.order_by]:
+            e = _expand_item_aliases(it.expr, alias_exprs, table)
+            for node in walk(e):
+                if isinstance(node, FuncCall) and \
+                        node.name.lower() in AGG_NAMES:
+                    has_aggs = True
+    totals_src = None
+    if has_aggs:
+        M.increment(M.AGG_ROWS, table.n_rows)
+        with span("aggregate", rows=table.n_rows):
+            agg_table, mapping = run_aggregate(env, q, mask, session,
+                                               alias_exprs)
+        if q.grouping_sets is not None:
+            agg_table = _expand_grouping_sets(env, q, mask, session,
+                                              alias_exprs, agg_table)
+        elif q.group_modifier and q.group_by:
+            agg_table = _expand_group_levels(env, q, mask, session,
+                                             alias_exprs, agg_table)
+        if q.with_totals:
+            totals_src = _totals_table(env, q, mask, session, alias_exprs,
+                                       agg_table)
+        # rewrite remaining clauses against the aggregated table
+        table = agg_table
+        env = Env(table, device=dev)
         mask = None
+
+        def rewrite(e):
+            return substitute(_expand_item_aliases(e, alias_exprs, base),
+                              mapping)
+
+        items = [SelectItem(rewrite(it.expr), it.alias) for it in q.items]
+        having = rewrite(q.having) if q.having is not None else None
+        order_by = [OrderItem(rewrite(o.expr), o.ascending, o.nulls_last)
+                    for o in q.order_by]
+        if having is not None:
+            hm = as_bool_mask(eval_expr(having, env), table.n_rows)
+            table, _ = compact_table_host(table, hm)
+            env = Env(table, device=dev)
+        # default deterministic order: by group key columns ascending
+        if not order_by and q.group_by:
+            order_by = [OrderItem(Ident(render(k)), True, True)
+                        for k in q.group_by]
+    else:
+        items = q.items
+        order_by = q.order_by
+        if mask is not None:
+            table, _ = compact_table_host(table, mask)
+            new_env = Env(table, alias_prefixes, device=dev)
+            # recompute the non-fused distance on the compacted table
+            if vs is not None and not vs.fused and vs.name in env.extra:
+                dist = rowwise_distance(table[vs.col].data, vs.qvec,
+                                        vs.metric)
+                new_env.extra[vs.name] = Value(dist)
+                if vs.alias:
+                    new_env.extra[vs.alias] = Value(dist)
+            env = new_env
+            mask = None
 
     # 5. projection (before sort: aliases must exist as columns for ORDER BY)
     out_cols, out_order = _project(items, env, table, alias_exprs, dev)
     proj_table = Table(out_cols, name=table.name)
+
+    # 5b. DISTINCT (before ORDER BY, SQL semantics): keep the first row of
+    # each distinct projected tuple
+    if q.distinct and proj_table.n_rows:
+        proj_table = _distinct_rows(proj_table)
 
     # 6. ORDER BY
     if order_by:
@@ -716,7 +1187,12 @@ def execute_select(session, q: SelectQuery) -> Table:
             proj_table = proj_table.take(idx)
 
     # order output columns as written
-    return proj_table.select(out_order)
+    final = proj_table.select(out_order)
+    if totals_src is not None:
+        tcols, torder = _project(items, Env(totals_src, device=dev),
+                                 totals_src, alias_exprs, dev)
+        final.totals = Table(tcols, name="totals").select(torder)
+    return final
 
 
 def _materialize_topk(table: Table, vs: VSInfo, d, ids, device):
@@ -800,3 +1276,31 @@ def _project(items, env: Env, table: Table, alias_exprs, device):
         out_order.append(name)
         seen.add(name)
     return out_cols, out_order
+
+
+def _distinct_rows(table: Table) -> Table:
+    """Device-side DISTINCT: group rows by all columns, keep each group's
+    first row (reference: DistinctTransform)."""
+    n = table.n_rows
+    dev = table.device
+    keys = []
+    for c in table.columns.values():
+        d = to_tensor(c.data, dev) if c.is_host else c.data
+        if d.dim() > 1:
+            raise ExecError("DISTINCT over vector columns not supported")
+        if c.dictionary is not None:
+            keys.append(d.to(torch.int32))
+        elif d.is_floating_point():
+            keys.append(float_bits_key(d))
+        else:
+            keys.append(d)
+        if c.valid is not None:
+            valid = to_tensor(c.valid, dev) if c.is_host else c.valid
+            keys.append(valid.to(torch.int32))
+    _, gid, cap = build_group_ids(tuple(keys))
+    row = torch.arange(n, dtype=torch.int32, device=dev)
+    rep = torch.full((cap,), INT32_MAX, dtype=torch.int32, device=dev)
+    rep.scatter_reduce_(0, gid.to(torch.int64), row, "amin")
+    keep = rep[torch.clamp(gid, 0, cap - 1).to(torch.int64)] == row
+    out, _ = compact_table_host(table, keep)
+    return out

@@ -135,11 +135,11 @@ def test_error_texts_match(sessions, sql):
 
 
 @pytest.mark.parametrize("sql", [
-    "SELECT tag, count() FROM t GROUP BY tag",
-    "SELECT count() FROM t",
+    "SELECT tag, uniqExact(id) FROM t GROUP BY tag",
+    "SELECT quantile(0.5)(price) FROM t",
     "SELECT id FROM t AS a JOIN t AS b ON a.id = b.id",
     "CREATE TABLE u (id Int64) ENGINE = MergeTree ORDER BY id",
-    "SELECT DISTINCT tag FROM t",
+    "SELECT sumState(price) FROM t",
     "SELECT TextSearch(tag, 'red') AS s FROM t ORDER BY s DESC LIMIT 3",
     "SELECT id FROM t WHERE id IN (SELECT id FROM t WHERE price < 3)",
     "SELECT lower(tag) FROM t",
