@@ -2,8 +2,8 @@
 
 Usage:  python3 chip_smoke.py [--seed N]
 
-Two main paths, each through the entry points a user calls (``connect()``
--> ``Session.create_table`` -> ``Session.sql``):
+Five main paths, the SQL ones through the entry points a user calls
+(``connect()`` -> ``Session.create_table`` -> ``Session.sql``):
 
   BASELINE config 1, the filtered exact vector top-k, over n = 1,000,000
   rows of 128-dim f32 embeddings and a uniform Int32 price column:
@@ -16,6 +16,23 @@ Two main paths, each through the entry points a user calls (``connect()``
 
     SELECT g, sum(v), count(), avg(v) FROM t WHERE v > -500 GROUP BY g
     ORDER BY g
+
+  BASELINE config 4, the join count probe, as bench.py builds it: 10M build
+  keys and 125M zipf-skewed probes spread over 2^31, through
+  ``ops.join.build_join_table`` and ``ops.hashtable.ht_count_matches`` (the
+  JAX package reaches its count kernel through these alone, no SQL does).
+
+  Joins through SQL, scaled down from config 4 to a 10M-row fact table
+  and a 1M-row dim table with config 4's key skew (the executor carries
+  row pairs through host numpy, as the JAX package's does):
+
+    SELECT count(), sum(v), sum(c) FROM f INNER JOIN d ON f.k = d.k
+
+  BASELINE config 6, binary vectors through SQL: 16M rows of
+  FixedString(32) (256 random bits each) and a tag Int32 in [0, 100):
+
+    SELECT id, distance(bv, unhex('<64 hex>')) AS d FROM tb
+    ORDER BY d LIMIT 10
 
 Phases, one JSON line each; any failure raises and the script exits
 non-zero without printing a result:
@@ -39,6 +56,19 @@ non-zero without printing a result:
               statement per other aggregation branch (float sums, 4096
               groups, sumIf, min/max/any, ROLLUP, DISTINCT), each checked
               against its own oracle
+  join_count  config 4: the 10M-key join build, then the count probe
+              eleven times (the first a warm-up), each count equal to a
+              torch.isin oracle on the card; the count kernel must launch
+  sql_join    one statement per strictness (INNER ANY, INNER ALL, LEFT,
+              SEMI, ANTI), each result equal to a searchsorted oracle on
+              the card; an ALL join against a dim table whose keys repeat,
+              its (id, c) pairs equal to the searchsorted ranges'; then the
+              join feeding count()/sum() ten times after a warm-up
+  sql_binary  the packed sidecar build and a warm-up query timed apart,
+              then config 6's statement ten times, with WHERE tag < 50 and
+              under the Jaccard table setting; ids and distances equal to a
+              byte-table popcount oracle over every row on the card (ties
+              by id); the binary segment-min kernel must launch
 
 Kernel times are medians of CUDA-event timings: ``ms`` is one call of the
 wrapper (for segmin_sq8 that includes its PyTorch query quantization),
@@ -46,15 +76,20 @@ wrapper (for segmin_sq8 that includes its PyTorch query quantization),
 ``library_ms`` the yardstick call (torch.matmul in f32 for segmin_f32,
 torch._int_mm for segmin_sq8 with the query block zero-padded to a
 multiple of 8 columns, one index_add_ into G + 1 int64 slots for
-group_aggregate).  ``bound_ms`` is the larger of the bytes over 3.35 TB/s
-and the operations over the H100's peak for their type.
+group_aggregate, torch.isin and a sum for merge_count; none for
+binary_segment_mins, since no single PyTorch call computes a popcount
+distance).  ``bound_ms`` is the larger of the bytes over 3.35 TB/s and the
+operations over the H100's peak for their type (integer operations are
+counted against the f32 rate outside the tensor cores).
 
-The launch counters are zeroed just before each SQL path's run (the twenty
-certified queries; the three uncertifiable statements; the ten config-2
-statements) and read just after it; each kernel must have launched in the
-run of its path, and the summary reports those counts.  Launches made to
-compare a kernel with its plain version, the profiler passes and the
-10M-row branch statements count nowhere.  The last lines are the kernels
+All five launch counters are zeroed just before each path's run (the
+twenty certified queries; the three uncertifiable statements; the ten
+config-2 statements; the join build and count probes; the join statements
+up to the last timed one; the ten config-6 statements) and read just after
+it; each kernel must have launched in the run of its path, and the summary
+reports every kernel's count on every path.  Launches made to compare a
+kernel with its plain version, the profiler passes and the 10M-row branch
+statements count nowhere.  The last lines are the kernels
 summary, the nvidia-smi name/power line, and {"ok": true, "device":
 {...}}.  Needs one CUDA card.
 """
@@ -98,10 +133,43 @@ GROUPBY_SQL = ("SELECT g, sum(v), count(), avg(v) FROM t WHERE v > -500 "
 # than the plain version's (f64, rounded once), a few f32 ulps of the
 # partial sums apart.
 K3_RTOL, K3_ATOL = 1e-5, 1e-3
+# BASELINE config 4 (bench.py:252-316): build keys, zipf-skewed probes,
+# and the odd multiplier that spreads ids over [0, 2^31)
+N4_BUILD, N4_PROBE = 10_000_000, 125_000_000
+SPREAD = 2654435761
+# joins through SQL: config 4's skew over a smaller fact and dim table
+NJ_FACT, NJ_DIM = 10_000_000, 1_000_000
+# BASELINE config 6 (bench.py:388-427): 16M rows x 256 bits
+N6, NBYTES6 = 16_000_000, 32
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port by name; each adds one to its
+    ``launches`` where it launches its kernel."""
+    from myscaledb_tpu_torch.ops.kernels.binary_scan import \
+        binary_segment_mins
+    from myscaledb_tpu_torch.ops.kernels.distance import segmin_f32
+    from myscaledb_tpu_torch.ops.kernels.distance_q import segmin_sq8
+    from myscaledb_tpu_torch.ops.kernels.group_agg import group_aggregate
+    from myscaledb_tpu_torch.ops.kernels.merge_count import merge_count
+    return {"segmin_sq8": segmin_sq8, "segmin_f32": segmin_f32,
+            "group_aggregate": group_aggregate, "merge_count": merge_count,
+            "binary_segment_mins": binary_segment_mins}
+
+
+def zero_launches() -> None:
+    """Every launch counter to 0: called just before a path's run."""
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    """Every launch counter, read just after a path's run."""
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
 def nvidia_smi_line() -> str:
@@ -259,7 +327,167 @@ def phase_kernels(gen):
         torch.cuda.empty_cache()
     report["group_aggregate"], timings[("group_aggregate", 1)] = \
         k3_kernel(gen)
+    report["merge_count"], timings[("merge_count", 1)] = k4_kernel(gen)
+    report["binary_segment_mins"], k5_times = k5_kernel(gen)
+    timings.update(k5_times)
     return report, timings
+
+
+def config4_keys(gen, n_build: int, n_probe: int):
+    """bench.py's config-4 keys on the card: build key i is (i * SPREAD) &
+    0x7FFFFFFF; probe ids are (u^2 * 2 n_build) for u uniform (zipf-like
+    skew over twice the build range, about half of them match), spread
+    the same way.  int64 products masked to 31 bits equal the JAX
+    package's int32 ones."""
+    dev = "cuda"
+    ids = torch.arange(n_build, device=dev, dtype=torch.int64)
+    build = ((ids * SPREAD) & 0x7FFFFFFF).to(torch.int32)
+    u = torch.rand(n_probe, device=dev, generator=gen)
+    pid = (u * u * (2 * n_build)).to(torch.int64)
+    probe = ((pid * SPREAD) & 0x7FFFFFFF).to(torch.int32)
+    return build, probe
+
+
+def k4_kernel(gen):
+    """K4 against merge_count_plain on the card: config 4's keys, then
+    duplicates, invalid rows, INT32_MAX probes with and without a genuine
+    INT32_MAX build key, an empty and an all-invalid build.  Counts must
+    be equal.  Then the times at config-4 shapes."""
+    import math
+    from myscaledb_tpu_torch.ops.kernels import build as kbuild
+    from myscaledb_tpu_torch.ops.kernels.merge_count import (
+        IMAX, BLOCKS_PER_SM, merge_count, merge_count_plain, prepare_build)
+
+    dev = "cuda"
+    rep = {"max_abs_err": 0, "checks": 0}
+
+    def check(b, hm, probe, tag):
+        got = merge_count(b, probe, hm)
+        want = merge_count_plain(b, probe, hm)
+        torch.cuda.synchronize()
+        if int(got) != int(want):
+            raise AssertionError(f"merge_count {tag}: kernel {int(got)} != "
+                                 f"plain {int(want)}")
+        rep["checks"] += 1
+
+    keys = torch.randint(-1000, 1000, (100_000,), device=dev, generator=gen,
+                         dtype=torch.int32)           # many duplicates
+    keys[:10] = IMAX
+    valid = torch.rand(100_000, device=dev, generator=gen) < 0.8
+    probes = torch.randint(-1200, 1200, (1_000_003,), device=dev,
+                           generator=gen, dtype=torch.int32)
+    probes[::11] = IMAX
+    for genuine in (True, False):
+        valid[:10] = genuine
+        b, hm = prepare_build(keys, valid)
+        if bool(hm) != genuine:
+            raise AssertionError("prepare_build: has_max is wrong")
+        check(b, hm, probes, f"dups, invalid rows, genuine MAX={genuine}")
+    check(*prepare_build(keys[:0]), probes, "empty build")
+    check(*prepare_build(keys, torch.zeros_like(valid)), probes,
+          "all-invalid build")
+
+    build, probe = config4_keys(gen, N4_BUILD, N4_PROBE)
+    b, hm = prepare_build(build)
+    check(b, hm, probe, "config 4")
+    nb, n = b.shape[0], probe.shape[0]
+    out = torch.zeros((), dtype=torch.int64, device=dev)
+    blocks = min(-(-n // 256), torch.cuda.get_device_properties(0)
+                 .multi_processor_count * BLOCKS_PER_SM)
+
+    def raw_k4():   # the bare launch
+        kbuild.check(kbuild.library().msdb_merge_count(
+            b.data_ptr(), nb, probe.data_ptr(), n, hm.data_ptr(),
+            out.data_ptr(), blocks, torch.cuda.current_stream().cuda_stream),
+            "merge_count")
+    # every probe and build key read once, the count written once; one
+    # compare per step of each probe's binary search
+    nbytes = 4 * n + 4 * nb + 8
+    ops = float(n) * math.ceil(math.log2(nb))
+    bnd, by = bound_ms(nbytes, ops, F32_FLOPS)
+    t = {"ms": time_ms(lambda: merge_count(b, probe, hm), reps=20),
+         "kernel_ms": time_ms(raw_k4, reps=20),
+         "plain_ms": time_ms(lambda: merge_count_plain(b, probe, hm),
+                             reps=5),
+         "library_ms": time_ms(lambda: torch.isin(probe, build).sum(),
+                               reps=5),
+         "library_note": "torch.isin(probe, build).sum()",
+         "bound_ms": bnd, "bound_by": by, "probes": n, "build_keys": nb}
+    del build, probe, b, keys, probes
+    torch.cuda.empty_cache()
+    return rep, t
+
+
+def k5_kernel(gen):
+    """K5 against binary_segment_mins_plain on the card, bit for bit: config
+    6's shape (16M rows, 8 words; 16M is not a multiple of 16,384, so the
+    last segments are a tail) and FixedString(5) (2 words) over 1,000,003
+    rows, nq = 1 and 10, Hamming and Jaccard, no mask and a 50% mask.
+    Then the times at config-6 shapes, nq = 1 and 10."""
+    from myscaledb_tpu_torch.ops.kernels import build as kbuild
+    from myscaledb_tpu_torch.ops.kernels.binary_scan import (
+        SEG, SEGS_PER_STEP, QCHUNK_WORDS, binary_segment_mins,
+        binary_segment_mins_plain)
+
+    dev = "cuda"
+    rep = {"max_abs_err": 0.0, "checks": 0, "bit_equal_checks": 0}
+    span = SEG * SEGS_PER_STEP
+    times = {}
+    for n, words in ((N6, NBYTES6 // 4), (1_000_003, 2)):
+        nseg = -(-n // span) * SEGS_PER_STEP
+        x3 = torch.randint(-2 ** 31, 2 ** 31 - 1, (nseg, words, SEG),
+                           device=dev, generator=gen, dtype=torch.int32)
+        x3[0, :, :9] = 0                              # empty unions
+        mask2 = (torch.rand(nseg, SEG, device=dev, generator=gen)
+                 < 0.5).to(torch.uint8)
+        for nq in (1, 10):
+            qw = torch.randint(-2 ** 31, 2 ** 31 - 1, (nq, words),
+                               device=dev, generator=gen, dtype=torch.int32)
+            for metric in ("Hamming", "Jaccard"):
+                for has_mask in (False, True):
+                    got = binary_segment_mins(x3, qw, mask2, metric, n,
+                                              has_mask)
+                    want = binary_segment_mins_plain(x3, qw, mask2, metric,
+                                                     n, has_mask)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got.view(torch.int32),
+                                       want.view(torch.int32)):
+                        raise AssertionError(
+                            f"binary_segment_mins n={n} words={words} "
+                            f"nq={nq} {metric} mask={has_mask}: not "
+                            "bit-equal to the plain version")
+                    rep["checks"] += 1
+                    rep["bit_equal_checks"] += 1
+            if n != N6:
+                continue
+            out = torch.empty((nseg, nq), device=dev)
+            qchunk = max(1, min(nq, QCHUNK_WORDS // words))
+
+            def raw_k5():   # the bare launch: Hamming, no mask
+                kbuild.check(kbuild.library().msdb_binary_segmin(
+                    x3.data_ptr(), qw.data_ptr(), x3.data_ptr(),
+                    out.data_ptr(), nseg, words, nq, n, 0, 0, qchunk,
+                    torch.cuda.current_stream().cuda_stream),
+                    "binary_segment_mins")
+            # the packed table and the queries read once (an unmasked call
+            # reads no mask bytes), the (nseg, nq) minima written once;
+            # xor, popcount and add per word
+            nbytes = nseg * SEG * 4 * words + 4 * nseg * nq \
+                + 4 * nq * words
+            bnd, by = bound_ms(nbytes, 3.0 * n * words * nq, F32_FLOPS)
+            times[("binary_segment_mins", nq)] = {
+                "ms": time_ms(lambda: binary_segment_mins(
+                    x3, qw, mask2, "Hamming", n, False)),
+                "kernel_ms": time_ms(raw_k5),
+                "plain_ms": time_ms(lambda: binary_segment_mins_plain(
+                    x3, qw, mask2, "Hamming", n, False), reps=5),
+                "library_ms": None,
+                "library_note": "none: no single PyTorch call computes a "
+                                "popcount distance",
+                "bound_ms": bnd, "bound_by": by, "rows": n, "words": words}
+        del x3, mask2
+        torch.cuda.empty_cache()
+    return rep, times
 
 
 def k3_kernel(gen):
@@ -451,8 +679,7 @@ def phase_sql(seed: int):
     first_s = time.perf_counter() - t0
 
     # the main path's own run: counts zeroed just before, read just after
-    segmin_sq8.launches = 0
-    segmin_f32.launches = 0
+    zero_launches()
     lat = []
     for qi in range(1, 21):
         t0 = time.perf_counter()
@@ -466,11 +693,12 @@ def phase_sql(seed: int):
             raise AssertionError(f"query {qi}: ids {got_ids} != oracle "
                                  f"{want_ids}")
         np.testing.assert_allclose(got_d, want_d, rtol=SQL_RTOL)
-    sq8_runs, f32_runs = segmin_sq8.launches, segmin_f32.launches
+    counts = {"sql_sq8": read_launches()}
+    sq8_runs = counts["sql_sq8"]["segmin_sq8"]
+    f32_runs = counts["sql_sq8"]["segmin_f32"]
     if sq8_runs < 20 or f32_runs != 0:
         raise AssertionError(f"certified path not taken: segmin_sq8 "
                              f"{sq8_runs}, segmin_f32 {f32_runs} launches")
-    counts = {"sql_sq8": {"segmin_sq8": sq8_runs, "segmin_f32": f32_runs}}
     # outside every reported count
     breakdown = profile_statements(
         s, [stmt.format(q=vec_sql(qv)) for qv in queries[1:6]])
@@ -481,7 +709,7 @@ def phase_sql(seed: int):
           "median_query_ms": float(np.median(lat)),
           "p90_query_ms": float(np.percentile(lat, 90)),
           "rows_scanned_per_s": N / (float(np.median(lat)) / 1e3),
-          "segmin_sq8_launches": sq8_runs, "segmin_f32_launches": f32_runs,
+          "launches": counts["sql_sq8"],
           "oracle": "ids equal, distances rtol 2e-5",
           "profile_5_queries": breakdown})
 
@@ -495,8 +723,7 @@ def phase_sql(seed: int):
     out = {}
     # the uncertifiable path's own run: counts zeroed just before, read
     # just after
-    segmin_sq8.launches = 0
-    segmin_f32.launches = 0
+    zero_launches()
     for name, sql in (
             ("L2", f"SELECT id, distance(emb, {qv}) AS d FROM same "
                    "ORDER BY d LIMIT 10"),
@@ -517,12 +744,9 @@ def phase_sql(seed: int):
             raise AssertionError(f"{name}: launches grew by {grew}; the "
                                  "certificate should fail over to K2")
         out[name] = {"sq8": grew[0], "f32": grew[1]}
-    counts["sql_f32"] = {"segmin_sq8": segmin_sq8.launches,
-                         "segmin_f32": segmin_f32.launches}
+    counts["sql_f32"] = read_launches()
     emit({"phase": "sql_f32", "rows": m, "statements": out,
-          "segmin_sq8_launches": counts["sql_f32"]["segmin_sq8"],
-          "segmin_f32_launches": counts["sql_f32"]["segmin_f32"],
-          "ids": "0..9 for each metric"})
+          "launches": counts["sql_f32"], "ids": "0..9 for each metric"})
     return counts
 
 
@@ -593,7 +817,7 @@ def phase_groupby(seed: int):
     first_s = time.perf_counter() - t0
 
     # the main path's own run: counts zeroed just before, read just after
-    group_aggregate.launches = 0
+    zero_launches()
     lat, per_query = [], []
     for qi in range(10):
         before = group_aggregate.launches
@@ -602,7 +826,7 @@ def phase_groupby(seed: int):
         lat.append((time.perf_counter() - t0) * 1e3)
         per_query.append(group_aggregate.launches - before)
         check_groupby_rows(rows, cnt, sums, f"query {qi}")
-    launches = group_aggregate.launches
+    counts = read_launches()
     if min(per_query) < 1:
         raise AssertionError(f"group_aggregate launches per query "
                              f"{per_query}: the path skipped K3")
@@ -621,8 +845,8 @@ def phase_groupby(seed: int):
           "p90_query_ms": float(np.percentile(lat, 90)),
           "query_ms": lat,
           "rows_aggregated_per_s": N2 / (float(np.median(lat)) / 1e3),
-          "group_aggregate_launches": launches,
-          "launches_per_query": per_query,
+          "launches": counts,
+          "group_aggregate_launches_per_query": per_query,
           "host_syncs_per_query": syncs,
           "host_sync_sites": sync_sites,
           "peak_device_bytes_before_query": peak0,
@@ -637,7 +861,7 @@ def phase_groupby(seed: int):
     emit({"phase": "sql_groupby_branches", "rows": N2_BRANCHES,
           "max_memory_bytes_per_query": s.settings.max_memory_bytes_per_query,
           "statements": branches})
-    return {"group_aggregate": launches}
+    return counts
 
 
 def groupby_branches(s, rng):
@@ -729,6 +953,300 @@ def groupby_branches(s, rng):
     return out
 
 
+def phase_join_count(seed: int):
+    """Config 4 as bench.py runs it: build_join_table over the 10M dim keys,
+    then ht_count_matches with the 125M probes, eleven times (the first a
+    warm-up); each count equal to torch.isin on the card."""
+    from myscaledb_tpu_torch.ops.hashtable import ht_count_matches
+    from myscaledb_tpu_torch.ops.join import build_join_table
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+    build, probe = config4_keys(gen, N4_BUILD, N4_PROBE)
+    want = int(torch.isin(probe, build).sum())
+    # the path's own run: counts zeroed just before, read just after
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = build_join_table((build,))
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    lat = []
+    for i in range(11):
+        t0 = time.perf_counter()
+        got = int(ht_count_matches(table, (probe,)))
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if got != want:
+            raise AssertionError(f"count probe {i}: {got} != oracle {want}")
+    counts = read_launches()
+    if counts["merge_count"] < 11:
+        raise AssertionError(f"merge_count launched {counts['merge_count']} "
+                             "times in 11 count probes")
+    warm, lat = lat[0], lat[1:]
+    emit({"phase": "join_count", "build_keys": N4_BUILD, "probes": N4_PROBE,
+          "matches": want, "build_ms": build_ms,
+          "warmup_count_ms": warm, "median_count_ms": float(np.median(lat)),
+          "p90_count_ms": float(np.percentile(lat, 90)), "count_ms": lat,
+          "probes_per_s": N4_PROBE / (float(np.median(lat)) / 1e3),
+          "launches": counts,
+          "oracle": "count equal to torch.isin(probe, build).sum()"})
+    del table, build, probe
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_sql_join(seed: int):
+    """Joins through Session.sql over a 10M-row fact and a 1M-row dim
+    table, and an ALL join against a 2M-row dim table whose keys repeat;
+    every result against a searchsorted oracle on the card."""
+    import myscaledb_tpu_torch as P
+
+    rng = np.random.default_rng(seed + 5)
+    t0 = time.perf_counter()
+    dim_k = ((np.arange(NJ_DIM, dtype=np.int64) * SPREAD) & 0x7FFFFFFF) \
+        .astype(np.int32)
+    u = rng.random(NJ_FACT, dtype=np.float32)
+    fact_k = ((((u * u * np.float32(2 * NJ_DIM)).astype(np.int64) * SPREAD)
+               & 0x7FFFFFFF)).astype(np.int32)
+    s = P.connect()
+    # the ALL join's merge sort over 11M rows asks ~1 GiB of the per-query
+    # budget, whose 512 MiB default refuses it (in the JAX package too)
+    s.settings.max_memory_bytes_per_query = 8 << 30
+    s.create_table("f", {"id": np.arange(NJ_FACT, dtype=np.int64),
+                         "k": fact_k,
+                         "v": rng.integers(-1000, 1000, NJ_FACT,
+                                           dtype=np.int32)})
+    s.create_table("d", {"k": dim_k,
+                         "c": rng.integers(0, 100, NJ_DIM, dtype=np.int32)})
+    # each dim key drawn twice on average: 0, 1, 2, ... copies (Poisson)
+    s.create_table("d2", {"k": dim_k[rng.integers(0, NJ_DIM, 2 * NJ_DIM)],
+                          "c": rng.integers(0, 100, 2 * NJ_DIM,
+                                            dtype=np.int32)})
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    f, d, d2 = s.tables["f"], s.tables["d"], s.tables["d2"]
+    fid, fk, fv = f["id"].data, f["k"].data, f["v"].data
+    ds, order = torch.sort(d["k"].data)
+    pos = torch.searchsorted(ds, fk).clamp(max=NJ_DIM - 1)
+    found = ds[pos] == fk
+    c_of = d["c"].data[order[pos]]
+
+    def same(a, b, tag):
+        if not torch.equal(a, b):
+            raise AssertionError(f"sql_join {tag}: differs from the oracle")
+
+    out = {}
+
+    def run(name, sql):
+        before = read_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = s.sql(sql)
+        torch.cuda.synchronize()
+        after = read_launches()
+        out[name] = {"statement": sql, "rows": res.n_rows,
+                     "ms": (time.perf_counter() - t0) * 1e3,
+                     "launches": {k: after[k] - before[k] for k in after
+                                  if after[k] != before[k]}}
+        return res
+
+    # the path's own run, from the first statement to the last timed one:
+    # counts zeroed just before, read just after
+    zero_launches()
+    for strict in ("ANY", "ALL"):
+        res = run(f"inner_{strict.lower()}", "SELECT id, c FROM f "
+                  f"{strict} INNER JOIN d ON f.k = d.k")
+        same(res["id"].data, fid[found], f"INNER {strict} ids")
+        same(res["c"].data, c_of[found], f"INNER {strict} c")
+    # LEFT ALL: the matched rows in probe order, then the unmatched ones
+    # NULL-padded (the JAX package's order)
+    res = run("left", "SELECT id, c FROM f LEFT JOIN d ON f.k = d.k")
+    hits = int(found.sum())
+    same(res["id"].data, torch.cat([fid[found], fid[~found]]), "LEFT ids")
+    same(res["c"].valid, torch.arange(NJ_FACT, device=fid.device) < hits,
+         "LEFT NULLs")
+    same(res["c"].data[:hits], c_of[found], "LEFT c")
+    res = run("semi", "SELECT id FROM f SEMI LEFT JOIN d ON f.k = d.k")
+    same(res["id"].data, fid[found], "SEMI")
+    res = run("anti", "SELECT id FROM f ANTI LEFT JOIN d ON f.k = d.k")
+    same(res["id"].data, fid[~found], "ANTI")
+    # ALL with repeated build keys: every (fact row, dim row) pair whose
+    # keys are equal, from the searchsorted range of each fact key
+    res = run("inner_all_fanout", "SELECT id, c FROM f ALL INNER JOIN d2 "
+              "ON f.k = d2.k")
+    ds2, order2 = torch.sort(d2["k"].data)
+    lo = torch.searchsorted(ds2, fk)
+    fan = torch.searchsorted(ds2, fk, right=True) - lo
+    first = torch.repeat_interleave(torch.cumsum(fan, 0) - fan, fan)
+    at = torch.repeat_interleave(lo, fan) + torch.arange(
+        first.shape[0], device=fid.device) - first
+    want_pairs = torch.sort(torch.repeat_interleave(fid, fan) * 100
+                            + d2["c"].data[order2[at]]).values
+    got_pairs = torch.sort(res["id"].data * 100 + res["c"].data).values
+    same(got_pairs, want_pairs, "ALL fan-out (id, c) pairs")
+    out["inner_all_fanout"]["max_fanout"] = int(fan.max())
+    out["inner_all_fanout"]["fact_rows_matched"] = int((fan > 0).sum())
+    del ds2, order2, lo, fan, first, at, want_pairs, got_pairs, res
+    agg_sql = "SELECT count(), sum(v), sum(c) FROM f INNER JOIN d ON " \
+        "f.k = d.k"
+    want = [(int(found.sum()), int(fv[found].sum()),
+             int(c_of[found].sum()))]
+    t0 = time.perf_counter()
+    if s.sql(agg_sql).to_rows() != want:                   # warm-up
+        raise AssertionError("sql_join aggregate: differs from the oracle")
+    first_s = time.perf_counter() - t0
+    lat = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        rows = s.sql(agg_sql).to_rows()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if rows != want:
+            raise AssertionError("sql_join aggregate: differs from the "
+                                 "oracle")
+    counts = read_launches()
+    # outside every reported count
+    breakdown = profile_statements(s, [agg_sql] * 3)
+    emit({"phase": "sql_join", "fact_rows": NJ_FACT, "dim_rows": NJ_DIM,
+          "fanout_dim_rows": 2 * NJ_DIM,
+          "matched_fact_rows": want[0][0], "load_s": load_s,
+          "statements": out, "aggregate_statement": agg_sql,
+          "warmup_query_s": first_s,
+          "median_query_ms": float(np.median(lat)),
+          "p90_query_ms": float(np.percentile(lat, 90)), "query_ms": lat,
+          "probe_rows_per_s": NJ_FACT / (float(np.median(lat)) / 1e3),
+          "launches": counts,
+          "max_memory_bytes_per_query":
+              s.settings.max_memory_bytes_per_query,
+          "oracle": "ids, values and NULLs equal to a searchsorted join on "
+                    "the card; the fan-out's (id, c) pairs equal as "
+                    "multisets; count and int sums equal",
+          "profile_3_queries": breakdown})
+    s.tables.clear()
+    del fid, fk, fv, ds, order, pos, found, c_of
+    torch.cuda.empty_cache()
+    return counts
+
+
+def binary_oracle(raw_dev, q_dev, metric, keep, k):
+    """Top-k (distance, id) over every row on the card, from a byte-table
+    popcount (independent of the port's SWAR count): stable sort by
+    distance, so ties keep ascending ids."""
+    lut = torch.tensor([bin(i).count("1") for i in range(256)],
+                       dtype=torch.int32, device=raw_dev.device)
+    parts = []
+    for a in range(0, raw_dev.shape[0], 1 << 21):
+        x = raw_dev[a:a + (1 << 21)]
+        if metric == "Hamming":
+            parts.append(lut[(x ^ q_dev).long()].sum(1).to(torch.float32))
+            continue
+        inter = lut[(x & q_dev).long()].sum(1).to(torch.float32)
+        union = lut[(x | q_dev).long()].sum(1).to(torch.float32)
+        parts.append(torch.where(union > 0, (union - inter) / union,
+                                 torch.ones_like(union)))
+    dist = torch.cat(parts)
+    if keep is not None:
+        dist = torch.where(keep, dist, torch.inf)
+    top = torch.sort(dist, stable=True).indices[:k]
+    return top.cpu().tolist(), dist[top].cpu().numpy()
+
+
+def phase_sql_binary(seed: int):
+    import myscaledb_tpu_torch as P
+    from myscaledb_tpu_torch.config import TableSettings
+    from myscaledb_tpu_torch.core.table import Column, Table
+    from myscaledb_tpu_torch.interop import fixed_string_column
+    from myscaledb_tpu_torch.sql.executor import _binary_sidecar
+
+    rng = np.random.default_rng(seed + 6)
+    t0 = time.perf_counter()
+    raw = rng.integers(0, 256, (N6, NBYTES6), dtype=np.uint8)
+    tag = rng.integers(0, 100, N6, dtype=np.int32)
+    s = P.connect()
+    s.register("tb", Table([
+        Column.from_numpy("id", np.arange(N6, dtype=np.int64),
+                          device="cuda"),
+        Column.from_numpy("tag", tag, device="cuda"),
+        fixed_string_column("bv", raw, NBYTES6, device="cuda")]))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    raw_dev = torch.from_numpy(raw).cuda()
+    keep = s.tables["tb"]["tag"].data < 50
+    del raw
+    # the packed sidecar is built on a table's first query; build it here
+    # to time it on its own
+    t0 = time.perf_counter()
+    _binary_sidecar(s, "tb", s.tables["tb"], "bv")
+    torch.cuda.synchronize()
+    sidecar_s = time.perf_counter() - t0
+    qs = rng.integers(0, 256, (12, NBYTES6), dtype=np.uint8)
+    stmt = "SELECT id, distance(bv, unhex('{h}')) AS d FROM tb {w}" \
+        "ORDER BY d LIMIT 10"
+
+    def query(qi, where="", metric="Hamming"):
+        rows = s.sql(stmt.format(h=qs[qi].tobytes().hex(), w=where)) \
+            .to_rows()
+        ids, dist = binary_oracle(raw_dev, torch.from_numpy(qs[qi]).cuda(),
+                                  metric, keep if where else None, K)
+        if [r[0] for r in rows] != ids or not np.array_equal(
+                np.array([r[1] for r in rows], dtype=np.float32), dist):
+            raise AssertionError(f"sql_binary query {qi} {where}{metric}: "
+                                 f"rows {rows[:3]}... differ from the "
+                                 f"oracle {ids[:3]}...")
+
+    t0 = time.perf_counter()
+    query(0)                                             # warm-up
+    first_s = time.perf_counter() - t0
+    # the main path's own run: counts zeroed just before, read just after
+    zero_launches()
+    lat = []
+    for qi in range(1, 11):
+        t0 = time.perf_counter()
+        rows = s.sql(stmt.format(h=qs[qi].tobytes().hex(), w="")).to_rows()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        ids, dist = binary_oracle(raw_dev, torch.from_numpy(qs[qi]).cuda(),
+                                  "Hamming", None, K)
+        if [r[0] for r in rows] != ids or [r[1] for r in rows] != \
+                dist.tolist():
+            raise AssertionError(f"sql_binary query {qi}: differs from the "
+                                 "oracle")
+    counts = read_launches()
+    if counts["binary_segment_mins"] < 10:
+        raise AssertionError("binary_segment_mins launched "
+                             f"{counts['binary_segment_mins']} times in 10 "
+                             "queries")
+    # outside every reported count; twenty queries, so that the
+    # profiler's own start and stop (a few hundred ms) weigh little
+    breakdown = profile_statements(
+        s, [stmt.format(h=qs[qi % 10 + 1].tobytes().hex(), w="")
+            for qi in range(20)])
+    t0 = time.perf_counter()
+    query(11, where="WHERE tag < 50 ")
+    filtered_ms = (time.perf_counter() - t0) * 1e3
+    s.table_settings["tb"] = TableSettings(
+        binary_vector_search_metric_type="Jaccard")
+    t0 = time.perf_counter()
+    query(11, metric="Jaccard")
+    jaccard_ms = (time.perf_counter() - t0) * 1e3
+    query(10, where="WHERE tag < 50 ", metric="Jaccard")
+    emit({"phase": "sql_binary", "rows": N6, "bytes_per_vector": NBYTES6,
+          "k": K, "queries": 10,
+          "statement": stmt.format(h="<64 hex>", w=""),
+          "load_s": load_s, "sidecar_build_s": sidecar_s,
+          "warmup_query_s": first_s,
+          "median_query_ms": float(np.median(lat)),
+          "p90_query_ms": float(np.percentile(lat, 90)), "query_ms": lat,
+          "rows_scanned_per_s": N6 / (float(np.median(lat)) / 1e3),
+          "launches": counts,
+          "where_tag_lt_50_ms_oracle_included": filtered_ms,
+          "jaccard_ms_oracle_included": jaccard_ms,
+          "oracle": "ids and f32 distances equal to a byte-table popcount "
+                    "over every row on the card, ties by id",
+          "profile_20_queries": breakdown})
+    s.tables.clear()
+    del raw_dev, keep
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -760,22 +1278,34 @@ def main() -> int:
     emit({"phase": "kernels", "rows": N, "dim": D,
           "tolerance": {"segmin_sq8": [SQ8_RTOL, SQ8_ATOL],
                         "segmin_f32": [F32_RTOL, F32_ATOL],
-                        "group_aggregate": [K3_RTOL, K3_ATOL]},
+                        "group_aggregate": [K3_RTOL, K3_ATOL],
+                        "merge_count": "equal counts",
+                        "binary_segment_mins": "bit-equal"},
           "checks": report,
           "timing_L2_50pct_mask": {f"{k}/nq={nq}": v
                                    for (k, nq), v in timings.items()
                                    if k != "group_aggregate"},
           "timing_group_aggregate_config2": timings[("group_aggregate", 1)],
-          "kernels": ["segmin_sq8", "segmin_f32", "group_aggregate"]})
+          "timing_merge_count_config4": timings[("merge_count", 1)],
+          "timing_binary_segment_mins_config6": {
+              f"nq={nq}": timings[("binary_segment_mins", nq)]
+              for nq in (1, 10)},
+          "kernels": ["segmin_sq8", "segmin_f32", "group_aggregate",
+                      "merge_count", "binary_segment_mins"]})
 
     counts = phase_sql(args.seed)
     counts["sql_groupby"] = phase_groupby(args.seed)
+    counts["join_count"] = phase_join_count(args.seed)
+    counts["sql_join"] = phase_sql_join(args.seed)
+    counts["sql_binary"] = phase_sql_binary(args.seed)
 
     summary = []
     # each kernel's launches come from the run of the path that takes it:
     # K1 from the certified main path (sql_sq8), K2 from the path where the
     # certificate fails (sql_f32), K3 from config 2's statement
-    # (sql_groupby); every run's counts are printed beside
+    # (sql_groupby), K4 from config 4's count probe (join_count), K5 from
+    # config 6's statement (sql_binary); every path's counts of it are
+    # printed beside
     for name, path, src, replaces in (
             ("segmin_sq8", "sql_sq8", "myscaledb_tpu_torch/csrc/segmin_sq8.cu",
              "myscaledb_tpu/ops/pallas/distance_q.py:103"),
@@ -783,20 +1313,27 @@ def main() -> int:
              "myscaledb_tpu/ops/pallas/distance.py:77"),
             ("group_aggregate", "sql_groupby",
              "myscaledb_tpu_torch/csrc/group_agg.cu",
-             "myscaledb_tpu/ops/pallas/group_agg.py:190")):
+             "myscaledb_tpu/ops/pallas/group_agg.py:190"),
+            ("merge_count", "join_count",
+             "myscaledb_tpu_torch/csrc/merge_count.cu",
+             "myscaledb_tpu/ops/pallas/merge_count.py:259"),
+            ("binary_segment_mins", "sql_binary",
+             "myscaledb_tpu_torch/csrc/binary_scan.cu",
+             "myscaledb_tpu/ops/pallas/binary_scan.py:79")):
         if counts[path][name] < 1:
             raise AssertionError(f"{name} never launched on path {path}")
-        t = timings[(name, 1)]          # the SQL path scans one query
+        t = timings[(name, 1)]          # each path scans one query
         summary.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "path": path,
                         "launches": counts[path][name],
-                        "launches_by_path": {p: c.get(name, 0)
+                        "launches_by_path": {p: c[name]
                                              for p, c in counts.items()},
                         "max_abs_err": report[name]["max_abs_err"],
                         "ms": t["ms"], "kernel_ms": t["kernel_ms"],
                         "plain_ms": t["plain_ms"],
                         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                        "library_ms": t["library_ms"]})
+                        "library_ms": t["library_ms"],
+                        "library_note": t.get("library_note")})
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,9 +4,12 @@ Port of the subset of myscaledb_tpu/exec/expr.py that WHERE/PREWHERE and
 the vector slice's projections need: ``Value``, ``Env``, ``EvalError``,
 ``as_bool_mask``, ``_dict_map``, ``_arith``, ``_compare``,
 ``_compare_strings`` and ``eval_expr`` over literals, identifiers, vector
-literals, comparisons, arithmetic, AND/OR/NOT, IN (list), BETWEEN and the
-scalar functions abs .. isNotNull.  Every other node or function raises
-``NotPortedError``.
+literals, comparisons, arithmetic, AND/OR/NOT, IN (list), BETWEEN, the
+scalar functions abs .. isNotNull, and the string functions that build
+binary query vectors: ``unhex``, ``unbin`` and ``char`` (the port of
+myscaledb_tpu/exec/scalar_fns.py's, with ``_dict_transform``; ``char`` is
+the second of its two registrations there, the one the JAX package runs).
+Every other node or function raises ``NotPortedError``.
 
 String semantics ride the dictionary: predicates on strings are evaluated
 once over the (small) dictionary on the host, then mapped to rows with one
@@ -321,6 +324,51 @@ def _f_isnotnull(args, env):
         return Value(torch.ones(env.n_rows, dtype=torch.bool,
                                 device=env.device))
     return Value(v.valid)
+
+
+def _dict_transform(v: Value, fn) -> Value:
+    """Apply a python string->string fn over dictionary values; returns a
+    STRING Value with a fresh dictionary."""
+    if v.dictionary is None:
+        if isinstance(v.py, str):
+            return Value(None, is_scalar=True, py=fn(v.py))
+        raise EvalError("expected a string column")
+    return Value(v.data, v.valid,
+                 StringDictionary([fn(s) for s in v.dictionary.values]))
+
+
+@func("unhex")
+def _f_unhex(args, env):
+    return _dict_transform(args[0],
+                           lambda s: bytes.fromhex(s).decode("latin-1"))
+
+
+@func("unbin")
+def _f_unbin(args, env):
+    def conv(s: str) -> str:
+        if not s:
+            return ""
+        pad = (-len(s)) % 8
+        i = int(s, 2)
+        return i.to_bytes((len(s) + pad) // 8, "big").decode("latin-1")
+    return _dict_transform(args[0], conv)
+
+
+@func("char")
+def _f_char(args, env):
+    # char(n1, n2, ...) builds a string per row from the bytes n_i mod 256
+    cols = [_numeric(a, env.n_rows) for a in args]
+    if all(a.is_scalar for a in args):
+        s = "".join(chr(int(c) & 0xFF) for c in cols)
+        return Value(None, is_scalar=True, py=s)
+    n = env.n_rows
+    mat = np.stack([np.broadcast_to(c.cpu().numpy(), (n,)) for c in cols],
+                   axis=1)
+    uniq, inv = np.unique(mat, axis=0, return_inverse=True)
+    sd = StringDictionary()
+    remap = sd.encode(["".join(chr(int(c) & 0xFF) for c in row)
+                       for row in uniq])
+    return Value(to_tensor(remap[inv.reshape(-1)], env.device), None, sd)
 
 
 # ---------------------------------------------------------------------------

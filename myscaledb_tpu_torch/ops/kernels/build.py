@@ -24,7 +24,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("errors.cu", "group_agg.cu", "segmin_f32.cu", "segmin_sq8.cu")
+SOURCES = ("binary_scan.cu", "errors.cu", "group_agg.cu", "merge_count.cu",
+           "segmin_f32.cu", "segmin_sq8.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -33,6 +34,11 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # entry point -> argtypes (every pointer and the stream as c_void_p)
 _SIGNATURES = {
+    # x3, qw, mask2, out, nseg, words, nq, n, has_mask, jaccard, qchunk,
+    # stream
+    "msdb_binary_segmin": [_P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _I, _P],
+    # build, nb, probe, n, has_max, out, blocks, stream
+    "msdb_merge_count": [_P, _I, _P, _L, _P, _P, _I, _P],
     # gid, mask, arg_ptrs, na, float_bits, n, G, nblocks, rows_per_block,
     # part_i, part_f, out_i, out_f, stream
     "msdb_group_agg": [_P, _P, _P, _I, ctypes.c_uint, _L, _I, _I, _L, _P, _P,

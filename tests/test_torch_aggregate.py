@@ -117,8 +117,12 @@ def test_build_group_ids_edges():
     assert cap == 1 and (gid == PT.INT32_MAX).all()
     _t2, _g2, ok = PT.ht_insert((torch.arange(5),), None)
     assert bool(ok) and PT.next_pow2(5) == 8 == JT.next_pow2(5)
-    with pytest.raises(Exception, match="joins \\(config 4\\)"):
-        PT.build_group_ids((torch.arange(5),), prepare_count_probe=True)
+    # the count-probe layout of a join build: one key of <= 32 bits only
+    t, _, _ = PT.build_group_ids((torch.tensor([3, 1, 2], dtype=torch.int32),),
+                                 prepare_count_probe=True)
+    assert t.sorted_keys.tolist() == [1, 2, 3] and not bool(t.sorted_has_max)
+    t, _, _ = PT.build_group_ids((torch.arange(5),), prepare_count_probe=True)
+    assert t.sorted_keys is None
 
 
 def _inputs(rng, n, G):

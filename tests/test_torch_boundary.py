@@ -18,7 +18,10 @@ ROOT = PKG.parent
 def test_import_loads_no_jax():
     code = ("import sys, myscaledb_tpu_torch\n"
             "import myscaledb_tpu_torch.sql.driver, "
-            "myscaledb_tpu_torch.interop\n"
+            "myscaledb_tpu_torch.interop, myscaledb_tpu_torch.ops.join, "
+            "myscaledb_tpu_torch.ops.binary_vector, "
+            "myscaledb_tpu_torch.ops.kernels.merge_count, "
+            "myscaledb_tpu_torch.ops.kernels.binary_scan\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'myscaledb_tpu' "
             "or m.startswith('myscaledb_tpu.')]\n"
@@ -62,3 +65,22 @@ def test_connect_defaults_to_cuda(monkeypatch):
     assert s.device == torch.device("cpu")
     t = s.create_table("t", {"a": [1, 2, 3]})
     assert t["a"].data.device == torch.device("cpu")
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    """A wrapper runs its plain version only for CPU tensors; any other
+    device launches the kernel (CUDA) or raises — it never falls back."""
+    from myscaledb_tpu_torch.ops.kernels.binary_scan import (
+        SEG, binary_segment_mins)
+    from myscaledb_tpu_torch.ops.kernels.merge_count import merge_count
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        merge_count(torch.zeros(4, dtype=torch.int32, device=meta),
+                    torch.zeros(8, dtype=torch.int32, device=meta),
+                    torch.zeros((), dtype=torch.bool, device=meta))
+    x3 = torch.zeros((16, 2, SEG), dtype=torch.int32, device=meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        binary_segment_mins(x3, torch.zeros((1, 2), dtype=torch.int32,
+                                            device=meta),
+                            torch.zeros((16, SEG), dtype=torch.uint8,
+                                        device=meta), "Hamming", 100, False)

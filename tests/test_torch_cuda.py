@@ -14,6 +14,8 @@ import torch
 from myscaledb_tpu_torch.ops.kernels import distance as K2
 from myscaledb_tpu_torch.ops.kernels import distance_q as K1
 from myscaledb_tpu_torch.ops.kernels import group_agg as K3
+from myscaledb_tpu_torch.ops.kernels import merge_count as K4
+from myscaledb_tpu_torch.ops.kernels import binary_scan as K5
 from myscaledb_tpu_torch.ops.kernels.distance import query_aux
 from myscaledb_tpu_torch.ops.aggregate_matmul import matmul_group_aggregate
 from myscaledb_tpu_torch.ops.vector import build_sq8
@@ -202,3 +204,96 @@ def test_sql_groupby_launches_k3_on_card(cuda):
         0, g[sel].long(), v[sel].long()).tolist()
     assert [r[:3] for r in rows] == [(k, sums[k], cnt[k]) for k in range(256)
                                      if cnt[k]]
+
+
+IMAX = 2 ** 31 - 1
+
+
+@pytest.mark.parametrize("nb,n", [(1, 1), (5, 33), (4133, 100_003),
+                                  (1 << 20, 1 << 22)])
+@pytest.mark.parametrize("max_case", ["none", "genuine", "invalid_only"])
+def test_merge_count_kernel_matches_plain(cuda, nb, n, max_case):
+    build = torch.randint(-5000, 5000, (nb,), device="cuda", generator=cuda,
+                          dtype=torch.int32)
+    valid = torch.rand(nb, device="cuda", generator=cuda) < 0.85
+    if max_case != "none":
+        build[0] = IMAX
+        valid[0] = max_case == "genuine"
+    probe = torch.randint(-6000, 6000, (n,), device="cuda", generator=cuda,
+                          dtype=torch.int32)
+    probe[:: 7] = IMAX
+    b, hm = K4.prepare_build(build, valid)
+    assert bool(hm) == (max_case == "genuine")
+    before = K4.merge_count.launches
+    got = K4.merge_count(b, probe, hm)
+    want = K4.merge_count_plain(b, probe, hm)
+    torch.cuda.synchronize()
+    assert K4.merge_count.launches == before + 1
+    assert got.dtype == torch.int64 and int(got) == int(want)
+
+
+def test_merge_count_empty_and_all_invalid_builds(cuda):
+    probe = torch.tensor([1, 2, IMAX, -3], dtype=torch.int32, device="cuda")
+    empty = torch.zeros(0, dtype=torch.int32, device="cuda")
+    b, hm = K4.prepare_build(empty)
+    assert int(K4.merge_count(b, probe, hm)) == 0
+    keys = torch.tensor([1, 2, IMAX], dtype=torch.int32, device="cuda")
+    b, hm = K4.prepare_build(keys, torch.zeros(3, dtype=torch.bool,
+                                               device="cuda"))
+    assert int(K4.merge_count(b, probe, hm)) == 0
+    b, hm = K4.prepare_build(keys)
+    assert int(K4.merge_count(b, probe, hm)) == 3
+
+
+@pytest.mark.parametrize("nseg,words", [(16, 8), (32, 2), (16, 17),
+                                        (2, K5.QCHUNK_WORDS)])
+@pytest.mark.parametrize("nq", [1, 10, 33])
+@pytest.mark.parametrize("metric", ["Hamming", "Jaccard"])
+def test_binary_segmin_kernel_is_bit_equal(cuda, nseg, words, nq, metric):
+    x3 = torch.randint(-2 ** 31, 2 ** 31 - 1, (nseg, words, K5.SEG),
+                       device="cuda", generator=cuda, dtype=torch.int32)
+    x3[0, :, :5] = 0                                   # empty unions
+    qw = torch.randint(-2 ** 31, 2 ** 31 - 1, (nq, words), device="cuda",
+                       generator=cuda, dtype=torch.int32)
+    mask2 = (torch.rand(nseg, K5.SEG, device="cuda", generator=cuda)
+             < 0.5).to(torch.uint8)
+    mask2[1] = 0                                       # a fully masked segment
+    n = nseg * K5.SEG - 777                            # a tail
+    for has_mask in (False, True):
+        before = K5.binary_segment_mins.launches
+        got = K5.binary_segment_mins(x3, qw, mask2, metric, n, has_mask)
+        want = K5.binary_segment_mins_plain(x3, qw, mask2, metric, n,
+                                            has_mask)
+        torch.cuda.synchronize()
+        assert K5.binary_segment_mins.launches == before + 1
+        assert got.shape == (nseg, nq)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_binary_segmin_kernel_refuses_rows_past_one_query_of_smem(cuda):
+    wide = torch.zeros((1, K5.QCHUNK_WORDS + 1, K5.SEG), dtype=torch.int32,
+                       device="cuda")
+    with pytest.raises(ValueError, match=f"words <= {K5.QCHUNK_WORDS}"):
+        K5.binary_segment_mins(wide, wide[0, :, :1].T.contiguous(), wide,
+                               "Hamming", 1, False)
+
+
+def test_sql_binary_launches_k5_on_card(cuda):
+    import myscaledb_tpu_torch as P
+    from myscaledb_tpu_torch.core.table import Column, Table
+    from myscaledb_tpu_torch.interop import fixed_string_column
+    rng = np.random.default_rng(5)
+    n, nbytes = (1 << 16) + 5, 5                       # odd width: 2 words
+    raw = rng.integers(0, 256, (n, nbytes), dtype=np.uint8)
+    s = P.connect()
+    s.register("tb", Table([
+        Column.from_numpy("id", np.arange(n, dtype=np.int64), device="cuda"),
+        fixed_string_column("bv", raw, nbytes, device="cuda")]))
+    q = rng.integers(0, 256, nbytes, dtype=np.uint8)
+    before = K5.binary_segment_mins.launches
+    rows = s.sql(f"SELECT id, distance(bv, unhex('{q.tobytes().hex()}')) "
+                 "AS d FROM tb ORDER BY d LIMIT 10").to_rows()
+    assert K5.binary_segment_mins.launches == before + 1
+    d = np.unpackbits(raw ^ q[None, :], axis=1).sum(1)
+    order = np.lexsort((np.arange(n), d))[:10]
+    assert rows == [(int(i), float(d[i])) for i in order]

@@ -137,7 +137,7 @@ def test_error_texts_match(sessions, sql):
 @pytest.mark.parametrize("sql", [
     "SELECT tag, uniqExact(id) FROM t GROUP BY tag",
     "SELECT quantile(0.5)(price) FROM t",
-    "SELECT id FROM t AS a JOIN t AS b ON a.id = b.id",
+    "SELECT id FROM t AS a JOIN (SELECT id FROM t) AS b ON a.id = b.id",
     "CREATE TABLE u (id Int64) ENGINE = MergeTree ORDER BY id",
     "SELECT sumState(price) FROM t",
     "SELECT TextSearch(tag, 'red') AS s FROM t ORDER BY s DESC LIMIT 3",
