@@ -63,7 +63,8 @@ non-zero without printing a result:
               SEMI, ANTI), each result equal to a searchsorted oracle on
               the card; an ALL join against a dim table whose keys repeat,
               its (id, c) pairs equal to the searchsorted ranges'; then the
-              join feeding count()/sum() ten times after a warm-up
+              join feeding count()/sum() ten times after a warm-up, and
+              the time K4's directory adds to a join build of the dim keys
   sql_binary  the packed sidecar build and a warm-up query timed apart,
               then config 6's statement ten times, with WHERE tag < 50 and
               under the Jaccard table setting; ids and distances equal to a
@@ -71,8 +72,11 @@ non-zero without printing a result:
               by id); the binary segment-min kernel must launch
 
 Kernel times are medians of CUDA-event timings: ``ms`` is one call of the
-wrapper (for segmin_sq8 that includes its PyTorch query quantization),
-``kernel_ms`` the bare launch, ``plain_ms`` the plain PyTorch version and
+wrapper (for segmin_sq8 that includes its PyTorch query quantization; for
+merge_count, called with no index, the build of its radix directory;
+``ms_with_index`` is merge_count given the directory, as the join build
+passes it), ``kernel_ms`` the bare launch (for segmin_f32 the query split
+and the scan, one entry point), ``plain_ms`` the plain PyTorch version and
 ``library_ms`` the yardstick call (torch.matmul in f32 for segmin_f32,
 torch._int_mm for segmin_sq8 with the query block zero-padded to a
 multiple of 8 columns, one index_add_ into G + 1 int64 slots for
@@ -80,7 +84,8 @@ group_aggregate, torch.isin and a sum for merge_count; none for
 binary_segment_mins, since no single PyTorch call computes a popcount
 distance).  ``bound_ms`` is the larger of the bytes over 3.35 TB/s and the
 operations over the H100's peak for their type (integer operations are
-counted against the f32 rate outside the tensor cores).
+counted against the f32 rate outside the tensor cores; segmin_f32's
+products as three TF32 products each, at 495 TFLOP/s).
 
 All five launch counters are zeroed just before each path's run (the
 twenty certified queries; the three uncertifiable statements; the ten
@@ -109,16 +114,19 @@ import torch
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12            # f32 outside the tensor cores
+TF32_FLOPS = 495e12          # TF32 tensor cores
 INT8_OPS = 1979e12           # int8 tensor cores
+
 
 N, D, K = 1_000_000, 128, 10
 METRICS = ("L2", "Cosine", "IP")
 # K1: the int dot is exact, so the bounds differ from the plain version only
 # by sqrt rounding (the kernel uses no FMA contraction in the bound).
 SQ8_RTOL, SQ8_ATOL = 1e-5, 1e-5
-# K2: the f32 dot sums in another order than cuBLAS; under L2's
-# cancellation (|x|^2 - 2 x.q + |q|^2 with terms ~256) that moves the score
-# by a few f32 ulps of 256, i.e. ~1e-4 absolute.
+# K2: three TF32 products per term (about 2^-21 of each term) summed in
+# another order than cuBLAS; under L2's cancellation (|x|^2 - 2 x.q + |q|^2
+# with terms ~256) that moves the score by a few f32 ulps of 256, i.e.
+# ~1e-4 absolute.
 F32_RTOL, F32_ATOL = 1e-5, 1e-3
 # SQL rows against the oracle: the reference's own tolerance
 # (tests/test_vector.py), since reductions of other shapes sum in other
@@ -232,6 +240,8 @@ def phase_kernels(gen):
     from myscaledb_tpu_torch.ops.vector import build_sq8
 
     dev = "cuda"
+    tiles_gen = torch.Generator(device=dev).manual_seed(
+        gen.initial_seed() + 1)
     report = {"segmin_f32": {"max_abs_err": 0.0, "checks": 0},
               "segmin_sq8": {"max_abs_err": 0.0, "checks": 0}}
 
@@ -250,28 +260,33 @@ def phase_kernels(gen):
         x = torch.randn(n, d, device=dev, generator=gen)
         sqn = (x * x).sum(1)
         mask = (torch.rand(n, device=dev, generator=gen) < 0.5).float()
-        for nq in (1, 10, 128):
-            q = torch.randn(nq, d, device=dev, generator=gen)
+        for nq in (1, 8, 9, 10, 128):
+            # the nq = 8, 9 cases (one and two query tiles of K2) draw from
+            # their own generator, so the later kernels' data stays as it was
+            q = torch.randn(nq, d, device=dev,
+                            generator=tiles_gen if nq in (8, 9) else gen)
             for metric in METRICS:
                 qa = query_aux(q, metric)
                 check("segmin_f32",
                       segmin_f32(x, q, sqn, qa, mask, metric),
                       segmin_f32_plain(x, q, sqn, qa, mask, metric),
                       F32_RTOL, F32_ATOL, f"n={n} d={d} nq={nq} {metric}")
-            if (n, d) != (N, D):
+            if (n, d) != (N, D) or nq in (8, 9):
                 continue
             qa = query_aux(q, "L2")
             nseg = -(-n // 128)
             nbytes = n * d * 4 + 2 * n * 4 + nq * (d + 1) * 4 + nq * nseg * 4
-            b, by = bound_ms(nbytes, 2.0 * nq * n * d, F32_FLOPS)
+            # three TF32 products per multiply-add on the tensor cores
+            b, by = bound_ms(nbytes, 3 * 2.0 * nq * n * d, TF32_FLOPS)
             out = torch.empty((nq, nseg), device=dev)
+            qsplit = torch.empty((2, nq, d), device=dev)
 
             def raw_f32():   # the bare launch, for the kernel's own time
                 build.check(build.library().msdb_segmin_f32(
                     x.data_ptr(), q.data_ptr(), sqn.data_ptr(),
-                    qa.data_ptr(), mask.data_ptr(), out.data_ptr(), n, d,
-                    nq, 0, torch.cuda.current_stream().cuda_stream),
-                    "segmin_f32")
+                    qa.data_ptr(), mask.data_ptr(), qsplit.data_ptr(),
+                    out.data_ptr(), n, d, nq, 0,
+                    torch.cuda.current_stream().cuda_stream), "segmin_f32")
             t = {"ms": time_ms(lambda: segmin_f32(x, q, sqn, qa, mask, "L2")),
                  "kernel_ms": time_ms(raw_f32),
                  "plain_ms": time_ms(lambda: segmin_f32_plain(
@@ -351,18 +366,20 @@ def config4_keys(gen, n_build: int, n_probe: int):
 def k4_kernel(gen):
     """K4 against merge_count_plain on the card: config 4's keys, then
     duplicates, invalid rows, INT32_MAX probes with and without a genuine
-    INT32_MAX build key, an empty and an all-invalid build.  Counts must
-    be equal.  Then the times at config-4 shapes."""
-    import math
+    INT32_MAX build key, an empty and an all-invalid build, and the radix
+    directory's edge cases (index_edge_cases), each with the directory
+    passed in and built by the wrapper.  Counts must be equal.  Then the
+    times at config-4 shapes."""
     from myscaledb_tpu_torch.ops.kernels import build as kbuild
     from myscaledb_tpu_torch.ops.kernels.merge_count import (
-        IMAX, BLOCKS_PER_SM, merge_count, merge_count_plain, prepare_build)
+        IMAX, BLOCKS_PER_SM, build_count_index, index_edge_cases,
+        merge_count, merge_count_plain, prepare_build)
 
     dev = "cuda"
-    rep = {"max_abs_err": 0, "checks": 0}
+    rep = {"max_abs_err": 0, "checks": 0, "index_edge_cases": 0}
 
-    def check(b, hm, probe, tag):
-        got = merge_count(b, probe, hm)
+    def check(b, hm, probe, tag, index=None):
+        got = merge_count(b, probe, hm, index)
         want = merge_count_plain(b, probe, hm)
         torch.cuda.synchronize()
         if int(got) != int(want):
@@ -386,33 +403,49 @@ def k4_kernel(gen):
     check(*prepare_build(keys[:0]), probes, "empty build")
     check(*prepare_build(keys, torch.zeros_like(valid)), probes,
           "all-invalid build")
+    for name, (bk, bv, pk) in index_edge_cases().items():
+        b, hm = prepare_build(torch.from_numpy(bk).to(dev),
+                              torch.from_numpy(bv).to(dev))
+        pk = torch.from_numpy(pk).to(dev)
+        check(b, hm, pk, f"edge case {name}", build_count_index(b))
+        check(b, hm, pk[1:], f"edge case {name}, no index, unaligned")
+        rep["index_edge_cases"] += 1
 
     build, probe = config4_keys(gen, N4_BUILD, N4_PROBE)
     b, hm = prepare_build(build)
-    check(b, hm, probe, "config 4")
+    index = build_count_index(b)
+    check(b, hm, probe, "config 4", index)
     nb, n = b.shape[0], probe.shape[0]
     out = torch.zeros((), dtype=torch.int64, device=dev)
-    blocks = min(-(-n // 256), torch.cuda.get_device_properties(0)
+    blocks = min(-(-n // (256 * 4)), torch.cuda.get_device_properties(0)
                  .multi_processor_count * BLOCKS_PER_SM)
 
     def raw_k4():   # the bare launch
         kbuild.check(kbuild.library().msdb_merge_count(
-            b.data_ptr(), nb, probe.data_ptr(), n, hm.data_ptr(),
+            b.data_ptr(), nb, index.starts.data_ptr(), index.lo, index.hi,
+            index.shift, index.steps, probe.data_ptr(), n, hm.data_ptr(),
             out.data_ptr(), blocks, torch.cuda.current_stream().cuda_stream),
             "merge_count")
-    # every probe and build key read once, the count written once; one
-    # compare per step of each probe's binary search
-    nbytes = 4 * n + 4 * nb + 8
-    ops = float(n) * math.ceil(math.log2(nb))
+    # every probe, build key and directory entry read once, the count
+    # written once; per probe a range test, the halvings and four compares
+    nbytes = 4 * n + 4 * nb + 4 * (index.nbuckets + 1) + 8
+    ops = float(n) * (index.steps + 5)
     bnd, by = bound_ms(nbytes, ops, F32_FLOPS)
     t = {"ms": time_ms(lambda: merge_count(b, probe, hm), reps=20),
+         "ms_with_index": time_ms(lambda: merge_count(b, probe, hm, index),
+                                  reps=20),
          "kernel_ms": time_ms(raw_k4, reps=20),
          "plain_ms": time_ms(lambda: merge_count_plain(b, probe, hm),
                              reps=5),
          "library_ms": time_ms(lambda: torch.isin(probe, build).sum(),
                                reps=5),
          "library_note": "torch.isin(probe, build).sum()",
-         "bound_ms": bnd, "bound_by": by, "probes": n, "build_keys": nb}
+         "bound_ms": bnd, "bound_by": by, "probes": n, "build_keys": nb,
+         "directory": {"buckets": index.nbuckets, "shift": index.shift,
+                       "steps": index.steps},
+         "ms_note": "ms: the wrapper with no index, so it builds the "
+                    "directory (two host syncs); ms_with_index: the "
+                    "wrapper given the join build's directory"}
     del build, probe, b, keys, probes
     torch.cuda.empty_cache()
     return rep, t
@@ -999,6 +1032,8 @@ def phase_sql_join(seed: int):
     table, and an ALL join against a 2M-row dim table whose keys repeat;
     every result against a searchsorted oracle on the card."""
     import myscaledb_tpu_torch as P
+    from myscaledb_tpu_torch.ops.kernels.merge_count import (
+        build_count_index, prepare_build)
 
     rng = np.random.default_rng(seed + 5)
     t0 = time.perf_counter()
@@ -1105,6 +1140,18 @@ def phase_sql_join(seed: int):
     counts = read_launches()
     # outside every reported count
     breakdown = profile_statements(s, [agg_sql] * 3)
+    # what K4's directory adds to a join build of the dim keys: the ANY,
+    # SEMI and ANTI statements build it and never count-probe (ALL joins,
+    # the aggregate statement's among them, do not build it); host clock,
+    # median of ten after a warm-up
+    dsorted, _ = prepare_build(d["k"].data)
+    dir_ms = []
+    for _ in range(11):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index = build_count_index(dsorted)
+        torch.cuda.synchronize()
+        dir_ms.append((time.perf_counter() - t0) * 1e3)
     emit({"phase": "sql_join", "fact_rows": NJ_FACT, "dim_rows": NJ_DIM,
           "fanout_dim_rows": 2 * NJ_DIM,
           "matched_fact_rows": want[0][0], "load_s": load_s,
@@ -1114,6 +1161,8 @@ def phase_sql_join(seed: int):
           "p90_query_ms": float(np.percentile(lat, 90)), "query_ms": lat,
           "probe_rows_per_s": NJ_FACT / (float(np.median(lat)) / 1e3),
           "launches": counts,
+          "dim_directory_build_ms": float(np.median(dir_ms[1:])),
+          "dim_directory_buckets": index.nbuckets,
           "max_memory_bytes_per_query":
               s.settings.max_memory_bytes_per_query,
           "oracle": "ids, values and NULLs equal to a searchsorted join on "
@@ -1121,7 +1170,7 @@ def phase_sql_join(seed: int):
                     "multisets; count and int sums equal",
           "profile_3_queries": breakdown})
     s.tables.clear()
-    del fid, fk, fv, ds, order, pos, found, c_of
+    del fid, fk, fv, ds, order, pos, found, c_of, dsorted, index
     torch.cuda.empty_cache()
     return counts
 

@@ -37,7 +37,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from myscaledb_tpu_torch.ops.kernels.merge_count import (merge_count,
+from myscaledb_tpu_torch.ops.kernels.merge_count import (CountIndex,
+                                                        build_count_index,
+                                                        merge_count,
                                                         prepare_build)
 
 INT32_MAX = 2 ** 31 - 1
@@ -61,7 +63,8 @@ class HashTable(NamedTuple):
     probe's layout: ``sorted_keys`` (n,) int32 ascending with invalid rows
     at INT32_MAX, and ``sorted_has_max`` (0-d bool), from K4's
     ``prepare_build`` — the JAX package's ``sorted_keys2d`` without its
-    TPU padding and margin rows.
+    TPU padding and margin rows — and ``count_index``, K4's radix
+    directory over them (``build_count_index``), built once per build.
     """
     key_cols: tuple              # original build key columns, each (n,)
     valid: torch.Tensor          # (n,) bool
@@ -70,6 +73,7 @@ class HashTable(NamedTuple):
     capacity: int
     sorted_keys: Optional[torch.Tensor] = None
     sorted_has_max: Optional[torch.Tensor] = None
+    count_index: Optional[CountIndex] = None
 
 
 def next_pow2(n: int) -> int:
@@ -153,12 +157,13 @@ def build_group_ids(key_cols, mask=None, num_groups_hint: Optional[int] = None,
     gid, slot_row, num_groups = _group_ids_impl(key_cols, mask, n)
     cap = max(int(num_groups), 1)           # one host sync, like the
     slot_row = slot_row[:cap]               # reference's table growth
-    sorted_keys = has_max = None
+    sorted_keys = has_max = index = None
     if (prepare_count_probe and len(key_cols) == 1
             and _merge_count_eligible(key_cols[0])):
         sorted_keys, has_max = prepare_build(key_cols[0], mask)
+        index = build_count_index(sorted_keys)
     table = HashTable(key_cols, mask, gid, slot_row, cap, sorted_keys,
-                      has_max)
+                      has_max, index)
     return table, gid, cap
 
 
@@ -324,7 +329,7 @@ def ht_count_matches(table: HashTable, probe_cols, mask=None) -> torch.Tensor:
         from myscaledb_tpu_torch.runtime.memory import charge
         charge(8 * probe_cols[0].shape[0] * 3, "join_merge_count")
         return merge_count(table.sorted_keys, probe_cols[0],
-                           table.sorted_has_max)
+                           table.sorted_has_max, table.count_index)
     _charge_sort(table.key_cols[0].shape[0] + probe_cols[0].shape[0],
                  len(probe_cols) + 1, "join_count_sort")
     return _merge_count_impl(table.key_cols, table.valid, probe_cols, mask)

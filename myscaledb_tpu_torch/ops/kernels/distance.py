@@ -2,9 +2,13 @@
 
 Port of myscaledb_tpu/ops/pallas/distance.py (``fused_segmin_scores``,
 ``pallas_supported``).  The CUDA kernel is ``csrc/segmin_f32.cu``; its note
-gives the bound on the H100 and the design.  ``segmin_f32_plain`` is the
-same function in plain PyTorch: the wrapper uses it only for tensors on
-the CPU, and chip_smoke.py holds the kernel against it on the card.
+gives the bound on the H100 and the design: the products run on the
+tensor cores as three TF32 products per term.  ``segmin_f32_plain`` is the
+same function in plain PyTorch with the full f32 product: the wrapper uses
+it only for tensors on the CPU, and chip_smoke.py holds the kernel against
+it on the card.  ``segmin_f32_3xtf32`` repeats the kernel's split
+(``tf32_round``) and its 32-dim chunks for the tests, but not the tensor
+cores' accumulation inside a chunk, which only the card tests check.
 
 Unlike the TPU kernel, which pads its output to whole 8192-row tiles, this
 one returns exactly ceil(n / 128) segments per query.
@@ -18,6 +22,7 @@ from myscaledb_tpu_torch.ops.kernels import build
 
 SEG = 128
 NQ_MAX = 128
+CHUNK = 32               # dims the kernel sums in fresh registers
 METRIC_CODES = {"L2": 0, "Cosine": 1, "IP": 2}
 
 
@@ -52,12 +57,11 @@ def segmin_scores(dot, sqn, q_aux, metric: str):
     return -dot
 
 
-def segmin_f32_plain(x, q, sqn, q_aux, mask, metric: str):
-    """Plain PyTorch version of the kernel: full f32 product, scores,
-    +inf for masked rows, minimum over each 128-row segment."""
-    n = x.shape[0]
-    nq = q.shape[0]
-    s = segmin_scores(q @ x.T, sqn, q_aux, metric)
+def _segment_mins(dot, sqn, q_aux, mask, metric: str):
+    """Scores from the (nq, n) dot products, +inf for masked rows, minimum
+    over each 128-row segment."""
+    nq, n = dot.shape
+    s = segmin_scores(dot, sqn, q_aux, metric)
     if mask is not None:
         s = torch.where(mask[None, :] != 0.0, s, torch.inf)
     nseg = -(-n // SEG)
@@ -65,6 +69,38 @@ def segmin_f32_plain(x, q, sqn, q_aux, mask, metric: str):
         s = torch.cat([s, torch.full((nq, nseg * SEG - n), torch.inf,
                                      dtype=s.dtype, device=s.device)], dim=1)
     return s.reshape(nq, nseg, SEG).amin(dim=-1)
+
+
+def segmin_f32_plain(x, q, sqn, q_aux, mask, metric: str):
+    """Plain PyTorch version of the kernel: full f32 product, scores,
+    +inf for masked rows, minimum over each 128-row segment."""
+    return _segment_mins(q @ x.T, sqn, q_aux, mask, metric)
+
+
+def tf32_round(a):
+    """``cvt.rna.tf32.f32`` on f32 values: round to the 10 mantissa bits of
+    TF32, ties away from zero, on the bits (finite inputs)."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def segmin_f32_3xtf32(x, q, sqn, q_aux, mask, metric: str):
+    """The kernel's split and chunking in plain PyTorch: each value split
+    into hi = tf32(a) and lo = tf32(a - hi), each 32-dim chunk's product
+    summed on its own as lo.hi + hi.lo + hi.hi (the lo.lo term dropped),
+    and the chunks' sums added in order in f32.  The sums inside a chunk
+    are f32 matmuls here, not the tensor cores' truncating accumulation,
+    so only the card tests (tests/test_torch_cuda.py) hold that part.  For
+    the tests; the wrapper does not use it."""
+    x_hi, q_hi = tf32_round(x), tf32_round(q)
+    x_lo, q_lo = tf32_round(x - x_hi), tf32_round(q - q_hi)
+    dot = torch.zeros((q.shape[0], x.shape[0]), dtype=torch.float32,
+                      device=x.device)
+    for k in range(0, x.shape[1], CHUNK):
+        c = slice(k, k + CHUNK)
+        dot = dot + (q_hi[:, c] @ x_lo[:, c].T + q_lo[:, c] @ x_hi[:, c].T
+                     + q_hi[:, c] @ x_hi[:, c].T)
+    return _segment_mins(dot, sqn, q_aux, mask, metric)
 
 
 def _check(x, q, sqn, q_aux, mask, metric):
@@ -117,13 +153,15 @@ def segmin_f32(x, q, sqn, q_aux, mask, metric: str):
         raise ValueError("segmin_f32 kernel needs x aligned to 16 bytes")
     out = torch.empty((nq, -(-n // SEG)), dtype=torch.float32,
                       device=x.device)
+    # scratch: the queries' TF32 hi and lo halves
+    qsplit = torch.empty((2, nq, d), dtype=torch.float32, device=x.device)
     lib = build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.msdb_segmin_f32(
             x.data_ptr(), q.data_ptr(), sqn.data_ptr(), q_aux.data_ptr(),
-            mask.data_ptr() if mask is not None else None, out.data_ptr(),
-            n, d, nq, METRIC_CODES[metric], stream)
+            mask.data_ptr() if mask is not None else None, qsplit.data_ptr(),
+            out.data_ptr(), n, d, nq, METRIC_CODES[metric], stream)
     build.check(rc, "segmin_f32")
     segmin_f32.launches += 1
     return out

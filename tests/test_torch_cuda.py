@@ -72,6 +72,30 @@ def test_segmin_sq8_kernel_matches_plain(cuda, n, nq, metric):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("d", [32, 128, 768])
+@pytest.mark.parametrize("nq", [1, 8, 9, 20, 40, 128])
+@pytest.mark.parametrize("metric", METRICS)
+def test_segmin_f32_tensor_core_shapes(cuda, d, nq, metric):
+    """The 3xTF32 kernel at every query-tile count it instantiates (1 and
+    2 tiles on mma.sync, 4, 8 and 16 on wgmma), a ragged n, rows of large
+    and tiny norm and a zero row."""
+    n = 3 * 128 + 77
+    x = torch.randn(n, d, device="cuda", generator=cuda)
+    x[::5] *= 1e3
+    x[1::7] *= 1e-3
+    x[2] = 0.0
+    q = torch.randn(nq, d, device="cuda", generator=cuda)
+    sqn = (x * x).sum(1)
+    qa = query_aux(q, metric)
+    mask = (torch.rand(n, device="cuda", generator=cuda) < 0.7).float()
+    got = K2.segmin_f32(x, q, sqn, qa, mask, metric)
+    want = K2.segmin_f32_plain(x, q, sqn, qa, mask, metric)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (nq, 4)
+    assert torch.equal(torch.isposinf(got), torch.isposinf(want))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+
+
 def test_wrapper_refuses_what_the_kernel_cannot_take(cuda):
     x = torch.randn(256, 48, device="cuda", generator=cuda)   # d % 32 != 0
     q = torch.randn(1, 48, device="cuda", generator=cuda)
@@ -243,6 +267,25 @@ def test_merge_count_empty_and_all_invalid_builds(cuda):
     assert int(K4.merge_count(b, probe, hm)) == 0
     b, hm = K4.prepare_build(keys)
     assert int(K4.merge_count(b, probe, hm)) == 3
+
+
+@pytest.mark.parametrize("case", sorted(K4.index_edge_cases()))
+def test_merge_count_index_edge_cases(cuda, case):
+    """The directory's edge cases: the kernel with the join build's index,
+    and with none (the wrapper builds it), equals the plain version and
+    the plain walk of the same directory."""
+    build, valid, probe = K4.index_edge_cases()[case]
+    b, hm = K4.prepare_build(torch.from_numpy(build).cuda(),
+                             torch.from_numpy(valid).cuda())
+    p = torch.from_numpy(probe).cuda()
+    index = K4.build_count_index(b)
+    want = int(K4.merge_count_plain(b, p, hm))
+    assert int(K4.directory_walk(b, p, hm, index)) == want
+    before = K4.merge_count.launches
+    assert int(K4.merge_count(b, p, hm, index)) == want
+    assert int(K4.merge_count(b, p[1:], hm)) == int(
+        K4.merge_count_plain(b, p[1:], hm))          # unaligned probes
+    assert K4.merge_count.launches == before + 2
 
 
 @pytest.mark.parametrize("nseg,words", [(16, 8), (32, 2), (16, 17),

@@ -129,6 +129,56 @@ def test_carried_jax_sidecar_gives_same_bounds(rng):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6)
 
 
+@pytest.mark.parametrize("d", [128, 768])
+@pytest.mark.parametrize("nq", [1, 9, 128])
+@pytest.mark.parametrize("metric", ["L2", "Cosine", "IP"])
+def test_3xtf32_arithmetic_matches_f32_and_pallas(rng, d, nq, metric):
+    """The CUDA kernel's products (three TF32 products per term, the lo.lo
+    term dropped, summed per 32-dim chunk), repeated in PyTorch, give the
+    segment minima of the full f32 product and of the Pallas kernel within
+    the stated tolerance, with rows of large and tiny norm and a ragged n.
+    The tensor cores' truncating sums inside a chunk are not repeated here:
+    test_torch_cuda.py's K2 cases hold the kernel itself to the tolerance."""
+    n = 2 * 128 + 45
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    x[::5] *= 1e3
+    x[1::7] *= 1e-3
+    x[2] = 0.0
+    q = rng.standard_normal((nq, d)).astype(np.float32)
+    mask = rng.random(n) < 0.7
+    xt, qt = torch.from_numpy(x), torch.from_numpy(q)
+    sqn = (xt * xt).sum(1)
+    q_aux = query_aux(qt, metric)
+    mask_f = torch.from_numpy(mask.astype(np.float32))
+    got = K2.segmin_f32_3xtf32(xt, qt, sqn, q_aux, mask_f, metric)
+    plain = K2.segmin_f32_plain(xt, qt, sqn, q_aux, mask_f, metric)
+    want = np.asarray(fused_segmin_scores(
+        jnp.asarray(x), jnp.asarray(q), jnp.asarray(sqn.numpy()),
+        jnp.asarray(q_aux.numpy()), jnp.asarray(mask.astype(np.float32)),
+        metric, True, interpret=True))[:, :got.shape[1]]
+    assert got.shape == (nq, 3)
+    np.testing.assert_array_equal(np.isposinf(got.numpy()), np.isposinf(want))
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-5,
+                               atol=1e-3)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-3)
+
+
+def test_tf32_round_is_cvt_rna():
+    """Round to 10 mantissa bits, ties away from zero, as cvt.rna.tf32.f32
+    does; the split's halves add back to the value within 2^-22."""
+    ulp = 2.0 ** -10
+    a = torch.tensor([1 + ulp / 2, 1 + ulp / 4, 1 + 3 * ulp / 4, -(1 + ulp / 2),
+                      3.0, 0.0, 2.0 ** -130])
+    want = [1 + ulp, 1.0, 1 + ulp, -(1 + ulp), 3.0, 0.0, 2.0 ** -130]
+    assert K2.tf32_round(a).tolist() == want
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(10_000)
+                         .astype(np.float32))
+    hi = K2.tf32_round(x)
+    lo = K2.tf32_round(x - hi)
+    assert bool(((hi.view(torch.int32) & 0x1FFF) == 0).all())
+    assert float(((hi + lo - x).abs() / x.abs()).max()) <= 2.0 ** -21
+
+
 def test_wrappers_reject_bad_inputs():
     x = torch.zeros(256, D)
     q = torch.zeros(2, D)

@@ -5,7 +5,9 @@ itself, run under ``pltpu.force_tpu_interpret_mode()``, and the
 tests/test_merge_count.py — on the same numpy inputs.  Counts are integers
 and must be equal.  Also ``ht_count_matches``' dispatch: one narrow integer
 key of a join build takes K4, several keys or a GROUP BY build the merge
-sort."""
+sort.  The CUDA kernel's radix directory cannot run here: its layout and a
+PyTorch walk of the kernel's steps (``directory_walk``) are held against
+searchsorted and the Pallas kernel instead."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -17,6 +19,7 @@ from myscaledb_tpu.ops.pallas import merge_count as JMC
 from myscaledb_tpu.ops import hashtable as JHT
 from myscaledb_tpu_torch.interop import count_probe_build_from_numpy
 from myscaledb_tpu_torch.ops import hashtable as PHT
+from myscaledb_tpu_torch.ops.kernels import merge_count as K4
 from myscaledb_tpu_torch.ops.kernels.merge_count import (IMAX, merge_count,
                                                          merge_count_plain,
                                                          prepare_build)
@@ -162,3 +165,83 @@ def test_eligibility_follows_the_logical_type(np_dtype, eligible):
     col = np.arange(10).astype(np_dtype)
     assert JHT._merge_count_eligible(jnp.asarray(col)) == eligible
     assert PHT._merge_count_eligible(to_tensor(col, "cpu")) == eligible
+
+
+EDGE = K4.index_edge_cases()
+
+
+@pytest.mark.parametrize("case", sorted(EDGE))
+def test_directory_walk_equals_searchsorted_and_jax(case):
+    """The kernel's steps over its radix directory, taken in PyTorch on the
+    directory's edge cases (nb of 0, 1, 2, 16, 17 and 4097, every key in
+    one bucket, dense ids, keys at INT32_MIN and INT32_MAX - 1, duplicates
+    across bucket edges, an all-invalid build, probes below lo and above
+    hi), count what torch.searchsorted and the Pallas kernel count."""
+    build, valid, probe = EDGE[case]
+    b, hm = prepare_build(torch.from_numpy(build), torch.from_numpy(valid))
+    index = K4.build_count_index(b)
+    pt = torch.from_numpy(probe)
+    got = int(K4.directory_walk(b, pt, hm, index))
+    assert got == int(merge_count_plain(b, pt, hm)) == _want(build, valid,
+                                                              probe)
+    if len(build):       # the JAX prepare_build needs one key at least
+        b2d, jhm = JMC.prepare_build(jnp.asarray(build), jnp.asarray(valid))
+        with pltpu.force_tpu_interpret_mode():
+            want = int(JMC.merge_count(b2d, jnp.asarray(probe), jhm,
+                                       chunk_elems=1 << 16, interpret=False))
+        assert got == want
+
+
+@pytest.mark.parametrize("case", sorted(EDGE))
+def test_directory_layout(case):
+    """The directory the kernel reads: bucket j starts at the first key >=
+    lo + j << shift, at most next_pow2(keys // 4) and 2^DIR_BITS buckets
+    (the narrowest buckets within that), the last one ending where
+    INT32_MAX sentinels begin, and `steps` halvings narrow its longest
+    bucket to one 4-key block."""
+    build, valid, _probe = EDGE[case]
+    b, _hm = prepare_build(torch.from_numpy(build), torch.from_numpy(valid))
+    index = K4.build_count_index(b)
+    real = b[b != IMAX]
+    if real.numel() == 0:
+        assert index.nbuckets == 0 and index.hi < index.lo
+        return
+    assert (index.lo, index.hi) == (int(real[0]), int(real[-1]))
+    most = min(1 << K4.DIR_BITS, PHT.next_pow2(real.numel() // 4))
+    assert 1 <= index.nbuckets <= most
+    assert index.shift == 0 or \
+        ((index.hi - index.lo) >> (index.shift - 1)) >= most
+    assert ((index.hi - index.lo) >> index.shift) == index.nbuckets - 1
+    if case == "dups_straddle_edges":    # edges at the multiples of 8
+        assert (index.lo, index.shift) == (0, 3)
+    s = index.starts.long()
+    assert int(s[0]) == 0 and int(s[-1]) == real.numel()
+    assert bool((s[1:] >= s[:-1]).all())
+    key = real.long()
+    bucket = (key - index.lo) >> index.shift
+    pos = torch.arange(real.numel())
+    assert bool(((s[bucket] <= pos) & (pos < s[bucket + 1])).all())
+    blocks = (s[1:] - 1) // 4 - s[:-1] // 4 + 1
+    longest = int(torch.where(s[1:] > s[:-1], blocks, 0).max())
+    assert (1 << index.steps) >= longest > (1 << index.steps) // 2 or \
+        longest == 1 and index.steps == 0
+
+
+def test_join_build_keeps_the_directory():
+    """A join build of one int32 key carries K4's directory, so the count
+    probe pays for it once per build."""
+    r = np.random.default_rng(11)
+    build = r.integers(-10 ** 6, 10 ** 6, 3000).astype(np.int32)
+    table, _, _ = PHT.build_group_ids((torch.from_numpy(build),),
+                                      prepare_count_probe=True)
+    index = table.count_index
+    assert index is not None
+    assert torch.equal(index.starts,
+                       K4.build_count_index(table.sorted_keys).starts)
+    probe = torch.from_numpy(r.integers(-10 ** 6, 10 ** 6, 20_000)
+                             .astype(np.int32))
+    assert int(K4.directory_walk(table.sorted_keys, probe,
+                                 table.sorted_has_max, index)) == \
+        int(PHT.ht_count_matches(table, (probe,)))
+    assert PHT.build_group_ids((torch.from_numpy(build),))[0] \
+        .count_index is None
