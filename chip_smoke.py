@@ -2,8 +2,8 @@
 
 Usage:  python3 chip_smoke.py [--seed N]
 
-Five main paths, the SQL ones through the entry points a user calls
-(``connect()`` -> ``Session.create_table`` -> ``Session.sql``):
+Six main paths, the SQL ones through the entry points a user calls
+(``connect()`` -> ``Session.create_table`` or SQL DDL -> ``Session.sql``):
 
   BASELINE config 1, the filtered exact vector top-k, over n = 1,000,000
   rows of 128-dim f32 embeddings and a uniform Int32 price column:
@@ -33,6 +33,17 @@ Five main paths, the SQL ones through the entry points a user calls
 
     SELECT id, distance(bv, unhex('<64 hex>')) AS d FROM tb
     ORDER BY d LIMIT 10
+
+  BASELINE config 1 again, with the table made by the statements a user
+  types — CREATE TABLE, ten INSERT ... SELECT batches of 100,000 rows,
+  OPTIMIZE, ALTER ... ADD VECTOR INDEX — then distance() and
+  batch_distance() statements with nq = 10 (bench.py's config 1) and 128
+  query vectors:
+
+    SELECT id, batch_distance(emb, [[q1...], ...]) AS dist FROM tv
+    WHERE price < 50 ORDER BY dist.1, dist.2 LIMIT 10 BY dist.1
+
+  and the 23 vector goldens (tests/goldens/vector) on the card.
 
 Phases, one JSON line each; any failure raises and the script exits
 non-zero without printing a result:
@@ -70,9 +81,28 @@ non-zero without printing a result:
               under the Jaccard table setting; ids and distances equal to a
               byte-table popcount oracle over every row on the card (ties
               by id); the binary segment-min kernel must launch
+  sql_ddl     config 1 through DDL: insert rows/s and system.parts (ten
+              parts, one after OPTIMIZE FINAL), the index build, twenty
+              distance statements (K1 in each, K2 where the certificate
+              failed), ten timed
+              batch_distance statements at nq = 10 and at nq = 128 (K1
+              once a statement, K2 exactly in the statements whose
+              certificate failed, recomputed from the sidecar; a profiler
+              pass over three more at each nq), the batch
+              statements at nq = 10, 32, 128 on identical rows (K2 must
+              launch: its wgmma half at 32 and 128), DELETE of about 1% of
+              the rows and the first query after it, DETACH/ATTACH, an
+              index build of 2,097,152 rows on the background executor
+              with a query right after it, DROP; every statement's rows
+              equal the direct-formula oracle over the table's current
+              rows
+  goldens_vector  the 23 vector goldens through run_golden_text(connect()),
+              each byte-identical to its .reference
 
-Kernel times are medians of CUDA-event timings: ``ms`` is one call of the
-wrapper (for segmin_sq8 that includes its PyTorch query quantization; for
+Kernel times are medians of CUDA-event timings, K1 at nq = 1, 10 and 128
+and K2 at nq = 1, 10, 32 and 128 (the summary's ``at_other_nq``): ``ms``
+is one call of the wrapper (for segmin_sq8 that includes its PyTorch
+query quantization; for
 merge_count, called with no index, the build of its radix directory;
 ``ms_with_index`` is merge_count given the directory, as the join build
 passes it), ``kernel_ms`` the bare launch (for segmin_f32 the query split
@@ -90,8 +120,9 @@ products as three TF32 products each, at 495 TFLOP/s).
 All five launch counters are zeroed just before each path's run (the
 twenty certified queries; the three uncertifiable statements; the ten
 config-2 statements; the join build and count probes; the join statements
-up to the last timed one; the ten config-6 statements) and read just after
-it; each kernel must have launched in the run of its path, and the summary
+up to the last timed one; the ten config-6 statements; on the DDL-built
+table the twenty distance statements, the ten batch statements at each
+nq, and the three identical-rows statements) and read just after it; each kernel must have launched in the run of its path, and the summary
 reports every kernel's count on every path.  Launches made to compare a
 kernel with its plain version, the profiler passes and the 10M-row branch
 statements count nowhere.  The last lines are the kernels
@@ -242,6 +273,10 @@ def phase_kernels(gen):
     dev = "cuda"
     tiles_gen = torch.Generator(device=dev).manual_seed(
         gen.initial_seed() + 1)
+    # nq = 32 (batch_distance's K2 shape on the sql_ddl path) draws from a
+    # generator of its own too
+    nq32_gen = torch.Generator(device=dev).manual_seed(
+        gen.initial_seed() + 2)
     report = {"segmin_f32": {"max_abs_err": 0.0, "checks": 0},
               "segmin_sq8": {"max_abs_err": 0.0, "checks": 0}}
 
@@ -260,11 +295,13 @@ def phase_kernels(gen):
         x = torch.randn(n, d, device=dev, generator=gen)
         sqn = (x * x).sum(1)
         mask = (torch.rand(n, device=dev, generator=gen) < 0.5).float()
-        for nq in (1, 8, 9, 10, 128):
-            # the nq = 8, 9 cases (one and two query tiles of K2) draw from
-            # their own generator, so the later kernels' data stays as it was
+        for nq in (1, 8, 9, 10, 32, 128):
+            # the nq = 8, 9 cases (one and two query tiles of K2) and nq = 32
+            # draw from their own generators, so the later kernels' data
+            # stays as it was
             q = torch.randn(nq, d, device=dev,
-                            generator=tiles_gen if nq in (8, 9) else gen)
+                            generator=nq32_gen if nq == 32 else
+                            tiles_gen if nq in (8, 9) else gen)
             for metric in METRICS:
                 qa = query_aux(q, metric)
                 check("segmin_f32",
@@ -675,6 +712,44 @@ def profile_statements(s, statements):
             "device_busy_share": device_ms / wall_ms,
             "top_kernels_us_per_query": {
                 e.key[:60]: dev_us(e) / len(statements) for e in top}}
+
+
+def host_split(s, statements):
+    """Where a statement's host-clock time goes, by the port's tracing
+    spans (query, parse, analyze, vector_topk, materialize, sort,
+    limit_by): each span's own time less its children's, in ms per
+    statement, beside to_rows(), the time outside every span, and the
+    whole statement.  Spans do not
+    synchronize the card, so the scan's device time lands in the span
+    that first waits for it (materialize's copy of the top-k ids)."""
+    from myscaledb_tpu_torch.runtime.tracing import (clear_span_log,
+                                                     span_log_snapshot)
+    clear_span_log()
+    total = to_rows = 0.0
+    for stmt in statements:
+        t0 = time.perf_counter()
+        res = s.sql(stmt)
+        t1 = time.perf_counter()
+        res.to_rows()
+        t2 = time.perf_counter()
+        total += t2 - t0
+        to_rows += t2 - t1
+    spans = span_log_snapshot()
+    children = {}
+    for sp in spans:
+        if sp.parent_span_id is not None:
+            children[sp.parent_span_id] = \
+                children.get(sp.parent_span_id, 0.0) + sp.end - sp.start
+    own = {}
+    for sp in spans:
+        own[sp.name] = own.get(sp.name, 0.0) + sp.end - sp.start \
+            - children.get(sp.span_id, 0.0)
+    n = len(statements)
+    out = {f"{name}_own_ms": v * 1e3 / n for name, v in sorted(own.items())}
+    out["to_rows_ms"] = to_rows * 1e3 / n
+    out["outside_spans_ms"] = (total - to_rows - sum(own.values())) * 1e3 / n
+    out["statement_ms"] = total * 1e3 / n
+    return out
 
 
 def phase_sql(seed: int):
@@ -1296,6 +1371,333 @@ def phase_sql_binary(seed: int):
     return counts
 
 
+# BASELINE config 1 through DDL: the same shape as phase sql_sq8, built
+# with CREATE / INSERT ... SELECT; bench.py's nq = 10 and the kernels' most
+NQ_BATCH = (10, 128)
+NQ_BATCH_SAME = (10, 32, 128)
+N_BACKGROUND = 1 << 21          # rows of the index build the background
+                                # executor takes (ddl.BACKGROUND_BUILD_ROWS)
+
+
+def batch_sql(table: str, qs: np.ndarray, where="WHERE price < 50 ") -> str:
+    lit = "[" + ",".join(vec_sql(q) for q in qs) + "]"
+    return (f"SELECT id, batch_distance(emb, {lit}) AS dist FROM {table} "
+            f"{where}ORDER BY dist.1, dist.2 LIMIT {K} BY dist.1")
+
+
+def check_rows(s, table, rows, qs, tag, exact_ids=True):
+    """Each query's (id, distance) rows against the direct-formula oracle
+    over the table's current rows (WHERE price < 50, ties by id); ids are
+    read through the table's id column, so a compacted table maps right."""
+    t = s.tables[table]
+    x, price, idc = t["emb"].data, t["price"].data, t["id"].data
+    qs = np.atleast_2d(qs)
+    for qi, q in enumerate(qs):
+        got = [r for r in rows if len(r) == 2 or r[1] == qi]
+        order, want_d = oracle(x, price, torch.as_tensor(q, device="cuda"),
+                               K)
+        want_ids = idc[torch.as_tensor(order, device="cuda")].cpu().tolist()
+        got_ids = [int(r[0]) for r in got]
+        if got_ids != want_ids:
+            raise AssertionError(f"{tag} query {qi}: ids {got_ids} != "
+                                 f"oracle {want_ids}")
+        np.testing.assert_allclose([r[-1] for r in got], want_d,
+                                   rtol=SQL_RTOL, err_msg=tag)
+
+
+def timed_statements(s, statements):
+    """Host-clock ms and rows of each statement, and how many times K2
+    launched in each."""
+    from myscaledb_tpu_torch.ops.kernels.distance import segmin_f32
+    lat, out, k2 = [], [], []
+    for sql in statements:
+        before = segmin_f32.launches
+        t0 = time.perf_counter()
+        rows = s.sql(sql).to_rows()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        out.append(rows)
+        k2.append(segmin_f32.launches - before)
+    return lat, out, k2
+
+
+def certificate_held(s, table, qs) -> bool:
+    """K1's certificate for one statement's queries (one verdict for all
+    of them), recomputed from the table's sidecar as the scan computes it
+    (WHERE price < 50, k = 10, margin 16).  Called outside every counted
+    run: it launches K1."""
+    from myscaledb_tpu_torch.ops.vector import _distance_scan_sq8
+    from myscaledb_tpu_torch.sql.executor import _vector_sidecar
+    t = s.tables[table]
+    _sqn, (x8, sides) = _vector_sidecar(s, table, t, "emb")
+    _d, _i, ok = _distance_scan_sq8(
+        t["emb"].data, x8, sides,
+        torch.as_tensor(np.atleast_2d(qs), device="cuda"),
+        t["price"].data < 50, "L2", K, True, 16)
+    return bool(ok)
+
+
+def check_k2_where_certificate_fails(s, table, qss, k2, tag) -> int:
+    """K2 launched in a statement exactly when K1's certificate failed
+    for it (the scan's fallback).  Returns the statements certified."""
+    held = [certificate_held(s, table, qs) for qs in qss]
+    for i, (h, n2) in enumerate(zip(held, k2)):
+        if n2 != (0 if h else 1):
+            raise AssertionError(f"{tag} statement {i}: certificate "
+                                 f"{'held' if h else 'failed'}, K2 "
+                                 f"launched {n2} times")
+    return sum(held)
+
+
+def summary_ms(lat) -> dict:
+    return {"median_ms": float(np.median(lat)),
+            "p90_ms": float(np.percentile(lat, 90)), "ms": lat}
+
+
+def phase_sql_ddl(seed: int):
+    """Config 1 at full width through the statements a user types: CREATE,
+    ten INSERT ... SELECT batches, OPTIMIZE, ADD VECTOR INDEX, distance and
+    batch_distance queries, the uncertifiable batch statements, DELETE,
+    DETACH/ATTACH, a background index build, DROP."""
+    import myscaledb_tpu_torch as P
+    from myscaledb_tpu_torch.ops.kernels.distance import segmin_f32
+    from myscaledb_tpu_torch.ops.kernels.distance_q import segmin_sq8
+    from myscaledb_tpu_torch.storage.background import default_executor
+
+    rng = np.random.default_rng(seed + 10)
+    s = P.connect()
+    data = {"id": np.arange(N, dtype=np.int64),
+            "price": rng.integers(0, 100, N).astype(np.int32),
+            "emb": rng.standard_normal((N, D), dtype=np.float32)}
+    s.create_table("src", data)
+    del data
+    out = {}
+    s.sql("CREATE TABLE tv (id UInt32, emb Array(Float32), price Int32, "
+          f"CONSTRAINT emb_len CHECK length(emb) = {D}) ENGINE = MergeTree "
+          "ORDER BY id")
+    # the background merge would collapse the parts at eight; hold it off
+    # so system.parts shows the ten batches
+    s.sql("SYSTEM STOP MERGES tv")
+    step = N // 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ins = []
+    for a in range(0, N, step):
+        t1 = time.perf_counter()
+        s.sql(f"INSERT INTO tv SELECT id, emb, price FROM src "
+              f"WHERE id >= {a} AND id < {a + step}")
+        torch.cuda.synchronize()
+        ins.append((time.perf_counter() - t1) * 1e3)
+    insert_s = time.perf_counter() - t0
+    parts = s.sql("SELECT count() FROM system.parts WHERE table = 'tv'") \
+        .to_rows()[0][0]
+    if parts != 10 or s.tables["tv"].n_rows != N:
+        raise AssertionError(f"after ten INSERTs: {parts} parts, "
+                             f"{s.tables['tv'].n_rows} rows")
+    s.sql("OPTIMIZE TABLE tv FINAL")
+    parts_after = s.sql("SELECT count() FROM system.parts "
+                        "WHERE table = 'tv'").to_rows()[0][0]
+    if parts_after != 1:
+        raise AssertionError(f"OPTIMIZE FINAL left {parts_after} parts")
+    if s.tables["tv"]["emb"].data.data_ptr() % 16:
+        raise AssertionError("the concatenated vectors are not 16-byte "
+                             "aligned")
+    s.sql("DROP TABLE src")
+    torch.cuda.empty_cache()
+    out["load"] = {"insert_s": insert_s, "insert_rows_per_s": N / insert_s,
+                   "insert_batch_ms": ins, "parts_after_inserts": parts,
+                   "parts_after_optimize": parts_after}
+
+    t0 = time.perf_counter()
+    s.sql("ALTER TABLE tv ADD VECTOR INDEX v emb TYPE MSTG")
+    torch.cuda.synchronize()
+    out["index_build_ms"] = (time.perf_counter() - t0) * 1e3
+    status = s.sql("SELECT status FROM system.vector_indices "
+                   "WHERE table = 'tv'").to_rows()
+    if status != [("Built",)]:
+        raise AssertionError(f"index status {status}")
+
+    stmt = ("SELECT id, distance(emb, {q}) AS d FROM tv WHERE price < 50 "
+            "ORDER BY d LIMIT 10")
+    queries = rng.standard_normal((20, D), dtype=np.float32)
+    counts = {}
+    # the DDL-built table's distance statements: counts zeroed just
+    # before, read just after
+    zero_launches()
+    lat, rows, k2 = timed_statements(s, [stmt.format(q=vec_sql(q))
+                                         for q in queries])
+    counts["sql_ddl"] = read_launches()
+    for qi, r in enumerate(rows):
+        check_rows(s, "tv", r, queries[qi], f"sql_ddl distance {qi}")
+    if counts["sql_ddl"]["segmin_sq8"] != 20:
+        raise AssertionError(f"distance statements: {counts['sql_ddl']}")
+    held = check_k2_where_certificate_fails(s, "tv", queries, k2,
+                                            "sql_ddl distance")
+    out["distance"] = {**summary_ms(lat), "launches": counts["sql_ddl"],
+                       "certificate_held": f"{held} of 20 statements"}
+
+    out["batch"] = {}
+    for nq in NQ_BATCH:
+        qs = [rng.standard_normal((nq, D), dtype=np.float32)
+              for _ in range(11)]
+        s.sql(batch_sql("tv", qs[0]))                   # warm-up
+        zero_launches()
+        lat, rows, k2 = timed_statements(s, [batch_sql("tv", q)
+                                             for q in qs[1:]])
+        c = read_launches()
+        counts[f"sql_ddl_batch_nq{nq}"] = c
+        for i, r in enumerate(rows):
+            if len(r) != nq * K:
+                raise AssertionError(f"batch nq={nq}: {len(r)} rows")
+            check_rows(s, "tv", r, qs[i + 1], f"sql_ddl batch nq={nq}")
+        if c["segmin_sq8"] != 10:
+            raise AssertionError(f"batch nq={nq}: K1 launched "
+                                 f"{c['segmin_sq8']} times in 10 statements")
+        held = check_k2_where_certificate_fails(s, "tv", qs[1:], k2,
+                                                f"batch nq={nq}")
+        # outside every reported count: where a batch statement's time goes
+        breakdown = profile_statements(s, [batch_sql("tv", q)
+                                           for q in qs[1:4]])
+        split = host_split(s, [batch_sql("tv", q) for q in qs[1:4]])
+        out["batch"][f"nq={nq}"] = {
+            **summary_ms(lat), "launches": c,
+            "certificate_held": f"{held} of 10 statements",
+            "profile_3_statements": breakdown,
+            "host_split_3_statements": split}
+
+    # identical rows, built by DDL: the certificate cannot hold, K2 runs
+    m = 1 << 16
+    same = np.tile(rng.standard_normal((1, D), dtype=np.float32), (m, 1))
+    s.create_table("src_same", {"id": np.arange(m, dtype=np.int64),
+                                "emb": same,
+                                "price": rng.integers(0, 100, m)
+                                .astype(np.int32)})
+    s.sql("CREATE TABLE same (id UInt32, emb Array(Float32), price Int32, "
+          f"CONSTRAINT l CHECK length(emb) = {D}) ENGINE = MergeTree "
+          "ORDER BY id")
+    s.sql("INSERT INTO same SELECT id, emb, price FROM src_same")
+    s.sql("DROP TABLE src_same")
+    out["batch_same"] = {}
+    zero_launches()
+    for nq in NQ_BATCH_SAME:
+        qs = rng.standard_normal((nq, D), dtype=np.float32)
+        before = (segmin_sq8.launches, segmin_f32.launches)
+        lat, rows, _ = timed_statements(s, [batch_sql("same", qs)])
+        grew = (segmin_sq8.launches - before[0],
+                segmin_f32.launches - before[1])
+        if grew[1] < 1:
+            raise AssertionError(f"identical rows nq={nq}: K2 did not "
+                                 f"launch ({grew})")
+        check_rows(s, "same", rows[0], qs, f"sql_ddl identical nq={nq}")
+        out["batch_same"][f"nq={nq}"] = {"ms": lat[0], "sq8": grew[0],
+                                         "f32": grew[1]}
+    counts["sql_ddl_same"] = read_launches()
+    s.sql("DROP TABLE same")
+
+    # DELETE about 1% of the rows: the epoch moves, so the first query
+    # after it rebuilds the sidecar; no deleted id may come back
+    deleted = set(s.tables["tv"]["id"].data[
+        s.tables["tv"]["price"].data == 7].cpu().tolist())
+    s.sql("SET mutations_sync = 1")
+    t0 = time.perf_counter()
+    s.sql("DELETE FROM tv WHERE price = 7")
+    torch.cuda.synchronize()
+    delete_ms = (time.perf_counter() - t0) * 1e3
+    q = rng.standard_normal((1, D), dtype=np.float32)
+    lat, rows, _ = timed_statements(s, [stmt.format(q=vec_sql(q[0]))])
+    check_rows(s, "tv", rows[0], q[0], "after DELETE")
+    qb = rng.standard_normal((10, D), dtype=np.float32)
+    _, brows, _ = timed_statements(s, [batch_sql("tv", qb)])
+    check_rows(s, "tv", brows[0], qb, "batch after DELETE")
+    back = {r[0] for r in rows[0] + brows[0]} & deleted
+    if back or s.tables["tv"].n_rows != N - len(deleted):
+        raise AssertionError(f"deleted ids came back: {sorted(back)[:5]}")
+    out["delete"] = {"rows_deleted": len(deleted), "delete_ms": delete_ms,
+                     "first_query_after_ms": lat[0]}
+
+    s.sql("DETACH TABLE tv")
+    s.sql("ATTACH TABLE tv")
+    lat, again, _ = timed_statements(s, [stmt.format(q=vec_sql(q[0]))])
+    if again[0] != rows[0]:
+        raise AssertionError("rows changed across DETACH/ATTACH")
+    out["after_attach_query_ms"] = lat[0]
+
+    # an index build big enough for the background executor; the query
+    # right after it either finds the build done or waits for it
+    big = rng.standard_normal((N_BACKGROUND, D), dtype=np.float32)
+    s.create_table("src_big", {"id": np.arange(N_BACKGROUND,
+                                               dtype=np.int64),
+                               "emb": big,
+                               "price": rng.integers(0, 100, N_BACKGROUND)
+                               .astype(np.int32)})
+    del big
+    s.sql("CREATE TABLE big (id UInt32, emb Array(Float32), price Int32, "
+          f"CONSTRAINT l CHECK length(emb) = {D}) ENGINE = MergeTree "
+          "ORDER BY id")
+    s.sql("INSERT INTO big SELECT id, emb, price FROM src_big")
+    s.sql("DROP TABLE src_big")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.sql("ALTER TABLE big ADD VECTOR INDEX vb emb TYPE MSTG")
+    alter_ms = (time.perf_counter() - t0) * 1e3
+    qg = rng.standard_normal((1, D), dtype=np.float32)
+    t0 = time.perf_counter()
+    grows = s.sql(stmt.format(q=vec_sql(qg[0])).replace("FROM tv",
+                                                        "FROM big")).to_rows()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    check_rows(s, "big", grows, qg[0], "query after the background build")
+    if not default_executor().wait_idle(120):
+        raise AssertionError("the background index build did not finish")
+    bstatus = s.sql("SELECT status FROM system.vector_indices "
+                    "WHERE table = 'big'").to_rows()
+    if bstatus != [("Built",)]:
+        raise AssertionError(f"background build status {bstatus}")
+    out["background_build"] = {"rows": N_BACKGROUND, "alter_ms": alter_ms,
+                               "first_query_ms": first_ms}
+
+    for t in ("tv", "big"):
+        s.sql(f"DROP TABLE {t}")
+    if s.tables:
+        raise AssertionError(f"tables left: {list(s.tables)}")
+    s._vector_sidecars.clear()
+    del s
+    torch.cuda.empty_cache()
+    emit({"phase": "sql_ddl", "rows": N, "dim": D, "k": K, **out,
+          "launches": counts,
+          "oracle": "ids equal, distances rtol 2e-5, per query"})
+    return counts
+
+
+def phase_goldens_vector() -> int:
+    """The 23 vector goldens through connect() on the card, each
+    byte-identical to its .reference."""
+    import os
+    import myscaledb_tpu_torch as P
+    from myscaledb_tpu_torch.testing import run_golden_text
+    gdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "goldens", "vector")
+    names = sorted(f[:-4] for f in os.listdir(gdir) if f.endswith(".sql"))
+    t0 = time.perf_counter()
+    bad = []
+    for name in names:
+        sql = open(os.path.join(gdir, name + ".sql")).read()
+        want = open(os.path.join(gdir, name + ".reference")).read() \
+            .rstrip("\n").split("\n")
+        if want == [""]:
+            want = []
+        s = P.connect()
+        if s.device.type != "cuda":
+            raise AssertionError(f"connect() chose {s.device}")
+        if run_golden_text(s, sql) != want:
+            bad.append(name)
+    emit({"phase": "goldens_vector", "cases": len(names),
+          "identical": len(names) - len(bad), "differ": bad,
+          "seconds": time.perf_counter() - t0})
+    if bad or len(names) != 23:
+        raise AssertionError(f"vector goldens: {len(names) - len(bad)} of "
+                             f"{len(names)} identical; differ: {bad}")
+    return len(names)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1347,6 +1749,8 @@ def main() -> int:
     counts["join_count"] = phase_join_count(args.seed)
     counts["sql_join"] = phase_sql_join(args.seed)
     counts["sql_binary"] = phase_sql_binary(args.seed)
+    counts.update(phase_sql_ddl(args.seed))
+    phase_goldens_vector()
 
     summary = []
     # each kernel's launches come from the run of the path that takes it:
@@ -1382,7 +1786,12 @@ def main() -> int:
                         "plain_ms": t["plain_ms"],
                         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"],
-                        "library_note": t.get("library_note")})
+                        "library_note": t.get("library_note"),
+                        "at_other_nq": {
+                            f"nq={nq}": {k: v for k, v in tt.items()
+                                         if k != "library_note"}
+                            for (kn, nq), tt in sorted(timings.items())
+                            if kn == name and nq != 1}})
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

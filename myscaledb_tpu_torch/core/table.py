@@ -385,10 +385,12 @@ class Table:
 
 
 def concat_tables(tables: Sequence[Table], name: str = "") -> Table:
-    """Concatenate row-wise (the union of GROUP BY ROLLUP/CUBE/GROUPING SETS
-    levels); string dictionaries are merged with id remapping.  The port of
-    myscaledb_tpu/core/table.py::concat_tables for scalar columns (ARRAY
-    columns come with the expression and function breadth slice)."""
+    """Concatenate row-wise (INSERT appends a batch to its table; the
+    union of GROUP BY ROLLUP/CUBE/GROUPING SETS levels); string
+    dictionaries are merged with id remapping, ARRAY offsets rebased,
+    FLOAT32_VECTOR rows and validity masks stacked.  The port of
+    myscaledb_tpu/core/table.py::concat_tables; every tensor stays on the
+    device of the parts."""
     if not tables:
         return Table([], name=name)
     first = tables[0]
@@ -396,10 +398,31 @@ def concat_tables(tables: Sequence[Table], name: str = "") -> Table:
     for cname in first.column_names:
         cols = [t[cname] for t in tables]
         fld = cols[0].field
-        if any(c.offsets is not None for c in cols):
-            from myscaledb_tpu_torch.errors import NotPortedError
-            raise NotPortedError("concatenating ARRAY columns",
-                                 "expression and function breadth")
+        if fld.dtype is DataType.ARRAY:
+            if any(c.dictionary is not None for c in cols):
+                base = StringDictionary()
+                datas = []
+                for c in cols:
+                    remap = base.merge_from(c.dictionary
+                                            or StringDictionary())
+                    lut = to_tensor(np.append(remap, NULL_ID)
+                                    .astype(np.int64), c.data.device)
+                    datas.append(torch.where(c.data == NULL_ID, NULL_ID,
+                                             lut[c.data.long()]))
+                data = torch.cat(datas)
+                dictionary = base
+            else:
+                data = torch.cat([c.data for c in cols])
+                dictionary = None
+            offs = [np.asarray(c.offsets) for c in cols]
+            out_off = [offs[0]]
+            base_n = offs[0][-1]
+            for o in offs[1:]:
+                out_off.append(o[1:] + base_n)
+                base_n += o[-1]
+            out_cols.append(Column(fld, data, _cat_valid(cols), dictionary,
+                                   None, np.concatenate(out_off)))
+            continue
         if fld.dtype is DataType.STRING:
             base = StringDictionary()
             datas = []
@@ -415,12 +438,15 @@ def concat_tables(tables: Sequence[Table], name: str = "") -> Table:
         else:
             data = torch.cat([c.data for c in cols])
             dictionary = None
-        if any(c.valid is not None for c in cols):
-            valid = torch.cat([
-                c.valid if c.valid is not None
-                else torch.ones(len(c), dtype=torch.bool,
-                                device=c.data.device) for c in cols])
-        else:
-            valid = None
-        out_cols.append(Column(fld, data, valid, dictionary, None))
+        out_cols.append(Column(fld, data, _cat_valid(cols), dictionary,
+                               None))
     return Table(out_cols, name=name or first.name)
+
+
+def _cat_valid(cols):
+    """Validity of concatenated columns: None when no part has NULLs."""
+    if all(c.valid is None for c in cols):
+        return None
+    return torch.cat([c.valid if c.valid is not None
+                      else torch.ones(len(c), dtype=torch.bool,
+                                      device=c.data.device) for c in cols])

@@ -9,6 +9,8 @@ scalar functions abs .. isNotNull, and the string functions that build
 binary query vectors: ``unhex``, ``unbin`` and ``char`` (the port of
 myscaledb_tpu/exec/scalar_fns.py's, with ``_dict_transform``; ``char`` is
 the second of its two registrations there, the one the JAX package runs).
+exec/scalar_fns.py adds the array literals and functions the DDL statements
+use (``array``, ``range``, ``length``, ``sleep``, ``currentDatabase``).
 Every other node or function raises ``NotPortedError``.
 
 String semantics ride the dictionary: predicates on strings are evaluated
@@ -551,3 +553,7 @@ def eval_expr(e: Expr, env: Env) -> Value:
         return impl(args, env)
     raise NotPortedError(f"expression {type(e).__name__}", EXPR_SLICE)
 
+
+# the DDL slice's scalar and array functions (imported at the bottom: that
+# module needs this one fully initialized, as in the JAX package)
+from myscaledb_tpu_torch.exec import scalar_fns as _scalar_fns  # noqa: E402,F401

@@ -235,8 +235,8 @@ def finalize(states, group_count, fns) -> list[np.ndarray]:
 
 
 def streaming_group_aggregate(key_cols, mask, args, fns: tuple,
-                              arg_valids=None, chunk_rows: int = 8 << 20,
-                              device=None):
+                              arg_valids=None, chunk_rows: int = 8 << 20, *,
+                              device):
     """Out-of-device grouped aggregation: stream host-resident columns
     through the card in chunks, aggregate each chunk there, merge the
     (small) per-chunk group states on the host.
@@ -250,7 +250,8 @@ def streaming_group_aggregate(key_cols, mask, args, fns: tuple,
     dictionary ids for strings).  mask: optional (n,) bool.  args /
     arg_valids / fns as partial_aggregate_matmul (fns limited to the
     mergeable set: sum/count/avg/min/max/any; None for count).  device:
-    where the chunks go (default: the first tensor's device, else the CPU).
+    where the chunks go, required as in ``Env``: host arrays alone do not
+    say which device the caller's session runs on.
 
     Returns (rep_keys, states, group_count): rep_keys = tuple of numpy
     arrays (G,) with each group's key values; states finalize()-compatible
@@ -263,9 +264,6 @@ def streaming_group_aggregate(key_cols, mask, args, fns: tuple,
     sized = [a for a in (*key_cols, *args, mask) if a is not None]
     if not sized:
         raise ValueError("streaming aggregation needs at least one column")
-    if device is None:
-        device = next((a.device for a in sized
-                       if isinstance(a, torch.Tensor)), torch.device("cpu"))
     n = sized[0].shape[0]
     nk = len(key_cols)
     # the logical dtype of a host argument is its numpy dtype

@@ -63,12 +63,52 @@ def exact_distance(xc, q, metric: str):
         diff = xc - q
         return _f32_sum(diff * diff)
     if metric == "Cosine":
-        xn = torch.sqrt((xc * xc).sum(dim=-1, keepdim=True))
-        qn = torch.sqrt((q * q).sum(dim=-1, keepdim=True))
+        xn = _sqrt_f32(_sq_norm(xc))[..., None]
+        qn = _sqrt_f32(_sq_norm(q))[..., None]
         xu = torch.where(xn > 0, xc / xn, 0.0)
         qu = torch.where(qn > 0, q / qn, 0.0)
         return 1.0 - _f32_sum(xu * qu)
     return _f32_sum(xc * q)   # IP
+
+
+def _fma_f32(a: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor) -> torch.Tensor:
+    """a * b + c for f32 tensors with one rounding, as a fused multiply-add
+    gives it.  The product of two f32 values is exact in f64; the f64 sum
+    is made round-to-odd (TwoSum's error term nudges an inexact even
+    result one ulp toward the exact value), so its rounding to f32 equals
+    the single rounding of the exact a * b + c."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).double()
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def _sqrt_f32(v: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded f32 square root.  torch's vectorized f32 sqrt on
+    the CPU is off by an ulp for some inputs; the root taken in f64 and
+    rounded once to f32 is the IEEE result (53 >= 2 * 24 + 2 bits)."""
+    return torch.sqrt(v.double()).float()
+
+
+def _sq_norm(v: torch.Tensor) -> torch.Tensor:
+    """Squared norm over the last axis in the JAX package's order on its
+    CPU backend: XLA compiles sum(v * v) at d <= 4 into a chain of fused
+    multiply-adds from 0, and at 5 <= d <= 8 into one f32 multiply and add
+    at a time, in order.  Larger d keeps the library reduction."""
+    d = v.shape[-1]
+    if d > 8:
+        return (v * v).sum(dim=-1)
+    out = torch.zeros(v.shape[:-1], dtype=v.dtype, device=v.device)
+    for t in range(d):
+        vt = v[..., t]
+        out = _fma_f32(vt, vt, out) if d <= 4 else out + vt * vt
+    return out
 
 
 def _f32_sum(terms: torch.Tensor) -> torch.Tensor:

@@ -1,14 +1,23 @@
 """User-facing session: the port of myscaledb_tpu/session.py (``Session``,
-``connect``).
+``connect``, ``drop_table``).
 
 A Session owns its registered tables, per-session Settings, access control
 and the per-(table, column, epoch) vector-scan sidecars, and it owns the
 device every tensor of the session lives on: ``connect()`` means the CUDA
-card, and a caller that wants the CPU says so with ``device="cpu"``.
+card, and a caller that wants the CPU says so with ``device="cpu"``.  The
+DDL statements (sql/ddl.py) keep their state here too: the logical part
+list of each table, detached tables, vector index definitions and their
+lifecycle events, constraints and order keys.  ``system.parts`` and
+``system.vector_indices`` resolve through runtime/system_tables.py; views
+are not ported yet.
+
+Index builds may run on the background executor's thread: the index list
+is guarded by ``vi_lock``, the sidecar dict by ``sidecar_lock``.
 """
 
 from __future__ import annotations
 
+import threading
 from collections import deque
 from typing import Optional
 
@@ -16,7 +25,6 @@ import torch
 
 from myscaledb_tpu_torch.config import Settings, TableSettings
 from myscaledb_tpu_torch.core.table import Table
-from myscaledb_tpu_torch.errors import NotPortedError
 from myscaledb_tpu_torch.runtime.access import AccessControl
 
 
@@ -30,15 +38,28 @@ class Session:
         self._mutation_epoch = 0
         self._query_cache = {}
         # per-(table, column, epoch) scan artifacts: squared norms + SQ8
-        # quantized sidecar
+        # quantized sidecar (+ the CUDA event recorded after the build)
         self._vector_sidecars = {}
+        self.sidecar_lock = threading.Lock()
         self.access = AccessControl()
         self.current_user = "default"
+        # DDL state (sql/ddl.py)
+        self.vector_indices: list[dict] = []
+        self.vi_events = deque(maxlen=10_000)
+        self.vi_lock = threading.Lock()
+        self._table_parts: dict[str, list] = {}
+        self._table_order_keys: dict[str, list] = {}
+        self._table_constraints: dict[str, dict] = {}
+        self._detached: dict[str, tuple] = {}
+        self._merges_stopped: set = set()
+        self._bg_merge_pending: set = set()
 
     def read_table_checked(self, name: str) -> Table:
         """get_table + SELECT-privilege check + row-policy filtering for the
         current user."""
         t = self.get_table(name)
+        if name.startswith("system."):
+            return t
         self.access.check(self.current_user, "SELECT", name)
         has_pol, exprs = self.access.row_policy_exprs(self.current_user, name)
         if not has_pol:
@@ -63,12 +84,30 @@ class Session:
         self._query_cache.clear()
 
     def get_table(self, name: str) -> Table:
+        """Resolve a table name: registered tables first, then the virtual
+        system.* tables built from live state."""
         if name in self.tables:
             return self.tables[name]
         if name.startswith("system."):
-            raise NotPortedError(f"system table {name}",
-                                 "storage, formats and runtime state")
+            from myscaledb_tpu_torch.runtime.system_tables import \
+                build_system_table
+            t = build_system_table(self, name)
+            t.name = name
+            return t
         raise KeyError(f"unknown table {name!r}")
+
+    def drop_table(self, name: str) -> None:
+        """Forget a table with its settings, parts, constraints, order keys
+        and vector index definitions."""
+        self.tables.pop(name, None)
+        self.table_settings.pop(name, None)
+        self._table_parts.pop(name, None)
+        self._table_constraints.pop(name, None)
+        self._table_order_keys.pop(name, None)
+        # index definitions die with the table
+        with self.vi_lock:
+            self.vector_indices[:] = [i for i in self.vector_indices
+                                      if i["table"] != name]
 
     def register(self, name: str, table: Table, settings=None) -> None:
         table.name = name

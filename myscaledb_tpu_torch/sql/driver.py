@@ -1,8 +1,17 @@
 """Query driver: the port of myscaledb_tpu/sql/driver.py (``execute_query``
-for SELECT and EXPLAIN AST, ``_ast_lines``), with its plumbing: a root trace
-span per query, counters, the query log, the per-query memory scope, the
-result cache and the result-size / time limits.  DDL and DML, the other
-EXPLAIN kinds and INTO OUTFILE raise ``NotPortedError``.
+for SELECT, EXPLAIN AST and the DDL/DML subset of sql/ddl.py, ``_ast_lines``),
+with its plumbing: a root trace span per query, counters, the query log,
+the per-query memory scope, the result cache, the result-size / time
+limits, the readonly and privilege checks of DDL.  The other EXPLAIN kinds,
+INTO OUTFILE and the statements sql/ddl.py does not port raise
+``NotPortedError``.
+
+A data or definition change moves the mutation epoch after it runs (the
+cached results and scan sidecars of the old epoch die with it).  Three
+kinds do not: ALTER ... ADD VECTOR INDEX moves it itself before it builds,
+so its build serves the next query; DETACH/ATTACH change no data, so an
+attached table keeps its sidecar; SET and SYSTEM only clear the result
+cache.
 """
 
 from __future__ import annotations
@@ -12,6 +21,10 @@ import time
 
 from myscaledb_tpu_torch.sql.parser import parse_sql
 from myscaledb_tpu_torch.sql.executor import execute_any
+from myscaledb_tpu_torch.sql.ddl import (DDLParser, execute_statement,
+                                         required_privilege, SetStatement,
+                                         SystemStatement, AddVectorIndex,
+                                         DetachTable, AttachTable)
 from myscaledb_tpu_torch.core.table import Table
 from myscaledb_tpu_torch.errors import NotPortedError
 from myscaledb_tpu_torch.runtime import metrics as M
@@ -63,6 +76,39 @@ def _ast_lines(q, depth: int = 0) -> list:
     return out
 
 
+def _execute_ddl(session, sql: str, stmt) -> Table:
+    if session.settings.readonly and not isinstance(stmt, SetStatement):
+        raise PermissionError("Cannot execute query in readonly mode")
+    priv = required_privilege(stmt)
+    if priv is not None:
+        session.access.check(session.current_user, *priv)
+    session.access.quota_check(session.current_user)
+    t0 = time.perf_counter()
+    entry = {"query": sql, "event_time": time.time(), "duration_ms": 0.0,
+             "result_rows": 0, "status": "QueryStart", "error": ""}
+    try:
+        with span("ddl", query=sql[:200]):
+            result = execute_statement(session, stmt)
+        entry["status"] = "QueryFinish"
+        if isinstance(stmt, (SetStatement, SystemStatement, DetachTable,
+                             AttachTable)):
+            # no data moved: the sidecars stay, cached results go
+            session._query_cache.clear()
+        elif not isinstance(stmt, AddVectorIndex):
+            session.bump_epoch()
+        return result
+    except Exception as e:
+        entry["status"] = "ExceptionWhileProcessing"
+        entry["error"] = f"{type(e).__name__}: {e}"
+        raise
+    finally:
+        entry["duration_ms"] = (time.perf_counter() - t0) * 1e3
+        session.query_log.append(entry)
+        session.access.quota_consume(
+            session.current_user, execution_time=entry["duration_ms"] / 1e3,
+            errors=int(entry["status"] != "QueryFinish"))
+
+
 def execute_query(session, sql: str, params=None) -> Table:
     stripped = sql.lstrip().rstrip().rstrip(";")
     if _OUTFILE_RE.search(stripped):
@@ -71,8 +117,9 @@ def execute_query(session, sql: str, params=None) -> Table:
     sql = stripped
     upper = stripped.upper()
     if any(upper.startswith(kw) for kw in DDL_KEYWORDS):
-        raise NotPortedError(f"statement {stripped.split()[0].upper()}",
-                             "DDL and the vector goldens")
+        stmt = DDLParser(stripped).parse_statement()
+        if stmt is not None:
+            return _execute_ddl(session, sql, stmt)
     if upper.startswith("EXPLAIN"):
         rest = stripped[len("EXPLAIN"):].lstrip()
         kind = "PLAN"
@@ -109,7 +156,8 @@ def execute_query(session, sql: str, params=None) -> Table:
     try:
         with span("query", query=sql[:200]), \
                 query_scope(settings.max_memory_bytes_per_query):
-            q = parse_sql(sql)
+            with span("parse"):
+                q = parse_sql(sql)
             result = execute_any(session, q)
         entry["result_rows"] = result.n_rows
         entry["status"] = "QueryFinish"

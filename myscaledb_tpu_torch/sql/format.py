@@ -122,31 +122,33 @@ def format_value(v, dtype: DataType) -> str:
     return str(v)
 
 
+def tuple_cell_plan(table: Table, names: list) -> list:
+    """Column emission plan for a TSV row: ("col", name), or ("tuple",
+    members) where the members of a tuple group (batch_distance's
+    (q, dist) pair) collapse into one "(a,b)" cell at the position of
+    their first member."""
+    tuple_groups: dict = getattr(table, "tuple_groups", {}) or {}
+    member_to_group = {m: g for g, ms in tuple_groups.items() for m in ms}
+    plan = []
+    emitted = set()
+    for n in names:
+        g = member_to_group.get(n)
+        if g is None:
+            plan.append(("col", n))
+        elif g not in emitted:
+            plan.append(("tuple", [m for m in tuple_groups[g]
+                                   if m in table]))
+            emitted.add(g)
+    return plan
+
+
 def format_tsv(table: Table) -> str:
     """Render a result Table as ClickHouse-style TSV (one line per row)."""
-    tuple_groups: dict = getattr(table, "tuple_groups", {}) or {}
-    member_to_group: dict[str, str] = {}
-    for g, members in tuple_groups.items():
-        for m in members:
-            member_to_group[m] = g
-
     cols = list(table.columns.values())
     pycols = {c.name: c.to_python() for c in cols}
     dtypes = {c.name: c.dtype for c in cols}
     fields = {c.name: c.field for c in cols}
-
-    # column emission plan: tuple members collapse into one cell at the
-    # position of their first member
-    plan = []
-    emitted_groups = set()
-    for c in cols:
-        g = member_to_group.get(c.name)
-        if g is None:
-            plan.append(("col", c.name))
-        elif g not in emitted_groups:
-            members = [m for m in tuple_groups[g] if m in pycols]
-            plan.append(("tuple", members))
-            emitted_groups.add(g)
+    plan = tuple_cell_plan(table, [c.name for c in cols])
 
     lines = []
     for i in range(table.n_rows):

@@ -254,7 +254,7 @@ def test_streaming_group_aggregate_matches(rng):
     args = (v, None, f, v, w, v)
     valids = (None, None, valid, None, None, None)
     pk, ps, pgc = PA.streaming_group_aggregate(
-        keys, mask, args, fns, valids, chunk_rows=900)
+        keys, mask, args, fns, valids, chunk_rows=900, device="cpu")
     jk, js, jgc = JA.streaming_group_aggregate(
         keys, mask, tuple(a if a is not None else None for a in args), fns,
         valids, chunk_rows=900)
@@ -264,5 +264,13 @@ def test_streaming_group_aggregate_matches(rng):
     _assert_states(ps, js, fns)
     # all rows masked: no groups
     pk, ps, pgc = PA.streaming_group_aggregate(
-        keys, np.zeros(n, dtype=bool), args, fns, valids, chunk_rows=900)
+        keys, np.zeros(n, dtype=bool), args, fns, valids, chunk_rows=900,
+        device="cpu")
     assert len(pgc) == 0 and all(len(k) == 0 for k in pk)
+
+
+def test_streaming_group_aggregate_needs_a_device(rng):
+    """Host arrays alone do not pick the device: the caller must name it."""
+    keys = (rng.integers(0, 5, 100).astype(np.int64),)
+    with pytest.raises(TypeError, match="device"):
+        PA.streaming_group_aggregate(keys, None, (None,), ("count",))

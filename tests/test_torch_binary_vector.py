@@ -139,11 +139,15 @@ def test_query_vector_width_mismatch(jax_sess):
 
 def test_outside_the_slice_raises_not_ported():
     s = _port_table()
-    with pytest.raises(NotPortedError, match="LIMIT BY"):
-        s.sql("SELECT id, batch_distance(vector, [unhex('FFFFFFFF')]) AS d "
-              "FROM test_binary ORDER BY d.1 LIMIT 10 BY d.1")
     with pytest.raises(NotPortedError):
         s.sql(f"SELECT id, {DIST} AS d FROM test_binary")
+
+
+def test_batch_distance_equals_the_jax_package(jax_sess):
+    q = ("SELECT id, batch_distance(vector, [unhex('64656667'), "
+         "unhex('FFFFFFFF')]) AS d FROM test_binary ORDER BY d.1, d.2, id "
+         "LIMIT 5 BY d.1")
+    assert _lines(_port_table(), q) == ch_tsv_lines(jax_sess.sql(q))
 
 
 def test_jaccard_empty_union():

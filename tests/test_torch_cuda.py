@@ -340,3 +340,79 @@ def test_sql_binary_launches_k5_on_card(cuda):
     d = np.unpackbits(raw ^ q[None, :], axis=1).sum(1)
     order = np.lexsort((np.arange(n), d))[:10]
     assert rows == [(int(i), float(d[i])) for i in order]
+
+
+def _ddl_table(s, name, emb, price):
+    """A table made the way a user makes one: CREATE, then INSERT ...
+    SELECT from a staging table registered from numpy."""
+    n, d = emb.shape
+    s.create_table("stage", {"id": np.arange(n, dtype=np.int64),
+                             "emb": emb, "price": price})
+    s.sql(f"CREATE TABLE {name} (id UInt32, emb Array(Float32), price Int32,"
+          f" CONSTRAINT l CHECK length(emb) = {d}) ENGINE = MergeTree "
+          "ORDER BY id")
+    s.sql(f"INSERT INTO {name} SELECT id, emb, price FROM stage")
+    s.sql("DROP TABLE stage")
+
+
+@pytest.mark.parametrize("nq", [10, 32, 128])
+@pytest.mark.parametrize("same", [False, True])
+def test_sql_batch_distance_on_card(cuda, nq, same):
+    """batch_distance ... LIMIT 10 BY dist.1 on a DDL-built table: K1 once
+    a statement; with identical rows the certificate fails and K2 runs (at
+    nq = 32 and 128 its wgmma half).  Rows equal a direct-formula oracle on
+    the card, ties by id."""
+    import myscaledb_tpu_torch as P
+    rng = np.random.default_rng(7)
+    n, d, k = 1 << 16, 128, 10
+    emb = rng.standard_normal((n, d), dtype=np.float32)
+    if same:
+        emb[:] = emb[0]
+    price = rng.integers(0, 100, n).astype(np.int32)
+    s = P.connect()
+    _ddl_table(s, "tv", emb, price)
+    qs = rng.standard_normal((nq, d), dtype=np.float32)
+    lit = "[" + ",".join("[" + ",".join(repr(float(v)) for v in q) + "]"
+                         for q in qs) + "]"
+    before = (K1.segmin_sq8.launches, K2.segmin_f32.launches)
+    rows = s.sql(f"SELECT id, batch_distance(emb, {lit}) AS dist FROM tv "
+                 "WHERE price < 50 ORDER BY dist.1, dist.2 "
+                 f"LIMIT {k} BY dist.1").to_rows()
+    assert K1.segmin_sq8.launches == before[0] + 1
+    if same:
+        assert K2.segmin_f32.launches == before[1] + 1
+    x = s.tables["tv"]["emb"].data
+    keep = s.tables["tv"]["price"].data < 50
+    assert len(rows) == nq * k
+    for qi in range(nq):
+        dist = ((x - torch.as_tensor(qs[qi], device="cuda")) ** 2).sum(1)
+        dist = torch.where(keep, dist, torch.inf)
+        order = torch.sort(dist, stable=True).indices[:k]
+        got = [r for r in rows if r[1] == qi]
+        assert [r[0] for r in got] == order.cpu().tolist()
+        np.testing.assert_allclose([r[2] for r in got],
+                                   dist[order].cpu().numpy(), rtol=2e-5)
+
+
+@pytest.mark.parametrize("sql", [
+    "SELECT id, price FROM t ORDER BY price, id LIMIT 3 BY price",
+    "SELECT id, price FROM t WHERE price < 20 ORDER BY id DESC "
+    "LIMIT 2 BY price, id % 2 LIMIT 50 OFFSET 1",
+    "SELECT id, f FROM t ORDER BY id LIMIT 1 BY f",
+])
+def test_limit_by_on_card_equals_cpu(cuda, sql):
+    """LIMIT BY runs on the device (torch.unique, a stable sort): the same
+    statement on the card and on the CPU gives the same rows, float keys
+    with -0.0 and NaN included."""
+    import myscaledb_tpu_torch as P
+    rng = np.random.default_rng(11)
+    n = 1 << 16
+    f = rng.choice(np.array([0.0, -0.0, np.nan, 1.5, 2.5]), n)
+    data = {"id": np.arange(n, dtype=np.int64),
+            "price": rng.integers(0, 100, n).astype(np.int32), "f": f}
+    rows = []
+    for dev in ("cuda", "cpu"):
+        s = P.connect(device=dev)
+        s.create_table("t", data)
+        rows.append(repr(s.sql(sql).to_rows()))
+    assert rows[0] == rows[1]

@@ -138,7 +138,7 @@ def test_error_texts_match(sessions, sql):
     "SELECT tag, uniqExact(id) FROM t GROUP BY tag",
     "SELECT quantile(0.5)(price) FROM t",
     "SELECT id FROM t AS a JOIN (SELECT id FROM t) AS b ON a.id = b.id",
-    "CREATE TABLE u (id Int64) ENGINE = MergeTree ORDER BY id",
+    "CREATE VIEW u AS SELECT id FROM t",
     "SELECT sumState(price) FROM t",
     "SELECT TextSearch(tag, 'red') AS s FROM t ORDER BY s DESC LIMIT 3",
     "SELECT id FROM t WHERE id IN (SELECT id FROM t WHERE price < 3)",

@@ -4,6 +4,7 @@ inputs.  Ids must be equal; distances agree within the reference's own
 tolerance (rtol 2e-5, tests/test_vector.py) at d = 128, where the two
 libraries sum in different orders, and bit for bit at d <= 8."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -112,14 +113,26 @@ def test_host_streaming_scan_matches_jax(rng):
 
 @pytest.mark.parametrize("metric", METRICS)
 def test_small_d_is_bit_equal(rng, metric):
-    """d <= 8 sums one f32 step at a time in both packages."""
+    """d <= 8 sums one f32 step at a time in both packages; Cosine's norms
+    follow XLA's CPU order too (fused multiply-adds at d <= 4)."""
     n, d, nq, k = 700, 3, 4, 9
     x, q, mask = _data(rng, n, d, nq)
     jd, ji = J.distance_scan(x, q, metric=metric, k=k, mask=mask)
     pd, pi = P.distance_scan(_t(x), q, metric=metric, k=k, mask=_t(mask))
-    # Cosine's vector norms are library reductions, not the ordered sum
-    # (XLA fuses them into FMAs at d <= 4; ROADMAP queue 3)
-    _check(pd, pi, jd, ji, exact=metric != "Cosine")
+    _check(pd, pi, jd, ji, exact=True)
+
+
+@pytest.mark.parametrize("d", range(1, 9))
+def test_small_d_cosine_norms_are_bit_equal(rng, d):
+    """The Cosine rescore at every d <= 8, norms of rows spread over six
+    orders of magnitude, against the JAX package's compiled formula."""
+    x = (rng.standard_normal((3000, d)) *
+         rng.choice([1e-2, 1.0, 1e2, 1e4], (3000, 1))).astype(np.float32)
+    q = rng.standard_normal((3000, d)).astype(np.float32)
+    want = np.asarray(jax.jit(lambda a, b: J.exact_distance(
+        a, b, "Cosine"))(x, q))
+    got = P.exact_distance(_t(x), _t(q), "Cosine").numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
 @pytest.mark.parametrize("metric", METRICS)
