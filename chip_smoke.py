@@ -52,7 +52,13 @@ non-zero without printing a result:
   build       nvcc builds the kernels of myscaledb_tpu_torch/csrc for sm_90a
   kernels     each kernel against its plain PyTorch version at its path's
               shapes, and its time beside its bound, the plain version's
-              time and a library yardstick
+              time and a library yardstick; for K1 also which branch each
+              query count takes, the wgmma branch bit-equal to the __dp4a
+              branch at nq = 10 and 128 for every metric (at d = 1152,
+              where 128 queries' q8 does not fit in shared memory and the
+              __dp4a branch runs), the 128-wide wgmma bit-equal to the
+              16-wide one, and the entry point's query quantization
+              against quantize_queries
   sql_sq8     twenty certified queries after the sidecar build and a
               warm-up query: the int8 kernel runs, the f32 one does not,
               and the rows match a direct-formula oracle on the card; a
@@ -99,14 +105,14 @@ non-zero without printing a result:
   goldens_vector  the 23 vector goldens through run_golden_text(connect()),
               each byte-identical to its .reference
 
-Kernel times are medians of CUDA-event timings, K1 at nq = 1, 10 and 128
-and K2 at nq = 1, 10, 32 and 128 (the summary's ``at_other_nq``): ``ms``
-is one call of the wrapper (for segmin_sq8 that includes its PyTorch
-query quantization; for
-merge_count, called with no index, the build of its radix directory;
-``ms_with_index`` is merge_count given the directory, as the join build
-passes it), ``kernel_ms`` the bare launch (for segmin_f32 the query split
-and the scan, one entry point), ``plain_ms`` the plain PyTorch version and
+Kernel times are medians of CUDA-event timings, K1 at nq = 1, 8, 9, 10,
+16, 32, 64 and 128 and K2 at nq = 1, 10, 32 and 128 (the summary's
+``at_other_nq``): ``ms`` is one call of the wrapper (for merge_count,
+called with no index, the build of its radix directory; ``ms_with_index``
+is merge_count given the directory, as the join build passes it),
+``kernel_ms`` the bare launch (for segmin_f32 the query split and the
+scan, for segmin_sq8 the query quantization and the scan: one entry point
+each), ``plain_ms`` the plain PyTorch version and
 ``library_ms`` the yardstick call (torch.matmul in f32 for segmin_f32,
 torch._int_mm for segmin_sq8 with the query block zero-padded to a
 multiple of 8 columns, one index_add_ into G + 1 int64 slots for
@@ -115,7 +121,12 @@ binary_segment_mins, since no single PyTorch call computes a popcount
 distance).  ``bound_ms`` is the larger of the bytes over 3.35 TB/s and the
 operations over the H100's peak for their type (integer operations are
 counted against the f32 rate outside the tensor cores; segmin_f32's
-products as three TF32 products each, at 495 TFLOP/s).
+products as three TF32 products each, at 495 TFLOP/s).  The kernels
+phase line also holds, under ``derived_not_measured``, the time K1's
+bound arithmetic (11 f32 operations a row and query) takes at the
+non-FMA f32 rate, computed from the shapes beside ``bound_ms``, and under
+``timing_segmin_sq8_d1152`` the __dp4a branch at 128 queries of d = 1152
+beside the same queries 64 at a time on the wgmma branch.
 
 All five launch counters are zeroed just before each path's run (the
 twenty certified queries; the three uncertifiable statements; the ten
@@ -154,6 +165,19 @@ METRICS = ("L2", "Cosine", "IP")
 # K1: the int dot is exact, so the bounds differ from the plain version only
 # by sqrt rounding (the kernel uses no FMA contraction in the bound).
 SQ8_RTOL, SQ8_ATOL = 1e-5, 1e-5
+# K1's query counts: the SQL paths' (1, 10, 32 and 128), the 16-wide
+# wgmma's edges (8, 9 and 16), and 64: its time against the (row, query)
+# pairs its epilogue evaluates
+K1_NQ = (1, 8, 9, 10, 16, 32, 64, 128)
+# K1's __dp4a branch runs where 128 queries' q8 (128 d bytes) does not fit
+# the wgmma branch's shared memory: past d = 1024
+K1_DP4A_D = 1152
+K1_BRANCHES = ("dp4a", "wgmma")
+# the entry point's query norms are sums in another order than PyTorch's
+K1_QSIDE_RTOL = 1e-5
+# per (row, query) pair, K1's L2 bound takes one int-to-float conversion
+# and 10 f32 multiplies, adds and subtracts, kept apart (no FMA)
+K1_EPILOGUE_OPS = 11
 # K2: three TF32 products per term (about 2^-21 of each term) summed in
 # another order than cuBLAS; under L2's cancellation (|x|^2 - 2 x.q + |q|^2
 # with terms ~256) that moves the score by a few f32 ulps of 256, i.e.
@@ -277,8 +301,13 @@ def phase_kernels(gen):
     # generator of its own too
     nq32_gen = torch.Generator(device=dev).manual_seed(
         gen.initial_seed() + 2)
+    # the query counts K1 is timed at beyond nq = 1, 10 and 128 draw from a
+    # generator of their own too
+    k1_gen = torch.Generator(device=dev).manual_seed(gen.initial_seed() + 3)
     report = {"segmin_f32": {"max_abs_err": 0.0, "checks": 0},
-              "segmin_sq8": {"max_abs_err": 0.0, "checks": 0}}
+              "segmin_sq8": {"max_abs_err": 0.0, "checks": 0,
+                             "branch_bit_equal": []}}
+    epilogue = {}
 
     def check(name, got, want, rtol, atol, tag):
         err = max_err(got, want)
@@ -336,53 +365,157 @@ def phase_kernels(gen):
             n_pad = x8.shape[0]
             mv = (torch.nn.functional.pad(mask, (0, n_pad - n))[None]
                   * sides[3:4]).contiguous()
-            for nq in (1, 10, 128):
-                q = torch.randn(nq, d, device=dev, generator=gen)
+            nseg = n_pad // 128
+            lib = build.library()
+            for nq in K1_NQ:
+                # nq = 8, 9, 16, 32 and 64 draw from a generator of their
+                # own, so the other kernels' data stays as it was
+                q = torch.randn(nq, d, device=dev,
+                                generator=gen if nq in (1, 10, 128)
+                                else k1_gen)
                 for metric in METRICS:
                     check("segmin_sq8",
                           segmin_sq8(x8, sides, q, mv, metric),
                           segmin_sq8_plain(x8, sides, q, mv, metric),
                           SQ8_RTOL, SQ8_ATOL, f"nq={nq} {metric}")
-                nseg = n_pad // 128
+                branch = K1_BRANCHES[lib.msdb_segmin_sq8_branch(nq, d)]
+                if nq == 128:
+                    # the 128-wide wgmma against the 16-wide one, which
+                    # the same queries take eight at a time
+                    for metric in METRICS:
+                        whole = segmin_sq8(x8, sides, q, mv, metric)
+                        parts = torch.cat([
+                            segmin_sq8(x8, sides, q[i:i + 8], mv, metric)
+                            for i in range(0, nq, 8)])
+                        if not torch.equal(whole, parts):
+                            raise AssertionError(
+                                f"segmin_sq8 nq={nq} {metric}: the 128-wide"
+                                " wgmma differs from the 16-wide one")
+                        report["segmin_sq8"]["branch_bit_equal"].append(
+                            f"d={d} nq=128 wgmma N=128 vs N=16 {metric}")
                 # x8 row, three side fields, the mask; the query side and
                 # the output
                 nbytes = n_pad * (d + 16) + nq * (d + 16) + nq * nseg * 4
                 b, by = bound_ms(nbytes, 2.0 * nq * n_pad * d, INT8_OPS)
                 q8, qside = quantize_queries(q, "L2")
-                q8t = q8.T.contiguous()
+                scratch = torch.empty(nq * d + nq * 16, dtype=torch.uint8,
+                                      device=dev)
                 out = torch.empty((nq, nseg), device=dev)
 
-                def raw_sq8():
-                    build.check(build.library().msdb_segmin_sq8(
-                        x8.data_ptr(), sides.data_ptr(), q8.data_ptr(),
-                        qside.data_ptr(), mv.data_ptr(), out.data_ptr(),
+                def raw_sq8():   # the entry point: quantization and scan
+                    build.check(lib.msdb_segmin_sq8(
+                        x8.data_ptr(), sides.data_ptr(), q.data_ptr(),
+                        scratch.data_ptr(), mv.data_ptr(), out.data_ptr(),
                         n_pad, d, nq, 0,
                         torch.cuda.current_stream().cuda_stream),
                         "segmin_sq8")
+                raw_sq8()
+                # the entry point's quantization: q8 equal, the norms
+                # within K1_QSIDE_RTOL
+                if not torch.equal(scratch[:nq * d].view(torch.int8)
+                                   .view(nq, d), q8):
+                    raise AssertionError(f"segmin_sq8 nq={nq}: the "
+                                         "prologue's q8 differs")
+                got_side = scratch[nq * d:].view(torch.float32).view(nq, 4)
+                if not torch.allclose(got_side, qside, rtol=K1_QSIDE_RTOL,
+                                      atol=0.0):
+                    raise AssertionError(
+                        f"segmin_sq8 nq={nq}: the prologue's qside is "
+                        f"{float((got_side - qside).abs().max())} away")
                 # torch._int_mm takes widths that are multiples of 8: the
                 # same product with the query block zero-padded to 8 / 16
+                q8t = q8.T.contiguous()
                 wide = -(-nq // 8) * 8
                 q8t_pad = torch.nn.functional.pad(q8t, (0, wide - nq))
-                lib = time_ms(lambda: torch._int_mm(x8, q8t_pad))
+                lib_ms = time_ms(lambda: torch._int_mm(x8, q8t_pad))
                 lib_note = (f"torch._int_mm(x8, q8.T) with q8 zero-padded "
                             f"to {wide} columns" if wide != nq
                             else "torch._int_mm(x8, q8.T)")
-                timings[("segmin_sq8", nq)] = {
-                    "ms": time_ms(lambda: segmin_sq8(x8, sides, q, mv, "L2")),
-                    "kernel_ms": time_ms(raw_sq8),
-                    "plain_ms": time_ms(lambda: segmin_sq8_plain(
-                        x8, sides, q, mv, "L2"), reps=10),
-                    "library_ms": lib, "library_note": lib_note,
-                    "bound_ms": b, "bound_by": by}
+                t = {"branch": branch,
+                     "ms": time_ms(lambda: segmin_sq8(x8, sides, q, mv,
+                                                      "L2")),
+                     "kernel_ms": time_ms(raw_sq8),
+                     "plain_ms": time_ms(lambda: segmin_sq8_plain(
+                         x8, sides, q, mv, "L2"), reps=10),
+                     "library_ms": lib_ms, "library_note": lib_note,
+                     "bound_ms": b, "bound_by": by}
+                timings[("segmin_sq8", nq)] = t
+                # the bound's f32 operations at the non-FMA rate, computed
+                # beside bound_ms and not folded into it
+                epilogue[f"nq={nq}"] = (n_pad * nq * K1_EPILOGUE_OPS
+                                        / (F32_FLOPS / 2) * 1e3)
             del x8, sides, mv
         del x, sqn, mask
         torch.cuda.empty_cache()
+    equal, d1152 = k1_branches(gen)
+    report["segmin_sq8"]["branch_bit_equal"] += equal
+    extra = {"timing_segmin_sq8_d1152": d1152,
+             "derived_not_measured": {
+                 "segmin_sq8_epilogue_ms": epilogue,
+                 "how": f"n_pad x nq x {K1_EPILOGUE_OPS} f32 operations "
+                        f"over {F32_FLOPS / 2:.3g} a second (the H100's "
+                        "non-FMA f32 rate): computed from the shapes, not "
+                        "timed"}}
     report["group_aggregate"], timings[("group_aggregate", 1)] = \
         k3_kernel(gen)
     report["merge_count"], timings[("merge_count", 1)] = k4_kernel(gen)
     report["binary_segment_mins"], k5_times = k5_kernel(gen)
     timings.update(k5_times)
-    return report, timings
+    return report, timings, extra
+
+
+def k1_branches(gen):
+    """K1's two branches on the same inputs: at d = K1_DP4A_D, 128
+    queries take the __dp4a branch and the same queries 64 or 16 at a time,
+    or the first 10 alone, the wgmma branch; all bit-equal, for every
+    metric.  Also times the __dp4a branch at 128 queries against the same
+    queries 64 at a time on the wgmma branch."""
+    from myscaledb_tpu_torch.ops.kernels import build
+    from myscaledb_tpu_torch.ops.kernels.distance_q import segmin_sq8
+    from myscaledb_tpu_torch.ops.vector import build_sq8
+
+    d = K1_DP4A_D
+    # a generator of its own, so the later kernels' data stays as it was
+    g = torch.Generator(device="cuda").manual_seed(gen.initial_seed() + 4)
+    x = torch.randn(100_003, d, device="cuda", generator=g)
+    x8, sides = build_sq8(x)
+    del x
+    n_pad = x8.shape[0]
+    mv = sides[3:4] * (torch.rand(n_pad, device="cuda", generator=g)
+                       < 0.5).float()
+    q = torch.randn(128, d, device="cuda", generator=g)
+    lib = build.library()
+    branch = {k: K1_BRANCHES[lib.msdb_segmin_sq8_branch(k, d)]
+              for k in (128, 64, 16, 10)}
+    if branch != {128: "dp4a", 64: "wgmma", 16: "wgmma", 10: "wgmma"}:
+        raise AssertionError(f"segmin_sq8 at d={d}: branches {branch}")
+    equal = []
+    for metric in METRICS:
+        whole = segmin_sq8(x8, sides, q, mv, metric)
+        for k in (64, 16):
+            parts = torch.cat([segmin_sq8(x8, sides, q[i:i + k], mv, metric)
+                               for i in range(0, 128, k)])
+            if not torch.equal(whole, parts):
+                raise AssertionError(f"segmin_sq8 d={d} nq=128 {metric}: "
+                                     f"the wgmma branch {k} queries at a "
+                                     "time differs from the __dp4a branch")
+        equal.append(f"d={d} nq=128 dp4a vs wgmma by 64 and by 16 {metric}")
+        if not torch.equal(segmin_sq8(x8, sides, q[:10], mv, metric),
+                           whole[:10]):
+            raise AssertionError(f"segmin_sq8 d={d} nq=10 {metric}: the "
+                                 "wgmma branch differs from the __dp4a "
+                                 "branch")
+        equal.append(f"d={d} nq=10 wgmma vs dp4a {metric}")
+    timing = {
+        "rows": n_pad, "dim": d,
+        "dp4a_nq128_ms": time_ms(lambda: segmin_sq8(x8, sides, q, mv, "L2"),
+                                 reps=20),
+        "wgmma_by_64_ms": time_ms(lambda: [
+            segmin_sq8(x8, sides, q[i:i + 64], mv, "L2")
+            for i in (0, 64)], reps=20)}
+    del x8, sides, mv
+    torch.cuda.empty_cache()
+    return equal, timing
 
 
 def config4_keys(gen, n_build: int, n_probe: int):
@@ -1725,8 +1858,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    report, timings = phase_kernels(gen)
-    emit({"phase": "kernels", "rows": N, "dim": D,
+    report, timings, extra = phase_kernels(gen)
+    emit({"phase": "kernels", "rows": N, "dim": D, **extra,
           "tolerance": {"segmin_sq8": [SQ8_RTOL, SQ8_ATOL],
                         "segmin_f32": [F32_RTOL, F32_ATOL],
                         "group_aggregate": [K3_RTOL, K3_ATOL],

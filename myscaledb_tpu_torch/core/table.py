@@ -32,13 +32,20 @@ from myscaledb_tpu_torch.core.dictionary import StringDictionary, NULL_ID
 BLOCK_ROWS = 65536
 
 
+def fits_device(arr) -> bool:
+    """False for a uint64 array holding a value above 2^63-1, which the
+    widened int64 storage cannot hold."""
+    arr = np.asarray(arr)
+    return not (arr.dtype == np.uint64 and arr.size and
+                int(arr.max()) > np.iinfo(np.int64).max)
+
+
 def to_tensor(arr, device) -> torch.Tensor:
     """Host array -> tensor on ``device``, in the storage dtype of
     core/types.py (uint16/32/64 widen to signed types)."""
     arr = np.asarray(arr)
     sd = storage_numpy_dtype(arr.dtype)
-    if arr.dtype == np.uint64 and arr.size and \
-            int(arr.max()) > np.iinfo(np.int64).max:
+    if not fits_device(arr):
         raise ValueError("UInt64 values above 2^63-1 are not supported by "
                          "the torch column store")
     arr = np.ascontiguousarray(arr.astype(sd, copy=False))
@@ -347,9 +354,12 @@ class Table:
                 cols.append(c.take_ragged(idx_np))
                 continue
             if c.is_host:
-                data = to_tensor(c.data[idx_np], idx.device)
-                valid = to_tensor(c.valid[idx_np], idx.device) \
-                    if c.valid is not None else None
+                data = c.data[idx_np]
+                valid = c.valid[idx_np] if c.valid is not None else None
+                if fits_device(data):     # else UInt64 past 2^63-1: host
+                    data = to_tensor(data, idx.device)
+                    valid = to_tensor(valid, idx.device) \
+                        if valid is not None else None
             else:
                 data = c.data.index_select(0, idx)
                 valid = c.valid.index_select(0, idx) \

@@ -49,9 +49,7 @@
 // rows and rows past n, the minimum over the 16 rows of a warp by shuffles
 // and over the segment's 8 warps through shared memory.
 
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -60,52 +58,6 @@ constexpr int DK = 32;                   // dims per stage: 128 bytes a row
 constexpr int ROW_WARPS = SEG / 16;      // one m16 tile each
 constexpr int NQ_MAX = 128;
 constexpr uint32_t X_BYTES = SEG * DK * 4;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* b, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(b)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_u32(b)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(b))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(smem_u32(b)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// a 2-D tile of `map` at (column c0, row c1) into shared memory
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-      "r"(smem_u32(bar))
-      : "memory");
-}
 
 // byte offset of 16-byte chunk c of row r in a 128B-swizzled tile
 __device__ __forceinline__ int swz(int r, int c) {
@@ -121,19 +73,6 @@ __device__ __forceinline__ uint32_t tf32(float x) {
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   hi = tf32(x);
   lo = tf32(__fsub_rn(x, __uint_as_float(hi)));
-}
-
-// shared-memory descriptor of a K-major, 128B-swizzled TF32 tile whose
-// rows are 128 bytes (32 dims) and whose 8-row groups are 1024 bytes apart
-// (the layout TMA writes); the tile starts 1024-byte aligned.  Adding 2
-// moves it 32 bytes along K: the next k8 step.
-__device__ __forceinline__ uint64_t b_desc(const void* tile) {
-  return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | (1ull << 16) |
-         (64ull << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
 
 // D (64 x N, f32, in registers) += A (64 x 8 TF32, in registers) x B (N x 8
@@ -340,7 +279,7 @@ __device__ __forceinline__ void chunk_wgmma(float (&acc)[NT * 4],
   float part[N / 2];
 #pragma unroll
   for (int e = 0; e < N / 2; ++e) part[e] = 0.f;
-  const uint64_t dh = b_desc(qh), dl = b_desc(ql);
+  const uint64_t dh = smem_desc(qh), dl = smem_desc(ql);
   wgmma_fence();
 #pragma unroll
   for (int st = 0; st < 4; ++st) {
@@ -348,8 +287,8 @@ __device__ __forceinline__ void chunk_wgmma(float (&acc)[NT * 4],
     Wgmma<N>::mma(part, ahi[st], dl + 2 * st, 1);
     Wgmma<N>::mma(part, ahi[st], dh + 2 * st, 1);
   }
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+  wgmma_commit();
+  wgmma_wait_all();
 #pragma unroll
   for (int e = 0; e < N / 2; ++e) acc[e] = __fadd_rn(acc[e], part[e]);
 }
@@ -489,45 +428,11 @@ segmin_f32_kernel(const __grid_constant__ Maps maps,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up at run time without linking libcuda
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t rc = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                             cudaEnableDefault, &q);
-#endif
-    if (rc == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a row-major (rows, cols) 32-bit matrix read in (box_rows, 32) tiles
+// a row-major (rows, cols) f32 matrix read in (box_rows, 32) tiles
 bool make_map(CUtensorMap* m, const void* base, int rows, int cols,
               int box_rows) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(float)};
-  const cuuint32_t box[2] = {(cuuint32_t)DK, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return tma_map_2d(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, rows, cols,
+                    DK, box_rows);
 }
 
 template <int NT>

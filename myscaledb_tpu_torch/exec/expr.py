@@ -41,6 +41,12 @@ from myscaledb_tpu_torch.sql.ast import (Expr, Literal, VectorLiteral, Ident,
                                          Between)
 
 EXPR_SLICE = "expression and function breadth"
+INT64_MAX = 2 ** 63 - 1
+# the largest value of each unsigned type stored widened to a signed tensor
+# (UInt64 up to 2^63-1, what the int64 store holds)
+_WIDENED_UNSIGNED = {DataType.UINT16: 2 ** 16 - 1,
+                     DataType.UINT32: 2 ** 32 - 1,
+                     DataType.UINT64: INT64_MAX}
 
 
 class EvalError(ValueError):
@@ -60,6 +66,9 @@ class Value:
     offsets: object = None                  # np int64 (n+1,) for ARRAY values
     dt: object = None                       # logical DataType override
                                             # (DATE/DATETIME tagging)
+    umax: Optional[int] = None              # for a UInt16/32/64 value,
+                                            # stored widened to a signed
+                                            # tensor: its largest value
 
     @property
     def is_string(self) -> bool:
@@ -102,7 +111,8 @@ class Env:
                     valid = to_tensor(valid, self.device) \
                         if valid is not None else None    # needs it here
                 return Value(data, valid, c.dictionary,
-                             offsets=c.offsets, dt=tag)
+                             offsets=c.offsets, dt=tag,
+                             umax=_WIDENED_UNSIGNED.get(c.dtype))
         raise EvalError(f"unknown column {ident.qualified!r} "
                         f"(have {self.table.column_names})")
 
@@ -251,15 +261,6 @@ def _f_greatest(args, env):
 def _f_least(args, env):
     return _extreme(args, env, torch.minimum)
 
-@func("if")
-def _f_if(args, env):
-    c = as_bool_mask(args[0], env.n_rows)
-    t, f = args[1], args[2]
-    if t.is_string or f.is_string:
-        raise NotPortedError("if() over strings", EXPR_SLICE)
-    return Value(torch.where(c, _numeric(t, env.n_rows),
-                             _numeric(f, env.n_rows)), _both_valid(t, f))
-
 @func("toInt32")
 def _f_toint32(args, env):
     return Value(_numeric(args[0], env.n_rows).to(torch.int32),
@@ -383,6 +384,9 @@ def _arith(op: str, a: Value, b: Value, env: Env) -> Value:
         raise EvalError(f"arithmetic {op!r} on strings")
     x = _numeric(a, env.n_rows)
     y = _numeric(b, env.n_rows)
+    if op in ("+", "*") and (a.umax is not None or b.umax is not None) \
+            and not (x.is_floating_point() or y.is_floating_point()):
+        return _unsigned_arith(op, a, x, b, y)
     if op == "+":
         d = x + y
     elif op == "-":
@@ -398,6 +402,46 @@ def _arith(op: str, a: Value, b: Value, env: Env) -> Value:
     else:
         raise EvalError(f"unknown arithmetic op {op}")
     return Value(d, _both_valid(a, b))
+
+
+def _upper(v: Value, t: torch.Tensor) -> int:
+    """The largest value an integer operand can hold: its unsigned type's,
+    a literal's own, else its storage type's."""
+    if v.umax is not None:
+        return v.umax
+    if v.is_scalar and isinstance(v.py, int):
+        return int(v.py)
+    return 1 if t.dtype == torch.bool else torch.iinfo(t.dtype).max
+
+
+def _unsigned_arith(op: str, a: Value, x, b: Value, y) -> Value:
+    """+ and * with a UInt16/32/64 operand, in int64: ClickHouse types
+    these results UInt32 or UInt64 (the JAX package wraps them in the
+    operand's width instead, a fault of the reference: ROADMAP section 3).
+    A result past 2^63-1 has no place in the int64 storage and is refused,
+    not wrapped.  Unsigned operands are never negative, so only the sum or
+    product of two non-negative values can pass the limit; where the
+    operands' types keep the result under it (UInt32 plus or times a
+    literal, UInt16 times UInt32) no test runs and the device is not
+    waited for."""
+    ua, ub = max(_upper(a, x), 0), max(_upper(b, y), 0)
+    top = ua + ub if op == "+" else ua * ub
+    x, y = x.to(torch.int64), y.to(torch.int64)
+    d = x + y if op == "+" else x * y
+    if top > INT64_MAX:
+        _refuse_overflow(op, x, y, d)
+    return Value(d, _both_valid(a, b), umax=min(top, INT64_MAX))
+
+
+def _refuse_overflow(op: str, x, y, d) -> None:
+    """Raise where d = x op y passed 2^63-1 (one host read)."""
+    if op == "+":
+        over = (x >= 0) & (y >= 0) & (d < 0)
+    else:
+        over = (x >= 0) & (y > 0) & (x > INT64_MAX // torch.clamp_min(y, 1))
+    if bool(over.any()):
+        raise EvalError(f"UInt64 result of {op!r} above 2^63-1: the torch "
+                        "column store holds UInt64 values up to 2^63-1")
 
 
 def _compare(op: str, a: Value, b: Value, env: Env) -> Value:

@@ -1,8 +1,9 @@
 """Scalar and array functions the DDL slice's statements use: the port of
 ``array``, ``range`` and the array form of ``length`` from
 myscaledb_tpu/exec/arrays.py, the string form of ``length`` from
-myscaledb_tpu/exec/expr.py, and ``currentDatabase``, ``sleep`` and
-``sleepEachRow`` from myscaledb_tpu/exec/scalar_fns.py.
+myscaledb_tpu/exec/expr.py, and ``currentDatabase``, ``sleep``,
+``sleepEachRow`` and the string-aware ``if()`` (``_if_impl``, which CASE
+lowers to) from myscaledb_tpu/exec/scalar_fns.py.
 
 ARRAY values keep the JAX package's layout: a flat element tensor on the
 device plus host int64 row offsets (n + 1,).  Every other function of those
@@ -17,7 +18,7 @@ import torch
 from myscaledb_tpu_torch.core.dictionary import StringDictionary, NULL_ID
 from myscaledb_tpu_torch.core.table import to_tensor
 from myscaledb_tpu_torch.exec.expr import (Value, EvalError, func, _dict_map,
-                                           _scalar)
+                                           _numeric, _scalar, as_bool_mask)
 
 
 def _lens(off: np.ndarray) -> np.ndarray:
@@ -158,3 +159,66 @@ def _f_sleep(args, env):
     # merges; here a build finishes (or runs lazily on first use) before a
     # query can read it, so the wait is a no-op returning 0
     return Value(_scalar(0, env.device), is_scalar=True, py=0)
+
+
+# ---------------------------------------------------------------------------
+# conditionals: the string-aware if() that CASE WHEN lowers to
+
+def _is_null_literal(v: Value) -> bool:
+    return v.is_scalar and v.py is None and v.dictionary is None
+
+
+def _string_branch_ids(v: Value, env, d: StringDictionary):
+    """Encode one if() branch into dictionary d; returns (ids, valid)."""
+    n = env.n_rows
+    if _is_null_literal(v):
+        return torch.full((n,), NULL_ID, dtype=torch.int32,
+                          device=env.device), \
+            torch.zeros(n, dtype=torch.bool, device=env.device)
+    if isinstance(v.py, str):
+        i = d.encode_one(v.py, grow=True)
+        return torch.full((n,), i, dtype=torch.int32, device=env.device), None
+    if v.dictionary is None:
+        raise EvalError("if(): mixed string and numeric branches")
+    remap = np.array([d.encode_one(s, grow=True)
+                      for s in v.dictionary.values] or [0], dtype=np.int32)
+    ids = _dict_map(v, remap).to(torch.int32)
+    ids = torch.where(v.data == NULL_ID, NULL_ID, ids)
+    return ids, v.valid
+
+
+def _chosen_valid(c, tv, fv):
+    """Validity of if(c, t, f): the chosen branch's, row by row.  The JAX
+    package takes t.valid & f.valid for two non-literal numeric branches, a
+    fault of the reference (ROADMAP section 3)."""
+    if tv is None and fv is None:
+        return None
+    ones = torch.ones_like(c)
+    return torch.where(c, ones if tv is None else tv,
+                       ones if fv is None else fv)
+
+
+@func("if")
+def _if_impl(args, env):
+    c = as_bool_mask(args[0], env.n_rows)
+    t, f = args[1], args[2]
+    t_str = t.is_string or (_is_null_literal(t) and f.is_string)
+    f_str = f.is_string or (_is_null_literal(f) and t.is_string)
+    if t_str and f_str:
+        d = StringDictionary()
+        ti, tv = _string_branch_ids(t, env, d)
+        fi, fv = _string_branch_ids(f, env, d)
+        return Value(torch.where(c, ti, fi), _chosen_valid(c, tv, fv), d)
+    if _is_null_literal(t) or _is_null_literal(f):
+        # a NULL branch over numerics: the validity mask carries the null
+        other = f if _is_null_literal(t) else t
+        od = _numeric(other, env.n_rows)
+        if other.is_scalar:
+            od = od.expand(env.n_rows)
+        valid = ~c if other is f else c
+        if other.valid is not None:
+            valid = valid & other.valid
+        return Value(od, valid, dt=other.dt)
+    out = torch.where(c, _numeric(t, env.n_rows), _numeric(f, env.n_rows))
+    return Value(out, _chosen_valid(c, t.valid, f.valid),
+                 dt=t.dt if t.dt is f.dt else None)

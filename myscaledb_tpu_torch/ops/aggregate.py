@@ -48,7 +48,9 @@ def _np_dtype(a, logical) -> np.dtype:
 def _acc_dtype(d: np.dtype) -> torch.dtype:
     """Accumulator dtype for sums: ints widen to 64-bit (ClickHouse
     sum(Int32) -> Int64; unsigned sums, UInt64 there, accumulate in int64
-    here), floats stay f32 on the device."""
+    here: int64 adds wrap modulo 2^64 as UInt64 adds do, so the int64 bits
+    of an unsigned sum are its UInt64 value, which finalize and the result
+    column read back as uint64), floats stay f32 on the device."""
     if d.kind in "iub":
         return torch.int64
     return torch.float32
@@ -219,16 +221,32 @@ def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def finalize(states, group_count, fns) -> list[np.ndarray]:
+def finalize(states, group_count, fns, logical_dtypes=None
+             ) -> list[np.ndarray]:
     """Host-side finalization to result columns over ALL group slots; the
-    caller filters empty groups with group_count > 0."""
+    caller filters empty groups with group_count > 0.  ``logical_dtypes``
+    (per argument, as ``partial_aggregate_matmul`` takes them) types the
+    unsigned ones: an avg reads its int64 sum as uint64, and min/max over
+    an empty group give the logical type's identity (the JAX package's:
+    UInt64 min 18446744073709551615, max 0), not the storage type's."""
     out = []
-    for fn, s in zip(fns, states):
+    gc = _host(group_count)
+    if logical_dtypes is None:
+        logical_dtypes = (None,) * len(fns)
+    for fn, s, lg in zip(fns, states, logical_dtypes):
+        unsigned = lg is not None and np.dtype(lg).kind == "u"
         if fn == "avg":
-            ssum = _host(s[0]).astype(np.float64)
+            ssum = _host(s[0])
+            if unsigned:
+                ssum = ssum.view(np.uint64)
+            ssum = ssum.astype(np.float64)
             cnt = _host(s[1]).astype(np.float64)
             with np.errstate(divide="ignore", invalid="ignore"):
                 out.append(np.where(cnt > 0, ssum / cnt, np.nan))
+        elif fn in ("min", "max") and unsigned:
+            v = _host(s).astype(lg)
+            v[gc[:len(v)] == 0] = np.iinfo(lg).max if fn == "min" else 0
+            out.append(v)
         else:
             out.append(_host(s))
     return out

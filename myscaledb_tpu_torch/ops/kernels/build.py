@@ -26,6 +26,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("binary_scan.cu", "errors.cu", "group_agg.cu", "merge_count.cu",
            "segmin_f32.cu", "segmin_sq8.cu")
+HEADERS = ("hopper.cuh",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -46,8 +47,10 @@ _SIGNATURES = {
                        _P, _P, _P],
     # x, q, sqn, qaux, mask, qsplit, out, n, d, nq, metric, stream
     "msdb_segmin_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x8, sides, q8, qside, mv, out, n_pad, d, nq, metric, stream
+    # x8, sides, q, scratch, mv, out, n_pad, d, nq, metric, stream
     "msdb_segmin_sq8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # nq, d -> 1 if msdb_segmin_sq8 takes its wgmma branch, 0 for __dp4a
+    "msdb_segmin_sq8_branch": [_I, _I],
 }
 
 _lock = threading.Lock()
@@ -69,7 +72,7 @@ def nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in SOURCES:
+    for s in SOURCES + HEADERS:
         h.update((CSRC / s).read_bytes())
     return BUILD_DIR / f"libmsdb_kernels-{h.hexdigest()[:16]}.so"
 

@@ -7,9 +7,10 @@ the H100 and the design.  ``segmin_sq8_plain`` is the same function in
 plain PyTorch: the wrapper uses it only for tensors on the CPU, and
 chip_smoke.py holds the kernel against it on the card.
 
-The query-side quantization (scale, int8 query, residual norms, q_aux)
-runs in PyTorch in both versions, as the JAX package keeps it outside
-``pallas_call``.
+The query-side quantization (scale, int8 query, residual norms, q_aux) is
+``quantize_queries`` in the plain version; on the card the kernel's entry
+point runs it as a prologue kernel, as the JAX package computes it in the
+same jitted function as its ``pallas_call``.
 """
 
 from __future__ import annotations
@@ -119,19 +120,23 @@ def segmin_sq8(x8, sides, q, maskvalid, metric: str):
     nq = q.shape[0]
     if d % 128 != 0:
         raise ValueError(f"segmin_sq8 kernel needs d % 128 == 0, got {d}")
+    q = q.contiguous()
     if not (x8.is_contiguous() and sides.is_contiguous()
             and maskvalid.is_contiguous()):
         raise ValueError("segmin_sq8 kernel needs contiguous tensors")
-    if x8.data_ptr() % 16 != 0:
-        raise ValueError("segmin_sq8 kernel needs x8 aligned to 16 bytes")
-    q8, qside = quantize_queries(q, metric)
+    if any(t.data_ptr() % 16 for t in (x8, sides, maskvalid)):
+        raise ValueError("segmin_sq8 kernel needs x8, sides and maskvalid "
+                         "aligned to 16 bytes")
+    # the kernel's q8 (nq x d bytes), then its qside (nq x 4 f32)
+    scratch = torch.empty(nq * d + nq * 16, dtype=torch.uint8,
+                          device=x8.device)
     out = torch.empty((nq, n_pad // SEG), dtype=torch.float32,
                       device=x8.device)
     lib = build.library()
     with torch.cuda.device(x8.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.msdb_segmin_sq8(
-            x8.data_ptr(), sides.data_ptr(), q8.data_ptr(), qside.data_ptr(),
+            x8.data_ptr(), sides.data_ptr(), q.data_ptr(), scratch.data_ptr(),
             maskvalid.data_ptr(), out.data_ptr(), n_pad, d, nq,
             METRIC_CODES[metric], stream)
     build.check(rc, "segmin_sq8")

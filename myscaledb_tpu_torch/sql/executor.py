@@ -44,8 +44,9 @@ import torch
 from myscaledb_tpu_torch.core.types import (DataType, Field, physical_dtype,
                                             torch_dtype)
 from myscaledb_tpu_torch.core.table import (BLOCK_ROWS, Table, Column,
-                                            to_tensor, concat_tables)
-from myscaledb_tpu_torch.core.dictionary import StringDictionary
+                                            concat_tables, fits_device,
+                                            to_tensor)
+from myscaledb_tpu_torch.core.dictionary import NULL_ID, StringDictionary
 from myscaledb_tpu_torch.config import TableSettings
 from myscaledb_tpu_torch.errors import ExecError, NotPortedError
 from myscaledb_tpu_torch.sql.ast import (Expr, Literal, VectorLiteral, Ident,
@@ -386,6 +387,9 @@ def _sort_key_from_value(v: Value, ascending: bool, nulls_last: bool, n: int,
                          device) -> SortKey:
     data = v.data
     if isinstance(data, np.ndarray):     # host-resident column
+        if not fits_device(data):
+            # UInt64 past 2^63-1: the same order as int64 sort keys
+            data = (data ^ np.uint64(1 << 63)).view(np.int64)
         data = to_tensor(data, device)
     if v.is_scalar:
         data = data.expand(n)
@@ -738,11 +742,13 @@ def _gather_side(c: Column, name: str, rows: np.ndarray, has, device):
     else:
         offsets = None
         if len(c) == 0:
-            # a side with no rows contributes only NULLs
+            # a side with no rows contributes only NULLs (a String column
+            # NULL ids, which its empty dictionary decodes as NULL)
             dtype = c.data.dtype if not c.is_host \
                 else torch_dtype(c.data.dtype)
-            data = torch.zeros((len(rows),) + tuple(c.data.shape[1:]),
-                               dtype=dtype, device=device)
+            data = torch.full((len(rows),) + tuple(c.data.shape[1:]),
+                              NULL_ID if c.dictionary is not None else 0,
+                              dtype=dtype, device=device)
             valid = torch.zeros(len(rows), dtype=torch.bool, device=device)
         elif c.is_host:
             data = to_tensor(c.data[rows], device)
@@ -954,6 +960,17 @@ def _agg_out_type(fn: str, lt: DataType, v: Value) -> Optional[DataType]:
     return None
 
 
+def _aggregate_column(name: str, arr: np.ndarray, dtype, device) -> Column:
+    """An aggregate's result column.  A UInt64 result past 2^63-1 (a sum
+    whose int64 bits wrapped, the empty set's min) has no place in the
+    int64 device storage, which ingest keeps refusing it: such a column
+    stays host-resident, holding uint64."""
+    host = dtype is DataType.UINT64 and not fits_device(
+        arr.astype(np.uint64))
+    return Column.from_numpy(name, arr, dtype=dtype, build_zonemap=False,
+                             to_device=not host, device=device)
+
+
 def _maybe_streaming_aggregate(env: Env, q: SelectQuery, mask, session,
                                alias_exprs: dict):
     """Out-of-device GROUP BY: when the aggregation touches host-resident
@@ -1034,7 +1051,9 @@ def _maybe_streaming_aggregate(env: Env, q: SelectQuery, mask, session,
         tuple(arg_valids) if any(v is not None for v in arg_valids)
         else None,
         chunk_rows=session.settings.stream_chunk_rows, device=dev)
-    outs = finalize(states, gc, tuple(fns))
+    logical = tuple(physical_dtype(a.dtype) if a is not None else None
+                    for a in args)
+    outs = finalize(states, gc, tuple(fns), logical)
     if not key_cols and len(gc) == 0:
         # global aggregation over an empty selection still yields one row:
         # finalize the SAME identity states the resident path uses
@@ -1049,10 +1068,9 @@ def _maybe_streaming_aggregate(env: Env, q: SelectQuery, mask, session,
             torch.zeros(1, dtype=torch.int32, device=dev),
             torch.zeros(1, dtype=torch.bool, device=dev),
             tuple(_empty_arg(a) for a in args), tuple(fns), 1,
-            logical_dtypes=tuple(
-                physical_dtype(a.dtype) if a is not None else None
-                for a in args))
-        outs = [o[:1] for o in finalize(id_states, id_gc, tuple(fns))]
+            logical_dtypes=logical)
+        outs = [o[:1] for o in finalize(id_states, id_gc, tuple(fns),
+                                        logical)]
     cols, mapping = [], {}
     for kname, kcol, rep in zip(key_names, key_cols, rep_keys):
         cols.append(Column(Field(kname, kcol.dtype, False,
@@ -1060,8 +1078,7 @@ def _maybe_streaming_aggregate(env: Env, q: SelectQuery, mask, session,
                            to_tensor(rep, dev), None, kcol.dictionary))
         mapping[kname] = kname
     for r, out in zip(names, outs):
-        cols.append(Column.from_numpy(r, out, dtype=out_types.get(r),
-                                      build_zonemap=False, device=dev))
+        cols.append(_aggregate_column(r, out, out_types.get(r), dev))
         mapping[r] = r
     return Table(cols, name=table.name), mapping
 
@@ -1166,7 +1183,7 @@ def run_aggregate(env: Env, q: SelectQuery, mask, session,
     states, gc = partial_aggregate_matmul(gid, m, tuple(args), tuple(fns), G,
                                           tuple(arg_valids),
                                           tuple(arg_ranges), tuple(logical))
-    outs = finalize(states, gc, tuple(fns))
+    outs = finalize(states, gc, tuple(fns), tuple(logical))
     gc_np = gc.cpu().numpy()
     present = np.flatnonzero(gc_np > 0)
     if not key_vals and len(present) == 0:
@@ -1195,9 +1212,7 @@ def run_aggregate(env: Env, q: SelectQuery, mask, session,
                            data, valid, kv.dictionary))
         mapping[name] = name
     for r, out in zip(normal_order, outs):
-        cols.append(Column.from_numpy(r, out[present],
-                                      dtype=out_types.get(r),
-                                      build_zonemap=False, device=dev))
+        cols.append(_aggregate_column(r, out[present], out_types.get(r), dev))
         mapping[r] = r
     return Table(cols, name=table.name), mapping
 
@@ -1659,9 +1674,10 @@ def execute_select(session, q: SelectQuery) -> Table:
 
     # 8. OFFSET / LIMIT
     if q.limit is not None or q.offset:
-        lo = q.offset
-        hi = (lo + q.limit) if q.limit is not None else proj_table.n_rows
-        idx = torch.arange(lo, min(hi, proj_table.n_rows), device=dev)
+        n_out = proj_table.n_rows
+        lo = min(q.offset, n_out)
+        hi = (q.offset + q.limit) if q.limit is not None else n_out
+        idx = torch.arange(lo, min(hi, n_out), device=dev)
         if len(idx) < proj_table.n_rows:
             proj_table = proj_table.take(idx)
 

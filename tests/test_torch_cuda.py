@@ -72,6 +72,168 @@ def test_segmin_sq8_kernel_matches_plain(cuda, n, nq, metric):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+def _sq8_inputs(gen, n, d, nq):
+    """A sidecar of n random rows (row 0 all zeros), a random mask over
+    the valid rows, and nq queries."""
+    x = torch.randn(n, d, device="cuda", generator=gen)
+    x[0] = 0.0
+    x8, sides = build_sq8(x)
+    q = torch.randn(nq, d, device="cuda", generator=gen)
+    mv = sides[3:4].clone()
+    mv[0, :n] *= (torch.rand(n, device="cuda", generator=gen) < 0.5).float()
+    return x8, sides, q, mv
+
+
+def _sq8_branch(nq, d):
+    from myscaledb_tpu_torch.ops.kernels import build
+    return build.library().msdb_segmin_sq8_branch(nq, d)
+
+
+@pytest.mark.parametrize("d", [128, 256, 768, 1024])
+@pytest.mark.parametrize("nq", [1, 8, 9, 16, 32, 64, 128])
+def test_segmin_sq8_wgmma_int_products(cuda, d, nq):
+    """The wgmma branch's int32 products, before the bound's arithmetic,
+    against torch._int_mm.  With unit scales, zero norms and residuals, and
+    queries of integers whose largest magnitude is 127 (so sq = 1 and q8 =
+    q), the IP bound of a row is -(x8 . q8 + 1e-6); one kept row a segment,
+    at position seg % 128, makes each segment's minimum that row's product,
+    and 256 segments put every row position of both warpgroups under
+    test."""
+    nseg = 256
+    n_pad = nseg * 128
+    x8 = torch.randint(-127, 128, (n_pad, d), device="cuda", generator=cuda,
+                       dtype=torch.int8)
+    q = torch.randint(-127, 128, (nq, d), device="cuda", generator=cuda,
+                      dtype=torch.int32)
+    q[:, 0] = 127
+    q = q.float()
+    sides = torch.zeros(4, n_pad, device="cuda")
+    sides[2] = 1.0
+    sides[3] = 1.0
+    seg = torch.arange(nseg, device="cuda")
+    rows = seg * 128 + seg % 128
+    mv = torch.zeros(1, n_pad, device="cuda")
+    mv[0, rows] = 1.0
+    assert _sq8_branch(nq, d) == 1
+    got = K1.segmin_sq8(x8, sides, q, mv, "IP")
+    # torch._int_mm takes widths that are multiples of 8
+    wide = -(-nq // 8) * 8
+    q8t = torch.nn.functional.pad(q.to(torch.int8).T.contiguous(),
+                                  (0, wide - nq))
+    want = torch._int_mm(x8[rows], q8t)[:, :nq].T
+    torch.cuda.synchronize()
+    assert torch.equal(torch.round(-got).to(torch.int32), want)
+
+
+@pytest.mark.parametrize("n", [100, 16389, 20000])
+@pytest.mark.parametrize("d", [128, 256, 768, 1024])
+@pytest.mark.parametrize("nq", [1, 8, 9, 16, 17, 64, 127, 128])
+@pytest.mark.parametrize("metric", METRICS)
+def test_segmin_sq8_wgmma_matches_plain(cuda, n, d, nq, metric):
+    """The wgmma branch (every query count whose q8 fits its shared
+    memory) against the plain version, at every query width it
+    instantiates, ragged n (n_pad a multiple of 16384 only past 16384 rows)
+    and the dims of the tested embeddings."""
+    x8, sides, q, mv = _sq8_inputs(cuda, n, d, nq)
+    assert _sq8_branch(nq, d) == 1
+    before = K1.segmin_sq8.launches
+    got = K1.segmin_sq8(x8, sides, q, mv, metric)
+    want = K1.segmin_sq8_plain(x8, sides, q, mv, metric)
+    torch.cuda.synchronize()
+    assert K1.segmin_sq8.launches == before + 1
+    assert got.shape == want.shape == (nq, x8.shape[0] // 128)
+    assert torch.equal(torch.isposinf(got), torch.isposinf(want))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("nq", [1, 9, 16, 17, 64, 127, 128])
+@pytest.mark.parametrize("metric", METRICS)
+def test_segmin_sq8_wgmma_matches_plain_at_1m_rows(cuda, nq, metric):
+    """The wgmma branch at config 1's table size (1M rows x 128), where the
+    persistent grid walks many segments a block."""
+    x8, sides, q, mv = _sq8_inputs(cuda, 1_000_000, 128, nq)
+    got = K1.segmin_sq8(x8, sides, q, mv, metric)
+    want = K1.segmin_sq8_plain(x8, sides, q, mv, metric)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isposinf(got), torch.isposinf(want))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("nq,branch", [(64, 1), (65, 0), (128, 0)])
+@pytest.mark.parametrize("metric", METRICS)
+def test_segmin_sq8_queries_past_shared_memory(cuda, nq, branch, metric):
+    """At d = 1152 the queries of a 128-wide wgmma (147 KB of q8) do not
+    fit in shared memory: from 65 queries on the __dp4a kernel runs,
+    reading the sidecar once per tile of 8 queries; 64 still take the
+    wgmma branch, over nine 128-byte chunks a segment."""
+    x8, sides, q, mv = _sq8_inputs(cuda, 3000, 1152, nq)
+    assert _sq8_branch(nq, 1152) == branch
+    got = K1.segmin_sq8(x8, sides, q, mv, metric)
+    want = K1.segmin_sq8_plain(x8, sides, q, mv, metric)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isposinf(got), torch.isposinf(want))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [20000, 16389])
+@pytest.mark.parametrize("metric", METRICS)
+def test_segmin_sq8_branches_are_bit_equal(cuda, n, metric):
+    """At d = 1152, 128 queries take the __dp4a branch (their q8 does not
+    fit in shared memory); the same queries 64 or 16 at a time, and the
+    first 10 alone, take the wgmma branch.  Bit for bit equal: the
+    quantization is per query, and both branches sum exactly and share
+    the bound's arithmetic."""
+    d = 1152
+    x8, sides, q, mv = _sq8_inputs(cuda, n, d, 128)
+    assert _sq8_branch(128, d) == 0
+    assert all(_sq8_branch(k, d) == 1 for k in (10, 16, 64))
+    whole = K1.segmin_sq8(x8, sides, q, mv, metric)
+    for k in (64, 16):
+        parts = torch.cat([K1.segmin_sq8(x8, sides, q[i:i + k], mv, metric)
+                           for i in range(0, 128, k)])
+        assert torch.equal(whole, parts)
+    assert torch.equal(K1.segmin_sq8(x8, sides, q[:10], mv, metric),
+                       whole[:10])
+
+
+@pytest.mark.parametrize("n,d", [(20000, 128), (16389, 1024)])
+@pytest.mark.parametrize("metric", METRICS)
+def test_segmin_sq8_wgmma_widths_are_bit_equal(cuda, n, d, metric):
+    """128 queries (the 128-wide wgmma) equal the same queries 8 at a
+    time (the 16-wide one, 8 of its columns padding) and one at a time,
+    bit for bit."""
+    x8, sides, q, mv = _sq8_inputs(cuda, n, d, 128)
+    whole = K1.segmin_sq8(x8, sides, q, mv, metric)
+    for k in (8, 1):
+        parts = torch.cat([K1.segmin_sq8(x8, sides, q[i:i + k], mv, metric)
+                           for i in range(0, 128, k)])
+        assert torch.equal(whole, parts)
+
+
+@pytest.mark.parametrize("d", [128, 1024])
+@pytest.mark.parametrize("metric", METRICS)
+def test_segmin_sq8_query_prologue(cuda, d, metric):
+    """The entry point's query quantization against quantize_queries: q8
+    equal; qside within rtol 1e-5 (its norms are sums of d squares in
+    another order than PyTorch's, a few f32 ulps apart)."""
+    from myscaledb_tpu_torch.ops.kernels import build
+    nq = 33
+    x8, sides, q, mv = _sq8_inputs(cuda, 300, d, nq)
+    q[3] = 0.0                                         # a zero query
+    scratch = torch.empty(nq * d + nq * 16, dtype=torch.uint8, device="cuda")
+    out = torch.empty(nq, x8.shape[0] // 128, device="cuda")
+    build.check(build.library().msdb_segmin_sq8(
+        x8.data_ptr(), sides.data_ptr(), q.data_ptr(), scratch.data_ptr(),
+        mv.data_ptr(), out.data_ptr(), x8.shape[0], d, nq,
+        K2.METRIC_CODES[metric], torch.cuda.current_stream().cuda_stream),
+        "segmin_sq8")
+    q8, qside = K1.quantize_queries(q, metric)
+    torch.cuda.synchronize()
+    assert torch.equal(scratch[:nq * d].view(torch.int8).view(nq, d), q8)
+    torch.testing.assert_close(scratch[nq * d:].view(torch.float32)
+                               .view(nq, 4), qside, rtol=1e-5, atol=0.0)
+
+
 @pytest.mark.parametrize("d", [32, 128, 768])
 @pytest.mark.parametrize("nq", [1, 8, 9, 20, 40, 128])
 @pytest.mark.parametrize("metric", METRICS)

@@ -1,0 +1,193 @@
+"""Five faults of the port against the JAX package, each held by statements
+run through both packages on the CPU (ROADMAP section 3): OFFSET past the
+end of the rows, the NULL branch of if() and CASE without ELSE (with
+string branches), LEFT/FULL JOIN onto an empty table with a String column,
+UInt64 aggregates past 2^63-1 or over no rows, and arithmetic over UInt
+columns.  Where the port keeps another answer than the JAX package's, the
+test pins both and points to the ROADMAP entry."""
+
+import numpy as np
+import pytest
+import torch
+
+import myscaledb_tpu
+import myscaledb_tpu_torch
+from myscaledb_tpu_torch.exec.expr import EvalError
+
+torch.set_num_threads(1)
+
+N, D = 300, 8
+_rng = np.random.default_rng(6)
+EMB = _rng.standard_normal((N, D)).astype(np.float32)
+PRICE = _rng.integers(0, 100, N).astype(np.int32)
+Q = "[" + ",".join(repr(float(v)) for v in EMB[3]) + "]"
+
+
+@pytest.fixture(scope="module")
+def sessions():
+    out = []
+    for s in (myscaledb_tpu.connect(),
+              myscaledb_tpu_torch.connect(device="cpu")):
+        s.sql("CREATE TABLE e (id UInt32, n Nullable(Int32), u UInt64, "
+              "w UInt32, s UInt16, c Nullable(String)) "
+              "ENGINE = MergeTree ORDER BY id")
+        s.sql("INSERT INTO e VALUES "
+              "(1, NULL, 9223372036854775807, 4294967295, 65535, 'p'), "
+              "(2, 5, 1, 1, 1, NULL), (3, NULL, 6, 2, 2, 'q')")
+        s.create_table("t", {"id": np.arange(N, dtype=np.int64),
+                             "p": PRICE, "emb": EMB})
+        s.sql("CREATE TABLE tb (id UInt32, p Int32, bv FixedString(4)) "
+              "ENGINE = MergeTree ORDER BY id")
+        s.sql("INSERT INTO tb SELECT number, number % 100, "
+              "char(number, number * 3, number * 7, 1) FROM numbers(300)")
+        s.sql("CREATE TABLE l (id UInt32, k Int32) "
+              "ENGINE = MergeTree ORDER BY id")
+        s.sql("INSERT INTO l VALUES (1, 10), (2, 20), (3, 30)")
+        for t in ("r0", "rx"):
+            s.sql(f"CREATE TABLE {t} (k Int32, c String, "
+                  "cn Nullable(String)) ENGINE = MergeTree ORDER BY k")
+        s.sql("INSERT INTO rx VALUES (99, 'x', NULL), (98, 'y', 'z')")
+        out.append(s)
+    return tuple(out)
+
+
+def _same(sessions, sql):
+    j, p = sessions
+    want = j.sql(sql).to_rows()
+    got = p.sql(sql).to_rows()
+    assert repr(got) == repr(want)
+
+
+@pytest.mark.parametrize("sql", [
+    "SELECT id FROM e ORDER BY id LIMIT 2 OFFSET 5",
+    "SELECT id FROM e WHERE id > 1 ORDER BY id DESC LIMIT 10 OFFSET 4",
+    # fused distance top-k: k = LIMIT + OFFSET, the WHERE leaves 1 row
+    f"SELECT id, distance(emb, {Q}) AS d FROM t WHERE p < 1 "
+    "ORDER BY d LIMIT 3 OFFSET 5",
+    # binary distance top-k over FixedString, the same way
+    "SELECT id, distance(bv, char(1, 2, 3, 4)) AS d FROM tb WHERE p < 1 "
+    "ORDER BY d LIMIT 3 OFFSET 5",
+])
+def test_offset_past_the_end_returns_no_rows(sessions, sql):
+    _same(sessions, sql)
+
+
+@pytest.mark.parametrize("sql", [
+    "SELECT id, if(id > 2, 1, NULL) FROM e ORDER BY id",
+    "SELECT id, if(id > 2, NULL, w) FROM e ORDER BY id",
+    "SELECT CASE WHEN id = 1 THEN 0 END FROM e ORDER BY id",
+    "SELECT id, if(id > 1, 'a', NULL) FROM e ORDER BY id",
+    "SELECT id, if(id > 1, 'a', 'bb') FROM e ORDER BY id",
+    "SELECT id, if(id > 1, c, 'z') FROM e ORDER BY id",
+    "SELECT id, if(id > 1, NULL, c) FROM e ORDER BY id",
+    "SELECT id, CASE WHEN id = 2 THEN c ELSE 'none' END FROM e ORDER BY id",
+    "SELECT if(id = 3, c, 'x') AS v, count() FROM e GROUP BY v ORDER BY v",
+])
+def test_if_null_and_string_branches(sessions, sql):
+    _same(sessions, sql)
+
+
+@pytest.mark.parametrize("sql,port,jax", [
+    ("SELECT if(id > 2, n, 0) FROM e ORDER BY id",
+     [(0,), (0,), (None,)], [(None,), (0,), (None,)]),
+    ("SELECT CASE WHEN id = 1 THEN 10 WHEN id = 2 THEN 20 END FROM e "
+     "ORDER BY id", [(10,), (20,), (None,)], [(None,), (20,), (None,)]),
+])
+def test_if_takes_the_chosen_branch_validity(sessions, sql, port, jax):
+    """A fault of the reference, pinned (ROADMAP section 3, "Known faults
+    in the reference itself"): the JAX package's if() over two numeric
+    branches takes t.valid & f.valid for every row; the port, as
+    ClickHouse, the validity of the branch the condition chose."""
+    j, p = sessions
+    assert j.sql(sql).to_rows() == jax
+    assert p.sql(sql).to_rows() == port
+
+
+@pytest.mark.parametrize("kind", ["LEFT", "FULL"])
+@pytest.mark.parametrize("col", ["c", "cn"])
+def test_join_onto_an_empty_table_pads_strings_with_null(sessions, kind,
+                                                         col):
+    """The JAX package fails on an empty right table (ROADMAP section 3),
+    so the port's rows over the empty r0 are held against the JAX
+    package's over rx, whose rows match no key: the left rows, with NULL
+    in the String and the Nullable(String) column (FULL adds rx's own
+    rows, left out here)."""
+    j, p = sessions
+    got = p.sql(f"SELECT l.id, r0.{col} FROM l {kind} JOIN r0 "
+                "ON l.k = r0.k ORDER BY l.id").to_rows()
+    want = [r for r in j.sql(f"SELECT l.id, rx.{col} FROM l {kind} JOIN rx "
+                             "ON l.k = rx.k ORDER BY l.id").to_rows()
+            if r[0] is not None]
+    assert got == want == [(1, None), (2, None), (3, None)]
+
+
+@pytest.mark.parametrize("sql", [
+    "SELECT sum(u), avg(u), sum(w), min(u), max(u) FROM e",
+    "SELECT max(u), min(u), max(w), min(w), max(s), min(s), sum(u), "
+    "avg(u), count() FROM e WHERE id > 10",
+    "SELECT id % 2 AS g, sum(u) AS su FROM e GROUP BY g ORDER BY g",
+    "SELECT id % 2 AS g, sum(u) AS su FROM e GROUP BY g ORDER BY su DESC",
+    "SELECT id % 2 AS g, sum(u) AS su FROM e GROUP BY g ORDER BY su LIMIT 1",
+])
+def test_uint64_aggregates(sessions, sql):
+    """sum(u) past 2^63-1 and its avg, and min/max over no rows, as the
+    JAX package gives them (the result column holds such a value on the
+    host; ingest still refuses it)."""
+    _same(sessions, sql)
+
+
+@pytest.mark.parametrize("expr,row,port,jax", [
+    ("w * 2", 1, 8589934590, 4294967294),
+    ("u - 2", 2, -1, 18446744073709551615),
+    ("-w", 1, -4294967295, 1),
+    ("s * 2", 1, 131070, 65534),
+    ("s * s", 1, 4294836225, 1),
+    ("w + 1", 1, 4294967296, 0),
+])
+def test_uint_arithmetic_follows_clickhouse_types(sessions, expr, row, port,
+                                                  jax):
+    """Pinned per operator (ROADMAP section 3, "Known faults in the
+    reference itself"): the JAX package wraps UInt arithmetic in the
+    operand's width; the port gives ClickHouse's results, whose types
+    widen (UInt32 * UInt8 is UInt64, UInt16 * UInt16 UInt32) and whose
+    minus and negate are signed."""
+    j, p = sessions
+    sql = f"SELECT {expr} FROM e WHERE id = {row}"
+    assert j.sql(sql).to_rows() == [(jax,)]
+    assert p.sql(sql).to_rows() == [(port,)]
+
+
+@pytest.mark.parametrize("expr", ["u + u", "u + 1", "u * 2", "w * w"])
+def test_uint64_result_past_int64_is_refused(sessions, expr):
+    """A UInt64 result above 2^63-1 cannot be held by the port's int64
+    storage: it raises, where int64 arithmetic would print it wrapped
+    (u + u at u = 2^63-1 gave -2).  The JAX package, whose UInt64 is
+    native, prints 18446744073709551614 for u + u."""
+    j, p = sessions
+    sql = f"SELECT {expr} FROM e WHERE id = 1"
+    if expr == "u + u":
+        assert j.sql(sql).to_rows() == [(18446744073709551614,)]
+    with pytest.raises(EvalError, match="above 2\\^63-1"):
+        p.sql(sql)
+
+
+def test_uint_arithmetic_tests_overflow_only_where_types_allow_it(
+        sessions, monkeypatch):
+    """The overflow test reads the device (a host sync), so it runs only
+    where the operands' types let the result pass 2^63-1: not for UInt32
+    or UInt16 plus or times a literal, nor for UInt16 times UInt32, and
+    chained results keep their bound; UInt32 times UInt32 and any UInt64
+    operand still take it."""
+    from myscaledb_tpu_torch.exec import expr
+    _j, p = sessions
+    tested = []
+    real = expr._refuse_overflow
+    monkeypatch.setattr(expr, "_refuse_overflow",
+                        lambda *a: tested.append(a[0]) or real(*a))
+    rows = p.sql("SELECT w * 2, id + 1, s * w, (w + 1) * 2, s * s + w "
+                 "FROM e WHERE id = 1").to_rows()
+    assert rows == [(8589934590, 2, 281470681677825, 8589934592,
+                     8589803520)]
+    assert tested == []
+    p.sql("SELECT w * w, u + 1 FROM e WHERE id = 3")
+    assert tested == ["*", "+"]
