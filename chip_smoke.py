@@ -2,7 +2,7 @@
 
 Usage:  python3 chip_smoke.py [--seed N]
 
-Six main paths, the SQL ones through the entry points a user calls
+Seven main paths, the SQL ones through the entry points a user calls
 (``connect()`` -> ``Session.create_table`` or SQL DDL -> ``Session.sql``):
 
   BASELINE config 1, the filtered exact vector top-k, over n = 1,000,000
@@ -44,6 +44,14 @@ Six main paths, the SQL ones through the entry points a user calls
     WHERE price < 50 ORDER BY dist.1, dist.2 LIMIT 10 BY dist.1
 
   and the 23 vector goldens (tests/goldens/vector) on the card.
+
+  BASELINE config 3, ORDER BY ... LIMIT over 100,000,000 rows of id
+  UInt32, v Float32 (standard normal) and w Int32 in [0, 1000):
+
+    SELECT id, v FROM t3 ORDER BY v DESC LIMIT 100
+
+  then window functions over 10,000,000 rows in 1000 partitions, and the
+  stateless goldens the port replays (tests/test_torch_goldens_stateless.py).
 
 Phases, one JSON line each; any failure raises and the script exits
 non-zero without printing a result:
@@ -104,6 +112,28 @@ non-zero without printing a result:
               rows
   goldens_vector  the 23 vector goldens through run_golden_text(connect()),
               each byte-identical to its .reference
+  sql_topn    config 3: v DESC (bench.py's statement), v ASC, w DESC (heavy
+              ties) and ORDER BY id (already ordered: read-in-order), each
+              ten times after a warm-up, ids equal to a stable full sort of
+              the total-order key on the card; ReadInOrderSorts moves once
+              per ORDER BY id statement and never for the others; a
+              profiler pass over three v DESC statements; the device time
+              of topn_permutation alone (its segment prefilter) beside the
+              full sort it replaced and the column's byte bound, with
+              topn_sort_rows_per_sec_per_chip as bench.py defines it (rows
+              over that device time); then v DESC in a session whose
+              max_hbm_bytes_per_column keeps the columns in host RAM, so
+              the key streams through the card in stream_chunk_rows
+              chunks (StreamingTopN moves once a statement), with the
+              resident table's ids
+  sql_window  row_number/rank/dense_rank, running sum and avg with peers,
+              whole-partition sum and max, lag/lead and ntile over 10M rows,
+              each result column against an oracle on the card built from
+              stable sorts, searchsorted edges and f64 prefix sums:
+              integers equal, avg(f) within rtol 2e-5 or atol 2e-5 x the
+              partition's sum |f| over the frame's rows
+  goldens_stateless  every case of tests/test_torch_goldens_stateless.py
+              through run_golden_text(connect()), byte-identical
 
 Kernel times are medians of CUDA-event timings, K1 at nq = 1, 8, 9, 10,
 16, 32, 64 and 128 and K2 at nq = 1, 10, 32 and 128 (the summary's
@@ -133,12 +163,16 @@ twenty certified queries; the three uncertifiable statements; the ten
 config-2 statements; the join build and count probes; the join statements
 up to the last timed one; the ten config-6 statements; on the DDL-built
 table the twenty distance statements, the ten batch statements at each
-nq, and the three identical-rows statements) and read just after it; each kernel must have launched in the run of its path, and the summary
-reports every kernel's count on every path.  Launches made to compare a
-kernel with its plain version, the profiler passes and the 10M-row branch
-statements count nowhere.  The last lines are the kernels
-summary, the nvidia-smi name/power line, and {"ok": true, "device":
-{...}}.  Needs one CUDA card.
+nq, and the three identical-rows statements; config 3's statements; the
+window statements) and read just after it; each kernel must have
+launched in the run of its path, and the summary reports every kernel's
+count on every path.  Launches made to compare a kernel with its plain
+version, the profiler passes and the 10M-row branch statements count
+nowhere.  Config 3's and the windows' paths launch no kernel of the port
+(their JAX counterparts reach no Pallas kernel either); their counts are
+reported all the same.  The last lines are the kernels summary, the
+nvidia-smi name/power line, and {"ok": true, "device": {...}}.  Needs one
+CUDA card.
 """
 
 from __future__ import annotations
@@ -815,17 +849,21 @@ def oracle(x, price, q, k):
     return order.cpu().numpy(), dist[order].cpu().numpy()
 
 
-def profile_statements(s, statements):
+def profile_statements(s, statements, to_rows: bool = True):
     """Where a query's time goes: torch.profiler over a few main-path
-    statements.  Returns wall time, summed device kernel time (their ratio
-    is the device's busy share, with the profiler's own host overhead in
-    the wall time) and the kernels that take the most device time."""
+    statements (each result read back with to_rows() unless ``to_rows`` is
+    false: the window phase's 10M-row results stay on the card).  Returns
+    wall time, summed device kernel time (their ratio is the device's busy
+    share, with the profiler's own host overhead in the wall time) and the
+    kernels that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for stmt in statements:
-            s.sql(stmt).to_rows()
+            res = s.sql(stmt)
+            if to_rows:
+                res.to_rows()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / len(statements)
 
@@ -839,12 +877,17 @@ def profile_statements(s, statements):
         getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
         or e.self_cpu_time_total == 0)]
     device_ms = sum(dev_us(e) for e in kernels) / 1e3 / len(statements)
-    top = sorted(kernels, key=dev_us, reverse=True)[:8]
+    # kernels whose names share their first 60 characters (two template
+    # instances) are summed under that prefix
+    by_name = {}
+    for e in kernels:
+        by_name[e.key[:60]] = by_name.get(e.key[:60], 0.0) \
+            + dev_us(e) / len(statements)
+    top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:8]
     return {"wall_ms_per_query": wall_ms,
             "device_ms_per_query": device_ms,
             "device_busy_share": device_ms / wall_ms,
-            "top_kernels_us_per_query": {
-                e.key[:60]: dev_us(e) / len(statements) for e in top}}
+            "top_kernels_us_per_query": dict(top)}
 
 
 def host_split(s, statements):
@@ -1831,6 +1874,342 @@ def phase_goldens_vector() -> int:
     return len(names)
 
 
+# BASELINE config 3 (bench.py:219-249): ORDER BY v DESC LIMIT 100 over 100M
+# f32 rows; w is an Int32 column of heavy ties for the tie rule
+N3, LIMIT3 = 100_000_000, 100
+TOPN_STATEMENTS = {
+    "v_desc": "SELECT id, v FROM t3 ORDER BY v DESC LIMIT 100",
+    "v_asc": "SELECT id, v FROM t3 ORDER BY v ASC LIMIT 100",
+    "w_desc": "SELECT id, w FROM t3 ORDER BY w DESC LIMIT 100",
+    "id_read_in_order": "SELECT id FROM t3 ORDER BY id LIMIT 100",
+}
+# the host-resident session: every 400 MB column stays in host RAM
+TOPN_HOST_BUDGET = 1 << 28
+# windows: rows, partitions, v's range (peers tie), float tolerance (the
+# port's f32 cumsum against an f64 oracle: rtol, or atol x the
+# partition's sum of |f|)
+NW, GW, VW = 10_000_000, 1000, 100
+WINDOW_RTOL = 2e-5
+
+
+def total_order(x: torch.Tensor) -> torch.Tensor:
+    """int32 key ordering float32 values by the IEEE total order (NaN
+    above +inf), written here apart from the port's encoding."""
+    i = x.view(torch.int32)
+    return torch.where(i < 0, i ^ 0x7FFFFFFF, i)
+
+
+def stable_top(key: torch.Tensor, descending: bool, k: int):
+    """The first k row ids of a stable full sort of ``key``: ties keep
+    ascending row id in either direction."""
+    return torch.sort(key, descending=descending, stable=True).indices[:k]
+
+
+def timed_sql(s, stmt: str, reps: int):
+    """Host-clock ms of ``Session.sql(stmt).to_rows()``, ``reps`` times
+    after one warm-up, and the last run's rows."""
+    s.sql(stmt).to_rows()
+    lat = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        rows = s.sql(stmt).to_rows()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return lat, rows
+
+
+def check_topn_rows(rows, want_ids, col, tag):
+    ids = torch.as_tensor([r[0] for r in rows], device="cuda")
+    if not torch.equal(ids, want_ids):
+        raise AssertionError(f"{tag}: ids differ from the stable full sort")
+    if col is not None:
+        got = torch.as_tensor([r[1] for r in rows], dtype=col.dtype,
+                              device="cuda")
+        if not torch.equal(got, col[want_ids]):
+            raise AssertionError(f"{tag}: values differ from the column's")
+
+
+def phase_sql_topn(seed: int):
+    """BASELINE config 3 at full size through SQL, the top-n prefilter's
+    device time beside the full sort's and its byte bound, read-in-order
+    and the host-resident (streaming) top-n."""
+    import myscaledb_tpu_torch as P
+    from myscaledb_tpu_torch.ops.sort import (SortKey, sort_permutation,
+                                              topn_permutation)
+    from myscaledb_tpu_torch.runtime import metrics as M
+
+    rng = np.random.default_rng(seed + 7)
+    t0 = time.perf_counter()
+    data = {"id": np.arange(N3, dtype=np.uint32),
+            "v": rng.standard_normal(N3, dtype=np.float32),
+            "w": rng.integers(0, 1000, N3, dtype=np.int32)}
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s = P.connect()
+    s.create_table("t3", data)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    v = s.tables["t3"]["v"].data
+    w = s.tables["t3"]["w"].data
+    want = {"v_desc": stable_top(total_order(v), True, LIMIT3),
+            "v_asc": stable_top(total_order(v), False, LIMIT3),
+            "w_desc": stable_top(w, True, LIMIT3),
+            "id_read_in_order": torch.arange(LIMIT3, device="cuda")}
+    cols = {"v_desc": v, "v_asc": v, "w_desc": w, "id_read_in_order": None}
+
+    # the main path's own run: counts zeroed just before, read just after
+    zero_launches()
+    stats, orders = {}, {}
+    for name, stmt in TOPN_STATEMENTS.items():
+        before = M.events_snapshot().get("ReadInOrderSorts", 0)
+        lat, rows = timed_sql(s, stmt, 10)
+        check_topn_rows(rows, want[name], cols[name], name)
+        orders[name] = M.events_snapshot().get("ReadInOrderSorts", 0) - before
+        stats[name] = summary_ms(lat)
+    launches = read_launches()
+    if orders["id_read_in_order"] != 11 or any(
+            orders[k] for k in orders if k != "id_read_in_order"):
+        raise AssertionError(f"ReadInOrderSorts moved by {orders}; want 11 "
+                             "(one per statement) for ORDER BY id alone")
+    breakdown = profile_statements(s, [TOPN_STATEMENTS["v_desc"]] * 3)
+
+    # the prefilter alone (bench.py times topn_permutation), beside the
+    # parent's path on the same column: a full sort, sliced
+    timing = {}
+    for name, key in (("v_desc", SortKey(v, False)),
+                      ("v_asc", SortKey(v, True)),
+                      ("w_desc", SortKey(w, False))):
+        got = topn_permutation([key], LIMIT3, N3)
+        if not torch.equal(got, want[name]):
+            raise AssertionError(f"topn_permutation {name}: ids differ")
+        full = sort_permutation([key])[:LIMIT3]
+        if not torch.equal(full, want[name]):
+            raise AssertionError(f"sort_permutation {name}: ids differ")
+        timing[name] = {
+            "topn_ms": time_ms(lambda: topn_permutation([key], LIMIT3, N3)),
+            "full_sort_ms": time_ms(
+                lambda: sort_permutation([key])[:LIMIT3], reps=5)}
+    bound, bound_by = bound_ms(N3 * 4, 0, F32_FLOPS)
+    del v, w
+    s.tables.clear()
+    torch.cuda.empty_cache()
+
+    # the host-resident session: v streams through the card in
+    # stream_chunk_rows chunks (StreamingTopN)
+    h = P.connect()
+    h.settings.max_hbm_bytes_per_column = TOPN_HOST_BUDGET
+    h.create_table("t3", {"id": data["id"], "v": data["v"]})
+    if not h.tables["t3"]["v"].is_host:
+        raise AssertionError("v did not stay host-resident")
+    before = M.events_snapshot().get("StreamingTopN", 0)
+    lat, rows = timed_sql(h, TOPN_STATEMENTS["v_desc"], 5)
+    streamed = M.events_snapshot().get("StreamingTopN", 0) - before
+    # the same ids as the resident table's
+    check_topn_rows(rows, want["v_desc"], None, "host-resident v_desc")
+    if streamed != 6:
+        raise AssertionError(f"StreamingTopN moved by {streamed}, want 6")
+    stats["v_desc_host_resident"] = summary_ms(lat)
+
+    median = stats["v_desc"]["median_ms"]
+    emit({"phase": "sql_topn", "rows": N3, "limit": LIMIT3,
+          "statements": TOPN_STATEMENTS, "gen_s": gen_s, "load_s": load_s,
+          "latency": stats,
+          "median_query_ms": median,
+          "p90_query_ms": stats["v_desc"]["p90_ms"],
+          "sql_rows_per_s": N3 / (median / 1e3),
+          "topn_sort_rows_per_sec_per_chip":
+              N3 / (timing["v_desc"]["topn_ms"] / 1e3),
+          "device_ms": timing, "bound_ms": bound, "bound_by": bound_by,
+          "read_in_order_sorts": orders,
+          "streaming_topn": streamed,
+          "stream_chunk_rows": h.settings.stream_chunk_rows,
+          "launches": launches,
+          "oracle": "ids equal a stable full sort of the total-order key "
+                    "on the card, values equal the column's",
+          "profile_3_queries": breakdown})
+    h.tables.clear()
+    torch.cuda.empty_cache()
+    return launches
+
+
+WINDOW_STATEMENTS = {
+    "ranks": "SELECT id, row_number() OVER (PARTITION BY g ORDER BY v) AS a, "
+             "rank() OVER (PARTITION BY g ORDER BY v) AS b, "
+             "dense_rank() OVER (PARTITION BY g ORDER BY v) AS c FROM tw",
+    "running": "SELECT id, sum(v) OVER (PARTITION BY g ORDER BY v) AS a, "
+               "avg(f) OVER (PARTITION BY g ORDER BY v) AS b FROM tw",
+    "whole": "SELECT id, sum(v) OVER (PARTITION BY g) AS a, "
+             "max(f) OVER (PARTITION BY g) AS b FROM tw",
+    "shift": "SELECT id, lag(v, 1) OVER (PARTITION BY g ORDER BY id) AS a, "
+             "lead(v, 2, 0) OVER (PARTITION BY g ORDER BY id) AS b FROM tw",
+    "ntile": "SELECT id, ntile(4) OVER (PARTITION BY g ORDER BY v) AS a "
+             "FROM tw",
+}
+
+
+def window_oracle(g, v, f):
+    """Every window column of WINDOW_STATEMENTS on the card, from one
+    stable sort by (g, v) and one by g, searchsorted group and peer edges
+    and f64 prefix sums: a construction apart from the port's."""
+    n = g.shape[0]
+    dev = g.device
+    rows = torch.arange(n, device=dev)
+    gv = g.long() * (1 << 32) + v.long()
+    p = torch.sort(gv, stable=True).indices        # (g, v, id) order
+    gs, ks = g[p].long(), gv[p]
+    g_start = torch.searchsorted(gs, gs, right=False)
+    g_end = torch.searchsorted(gs, gs, right=True) - 1
+    peer_start = torch.searchsorted(ks, ks, right=False)
+    peer_end = torch.searchsorted(ks, ks, right=True) - 1
+    _, distinct = torch.unique_consecutive(ks, return_inverse=True)
+    out = {}
+
+    def unsort(x):
+        o = torch.empty_like(x)
+        o[p] = x
+        return o
+    out["ranks"] = {"a": unsort(rows - g_start + 1),
+                    "b": unsort(peer_start - g_start + 1),
+                    "c": unsort(distinct - distinct[g_start] + 1)}
+    cv = torch.cumsum(v[p].long(), 0)
+    cf = torch.cumsum(f[p].double(), 0)
+    zero = torch.zeros(1, dtype=torch.float64, device=dev)
+    base_v = torch.where(g_start > 0, cv[(g_start - 1).clamp(min=0)], 0)
+    base_f = torch.where(g_start > 0, cf[(g_start - 1).clamp(min=0)], zero)
+    cnt = (peer_end - g_start + 1).double()
+    out["running"] = {"a": unsort(cv[peer_end] - base_v),
+                      "b": unsort((cf[peer_end] - base_f) / cnt)}
+    sums = torch.zeros(GW, dtype=torch.int64, device=dev).index_add_(
+        0, g.long(), v.long())
+    maxs = torch.full((GW,), -torch.inf, device=dev).scatter_reduce_(
+        0, g.long(), f, "amax")
+    out["whole"] = {"a": sums[g.long()], "b": maxs[g.long()]}
+    q = torch.sort(g, stable=True).indices          # (g, id) order
+    gq, vq = g[q], v[q]
+    prev_ok = torch.zeros(n, dtype=torch.bool, device=dev)
+    prev_ok[1:] = gq[1:] == gq[:-1]
+    prev = torch.zeros_like(vq)
+    prev[1:] = vq[:-1]
+    nxt = torch.zeros_like(vq)
+    nxt[:-2] = torch.where(gq[2:] == gq[:-2], vq[2:], 0)
+    lag_ok = torch.empty_like(prev_ok)
+    lag_ok[q] = prev_ok
+    lag = torch.empty_like(prev)
+    lag[q] = prev
+    lead = torch.empty_like(nxt)
+    lead[q] = nxt
+    out["shift"] = {"a": (lag, lag_ok), "b": lead}
+    out["ntile"] = {"a": unsort((rows - g_start) * 4
+                                // (g_end - g_start + 1) + 1)}
+    abs_sum = torch.zeros(GW, dtype=torch.float64, device=dev).index_add_(
+        0, g.long(), f.double().abs())
+    # an average's atol is its sum's over the frame's row count
+    avg_atol = 2e-5 * abs_sum[g.long()] / unsort(cnt)
+    return out, avg_atol
+
+
+def check_window(res, want, avg_atol, name):
+    for col, w in want.items():
+        c = res[col]
+        if name == "shift" and col == "a":
+            w, ok = w
+            if not torch.equal(c.valid, ok):
+                raise AssertionError("lag: NULLs differ from the oracle")
+            if not torch.equal(c.data[ok].long(), w[ok].long()):
+                raise AssertionError("lag: values differ from the oracle")
+            continue
+        if c.valid is not None and not bool(c.valid.all()):
+            raise AssertionError(f"{name}.{col}: unexpected NULLs")
+        if name == "running" and col == "b":
+            err = (c.data.double() - w).abs()
+            tol = torch.maximum(WINDOW_RTOL * w.abs(), avg_atol)
+            if not bool((err <= tol).all()):
+                raise AssertionError(f"avg(f): error {float(err.max())} "
+                                     "past rtol 2e-5 / atol 2e-5 x sum|f|")
+        elif not torch.equal(c.data.to(w.dtype), w):
+            raise AssertionError(f"{name}.{col}: differs from the oracle")
+
+
+def phase_sql_window(seed: int):
+    """Window functions over 10M rows and 1000 partitions through SQL;
+    every result column checked against window_oracle on the card."""
+    import myscaledb_tpu_torch as P
+
+    rng = np.random.default_rng(seed + 8)
+    s = P.connect()
+    s.create_table("tw", {
+        "id": np.arange(NW, dtype=np.int64),
+        "g": rng.integers(0, GW, NW, dtype=np.int32),
+        "v": rng.integers(0, VW, NW, dtype=np.int32),
+        "f": rng.standard_normal(NW, dtype=np.float32)})
+    t = s.tables["tw"]
+    want, avg_atol = window_oracle(t["g"].data, t["v"].data, t["f"].data)
+    zero_launches()
+    stats = {}
+    for name, stmt in WINDOW_STATEMENTS.items():
+        s.sql(stmt)                                   # warm-up
+        lat = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = s.sql(stmt)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        if not torch.equal(res["id"].data, t["id"].data):
+            raise AssertionError(f"{name}: rows not in table order")
+        check_window(res, want[name], avg_atol, name)
+        stats[name] = summary_ms(lat)
+    launches = read_launches()
+    breakdown = profile_statements(s, list(WINDOW_STATEMENTS.values()),
+                                   to_rows=False)
+    emit({"phase": "sql_window", "rows": NW, "partitions": GW,
+          "v_range": VW, "statements": WINDOW_STATEMENTS,
+          "latency": stats, "launches": launches,
+          "profile_5_statements": breakdown,
+          "oracle": "integers equal; avg(f) within rtol 2e-5 of an f64 "
+                    "oracle or atol 2e-5 x the partition's sum |f| over "
+                    "the frame's rows"})
+    s.tables.clear()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_goldens_stateless() -> int:
+    """Every case of tests/test_torch_goldens_stateless.py's CASES through
+    run_golden_text(connect()) on the card, each byte-identical to its
+    .reference."""
+    import ast
+    import os
+    import myscaledb_tpu_torch as P
+    from myscaledb_tpu_torch.testing import run_golden_text
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    tree = ast.parse(open(os.path.join(
+        root, "test_torch_goldens_stateless.py")).read())
+    names = next(ast.literal_eval(node.value) for node in tree.body
+                 if isinstance(node, ast.Assign)
+                 and getattr(node.targets[0], "id", None) == "CASES")
+    gdir = os.path.join(root, "goldens", "stateless")
+    t0 = time.perf_counter()
+    bad = []
+    for name in names:
+        sql = open(os.path.join(gdir, name + ".sql")).read()
+        want = open(os.path.join(gdir, name + ".reference")).read() \
+            .rstrip("\n").split("\n")
+        if want == [""]:
+            want = []
+        s = P.connect()
+        if s.device.type != "cuda":
+            raise AssertionError(f"connect() chose {s.device}")
+        if run_golden_text(s, sql) != want:
+            bad.append(name)
+    emit({"phase": "goldens_stateless", "cases": len(names),
+          "identical": len(names) - len(bad), "differ": bad,
+          "seconds": time.perf_counter() - t0})
+    if bad:
+        raise AssertionError(f"stateless goldens: {len(names) - len(bad)} "
+                             f"of {len(names)} identical; differ: {bad}")
+    return len(names)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1884,6 +2263,9 @@ def main() -> int:
     counts["sql_binary"] = phase_sql_binary(args.seed)
     counts.update(phase_sql_ddl(args.seed))
     phase_goldens_vector()
+    counts["sql_topn"] = phase_sql_topn(args.seed)
+    counts["sql_window"] = phase_sql_window(args.seed)
+    phase_goldens_stateless()
 
     summary = []
     # each kernel's launches come from the run of the path that takes it:

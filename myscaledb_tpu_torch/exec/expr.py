@@ -38,7 +38,7 @@ from myscaledb_tpu_torch.core.dictionary import StringDictionary
 from myscaledb_tpu_torch.errors import NotPortedError
 from myscaledb_tpu_torch.sql.ast import (Expr, Literal, VectorLiteral, Ident,
                                          BinOp, UnOp, FuncCall, InList,
-                                         Between)
+                                         Between, WindowCall)
 
 EXPR_SLICE = "expression and function breadth"
 INT64_MAX = 2 ** 63 - 1
@@ -595,6 +595,9 @@ def eval_expr(e: Expr, env: Env) -> Value:
             raise NotPortedError(f"function {e.name}()", EXPR_SLICE)
         args = [eval_expr(a, env) for a in e.args]
         return impl(args, env)
+    if isinstance(e, WindowCall):
+        # computed windows are read by name; one inside an expression is not
+        raise EvalError(f"cannot evaluate {e!r}")
     raise NotPortedError(f"expression {type(e).__name__}", EXPR_SLICE)
 
 

@@ -1,8 +1,8 @@
-"""Virtual system.* tables: the port of ``system.parts`` and
-``system.vector_indices`` from myscaledb_tpu/runtime/system_tables.py
-(``build_system_table``), built on demand from the session's state and
-queried through the normal SQL path.  Every other ``system.*`` name raises
-``NotPortedError``.
+"""Virtual system.* tables: the port of ``system.one``,
+``system.numbers``, ``system.parts`` and ``system.vector_indices`` from
+myscaledb_tpu/runtime/system_tables.py (``build_system_table``), built on
+demand from the session's state and queried through the normal SQL path.
+Every other ``system.*`` name raises ``NotPortedError``.
 """
 
 from __future__ import annotations
@@ -12,11 +12,23 @@ import numpy as np
 from myscaledb_tpu_torch.core.table import Table
 from myscaledb_tpu_torch.errors import NotPortedError
 
-SYSTEM_TABLES = ("system.parts", "system.vector_indices")
+SYSTEM_TABLES = ("system.one", "system.parts", "system.vector_indices",
+                 "system.numbers")
 
 
 def build_system_table(session, name: str) -> Table:
     dev = session.device
+
+    if name == "system.one":
+        return Table.from_dict({"dummy": np.zeros(1, dtype=np.uint8)},
+                               device=dev)
+
+    if name == "system.numbers":
+        # bounded materialization (the reference streams unbounded; use
+        # numbers(N) for explicit ranges)
+        return Table.from_dict({"number": np.arange(1 << 16,
+                                                    dtype=np.uint64)},
+                               device=dev)
 
     if name == "system.parts":
         # logical part set: one part per INSERT batch since the last

@@ -10,12 +10,16 @@ binary-vector and DDL slices of myscaledb_tpu/sql/executor.py (``VSInfo``,
 ``_maybe_streaming_aggregate``, ``run_aggregate``, ``_default_like``,
 ``_expand_group_levels``, ``_expand_grouping_sets``, ``_totals_table``,
 ``_materialize_topk``, ``_project``, ``_distinct_rows``, ``_limit_by``,
-``execute_select``).
+``WINDOW_FNS``, ``walk_outside_windows``, ``_compute_windows``,
+``_apply_with_fill``, ``execute_select``).
 
 Stage order (SQL semantics): source (table, ``numbers()``, or a FROM
 subquery) -> JOINs -> PREWHERE/WHERE -> [vector top-k] -> [GROUP BY /
-aggregates -> HAVING] -> SELECT -> DISTINCT -> ORDER BY -> LIMIT BY ->
-OFFSET/LIMIT.  ``distance()`` and its metric-named forms fuse with ORDER
+aggregates -> HAVING] -> window functions -> SELECT -> DISTINCT -> ORDER
+BY [WITH FILL] -> LIMIT BY -> OFFSET/LIMIT.  ORDER BY ... LIMIT takes the
+top-n selection (ops/sort.py); a host-resident key streams through the
+device chunk by chunk, and one ascending key already in order over 2^20
+rows or more is read in order (no sort).  ``distance()`` and its metric-named forms fuse with ORDER
 BY <distance> LIMIT k into the exact two-stage scan (ops/vector.py);
 ``batch_distance(col, [[q1], [q2], ...])`` with LIMIT n BY <alias>.1 scans
 all its query vectors in one call and yields the tuple column
@@ -27,7 +31,7 @@ combinators, HAVING, DISTINCT, ROLLUP/CUBE/GROUPING SETS and WITH TOTALS
 run; sum/count/avg go through K3 (ops/kernels/group_agg.py) for up to 256
 groups.  Everything else the JAX executor does — JOIN on a subquery,
 joinGet and Join engines, distributed joins, the special aggregates and
-the -State/-Merge combinators, windows, WITH FILL, text and hybrid search,
+the -State/-Merge combinators, text and hybrid search,
 subqueries in expressions, CTEs, UNION and the other table functions —
 raises ``NotPortedError`` naming the slice that brings it.  Error texts the
 goldens pin stay byte-equal to the JAX package's.
@@ -79,8 +83,11 @@ from myscaledb_tpu_torch.ops.vector import (distance_scan, rowwise_distance,
                                             build_sq8, precompute_sqnorm,
                                             INVALID_ID)
 from myscaledb_tpu_torch.ops.kernels.distance_q import sq8_supported
-from myscaledb_tpu_torch.ops.sort import SortKey, sort_permutation, \
-    topn_permutation
+from myscaledb_tpu_torch.ops.sort import (SortKey, encode_sort_key,
+                                          sort_permutation,
+                                          streaming_topn_permutation,
+                                          topn_permutation)
+from myscaledb_tpu_torch.ops.window import WindowLayout
 from myscaledb_tpu_torch.ops.filter import compact_table_host
 from myscaledb_tpu_torch.runtime import metrics as M
 from myscaledb_tpu_torch.runtime.tracing import span
@@ -385,12 +392,13 @@ def _value_to_column(name: str, v: Value, n: int, device) -> Column:
 
 def _sort_key_from_value(v: Value, ascending: bool, nulls_last: bool, n: int,
                          device) -> SortKey:
+    """A SortKey on ``device``, except that a host-resident column stays
+    a host array (streaming_topn_permutation moves it in chunks;
+    ``_key_on_device`` moves it whole for the other sorts)."""
     data = v.data
-    if isinstance(data, np.ndarray):     # host-resident column
-        if not fits_device(data):
-            # UInt64 past 2^63-1: the same order as int64 sort keys
-            data = (data ^ np.uint64(1 << 63)).view(np.int64)
-        data = to_tensor(data, device)
+    if isinstance(data, np.ndarray) and not fits_device(data):
+        # UInt64 past 2^63-1: the same order as int64 sort keys
+        data = (data ^ np.uint64(1 << 63)).view(np.int64)
     if v.is_scalar:
         data = data.expand(n)
     if v.dictionary is not None:
@@ -398,11 +406,18 @@ def _sort_key_from_value(v: Value, ascending: bool, nulls_last: bool, n: int,
         if len(ranks) == 0:
             ranks = np.zeros(1, dtype=np.int32)
         data = _dict_map(Value(data), ranks)
-    valid = v.valid
+    return SortKey(data, ascending=ascending, valid=v.valid,
+                   nulls_last=nulls_last)
+
+
+def _key_on_device(sk: SortKey, device) -> SortKey:
+    """``sk`` with a host-resident column copied whole to ``device``."""
+    values, valid = sk.values, sk.valid
+    if isinstance(values, np.ndarray):
+        values = to_tensor(values, device)
     if isinstance(valid, np.ndarray):
         valid = to_tensor(valid, device)
-    return SortKey(data, ascending=ascending, valid=valid,
-                   nulls_last=nulls_last)
+    return SortKey(values, sk.ascending, valid, sk.nulls_last)
 
 
 def _vector_sidecar(session, table_name, table, col, epoch=None):
@@ -1008,7 +1023,7 @@ def _maybe_streaming_aggregate(env: Env, q: SelectQuery, mask, session,
         scan_exprs.append(q.having)
     for e in scan_exprs:
         e = _expand_item_aliases(e, alias_exprs, table)
-        for node in walk(e):
+        for node in walk_outside_windows(e):
             if isinstance(node, FuncCall) and node.name.lower() in AGG_NAMES:
                 agg_calls[render(node)] = node
     if not agg_calls:
@@ -1098,10 +1113,10 @@ def run_aggregate(env: Env, q: SelectQuery, mask, session,
         scan_exprs.append(q.having)
     for e in scan_exprs:
         e = _expand_item_aliases(e, alias_exprs, table)
-        for node in walk(e):
+        for node in walk_outside_windows(e):
             if isinstance(node, FuncCall) and node.name.lower() in AGG_NAMES:
                 for inner in node.args:
-                    for sub in walk(inner):
+                    for sub in walk_outside_windows(inner):
                         if isinstance(sub, FuncCall) and \
                                 sub.name.lower() in AGG_NAMES:
                             raise ExecError("nested aggregate functions")
@@ -1314,19 +1329,16 @@ def _reject_unported(q: SelectQuery) -> None:
                              "storage, formats and runtime state")
     if q.array_joins:
         raise NotPortedError("ARRAY JOIN", "expression and function breadth")
-    if any(o.fill is not None for o in q.order_by):
-        raise NotPortedError("ORDER BY ... WITH FILL",
-                             "sort, windows, LIMIT BY")
     if q.sample is not None:
         raise NotPortedError("SAMPLE", "storage, formats and runtime state")
     slots = [it.expr for it in q.items] + [o.expr for o in q.order_by] + \
         [e for e in (q.where, q.prewhere, q.having) if e is not None] + \
         list(q.group_by) + [e for _n, e in q.with_aliases]
     for e in slots:
+        # the function of an OVER(...) call is a window function, checked
+        # against WINDOW_FNS where the windows are computed
+        window_fns = {id(w.func) for w in walk(e) if isinstance(w, WindowCall)}
         for node in walk(e):
-            if isinstance(node, WindowCall):
-                raise NotPortedError("window functions",
-                                     "sort, windows, LIMIT BY")
             if isinstance(node, (InSubquery, ScalarSubquery,
                                  ExistsSubquery)):
                 raise NotPortedError("subqueries",
@@ -1340,8 +1352,9 @@ def _reject_unported(q: SelectQuery) -> None:
                     raise NotPortedError(f"{node.name}() and Join-engine "
                                          "tables",
                                          "expression and function breadth")
-                if fn in _UNPORTED_AGGS or (node.distinct and fn in (
-                        "count", "sum", "avg")):
+                if id(node) not in window_fns and (
+                        fn in _UNPORTED_AGGS or (node.distinct and fn in (
+                            "count", "sum", "avg"))):
                     raise NotPortedError(
                         f"aggregate function {node.name}"
                         f"({'DISTINCT ...' if node.distinct else ''})",
@@ -1564,7 +1577,7 @@ def execute_select(session, q: SelectQuery) -> Table:
     if not has_aggs:
         for it in q.items + [SelectItem(o.expr) for o in q.order_by]:
             e = _expand_item_aliases(it.expr, alias_exprs, table)
-            for node in walk(e):
+            for node in walk_outside_windows(e):
                 if isinstance(node, FuncCall) and \
                         node.name.lower() in AGG_NAMES:
                     has_aggs = True
@@ -1620,6 +1633,10 @@ def execute_select(session, q: SelectQuery) -> Table:
             env = new_env
             mask = None
 
+    # 4c. window functions: computed into extra columns before projection
+    _compute_windows(items + [SelectItem(o.expr) for o in order_by], env,
+                     table, alias_exprs, session)
+
     # 5. projection (before sort: aliases must exist as columns for ORDER BY)
     out_cols, out_order = _project(items, env, table, alias_exprs,
                                    tuple_groups, dev)
@@ -1658,12 +1675,44 @@ def execute_select(session, q: SelectQuery) -> Table:
             nl = o.nulls_last if o.nulls_last is not None else o.ascending
             sks.append(_sort_key_from_value(v, o.ascending, nl, n2, dev))
         M.increment(M.SORTED_ROWS, n2)
-        with span("sort", rows=n2, keys=len(sks)):
-            if q.limit is not None and q.limit_by is None:
-                perm = topn_permutation(sks, q.limit + q.offset, n2)
-            else:
-                perm = sort_permutation(sks)
-        proj_table = proj_table.take(perm)
+        has_fill = any(o.fill is not None for o in order_by)
+        on_host = any(isinstance(sk.values, np.ndarray) for sk in sks)
+        # read-in-order (optimizeReadInOrder.cpp analog): for one plain
+        # ascending key over a large table, ONE monotonicity pass detects
+        # already-ordered data; the identity permutation is the stable
+        # sort's
+        if (len(sks) == 1 and not has_fill and n2 >= (1 << 20)
+                and sks[0].ascending and sks[0].valid is None
+                and not on_host and sks[0].values.dim() == 1):
+            d0 = sks[0].values
+            if bool(torch.all(d0[1:] >= d0[:-1])):
+                M.increment("ReadInOrderSorts")
+                if q.limit is not None and q.limit_by is None:
+                    hi = min(q.limit + q.offset, n2)
+                    proj_table = proj_table.take(torch.arange(hi,
+                                                              device=dev))
+                sks = None
+        if sks is not None:
+            with span("sort", rows=n2, keys=len(sks)):
+                if q.limit is not None and q.limit_by is None \
+                        and not has_fill:
+                    if on_host:
+                        # host-resident sort key: external top-n (spill
+                        # tier = host RAM, MergeSortingTransform.h:29
+                        # analog)
+                        M.increment("StreamingTopN")
+                        perm = streaming_topn_permutation(
+                            sks, q.limit + q.offset, n2,
+                            settings.stream_chunk_rows, device=dev)
+                    else:
+                        perm = topn_permutation(sks, q.limit + q.offset,
+                                                n2)
+                else:
+                    perm = sort_permutation([_key_on_device(sk, dev)
+                                             for sk in sks])
+            proj_table = proj_table.take(perm)
+            if has_fill:
+                proj_table = _apply_with_fill(proj_table, order_by)
 
     # 7. LIMIT BY
     if q.limit_by is not None:
@@ -1865,3 +1914,185 @@ def _distinct_rows(table: Table) -> Table:
     keep = rep[torch.clamp(gid, 0, cap - 1).to(torch.int64)] == row
     out, _ = compact_table_host(table, keep)
     return out
+
+
+# ---------------------------------------------------------------------------
+# window functions and WITH FILL
+
+WINDOW_FNS = {"row_number", "rank", "dense_rank", "sum", "count", "avg",
+              "min", "max", "lag", "lead", "first_value", "last_value",
+              "ntile"}
+
+
+def walk_outside_windows(e):
+    """walk() that does NOT descend into OVER(...) calls — sum(x) OVER ()
+    is a window, not an aggregate."""
+    if isinstance(e, WindowCall):
+        return
+    yield e
+    if isinstance(e, BinOp):
+        yield from walk_outside_windows(e.left)
+        yield from walk_outside_windows(e.right)
+    elif isinstance(e, UnOp):
+        yield from walk_outside_windows(e.operand)
+    elif isinstance(e, FuncCall):
+        for a in e.args:
+            yield from walk_outside_windows(a)
+    elif isinstance(e, Lambda):
+        yield from walk_outside_windows(e.body)
+    elif isinstance(e, InList):
+        yield from walk_outside_windows(e.expr)
+    elif isinstance(e, Between):
+        yield from walk_outside_windows(e.expr)
+        yield from walk_outside_windows(e.low)
+        yield from walk_outside_windows(e.high)
+
+
+def _rows_tensor(v: Value, n: int) -> torch.Tensor:
+    """A value's (n,) data (a constant broadcast)."""
+    return v.data.expand(n) if v.is_scalar else v.data
+
+
+def _compute_windows(items, env: Env, table: Table, alias_exprs, session):
+    """Evaluate every OVER(...) call into env.extra columns (reference:
+    WindowTransform runs between aggregation and projection)."""
+    wcs = {}
+    for it in items:
+        for node in walk(it.expr):
+            if isinstance(node, WindowCall):
+                wcs[render(node)] = node
+    if not wcs:
+        return
+    n = table.n_rows
+    dev = session.device
+
+    def arg(e):
+        return eval_expr(_expand_item_aliases(e, alias_exprs, table), env)
+
+    layouts: dict = {}
+    for r, wc in wcs.items():
+        fn = wc.func.name.lower()
+        if fn not in WINDOW_FNS:
+            raise ExecError(f"unsupported window function {wc.func.name!r}")
+        lkey = (tuple(render(p) for p in wc.partition_by),
+                tuple((render(o.expr), o.ascending) for o in wc.order_by))
+        layout = layouts.get(lkey)
+        if layout is None:
+            if wc.partition_by:
+                gid, _, _ = _group_ids([arg(p) for p in wc.partition_by], n,
+                                       None,
+                                       session.settings.group_by_capacity_hint)
+            else:
+                gid = torch.zeros(n, dtype=torch.int32, device=dev)
+            operands = []
+            for o in wc.order_by:
+                nl = o.nulls_last if o.nulls_last is not None else o.ascending
+                operands.extend(encode_sort_key(_sort_key_from_value(
+                    arg(o.expr), o.ascending, nl, n, dev)))
+            layout = WindowLayout(gid, operands, n)
+            layouts[lkey] = layout
+        if fn in ("row_number", "rank", "dense_rank"):
+            env.extra[r] = Value(getattr(layout, fn)())
+        elif fn == "ntile":
+            env.extra[r] = Value(layout.ntile(int(wc.func.args[0].value)))
+        elif fn in ("first_value", "last_value"):
+            v = arg(wc.func.args[0])
+            out = getattr(layout, fn)(_rows_tensor(v, n))
+            env.extra[r] = Value(out, None, v.dictionary)
+        elif fn in ("lag", "lead"):
+            args = wc.func.args
+            if not args:
+                raise ExecError(f"{fn} requires a column argument")
+            v = arg(args[0])
+
+            def _const(e):
+                if isinstance(e, Literal):
+                    return e.value
+                if isinstance(e, UnOp) and e.op == "-" and \
+                        isinstance(e.operand, Literal):
+                    return -e.operand.value
+                raise ExecError("lag/lead offset/default must be literals")
+            offset = int(_const(args[1])) if len(args) > 1 else 1
+            default = _const(args[2]) if len(args) > 2 else None
+            out, ok = layout.shift(_rows_tensor(v, n), offset,
+                                   default if default is not None else 0,
+                                   lead=(fn == "lead"))
+            valid = None if default is not None else ok
+            if v.valid is not None:
+                shifted_valid, _ = layout.shift(v.valid, offset, True,
+                                                lead=(fn == "lead"))
+                valid = shifted_valid if valid is None else \
+                    valid & shifted_valid
+            env.extra[r] = Value(out, valid, v.dictionary)
+        else:
+            args = wc.func.args
+            if fn == "count" and (not args or isinstance(args[0], Star)):
+                data = torch.ones(n, dtype=torch.int64, device=dev)
+            else:
+                data = _rows_tensor(arg(args[0]), n)
+            env.extra[r] = Value(layout.agg(fn, data))
+
+
+def _apply_with_fill(proj_table: Table, order_by) -> Table:
+    """ORDER BY x WITH FILL [FROM a] [TO b] [STEP s]: insert rows for grid
+    values of x missing from the sorted result; other columns take their
+    default values (reference: FillingTransform,
+    src/Processors/Transforms/FillingTransform.cpp).  The grid is built on
+    the host (fill output is tiny relative to the scan); the rows it adds
+    join the table on its device."""
+    o = next(o for o in order_by if o.fill is not None)
+    name = render(o.expr)
+    if name not in proj_table:
+        raise ExecError("WITH FILL column must appear in SELECT")
+    col = proj_table[name]
+    if col.dictionary is not None or col.offsets is not None:
+        raise ExecError("WITH FILL requires a numeric column")
+    data = col.data if col.is_host else col.data.cpu().numpy()
+    f, asc = o.fill, o.ascending
+    step = f.get("step", 1 if asc else -1)
+    if step == 0 or (step > 0) != asc:
+        raise ExecError("WITH FILL STEP sign must match the sort direction")
+    if asc:
+        start = f.get("from", data.min() if len(data) else None)
+        stop = f.get("to", data.max() + step if len(data) else None)
+    else:
+        start = f.get("from", data.max() if len(data) else None)
+        stop = f.get("to", data.min() + step if len(data) else None)
+    if start is None or stop is None:
+        return proj_table
+    if data.dtype.kind in "iu":
+        grid = np.arange(int(start), int(stop), int(step),
+                         dtype=np.int64).astype(data.dtype)
+    else:
+        grid = np.arange(start, stop, step).astype(data.dtype)
+    missing = grid[~np.isin(grid, data)]
+    if len(missing) == 0:
+        return proj_table
+    k = len(missing)
+    dev = proj_table.device
+    fill_cols = []
+    for c in proj_table.columns.values():
+        if c.name == name:
+            fill_cols.append(Column(c.field, to_tensor(missing, dev), None))
+        elif c.offsets is not None:
+            fill_cols.append(Column(
+                c.field, c.data[:0], None, c.dictionary,
+                None, np.zeros(k + 1, dtype=np.int64)))
+        elif c.dictionary is not None:
+            empty_id = c.dictionary.encode_one("", grow=True)
+            fill_cols.append(Column(
+                c.field, torch.full((k,), empty_id, dtype=torch.int32,
+                                    device=dev),
+                torch.zeros(k, dtype=torch.bool, device=dev)
+                if c.field.nullable else None, c.dictionary))
+        else:
+            fill_cols.append(Column(
+                c.field, torch.zeros((k,) + tuple(c.data.shape[1:]),
+                                     dtype=c.data.dtype, device=dev),
+                torch.zeros(k, dtype=torch.bool, device=dev)
+                if c.field.nullable else None))
+    combined = concat_tables([proj_table, Table(fill_cols)],
+                             name=proj_table.name)
+    key = np.concatenate([data, missing]).astype(np.float64)
+    order = np.argsort(key if asc else -key, kind="stable")
+    return combined.take(torch.as_tensor(order, device=dev))

@@ -5,7 +5,10 @@ come out byte-identical to its ``.reference``, the files the JAX package
 passes in tests/test_goldens.py.  The other stateless cases stop at a
 ``NotPortedError`` naming the slice that brings them (ROADMAP queue 1);
 a case joins this list when its slice lands.  ``00688_case_without_else``
-holds the NULL branch of CASE without ELSE."""
+holds the NULL branch of CASE without ELSE; ``02015`` and ``02017`` hold
+WITH FILL, ``02513`` a window function, and the cases reading
+``system.numbers`` or ``system.one`` (``00027``, ``00136``, ``00269``, ...)
+those two tables."""
 
 import os
 
@@ -19,15 +22,19 @@ torch.set_num_threads(1)
 
 STATELESS = os.path.join(os.path.dirname(__file__), "goldens", "stateless")
 CASES = [
-    "00001_select_1", "00007_array", "00035_function_array_return_type",
+    "00001_select_1", "00007_array", "00027_distinct_and_order_by",
+    "00035_function_array_return_type", "00041_aggregation_remap",
     "00068_empty_tiny_log", "00114_float_type_result_of_division",
-    "00159_whitespace_in_columns_list",
+    "00136_duplicate_order_by_elems", "00159_whitespace_in_columns_list",
     "00234_disjunctive_equality_chains_optimization",
-    "00292_parser_tuple_element", "00333_parser_number_bug",
-    "00369_int_div_of_float", "00516_modulo", "00553_invalid_nested_name",
-    "00582_not_aliasing_functions", "00647_select_numbers_with_offset",
-    "00688_case_without_else", "00702_where_with_quailified_names",
-    "00735_or_expr_optimize_bug", "00756_power_alias", "00818_join_bug_4271",
+    "00238_removal_of_temporary_columns", "00266_read_overflow_mode",
+    "00269_database_table_whitespace", "00292_parser_tuple_element",
+    "00333_parser_number_bug", "00369_int_div_of_float",
+    "00470_identifiers_in_double_quotes", "00516_modulo",
+    "00553_invalid_nested_name", "00582_not_aliasing_functions",
+    "00647_select_numbers_with_offset", "00688_case_without_else",
+    "00702_where_with_quailified_names", "00735_or_expr_optimize_bug",
+    "00756_power_alias", "00818_join_bug_4271",
     "00836_numbers_table_function_zero", "00844_join_lightee2",
     "00856_no_column_issue_4242", "00874_issue_3495",
     "00906_low_cardinality_cache",
@@ -43,15 +50,16 @@ CASES = [
     "01457_compile_expressions_fuzzer", "01457_order_by_limit",
     "01507_multiversion_storage_for_storagememory",
     "01600_min_max_compress_block_size", "01820_unhex_case_insensitive",
-    "01908_with_unknown_column", "02023_nullable_int_uint_where",
-    "02096_join_unusual_identifier_begin", "02131_remove_columns_in_subquery",
-    "02179_key_condition_no_common_type", "02316_literal_no_octal",
-    "02420_key_condition_actions_dag_bug_40599",
+    "01908_with_unknown_column", "02015_order_by_with_fill_misoptimization",
+    "02017_order_by_with_fill_redundant_functions",
+    "02023_nullable_int_uint_where", "02096_join_unusual_identifier_begin",
+    "02131_remove_columns_in_subquery", "02179_key_condition_no_common_type",
+    "02316_literal_no_octal", "02420_key_condition_actions_dag_bug_40599",
     "02428_partial_sort_optimization_bug", "02459_read_in_order_bufer",
     "02477_analyzer_ast_key_condition_crash",
     "02479_nullable_primary_key_second_column",
-    "02502_analyzer_insert_select_crash_fix", "02535_analyzer_limit_offset",
-    "02677_grace_hash_limit_race",
+    "02502_analyzer_insert_select_crash_fix", "02513_analyzer_sort_msan",
+    "02535_analyzer_limit_offset", "02677_grace_hash_limit_race",
 ]
 
 
