@@ -2,7 +2,7 @@
 
 Usage:  python3 chip_smoke.py [--seed N]
 
-Seven main paths, the SQL ones through the entry points a user calls
+Eight main paths, the SQL ones through the entry points a user calls
 (``connect()`` -> ``Session.create_table`` or SQL DDL -> ``Session.sql``):
 
   BASELINE config 1, the filtered exact vector top-k, over n = 1,000,000
@@ -50,8 +50,19 @@ Seven main paths, the SQL ones through the entry points a user calls
 
     SELECT id, v FROM t3 ORDER BY v DESC LIMIT 100
 
-  then window functions over 10,000,000 rows in 1000 partitions, and the
-  stateless goldens the port replays (tests/test_torch_goldens_stateless.py).
+  then window functions over 10,000,000 rows in 1000 partitions.
+
+  ClickBench's hits table (github.com/ClickHouse/ClickBench,
+  clickhouse/create.sql) in shape, at 100,000,000 rows made on the card,
+  under seven statements from its queries.sql and one that holds the uniq
+  sketches, an exact quantile and K3 together:
+
+    SELECT toHour(EventTime) AS h, count(), uniq(UserID),
+    uniqCombined(UserID), quantile(0.9)(ResolutionWidth) FROM hits
+    GROUP BY h ORDER BY h
+
+  and the stateless goldens the port replays
+  (tests/test_torch_goldens_stateless.py).
 
 Phases, one JSON line each; any failure raises and the script exits
 non-zero without printing a result:
@@ -132,6 +143,14 @@ non-zero without printing a result:
               stable sorts, searchsorted edges and f64 prefix sums:
               integers equal, avg(f) within rtol 2e-5 or atol 2e-5 x the
               partition's sum |f| over the frame's rows
+  sql_hits    each hits statement ten times after a warm-up (median, p90,
+              rows/s), then a profiler pass and a count of its host
+              synchronisations; rows equal to plain torch on the card
+              (torch.unique counts, the LIKE pattern matched over the
+              dictionary and looked up by code, minute buckets by integer
+              division, the inverted-CDF element of a sort), uniqCombined
+              within 5% of the exact count; K3 must launch beside the
+              special aggregates
   goldens_stateless  every case of tests/test_torch_goldens_stateless.py
               through run_golden_text(connect()), byte-identical
 
@@ -164,13 +183,14 @@ config-2 statements; the join build and count probes; the join statements
 up to the last timed one; the ten config-6 statements; on the DDL-built
 table the twenty distance statements, the ten batch statements at each
 nq, and the three identical-rows statements; config 3's statements; the
-window statements) and read just after it; each kernel must have
-launched in the run of its path, and the summary reports every kernel's
-count on every path.  Launches made to compare a kernel with its plain
-version, the profiler passes and the 10M-row branch statements count
-nowhere.  Config 3's and the windows' paths launch no kernel of the port
-(their JAX counterparts reach no Pallas kernel either); their counts are
-reported all the same.  The last lines are the kernels summary, the
+window statements; each hits statement's runs) and read just after it;
+each kernel must have launched in the run of its path, and the summary
+reports every kernel's count on every path.  Launches made to compare a
+kernel with its plain version, the profiler passes and the 10M-row
+branch statements count nowhere.  Config 3's and the windows' paths
+launch no kernel of the port (their JAX counterparts reach no Pallas
+kernel either), the hits statements only K3; their counts are reported
+all the same.  The last lines are the kernels summary, the
 nvidia-smi name/power line, and {"ok": true, "device": {...}}.  Needs one
 CUDA card.
 """
@@ -2173,6 +2193,218 @@ def phase_sql_window(seed: int):
     return launches
 
 
+# ClickBench's hits table (github.com/ClickHouse/ClickBench,
+# clickhouse/create.sql; 99,997,497 rows), with the columns the sql_hits
+# statements read, at 100M rows made on the card from --seed
+NH = 100_000_000
+NH_USERS = 17_600_000            # about ClickBench's distinct UserIDs
+NH_REGIONS = 9_040
+NH_STRINGS = 1 << 17             # distinct URL / SearchPhrase values (cut)
+JULY_2013 = 1_372_636_800        # 2013-07-01 00:00:00 UTC
+HITS_STATEMENTS = {
+    "distinct_users": "SELECT count(DISTINCT UserID) FROM hits",
+    "distinct_phrases": "SELECT count(DISTINCT SearchPhrase) FROM hits",
+    "date_range": "SELECT min(EventDate), max(EventDate) FROM hits",
+    "region_users": "SELECT RegionID, count(DISTINCT UserID) AS u FROM hits "
+                    "GROUP BY RegionID ORDER BY u DESC LIMIT 10",
+    "url_like": "SELECT count() FROM hits WHERE URL LIKE '%google%'",
+    "minute_views": "SELECT toStartOfMinute(EventTime) AS M, count() AS "
+                    "PageViews FROM hits WHERE CounterID = 62 AND EventDate "
+                    ">= '2013-07-14' AND EventDate <= '2013-07-15' AND "
+                    "IsRefresh = 0 AND DontCountHits = 0 GROUP BY M ORDER "
+                    "BY M LIMIT 10 OFFSET 1000",
+    "hour_sketches": "SELECT toHour(EventTime) AS h, count(), uniq(UserID), "
+                     "uniqCombined(UserID), quantile(0.9)(ResolutionWidth) "
+                     "FROM hits GROUP BY h ORDER BY h",
+}
+HITS_HOSTS = ("www.google.com", "yandex.ru", "mail.ru", "google.ru",
+              "vk.com", "news.example.org", "shop.example.com",
+              "m.auto.ru", "forum.example.net", "www.avito.ru", "ok.ru",
+              "docs.google.com", "images.example.com", "kinopoisk.ru",
+              "video.example.tv", "wiki.example.org")
+HITS_WORDS = ("weather", "news", "auto", "cheap", "flights", "moscow",
+              "football", "recipes", "music", "download", "free", "online",
+              "games", "maps", "train", "hotel")
+# uniqCombined's HLL (2^12 registers) is within 1.6% at one standard error
+HITS_SKETCH_RTOL = 0.05
+
+
+def hits_table(seed: int):
+    """The hits table on the card: every column drawn from one generator,
+    the String columns as int32 codes into dictionaries of 2^17 values
+    (no per-row Python)."""
+    from myscaledb_tpu_torch.core.dictionary import StringDictionary
+    from myscaledb_tpu_torch.core.table import Column, Table
+    from myscaledb_tpu_torch.core.types import DataType, Field
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+
+    def u():
+        # f64: with f32's 24 bits, u^2 * NH_USERS would skip every other
+        # user index near the top of the range
+        return torch.rand(NH, generator=gen, device="cuda",
+                          dtype=torch.float64)
+
+    def ints(lo, hi):
+        return torch.randint(lo, hi, (NH,), generator=gen, device="cuda")
+
+    user_idx = (u() ** 2 * NH_USERS).long()      # skewed to small indexes
+    mix = user_idx * -0x61C8864680B583EB + 0x632BE59BD9B4E019   # odd
+    user_id = (mix ^ (mix >> 29)) & ((1 << 62) - 1)
+    event_time = JULY_2013 + ints(0, 31 * 86400)
+    counter = torch.where(u() < 0.3, 62,
+                          (u() ** 3 * 7000).long() + 1).to(torch.int32)
+    region = (u() ** 2 * NH_REGIONS).to(torch.int32)
+    adv = torch.where(u() < 0.97, 0, ints(1, 60)).to(torch.int16)
+    width = ints(320, 2561).to(torch.int16)
+    refresh = (u() < 0.1).to(torch.int16)
+    dont_count = (u() < 0.05).to(torch.int16)
+    url_codes = (u() ** 3 * NH_STRINGS).to(torch.int32)
+    phrase_codes = torch.where(u() < 0.8, 0, (u() ** 2 * (NH_STRINGS - 1))
+                               .long() + 1).to(torch.int32)
+    urls = [f"http://{HITS_HOSTS[i % len(HITS_HOSTS)]}/page/{i}"
+            f"?id={i * 7919 % 100003}" for i in range(NH_STRINGS)]
+    phrases = [""] + [f"{HITS_WORDS[i % 16]} {HITS_WORDS[i // 16 % 16]} {i}"
+                      for i in range(1, NH_STRINGS)]
+
+    def col(name, dt, data, dictionary=None):
+        return Column(Field(name, dt), data, None, dictionary)
+    cols = [col("UserID", DataType.INT64, user_id),
+            col("EventTime", DataType.DATETIME, event_time),
+            col("EventDate", DataType.DATE,
+                (event_time // 86400).to(torch.int32)),
+            col("CounterID", DataType.INT32, counter),
+            col("RegionID", DataType.INT32, region),
+            col("AdvEngineID", DataType.INT16, adv),
+            col("ResolutionWidth", DataType.INT16, width),
+            col("IsRefresh", DataType.INT16, refresh),
+            col("DontCountHits", DataType.INT16, dont_count),
+            col("URL", DataType.STRING, url_codes, StringDictionary(urls)),
+            col("SearchPhrase", DataType.STRING, phrase_codes,
+                StringDictionary(phrases))]
+    return Table(cols, name="hits"), urls
+
+
+def hits_oracles(t, urls):
+    """Every statement's rows from plain torch on the card: torch.unique
+    counts, the LIKE pattern matched in Python over the dictionary then
+    looked up by code, minute buckets by integer division and the
+    inverted-CDF element of a sort."""
+    import datetime as _dt
+    uid = t["UserID"].data
+    et = t["EventTime"].data
+    ed = t["EventDate"].data
+    region = t["RegionID"].data.long()
+    _, uinv = torch.unique(uid, return_inverse=True)
+    nu = int(uinv.max()) + 1
+    want = {"distinct_users": [(nu,)],
+            "distinct_phrases": [(int(torch.unique(
+                t["SearchPhrase"].data).numel()),)]}
+    epoch = _dt.date(1970, 1, 1)
+    want["date_range"] = [(epoch + _dt.timedelta(days=int(ed.min())),
+                           epoch + _dt.timedelta(days=int(ed.max())))]
+    pairs = torch.unique(region * nu + uinv)
+    per_region = torch.bincount(pairs // nu, minlength=NH_REGIONS)
+    present = torch.nonzero(per_region > 0).flatten()
+    order = torch.sort(-per_region[present], stable=True).indices[:10]
+    want["region_users"] = [(int(present[i]), int(per_region[present[i]]))
+                            for i in order.tolist()]
+    lut = torch.tensor(["google" in s for s in urls], device="cuda")
+    want["url_like"] = [(int(lut[t["URL"].data.long()].sum()),)]
+    d14 = (_dt.date(2013, 7, 14) - epoch).days
+    keep = ((t["CounterID"].data == 62) & (ed >= d14) & (ed <= d14 + 1)
+            & (t["IsRefresh"].data == 0) & (t["DontCountHits"].data == 0))
+    minutes, views = torch.unique(et[keep] // 60 * 60, return_counts=True)
+    base = _dt.datetime(1970, 1, 1)
+    want["minute_views"] = [(base + _dt.timedelta(seconds=int(m)), int(c))
+                            for m, c in zip(minutes[1000:1010].tolist(),
+                                            views[1000:1010].tolist())]
+    hour = et % 86400 // 3600
+    count = torch.bincount(hour, minlength=24)
+    users = torch.bincount(torch.unique(hour * nu + uinv) // nu,
+                           minlength=24)
+    packed = torch.sort(hour * 65536 + t["ResolutionWidth"].data.long()
+                        + 32768).values
+    start = torch.cumsum(count, 0) - count
+    q90 = []
+    for h in range(24):
+        n_h = int(count[h])
+        tq = n_h * 0.9 - 1.0          # np.quantile's inverted_cdf index
+        j = int(np.floor(tq)) + (1 if tq - np.floor(tq) > 0 else 0)
+        j = min(max(j, 0), n_h - 1)
+        q90.append(float(int(packed[int(start[h]) + j]) % 65536 - 32768))
+    want["hour_sketches"] = [(h, int(count[h]), int(users[h]), None, q90[h])
+                             for h in range(24)]
+    return want
+
+
+def check_hits_rows(name, rows, want):
+    if name != "hour_sketches":
+        if rows != want:
+            raise AssertionError(f"sql_hits {name}: {rows[:3]} != oracle "
+                                 f"{want[:3]}")
+        return
+    if [(h, c, u, q) for h, c, u, _, q in rows] != \
+            [(h, c, u, q) for h, c, u, _, q in want]:
+        raise AssertionError(f"sql_hits {name}: rows differ from the oracle")
+    for h, _c, u, est, _q in rows:
+        if abs(est - u) > HITS_SKETCH_RTOL * u:
+            raise AssertionError(f"sql_hits {name}: hour {h} uniqCombined "
+                                 f"{est} vs exact {u}")
+
+
+def phase_sql_hits(seed: int):
+    """ClickBench-shaped statements over the 100M-row hits table: each
+    statement's rows against its oracle on the card, ten timed runs after
+    a warm-up (median and p90, rows/s), a profiler pass, its host
+    synchronisations and the kernel launches of its runs."""
+    import myscaledb_tpu_torch as P
+    t0 = time.perf_counter()
+    table, urls = hits_table(seed)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    s = P.connect()
+    s.settings.max_memory_bytes_per_query = 32 << 30
+    s.register("hits", table)
+    want = hits_oracles(table, urls)
+    smi = nvidia_smi_line()
+    stats, totals = {}, {}
+    for name, stmt in HITS_STATEMENTS.items():
+        zero_launches()
+        lat, rows = timed_sql(s, stmt, 10)
+        launches = read_launches()
+        check_hits_rows(name, rows, want[name])
+        for k, c in launches.items():
+            totals[k] = totals.get(k, 0) + c
+        prof = profile_statements(s, [stmt])
+        syncs, _sites = count_host_syncs(lambda: s.sql(stmt).to_rows())
+        med = float(np.median(lat))
+        stats[name] = {"median_ms": med,
+                       "p90_ms": float(np.percentile(lat, 90)),
+                       "rows_per_s": NH / (med / 1e3),
+                       "device_busy_share": prof["device_busy_share"],
+                       "device_ms_per_query": prof["device_ms_per_query"],
+                       "top_kernels_us": prof["top_kernels_us_per_query"],
+                       "host_syncs": syncs, "launches_by_path": launches,
+                       "first_rows": repr(rows[:3]), "nvidia_smi": smi}
+    if stats["hour_sketches"]["launches_by_path"]["group_aggregate"] < 1:
+        raise AssertionError("sql_hits: the count() beside the special "
+                             "aggregates did not launch group_aggregate")
+    emit({"phase": "sql_hits", "rows": NH, "table_gen_s": gen_s,
+          "source": "ClickBench hits (clickhouse/create.sql, queries.sql)",
+          "reduced": ["URL and SearchPhrase have 2^17 distinct values, not "
+                      "ClickBench's ~18M and ~6M (the dictionary encoder "
+                      "has no native path yet)",
+                      "only the columns the statements read"],
+          "statements": HITS_STATEMENTS, "per_statement": stats,
+          "launches": totals,
+          "oracle": "rows equal to plain torch on the card; uniqCombined "
+                    f"within {HITS_SKETCH_RTOL} of the exact count"})
+    s.tables.clear()
+    del table
+    torch.cuda.empty_cache()
+    return totals
+
+
 def phase_goldens_stateless() -> int:
     """Every case of tests/test_torch_goldens_stateless.py's CASES through
     run_golden_text(connect()) on the card, each byte-identical to its
@@ -2265,6 +2497,7 @@ def main() -> int:
     phase_goldens_vector()
     counts["sql_topn"] = phase_sql_topn(args.seed)
     counts["sql_window"] = phase_sql_window(args.seed)
+    counts["sql_hits"] = phase_sql_hits(args.seed)
     phase_goldens_stateless()
 
     summary = []

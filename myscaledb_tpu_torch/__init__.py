@@ -12,5 +12,8 @@ from myscaledb_tpu_torch.core.table import Table, Column
 from myscaledb_tpu_torch.errors import ExecError, NotPortedError
 from myscaledb_tpu_torch.session import Session, connect
 
+__version__ = "0.1.0"
+
 __all__ = ["DataType", "Table", "Column", "ExecError", "NotPortedError",
+           "__version__",
            "Session", "connect"]

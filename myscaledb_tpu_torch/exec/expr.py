@@ -1,17 +1,13 @@
 """Expression evaluation: AST -> torch tensors over a table environment.
 
-Port of the subset of myscaledb_tpu/exec/expr.py that WHERE/PREWHERE and
-the vector slice's projections need: ``Value``, ``Env``, ``EvalError``,
-``as_bool_mask``, ``_dict_map``, ``_arith``, ``_compare``,
-``_compare_strings`` and ``eval_expr`` over literals, identifiers, vector
-literals, comparisons, arithmetic, AND/OR/NOT, IN (list), BETWEEN, the
-scalar functions abs .. isNotNull, and the string functions that build
-binary query vectors: ``unhex``, ``unbin`` and ``char`` (the port of
-myscaledb_tpu/exec/scalar_fns.py's, with ``_dict_transform``; ``char`` is
-the second of its two registrations there, the one the JAX package runs).
-exec/scalar_fns.py adds the array literals and functions the DDL statements
-use (``array``, ``range``, ``length``, ``sleep``, ``currentDatabase``).
-Every other node or function raises ``NotPortedError``.
+The port of myscaledb_tpu/exec/expr.py: ``Value``, ``Env``, ``eval_expr``
+over literals, identifiers, vector literals, comparisons, arithmetic
+(Date/DateTime arithmetic and literals included), AND/OR/NOT, IN (list) and
+BETWEEN, and the scalar function registry: math, LIKE, the string functions
+evaluated on the dictionary, ``coalesce``/``nullIf``.  exec/datetime_fns.py
+and exec/scalar_fns.py register the rest at the bottom of this module.
+``dictGet*`` (external dictionaries) and ``joinGet*`` (Join-engine tables)
+raise ``NotPortedError``, as do subqueries and lambdas.
 
 String semantics ride the dictionary: predicates on strings are evaluated
 once over the (small) dictionary on the host, then mapped to rows with one
@@ -22,19 +18,27 @@ Type promotion: the JAX package runs with x64 on, and its literals are
 weakly typed 0-d arrays (int64/float64) that take a column's type within
 the same category.  Literals here are 0-d int64/float64 tensors, and
 torch's rule for zero-dimensional operands gives the same result types.
+
+UInt64: torch has next to no uint64 arithmetic, so a UInt64 value is an
+int64 tensor holding the same 64 bits (``Value.u64``).  Wrapping ``+``,
+``-`` and ``*`` give the unsigned results bit for bit; comparisons, ``%``
+and ORDER BY read the bits as unsigned, and printing casts them back to
+uint64.  Hash functions return such values, mostly above 2^63-1.
 """
 
 from __future__ import annotations
 
+import math
+import re
 from dataclasses import dataclass
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from myscaledb_tpu_torch.core.types import DataType
+from myscaledb_tpu_torch.core.types import DataType, physical_dtype
 from myscaledb_tpu_torch.core.table import Table, to_tensor
-from myscaledb_tpu_torch.core.dictionary import StringDictionary
+from myscaledb_tpu_torch.core.dictionary import StringDictionary, NULL_ID
 from myscaledb_tpu_torch.errors import NotPortedError
 from myscaledb_tpu_torch.sql.ast import (Expr, Literal, VectorLiteral, Ident,
                                          BinOp, UnOp, FuncCall, InList,
@@ -47,6 +51,9 @@ INT64_MAX = 2 ** 63 - 1
 _WIDENED_UNSIGNED = {DataType.UINT16: 2 ** 16 - 1,
                      DataType.UINT32: 2 ** 32 - 1,
                      DataType.UINT64: INT64_MAX}
+# the logical type of a widened UInt16/32 value, from its largest value
+UNSIGNED_OF_MAX = {m: t for t, m in _WIDENED_UNSIGNED.items()
+                   if t is not DataType.UINT64}
 
 
 class EvalError(ValueError):
@@ -69,6 +76,9 @@ class Value:
     umax: Optional[int] = None              # for a UInt16/32/64 value,
                                             # stored widened to a signed
                                             # tensor: its largest value
+    u64: bool = False                       # int64 data holding UInt64
+                                            # bits (umax None: values may
+                                            # pass 2^63-1)
 
     @property
     def is_string(self) -> bool:
@@ -110,9 +120,14 @@ class Env:
                     data = to_tensor(data, self.device)   # expression
                     valid = to_tensor(valid, self.device) \
                         if valid is not None else None    # needs it here
+                umax = _WIDENED_UNSIGNED.get(c.dtype)
+                if c.dtype is DataType.UINT64 and bool((data < 0).any()):
+                    # UInt64 bits past 2^63-1 (a hash a subquery or INSERT
+                    # ... SELECT carried into a column): not bounded
+                    umax = None
                 return Value(data, valid, c.dictionary,
-                             offsets=c.offsets, dt=tag,
-                             umax=_WIDENED_UNSIGNED.get(c.dtype))
+                             offsets=c.offsets, dt=tag, umax=umax,
+                             u64=c.dtype is DataType.UINT64)
         raise EvalError(f"unknown column {ident.qualified!r} "
                         f"(have {self.table.column_names})")
 
@@ -175,6 +190,23 @@ def _scalar(x, device) -> torch.Tensor:
 # scalar function registry (ClickHouse-compatible names)
 
 _FUNCS: dict[str, Callable] = {}
+# the JAX package's functions this port does not have yet, by the slice
+# that brings them (ROADMAP queue 1): exec/arrays.py, finalizeAggregation
+# (the -State combinators) and joinGet* (Join-engine tables) with the next
+# breadth slice, dictGet* with runtime/dictionaries.py
+DEFERRED_FNS = {
+    **{n: EXPR_SLICE for n in (
+        "arrayjoin", "arrayavg", "arrayconcat", "arraycumsum",
+        "arraydistinct", "arrayelement", "arrayenumerate", "arraymax",
+        "arraymin", "arraypopback", "arraypopfront", "arrayproduct",
+        "arraypushback", "arraypushfront", "arrayreverse",
+        "arrayreversesort", "arrayslice", "arraysort", "arraysum",
+        "arrayuniq", "countequal", "has", "hasall", "hasany", "indexof",
+        "notempty", "finalizeaggregation", "joinget", "joingetordefault",
+        "joingetornull")},
+    **{n: "storage, formats and runtime state"
+       for n in ("dictget", "dictgetordefault", "dicthas")},
+}
 # the vector search functions resolve in the executor and nowhere here,
 # in the JAX package too: a reference the executor did not resolve fails
 # with the JAX package's error text
@@ -202,11 +234,18 @@ def _f32(x: torch.Tensor) -> torch.Tensor:
 
 @func("abs")
 def _f_abs(args, env):
+    if args[0].u64:
+        return args[0]          # unsigned: its own absolute value
     return Value(torch.abs(_numeric(args[0], env.n_rows)), args[0].valid)
 
 @func("negate")
 def _f_negate(args, env):
-    return Value(-_numeric(args[0], env.n_rows), args[0].valid)
+    return _negate(args[0], env)
+
+
+def _negate(v: Value, env) -> Value:
+    # -x of a UInt64 wraps modulo 2^64 in the JAX package, as int64 bits do
+    return Value(-_numeric(v, env.n_rows), v.valid, u64=_is_bits(v))
 
 @func("sqrt")
 def _f_sqrt(args, env):
@@ -284,10 +323,16 @@ def _f_tofloat64(args, env):
 def _f_intdiv(args, env):
     a = _numeric(args[0], env.n_rows)
     b = _numeric(args[1], env.n_rows)
-    return Value(torch.floor_divide(a, b), _both_valid(args[0], args[1]))
+    valid = _both_valid(args[0], args[1])
+    if _is_bits(args[0]) and not b.is_floating_point():
+        m = _positive_literal(args[1], "intDiv")
+        return Value(_u64_div(a.to(torch.int64), m), valid, u64=True)
+    return Value(torch.floor_divide(a, b), valid)
 
 @func("modulo")
 def _f_modulo(args, env):
+    if _is_bits(args[0]) or _is_bits(args[1]):
+        return _arith("%", args[0], args[1], env)
     a = _numeric(args[0], env.n_rows)
     b = _numeric(args[1], env.n_rows)
     return Value(torch.remainder(a, b), _both_valid(args[0], args[1]))
@@ -329,17 +374,6 @@ def _f_isnotnull(args, env):
     return Value(v.valid)
 
 
-def _dict_transform(v: Value, fn) -> Value:
-    """Apply a python string->string fn over dictionary values; returns a
-    STRING Value with a fresh dictionary."""
-    if v.dictionary is None:
-        if isinstance(v.py, str):
-            return Value(None, is_scalar=True, py=fn(v.py))
-        raise EvalError("expected a string column")
-    return Value(v.data, v.valid,
-                 StringDictionary([fn(s) for s in v.dictionary.values]))
-
-
 @func("unhex")
 def _f_unhex(args, env):
     return _dict_transform(args[0],
@@ -374,18 +408,485 @@ def _f_char(args, env):
     return Value(to_tensor(remap[inv.reshape(-1)], env.device), None, sd)
 
 
+def _like_to_re(pat: str, icase: bool = False) -> re.Pattern:
+    # backslash escapes the next char (\% -> literal %, \_ -> literal _,
+    # \\ -> backslash), matching the reference's likePatternToRegexp
+    # (src/Common/likePatternToRegexp.cpp)
+    out = []
+    i = 0
+    while i < len(pat):
+        ch = pat[i]
+        if ch == "\\" and i + 1 < len(pat):
+            out.append(re.escape(pat[i + 1]))
+            i += 2
+            continue
+        if ch == "%":
+            out.append(".*")
+        elif ch == "_":
+            out.append(".")
+        else:
+            out.append(re.escape(ch))
+        i += 1
+    return re.compile("^" + "".join(out) + "$",
+                      re.DOTALL | (re.IGNORECASE if icase else 0))
+
+
+def _like_impl(args, negate: bool, icase: bool) -> Value:
+    v, pat = args[0], args[1]
+    if v.dictionary is None or not isinstance(pat.py, str):
+        raise EvalError("LIKE needs a string column and literal pattern")
+    rx = _like_to_re(pat.py, icase)
+    lut = np.array([bool(rx.match(s)) for s in v.dictionary.values],
+                   dtype=bool)
+    if negate:
+        lut = ~lut
+    if len(lut) == 0:
+        lut = np.zeros(1, dtype=bool)
+    return Value(_dict_map(v, lut), v.valid)
+
+
+@func("like")
+def _f_like(args, env):
+    return _like_impl(args, False, False)
+
+
+@func("notLike")
+def _f_not_like(args, env):
+    return _like_impl(args, True, False)
+
+
+@func("ilike")
+def _f_ilike(args, env):
+    return _like_impl(args, False, True)
+
+
+@func("notILike")
+def _f_not_ilike(args, env):
+    return _like_impl(args, True, True)
+
+
+def _full(v: Value, n: int) -> torch.Tensor:
+    """A value's data as (n,) rows (scalars broadcast)."""
+    return v.data.expand(n) if v.is_scalar else v.data
+
+
+def _is_null_literal(v: Value) -> bool:
+    return v.is_scalar and v.py is None and v.dictionary is None
+
+
+def _string_branch_ids(v: Value, env, d: StringDictionary):
+    """Encode one string branch (if/multiIf/transform/coalesce) into
+    dictionary d; returns (ids, valid)."""
+    n = env.n_rows
+    if _is_null_literal(v):
+        return torch.full((n,), NULL_ID, dtype=torch.int32,
+                          device=env.device), \
+            torch.zeros(n, dtype=torch.bool, device=env.device)
+    if isinstance(v.py, str):
+        i = d.encode_one(v.py, grow=True)
+        return torch.full((n,), i, dtype=torch.int32, device=env.device), None
+    if v.dictionary is None:
+        raise EvalError("if(): mixed string and numeric branches")
+    remap = np.array([d.encode_one(s, grow=True)
+                      for s in v.dictionary.values] or [0], dtype=np.int32)
+    ids = _dict_map(v, remap).to(torch.int32)
+    ids = torch.where(v.data == NULL_ID, NULL_ID, ids)
+    return ids, v.valid
+
+
+@func("coalesce", "ifNull")
+def _f_coalesce(args, env):
+    out = args[0]
+    for nxt in args[1:]:
+        if out.valid is None:
+            break
+        if out.is_string and nxt.is_string:
+            # strings of two dictionaries: both re-encoded into one (the
+            # JAX package mixes the ids of the two: ROADMAP section 3)
+            d = StringDictionary()
+            a, _ = _string_branch_ids(out, env, d)
+            b, _ = _string_branch_ids(nxt, env, d)
+            valid = None if nxt.valid is None else out.valid | nxt.valid
+            out = Value(torch.where(out.valid, a, b), valid, d)
+            continue
+        a = _full(out, env.n_rows)
+        b = _full(nxt, env.n_rows)
+        if nxt.is_scalar:
+            b = b.to(a.dtype)
+        data = torch.where(out.valid, a, b)
+        valid = None if nxt.valid is None else out.valid | nxt.valid
+        out = Value(data, valid, out.dictionary)
+    return out
+
+
+@func("nullIf")
+def _f_nullif(args, env):
+    a, b = args[0], args[1]
+    eq = as_bool_mask(_compare("=", a, b, env), env.n_rows)
+    valid = ~eq
+    if a.valid is not None:
+        valid = valid & a.valid
+    return Value(_full(a, env.n_rows), valid, a.dictionary)
+
+
+@func("tuple")
+def _f_tuple(args, env):
+    raise EvalError("tuple values are only supported in comparisons")
+
+
+# -- math ---------------------------------------------------------------
+
+def _cbrt(x: torch.Tensor) -> torch.Tensor:
+    return torch.sign(x) * torch.pow(torch.abs(x), 1.0 / 3.0)
+
+
+for _name, _fn in [("sin", torch.sin), ("cos", torch.cos),
+                   ("tan", torch.tan), ("asin", torch.asin),
+                   ("acos", torch.acos), ("atan", torch.atan),
+                   ("sinh", torch.sinh), ("cosh", torch.cosh),
+                   ("tanh", torch.tanh), ("exp2", torch.exp2),
+                   ("log2", torch.log2), ("log10", torch.log10),
+                   ("cbrt", _cbrt)]:
+    def _make(fn):
+        def impl(args, env):
+            return Value(fn(_f32(_numeric(args[0], env.n_rows))),
+                         args[0].valid)
+        return impl
+    _FUNCS[_name] = _make(_fn)
+
+
+@func("sign")
+def _f_sign(args, env):
+    return Value(torch.sign(_numeric(args[0], env.n_rows)), args[0].valid)
+
+
+@func("pi")
+def _f_pi(args, env):
+    return Value(_scalar(math.pi, env.device), is_scalar=True, py=math.pi)
+
+
+@func("sqr")
+def _f_sqr(args, env):
+    x = _numeric(args[0], env.n_rows)
+    return Value(x * x, args[0].valid)
+
+
+# -- string functions (evaluated on the dictionary, one gather per row) --
+
+def _dict_transform(v: Value, fn) -> Value:
+    """Apply a python string->string fn over dictionary values; returns a
+    STRING Value with a fresh dictionary."""
+    if v.dictionary is None:
+        if isinstance(v.py, str):
+            return Value(None, is_scalar=True, py=fn(v.py))
+        raise EvalError("expected a string column")
+    return Value(v.data, v.valid,
+                 StringDictionary([fn(s) for s in v.dictionary.values]))
+
+
+@func("lowerUTF8", "lower")
+def _f_lower_utf8(args, env):
+    return _dict_transform(args[0], str.lower)
+
+
+@func("upper", "upperUTF8")
+def _f_upper(args, env):
+    return _dict_transform(args[0], str.upper)
+
+
+@func("trim")
+def _f_trim(args, env):
+    return _dict_transform(args[0], str.strip)
+
+
+@func("reverse")
+def _f_reverse(args, env):
+    return _dict_transform(args[0], lambda s: s[::-1])
+
+
+@func("substring", "substr")
+def _f_substring(args, env):
+    v = args[0]
+    start = int(args[1].py)          # 1-based like ClickHouse
+    length = int(args[2].py) if len(args) > 2 else None
+
+    def cut(s):
+        i = start - 1 if start > 0 else len(s) + start
+        return s[i:i + length] if length is not None else s[i:]
+    return _dict_transform(v, cut)
+
+
+def host_rows(v: Value) -> np.ndarray:
+    """A numeric value's rows on the host in the JAX package's numpy dtype:
+    UInt64 bits read unsigned, widened UInt16/32 narrowed back."""
+    x = v.data.cpu().numpy()
+    if v.u64:
+        return x.view(np.uint64) if x.dtype == np.int64 else x
+    if v.umax in UNSIGNED_OF_MAX:
+        return x.astype(physical_dtype(UNSIGNED_OF_MAX[v.umax]))
+    return x
+
+
+def _as_string_parts(a: Value, env) -> tuple:
+    """(ids or None, dictionary or literal-str) for one concat operand."""
+    if a.dictionary is not None and a.offsets is None:
+        return a.data.cpu().numpy(), a.dictionary
+    if isinstance(a.py, str):
+        return None, a.py
+    if a.py is not None and a.is_scalar:
+        return None, str(a.py)
+    # numeric column: stringified via its unique values (toString semantics)
+    uniq, inv = np.unique(host_rows(a), return_inverse=True)
+    sd = StringDictionary([_ch_num_str(x) for x in uniq])
+    return inv.astype(np.int32), sd
+
+
+def _ch_num_str(x) -> str:
+    if isinstance(x, (np.floating, float)):
+        f = float(x)
+        return str(int(f)) if f.is_integer() else repr(f)
+    if isinstance(x, (np.bool_, bool)):
+        return "true" if x else "false"
+    return str(int(x))
+
+
+def _and_valid(args):
+    valid = None
+    for a in args:
+        if a.valid is not None:
+            valid = a.valid if valid is None else valid & a.valid
+    return valid
+
+
+@func("concat")
+def _f_concat(args, env):
+    # column-column concat via unique id-combination dictionaries: only the
+    # distinct (id1, id2, ...) combinations are materialized as strings,
+    # rows stay device ids (reference concat is per-row byte appends,
+    # src/Functions/concat.cpp)
+    parts = [_as_string_parts(a, env) for a in args]
+    col_parts = [p for p in parts if p[0] is not None]
+    if not col_parts:
+        return Value(None, is_scalar=True,
+                     py="".join(p[1] for p in parts))
+    ids = [np.where(p[0] == NULL_ID, len(p[1].values), p[0])
+           for p in col_parts]   # NULL -> sentinel decodes to ""
+    combo = np.stack(ids, axis=1)
+    uniq, inv = np.unique(combo, axis=0, return_inverse=True)
+    out_strings = []
+    for row in uniq:
+        buf = []
+        ci = 0
+        for pid, pdict in parts:
+            if pid is None:
+                buf.append(pdict)
+            else:
+                vid = int(row[ci])
+                ci += 1
+                buf.append("" if vid >= len(pdict.values)
+                           else pdict.values[vid])
+        out_strings.append("".join(buf))
+    newdict = StringDictionary()
+    remap = newdict.encode(out_strings)   # dedups equal results
+    return Value(to_tensor(remap[inv.reshape(-1)], env.device),
+                 _and_valid(args), newdict)
+
+
+@func("toString")
+def _f_tostring(args, env):
+    v = args[0]
+    if v.dictionary is not None:
+        return v
+    if v.is_scalar:
+        return Value(None, is_scalar=True, py=_ch_num_str(
+            v.py if v.py is not None else host_rows(v)[()]))
+    if v.dt is not None:
+        # Date/DateTime: format via the civil calendar (host, per unique)
+        import datetime as _dtm
+        uniq, inv = np.unique(v.data.cpu().numpy(), return_inverse=True)
+        if v.dt is DataType.DATE:
+            strs = [str(_dtm.date(1970, 1, 1) + _dtm.timedelta(days=int(x)))
+                    for x in uniq]
+        else:
+            strs = [str(_dtm.datetime(1970, 1, 1) +
+                        _dtm.timedelta(seconds=int(x))) for x in uniq]
+        sd = StringDictionary()
+        remap = sd.encode(strs)
+        return Value(to_tensor(remap[inv], env.device), v.valid, sd)
+    ids, sd = _as_string_parts(v, env)
+    return Value(to_tensor(ids, env.device), v.valid, sd)
+
+
+def _ragged_ids(per_id: list, v: Value, env):
+    """Array(String) rows from one list of strings per dictionary id:
+    (flat ids tensor, host offsets, dictionary); NULL rows are empty."""
+    newdict = StringDictionary()
+    enc = [newdict.encode(p) for p in per_id]
+    lens = np.array([len(p) for p in per_id] or [0], dtype=np.int64)
+    ids = v.data.cpu().numpy()
+    safe = np.clip(ids, 0, max(len(enc) - 1, 0))
+    row_lens = np.where(ids == NULL_ID, 0, lens[safe])
+    offsets = np.concatenate([np.zeros(1, dtype=np.int64),
+                              np.cumsum(row_lens)])
+    empty = np.zeros(0, dtype=np.int32)
+    flat = np.concatenate([enc[i] if ids[j] != NULL_ID else empty
+                           for j, i in enumerate(safe)]) \
+        if len(ids) and enc else empty
+    return to_tensor(flat.astype(np.int32), env.device), offsets, newdict
+
+
+@func("splitByChar", "splitByString")
+def _f_splitbychar(args, env):
+    sep, v = args[0].py, args[1]
+    if v.dictionary is None:
+        raise EvalError("splitByChar expects a string column")
+    flat, offsets, nd = _ragged_ids([s.split(sep)
+                                     for s in v.dictionary.values], v, env)
+    return Value(flat, v.valid, nd, offsets=offsets)
+
+
+@func("replaceAll", "replace")
+def _f_replaceall(args, env):
+    v, pat, rep = args[0], args[1].py, args[2].py
+    return _dict_transform(v, lambda s: s.replace(pat, rep))
+
+
+@func("replaceOne")
+def _f_replaceone(args, env):
+    v, pat, rep = args[0], args[1].py, args[2].py
+    return _dict_transform(v, lambda s: s.replace(pat, rep, 1))
+
+
+@func("replaceRegexpAll")
+def _f_replaceregexpall(args, env):
+    v, pat, rep = args[0], args[1].py, args[2].py
+    rx = re.compile(pat)
+    rep2 = re.sub(r"\\(\d)", r"\\\1", rep)
+    return _dict_transform(v, lambda s: rx.sub(rep2, s))
+
+
+@func("extract")
+def _f_extract(args, env):
+    v, pat = args[0], args[1].py
+    rx = re.compile(pat)
+
+    def ex(s):
+        m = rx.search(s)
+        if m is None:
+            return ""
+        return m.group(1) if m.groups() else m.group(0)
+    return _dict_transform(v, ex)
+
+
+def _pad(args, left: bool) -> Value:
+    v, width = args[0], int(args[1].py)
+    fill = args[2].py if len(args) > 2 else " "
+
+    def pad(s):
+        need = width - len(s)
+        if need <= 0:
+            return s[:width]
+        reps = (fill * (need // len(fill) + 1))[:need]
+        return reps + s if left else s + reps
+    return _dict_transform(v, pad)
+
+
+@func("leftPad", "lpad")
+def _f_leftpad(args, env):
+    return _pad(args, True)
+
+
+@func("rightPad", "rpad")
+def _f_rightpad(args, env):
+    return _pad(args, False)
+
+
+@func("repeat")
+def _f_repeat(args, env):
+    v, n_ = args[0], int(args[1].py)
+    return _dict_transform(v, lambda s: s * n_)
+
+
+def _dict_lut(v: Value, fn, dtype, empty) -> Value:
+    """A per-row value computed once per dictionary entry (one gather)."""
+    lut = np.array([fn(s) for s in v.dictionary.values] or [empty],
+                   dtype=dtype)
+    return Value(_dict_map(v, lut), v.valid)
+
+
+@func("startsWith")
+def _f_startswith(args, env):
+    pat = args[1].py
+    return _dict_lut(args[0], lambda s: s.startswith(pat), bool, False)
+
+
+@func("endsWith")
+def _f_endswith(args, env):
+    pat = args[1].py
+    return _dict_lut(args[0], lambda s: s.endswith(pat), bool, False)
+
+
+@func("position")
+def _f_position(args, env):
+    pat = args[1].py
+    return _dict_lut(args[0], lambda s: s.find(pat) + 1, np.int64, 0)
+
+
+@func("empty")
+def _f_empty(args, env):
+    return _dict_lut(args[0], lambda s: len(s) == 0, bool, True)
+
+
+@func("match")
+def _f_match(args, env):
+    rx = re.compile(args[1].py)
+    return _dict_lut(args[0], lambda s: bool(rx.search(s)), bool, False)
+
+
+# date/time functions live in exec/datetime_fns.py (registered from the
+# bottom of this module)
+
+
 # ---------------------------------------------------------------------------
 # core evaluation
 
+def _coerce_date_literal(a: Value, b: Value, env: Env):
+    """If one side is a DATE/DATETIME value and the other a string literal,
+    parse the literal ('2024-05-01' [..time]) to days/seconds since epoch."""
+    from myscaledb_tpu_torch.exec.datetime_fns import parse_date_literal
+    for col, lit in ((a, b), (b, a)):
+        if col.dt in (DataType.DATE, DataType.DATETIME) and \
+                isinstance(lit.py, str):
+            n = parse_date_literal(lit.py, col.dt)
+            repl = Value(_scalar(n, env.device), is_scalar=True, py=n,
+                         dt=col.dt)
+            return (a, repl) if lit is b else (repl, b)
+    return a, b
+
+
+def _is_bits(v: Value) -> bool:
+    """A UInt64 value whose int64 bits may stand for values past 2^63-1
+    (a hash, toUInt64): stored UInt64 columns hold at most 2^63-1."""
+    return v.u64 and v.umax is None
+
+
 def _arith(op: str, a: Value, b: Value, env: Env) -> Value:
-    if a.dt is not None or b.dt is not None:
-        raise NotPortedError("Date/DateTime arithmetic", EXPR_SLICE)
+    a, b = _coerce_date_literal(a, b, env)
     if a.is_string or b.is_string:
         raise EvalError(f"arithmetic {op!r} on strings")
+    # Date ± N stays a Date; Date - Date is a plain day count
+    tag = None
+    if op in ("+", "-"):
+        tag = a.dt or b.dt
+        if op == "-" and a.dt is not None and b.dt is not None:
+            tag = None
     x = _numeric(a, env.n_rows)
     y = _numeric(b, env.n_rows)
+    floats = x.is_floating_point() or y.is_floating_point()
+    if (_is_bits(a) or _is_bits(b)) and not floats:
+        return _u64_arith(op, a, x, b, y)
     if op in ("+", "*") and (a.umax is not None or b.umax is not None) \
-            and not (x.is_floating_point() or y.is_floating_point()):
+            and not floats:
         return _unsigned_arith(op, a, x, b, y)
     if op == "+":
         d = x + y
@@ -401,7 +902,55 @@ def _arith(op: str, a: Value, b: Value, env: Env) -> Value:
         d = torch.remainder(x, y)
     else:
         raise EvalError(f"unknown arithmetic op {op}")
+    if tag is not None and not d.is_floating_point():
+        return Value(d, _both_valid(a, b), dt=tag)
     return Value(d, _both_valid(a, b))
+
+
+def _positive_literal(v: Value, what: str) -> int:
+    if not (v.is_scalar and isinstance(v.py, int) and not
+            isinstance(v.py, bool) and v.py > 0):
+        raise EvalError(f"{what} of a UInt64 value past 2^63-1 takes a "
+                        "positive integer literal in the torch port")
+    return v.py
+
+
+def _u64_arith(op: str, a: Value, x, b: Value, y) -> Value:
+    """Arithmetic with a UInt64 operand held as int64 bits.  The JAX
+    package computes in uint64, which wraps modulo 2^64: int64 ``+ - *``
+    give those bits exactly.  ``%`` and integer division read the bits
+    unsigned and take a positive literal divisor; ``/`` raises."""
+    valid = _both_valid(a, b)
+    x, y = x.to(torch.int64), y.to(torch.int64)
+    if op == "+":
+        return Value(x + y, valid, u64=True)
+    if op == "-":
+        return Value(x - y, valid, u64=True)
+    if op == "*":
+        return Value(x * y, valid, u64=True)
+    if op == "%" and _is_bits(a) and not _is_bits(b):
+        return Value(_u64_mod(x, _positive_literal(b, "%")), valid, u64=True)
+    raise EvalError(f"{op!r} over a UInt64 value past 2^63-1 is not "
+                    "supported by the torch port")
+
+
+def _u64_mod(x: torch.Tensor, m: int) -> torch.Tensor:
+    """(x read as uint64) mod m, for int64 bits x and 0 < m < 2^63: a bit
+    pattern read negative stands for x + 2^64."""
+    r = torch.remainder(x, m)                      # x mod m, in [0, m)
+    wrap = (1 << 64) % m
+    t = r - (m - wrap)                             # r + wrap - m, no overflow
+    fixed = torch.where(t >= 0, t, r + wrap)
+    return torch.where(x < 0, fixed, r)
+
+
+def _u64_div(x: torch.Tensor, m: int) -> torch.Tensor:
+    """floor((x read as uint64) / m) for int64 bits x and 0 < m < 2^63."""
+    half = (x >> 1) & INT64_MAX                    # floor(u / 2), exact
+    q = (half // m) * 2                            # 2 floor(u / 2m)
+    rem = x - q * m                                # bits of u - q m, a
+    big = (rem < 0) | (rem >= m)                   # value in [0, 2m)
+    return q + big.to(torch.int64)
 
 
 def _upper(v: Value, t: torch.Tensor) -> int:
@@ -445,29 +994,58 @@ def _refuse_overflow(op: str, x, y, d) -> None:
 
 
 def _compare(op: str, a: Value, b: Value, env: Env) -> Value:
-    for col, lit in ((a, b), (b, a)):
-        if col.dt is not None and isinstance(lit.py, str):
-            raise NotPortedError("Date/DateTime literals", EXPR_SLICE)
+    a, b = _coerce_date_literal(a, b, env)
     # string comparisons via dictionary
     if a.is_string or b.is_string:
         return _compare_strings(op, a, b, env)
     x = _numeric(a, env.n_rows)
     y = _numeric(b, env.n_rows)
+    if _is_bits(a) or _is_bits(b):
+        return Value(_compare_u64(op, a, x, b, y), _both_valid(a, b))
+    return Value(_compare_op(op, x, y), _both_valid(a, b))
+
+
+def _compare_op(op: str, x, y):
     if op == "=":
-        d = x == y
-    elif op == "!=":
-        d = x != y
-    elif op == "<":
-        d = x < y
-    elif op == "<=":
-        d = x <= y
-    elif op == ">":
-        d = x > y
-    elif op == ">=":
-        d = x >= y
-    else:
-        raise EvalError(f"unknown comparison {op}")
-    return Value(d, _both_valid(a, b))
+        return x == y
+    if op == "!=":
+        return x != y
+    if op == "<":
+        return x < y
+    if op == "<=":
+        return x <= y
+    if op == ">":
+        return x > y
+    if op == ">=":
+        return x >= y
+    raise EvalError(f"unknown comparison {op}")
+
+
+def _u64_as_f64(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.float64) + (x < 0).to(torch.float64) * 2.0 ** 64
+
+
+def _compare_u64(op: str, a: Value, x, b: Value, y):
+    """Compare with UInt64 bits read unsigned: two UInt64 operands order
+    as their bits with the sign bit flipped; against a signed integer a
+    bit pattern read negative (a value past 2^63-1) is the greater; against
+    a float both sides go to f64."""
+    if x.is_floating_point() or y.is_floating_point():
+        return _compare_op(op, _u64_as_f64(x) if a.u64 else x,
+                           _u64_as_f64(y) if b.u64 else y)
+    x, y = x.to(torch.int64), y.to(torch.int64)
+    if a.u64 and b.u64:
+        return _compare_op(op, x ^ _I64_MIN, y ^ _I64_MIN)
+    res = _compare_op(op, x, y)
+    big = x < 0 if a.u64 else y < 0          # the unsigned side past 2^63-1
+    a_greater = a.u64                        # where big, the u64 side wins
+    wins = {"=": False, "!=": True,
+            "<": not a_greater, "<=": not a_greater,
+            ">": a_greater, ">=": a_greater}[op]
+    return torch.where(big, wins, res)
+
+
+_I64_MIN = -(1 << 63)
 
 
 def _compare_strings(op: str, a: Value, b: Value, env: Env) -> Value:
@@ -538,10 +1116,8 @@ def eval_expr(e: Expr, env: Env) -> Value:
             return Value(_scalar(0, env.device), is_scalar=True, py=None)
         if isinstance(e.value, str):
             return Value(None, is_scalar=True, py=e.value)
-        if isinstance(e.value, (bool, int, float)):
-            return Value(_scalar(e.value, env.device), is_scalar=True,
-                         py=e.value)
-        raise NotPortedError(f"literal {e.value!r}", EXPR_SLICE)
+        return Value(_scalar(e.value, env.device), is_scalar=True,
+                     py=e.value)
     if isinstance(e, VectorLiteral):
         return _vector_literal(e)
     if isinstance(e, Ident):
@@ -549,7 +1125,7 @@ def eval_expr(e: Expr, env: Env) -> Value:
     if isinstance(e, UnOp):
         v = eval_expr(e.operand, env)
         if e.op == "-":
-            return Value(-_numeric(v, env.n_rows), v.valid)
+            return _negate(v, env)
         if e.op == "NOT":
             return Value(~as_bool_mask(v, env.n_rows))
         raise EvalError(f"unknown unary {e.op}")
@@ -589,10 +1165,11 @@ def eval_expr(e: Expr, env: Env) -> Value:
         return Value(res)
     if isinstance(e, FuncCall):
         impl = _FUNCS.get(e.name.lower())
-        if impl is None and e.name.lower() in DIST_FNS:
-            raise EvalError(f"unknown function {e.name!r}")
+        if impl is None and e.name.lower() in DEFERRED_FNS:
+            raise NotPortedError(f"function {e.name}()",
+                                 DEFERRED_FNS[e.name.lower()])
         if impl is None:
-            raise NotPortedError(f"function {e.name}()", EXPR_SLICE)
+            raise EvalError(f"unknown function {e.name!r}")
         args = [eval_expr(a, env) for a in e.args]
         return impl(args, env)
     if isinstance(e, WindowCall):
@@ -601,6 +1178,8 @@ def eval_expr(e: Expr, env: Env) -> Value:
     raise NotPortedError(f"expression {type(e).__name__}", EXPR_SLICE)
 
 
-# the DDL slice's scalar and array functions (imported at the bottom: that
-# module needs this one fully initialized, as in the JAX package)
+# register the datetime and extended scalar functions (imported at the
+# bottom: these modules need this one fully initialized, as in the JAX
+# package)
+from myscaledb_tpu_torch.exec import datetime_fns as _dt_fns  # noqa: E402,F401
 from myscaledb_tpu_torch.exec import scalar_fns as _scalar_fns  # noqa: E402,F401

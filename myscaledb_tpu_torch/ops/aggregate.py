@@ -80,13 +80,27 @@ def _matmul_kind(fn: str, arg, logical=None) -> Optional[str]:
     return None
 
 
+# The one-hot matmul path takes one (F, B) @ (B, 128) product per row
+# block of up to 2^18 rows and group bucket of 128.  Past this many products
+# (a 100M-row table grouped into more than ~10,000 keys) its launches cost
+# seconds, and sums and counts take the scatter path (index_add_: exact
+# int64 sums) instead.
+MATMUL_MAX_PRODUCTS = 4096
+
+
+def _matmul_products(n: int, num_groups: int) -> int:
+    from myscaledb_tpu_torch.ops.aggregate_matmul import BLOCK, LO
+    return -(-max(n, 1) // BLOCK) * -(-num_groups // LO)
+
+
 def partial_aggregate_matmul(gid, mask, args, fns: tuple, num_groups: int,
                              arg_valids=None, arg_ranges=None,
                              logical_dtypes=None):
     """partial_aggregate with sum/count/avg routed through K3 for
     G <= 256 (``ops/kernels/group_agg.py``), falling back to the one-hot
-    matmul histogram when ineligible (per-arg validity masks, G > 256);
-    min/max/any keep the scatter path.  Integer results are exact on
+    matmul histogram when ineligible (per-arg validity masks, G > 256)
+    unless that takes more than MATMUL_MAX_PRODUCTS products; min/max/any
+    keep the scatter path.  Integer results are exact on
     every route; float sums differ only in accumulation order.
     arg_ranges: per-arg zone-map bounds, passed to K3 (which ignores them).
     logical_dtypes: per-arg numpy dtype of the logical type, or None to
@@ -110,6 +124,10 @@ def partial_aggregate_matmul(gid, mask, args, fns: tuple, num_groups: int,
 
     states: list = [None] * len(fns)
     gc = None
+    if mm_slots and num_groups > MAX_G and \
+            _matmul_products(gid.shape[0], num_groups) > MATMUL_MAX_PRODUCTS:
+        mm_slots = []                   # too many one-hot products: scatter
+        scatter_idx = list(range(len(fns)))
     if mm_slots:
         if num_groups <= MAX_G and all(v is None for v in mm_valids):
             mm_states, gc, mm_counts = group_aggregate(

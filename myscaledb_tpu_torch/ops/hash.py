@@ -36,6 +36,15 @@ def _shr64(h: torch.Tensor, k: int) -> torch.Tensor:
     return (h >> k) & ((1 << (64 - k)) - 1)
 
 
+def popcount64(u: torch.Tensor) -> torch.Tensor:
+    """Population count of int64 bit patterns (parallel bit tricks; torch
+    has no popcount op)."""
+    v = u - (_shr64(u, 1) & 0x5555555555555555)
+    v = (v & 0x3333333333333333) + (_shr64(v, 2) & 0x3333333333333333)
+    v = (v + _shr64(v, 4)) & 0x0F0F0F0F0F0F0F0F
+    return _shr64(v * 0x0101010101010101, 56)
+
+
 def hash32(x) -> torch.Tensor:
     """Murmur3 fmix32 over 32-bit lanes; returns the uint32 values as
     int64.  int64 input takes ``hash64``, as int64/uint64 input does in

@@ -742,10 +742,11 @@ def rows_to_table(template: Table, columns: Optional[list], rows: list,
                 continue
             arr = np.asarray(vals, dtype=object)
         elif c.dtype in (DataType.DATE, DataType.DATETIME):
-            if any(isinstance(v, str) for v in vals):
-                raise NotPortedError("Date/DateTime literals in INSERT",
-                                     BREADTH)
-            arr = np.asarray(vals).astype(physical_dtype(c.dtype))
+            from myscaledb_tpu_torch.exec.datetime_fns import \
+                parse_date_literal
+            arr = np.asarray([parse_date_literal(v, c.dtype)
+                              if isinstance(v, str) else v for v in vals]
+                             ).astype(physical_dtype(c.dtype))
         else:
             if any(v is None for v in vals):
                 # NULLs into a Nullable numeric column -> validity mask

@@ -29,9 +29,11 @@ binary-vector Hamming/Jaccard scan (ops/binary_vector.py).  JOINs
 through ops/join.py.  Aggregates with and without GROUP BY, the -If
 combinators, HAVING, DISTINCT, ROLLUP/CUBE/GROUPING SETS and WITH TOTALS
 run; sum/count/avg go through K3 (ops/kernels/group_agg.py) for up to 256
-groups.  Everything else the JAX executor does — JOIN on a subquery,
-joinGet and Join engines, distributed joins, the special aggregates and
-the -State/-Merge combinators, text and hybrid search,
+groups.  The special aggregates (uniqExact, count(DISTINCT), the uniq
+sketches, quantiles, argMin, ...) run in sql/agg_fns.py
+(``_special_call``, ``_special_aggregate``).  Everything else the JAX
+executor does — JOIN on a subquery, joinGet and Join engines, distributed
+joins, the -State/-Merge combinators, text and hybrid search,
 subqueries in expressions, CTEs, UNION and the other table functions —
 raises ``NotPortedError`` naming the slice that brings it.  Error texts the
 goldens pin stay byte-equal to the JAX package's.
@@ -61,10 +63,11 @@ from myscaledb_tpu_torch.sql.ast import (Expr, Literal, VectorLiteral, Ident,
                                          SelectItem, walk)
 from myscaledb_tpu_torch.sql.render import render, substitute
 from myscaledb_tpu_torch.sql.agg_kinds import (AGG_NAMES, SPECIAL_AGGS,
-                                               IF_COMBINATORS)
-from myscaledb_tpu_torch.sql.agg_fns import _column_range
-from myscaledb_tpu_torch.exec.expr import (DIST_FNS, Env, Value, eval_expr,
-                                           as_bool_mask, EvalError, _dict_map)
+                                               IF_COMBINATORS, UNIQ_KINDS)
+from myscaledb_tpu_torch.sql.agg_fns import _column_range, _special_aggregate
+from myscaledb_tpu_torch.exec.expr import (DIST_FNS, UNSIGNED_OF_MAX, Env,
+                                           Value, eval_expr, as_bool_mask,
+                                           EvalError, _dict_map)
 from myscaledb_tpu_torch.ops.hash import float_bits_key
 from myscaledb_tpu_torch.ops.hashtable import build_group_ids, INT32_MAX
 from myscaledb_tpu_torch.ops.join import (hash_join_any, hash_join_all,
@@ -351,6 +354,10 @@ def _logical_dtype_of(data, v: Value) -> DataType:
         return v.dt
     if v.dictionary is not None:
         return DataType.STRING
+    if v.u64:
+        return DataType.UINT64
+    if v.umax in UNSIGNED_OF_MAX and not data.is_floating_point():
+        return UNSIGNED_OF_MAX[v.umax]
     dt = _LOGICAL_OF.get(data.dtype)
     if dt is None:
         raise ExecError(f"unsupported result dtype {data.dtype}")
@@ -401,6 +408,9 @@ def _sort_key_from_value(v: Value, ascending: bool, nulls_last: bool, n: int,
         data = (data ^ np.uint64(1 << 63)).view(np.int64)
     if v.is_scalar:
         data = data.expand(n)
+    if v.u64 and isinstance(data, torch.Tensor):
+        # UInt64 bits: flipping the sign bit orders them unsigned
+        data = data.to(torch.int64) ^ (-(1 << 63))
     if v.dictionary is not None:
         ranks = v.dictionary.ranks()
         if len(ranks) == 0:
@@ -1126,9 +1136,18 @@ def run_aggregate(env: Env, q: SelectQuery, mask, session,
     # it), its own validity, zone-map range and logical numpy dtype
     fns, args, arg_valids, arg_ranges, logical = [], [], [], [], []
     normal_order: list[str] = []
+    special: dict[str, tuple] = {}       # render -> (kind, arg Values, params)
     out_types = {}
     for r, call in agg_calls.items():
         name = call.name.lower()
+        if call.distinct:
+            # -Distinct combinator (count(DISTINCT x) maps to uniqExact,
+            # reference: count_distinct_implementation setting)
+            name = {"count": "uniqexact", "sum": "sumdistinct",
+                    "avg": "avgdistinct"}.get(name, name)
+        if name in SPECIAL_AGGS:
+            special[r] = _special_call(name, call, env, alias_exprs, table)
+            continue
         normal_order.append(r)
         if name in IF_COMBINATORS:
             # xIf(args..., cond): fold the condition into the arg validity
@@ -1171,6 +1190,9 @@ def run_aggregate(env: Env, q: SelectQuery, mask, session,
             raise ExecError(f"{call.name} requires an argument")
         arg_e = _expand_item_aliases(call.args[0], alias_exprs, table)
         v = eval_expr(arg_e, env)
+        if v.u64 and v.umax is None and name not in ("count", "any"):
+            raise ExecError(f"{call.name}() over a UInt64 value past 2^63-1 "
+                            "is not supported by the torch port")
         lt = _expr_logical_dtype(arg_e, v, table)
         data = v.data.expand(n) if v.is_scalar else v.data
         fns.append(name)
@@ -1213,6 +1235,7 @@ def run_aggregate(env: Env, q: SelectQuery, mask, session,
     rep_np = rep[:G].cpu().numpy()[present]
     rep_np = np.where(rep_np == INT32_MAX, 0, rep_np)
     rep_dev = torch.as_tensor(rep_np, dtype=torch.int64, device=dev)
+    gid_kept = gid if special else None
     del tgt, rep, gid
 
     cols = []
@@ -1229,7 +1252,66 @@ def run_aggregate(env: Env, q: SelectQuery, mask, session,
     for r, out in zip(normal_order, outs):
         cols.append(_aggregate_column(r, out[present], out_types.get(r), dev))
         mapping[r] = r
+    for r, (kind, vals, sparams) in special.items():
+        col = _special_aggregate(kind, vals, gid_kept, m, G, present, n,
+                                 sparams, session.settings)
+        cols.append(Column(Field(r, col.dtype, col.field.nullable,
+                                 col.field.vector_dim, col.field.elem),
+                           col.data, col.valid, col.dictionary, None,
+                           col.offsets))
+        mapping[r] = r
     return Table(cols, name=table.name), mapping
+
+
+_TWO_ARG_AGGS = {"argmin", "argmax", "covarpop", "covarsamp", "corr"}
+
+
+def _special_call(name: str, call: FuncCall, env: Env, alias_exprs: dict,
+                  table: Table) -> tuple:
+    """(kind, argument Values, params) of one special aggregate call: the
+    parametric forms quantile(0.9)(x), topK(k)(x), groupArray(n)(x) and
+    quantiles(l1, l2, ...)(x), and the aliases median, quantileExact*,
+    countDistinct."""
+    params = None
+    cargs = list(call.args)
+    if name in ("quantile", "quantileexact", "quantileexactlow",
+                "quantiletdigest") \
+            and len(cargs) == 2 and isinstance(cargs[0], Literal):
+        params = float(cargs[0].value)   # quantile(0.9)(x)
+        cargs = cargs[1:]
+    if name in ("quantileexact", "quantileexactlow"):
+        name = "quantile"
+    if name == "median":
+        name, params = "quantile", 0.5
+    if name == "countdistinct":
+        name = "uniqexact"
+    if name == "quantiles":
+        params = [float(a.value) for a in cargs if isinstance(a, Literal)]
+        cargs = [a for a in cargs if not isinstance(a, Literal)]
+    if name in ("topk", "grouparray", "groupuniqarray") and \
+            len(cargs) == 2 and isinstance(cargs[0], Literal):
+        params = int(cargs[0].value)   # topK(k)(x) / groupArray(n)(x)
+        cargs = cargs[1:]
+    if name == "topk" and params is None:
+        params = 10   # reference default (AggregateFunctionTopK)
+    vals = [eval_expr(_expand_item_aliases(a, alias_exprs, table), env)
+            for a in cargs]
+    if name in _TWO_ARG_AGGS and len(vals) != 2:
+        raise ExecError(f"{call.name} expects two arguments")
+    if name not in _TWO_ARG_AGGS and name not in UNIQ_KINDS \
+            and len(vals) != 1:
+        raise ExecError(f"{call.name} expects one argument")
+    if name in UNIQ_KINDS and not vals:
+        raise ExecError(f"{call.name} expects at least one argument")
+    # the uniq kinds and anyLast read UInt64 bits as they are; the others
+    # order, sum or print the values
+    ordered = vals[1:] if name in ("argmin", "argmax") else \
+        [] if name in UNIQ_KINDS or name == "anylast" else vals
+    for v in ordered:
+        if v.u64 and v.umax is None:
+            raise ExecError(f"{call.name}() over a UInt64 value past 2^63-1 "
+                            "is not supported by the torch port")
+    return name, vals, params
 
 
 def _default_like(ref_col: Column, rows: int) -> Column:
@@ -1310,11 +1392,9 @@ def _totals_table(env, q, mask, session, alias_exprs,
 # ---------------------------------------------------------------------------
 # the slice boundary
 
-# the special aggregates (uniqExact, quantiles, argMin, ...; sql/agg_fns.py
-# ``_special_aggregate`` in the JAX package) and the -State/-Merge
-# combinator spellings
-_UNPORTED_AGGS = SPECIAL_AGGS | {n for n in AGG_NAMES
-                                 if n.endswith(("state", "merge"))}
+# the -State/-Merge combinator spellings (sql/agg_fns.py
+# ``_state_combinator`` in the JAX package)
+_UNPORTED_AGGS = {n for n in AGG_NAMES if n.endswith(("state", "merge"))}
 
 
 def _reject_unported(q: SelectQuery) -> None:
@@ -1352,13 +1432,9 @@ def _reject_unported(q: SelectQuery) -> None:
                     raise NotPortedError(f"{node.name}() and Join-engine "
                                          "tables",
                                          "expression and function breadth")
-                if id(node) not in window_fns and (
-                        fn in _UNPORTED_AGGS or (node.distinct and fn in (
-                            "count", "sum", "avg"))):
-                    raise NotPortedError(
-                        f"aggregate function {node.name}"
-                        f"({'DISTINCT ...' if node.distinct else ''})",
-                        "expression and function breadth")
+                if id(node) not in window_fns and fn in _UNPORTED_AGGS:
+                    raise NotPortedError(f"aggregate function {node.name}()",
+                                         "expression and function breadth")
                 if fn in TEXT_FNS:
                     raise NotPortedError(f"{node.name}()",
                                          "text and hybrid search")
@@ -1661,7 +1737,8 @@ def execute_select(session, q: SelectQuery) -> Table:
                 for t in (proj_table, table):
                     if cn in t:
                         c = t[cn]
-                        v = Value(c.data, c.valid, c.dictionary)
+                        v = Value(c.data, c.valid, c.dictionary,
+                                  u64=c.dtype is DataType.UINT64)
                         break
                 if v is None and cn in env.extra:
                     v = env.extra[cn]

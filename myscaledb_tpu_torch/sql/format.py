@@ -10,8 +10,6 @@ NULL as \\N.
 
 from __future__ import annotations
 
-import datetime as _dt
-
 import numpy as np
 
 from myscaledb_tpu_torch.core.types import DataType
@@ -57,22 +55,6 @@ def format_f64(v) -> str:
     return s
 
 
-def format_date(days) -> str:
-    """Copy of myscaledb_tpu/exec/datetime_fns.py::format_date (that
-    module is not ported yet)."""
-    if isinstance(days, _dt.date):
-        return days.isoformat()
-    return (_dt.date(1970, 1, 1) + _dt.timedelta(days=int(days))).isoformat()
-
-
-def format_datetime(secs) -> str:
-    """Copy of myscaledb_tpu/exec/datetime_fns.py::format_datetime."""
-    if isinstance(secs, _dt.datetime):
-        return secs.strftime("%Y-%m-%d %H:%M:%S")
-    return (_dt.datetime(1970, 1, 1) +
-            _dt.timedelta(seconds=int(secs))).strftime("%Y-%m-%d %H:%M:%S")
-
-
 def _quote_str(s: str) -> str:
     return "'" + s.replace("\\", "\\\\").replace("'", "\\'") + "'"
 
@@ -103,8 +85,10 @@ def format_value(v, dtype: DataType) -> str:
     if v is None:
         return "\\N"
     if dtype is DataType.DATE:
+        from myscaledb_tpu_torch.exec.datetime_fns import format_date
         return format_date(v)
     if dtype is DataType.DATETIME:
+        from myscaledb_tpu_torch.exec.datetime_fns import format_datetime
         return format_datetime(v)
     if dtype is DataType.ARRAY or isinstance(v, list):
         return format_array(v, DataType.INT64 if not isinstance(v, list)

@@ -578,3 +578,78 @@ def test_limit_by_on_card_equals_cpu(cuda, sql):
         s.create_table("t", data)
         rows.append(repr(s.sql(sql).to_rows()))
     assert rows[0] == rows[1]
+
+
+# -- slice 8: device code of the scalar functions and special aggregates --
+
+def _hits_like(rng, n):
+    return {"id": np.arange(n, dtype=np.int64),
+            "i32": rng.integers(-2 ** 31, 2 ** 31, n).astype(np.int32),
+            "u": rng.integers(-2 ** 62, 2 ** 62, n, dtype=np.int64),
+            "f": rng.standard_normal(n).astype(np.float32),
+            "d": rng.integers(0, 65536, n).astype(np.int32),
+            "ts": rng.integers(0, 2 ** 32, n).astype(np.int64),
+            "g": rng.integers(0, 24, n).astype(np.int32),
+            "w": rng.integers(0, 3000, n).astype(np.int16)}
+
+
+@pytest.mark.parametrize("sql", [
+    # the device closed forms of the 64-bit hashes over int64 bits, and
+    # their unsigned compare / modulo / order
+    "SELECT cityHash64(u), sipHash64(i32), xxHash64(f), intHash64(u), "
+    "intHash32(i32), cityHash64(u) % 1000003, xxHash64(u) > "
+    "9223372036854775807 FROM t",
+    "SELECT id, sipHash64(u) AS h FROM t ORDER BY h LIMIT 100",
+    "SELECT bitCount(u), bitRotateLeft(u, 13), toUInt64(i32), "
+    "bitShiftRight(cityHash64(u), 7) FROM t",
+    # the civil calendar
+    "SELECT toYear(d), toMonth(d), toDayOfMonth(d), toDayOfYear(d), "
+    "toYYYYMMDDhhmmss(ts), toStartOfQuarter(d), toMonday(d), "
+    "addMonths(d, 7), dateDiff('week', d, toDate(ts)) FROM t",
+    "SELECT toStartOfMinute(ts) AS m, count() FROM t GROUP BY m ORDER BY m "
+    "LIMIT 20",
+    # the special aggregates: distinct run starts, the inverted-CDF
+    # element, HLL registers (uniqHLL12 takes the sketch at any size)
+    "SELECT g, uniqExact(u), uniq(i32), uniqHLL12(u), quantile(0.9)(w), "
+    "median(f), argMin(id, f), argMax(u, w), anyLast(id), "
+    "quantiles(0.1, 0.5)(w), sumDistinct(w), groupBitXor(i32), count() "
+    "FROM t GROUP BY g ORDER BY g",
+    "SELECT count(DISTINCT u), uniqCombined(i32), varPop(w), corr(f, w) "
+    "FROM t",
+])
+def test_slice8_device_code_on_card_equals_cpu(cuda, sql):
+    """The hashes, the calendar math and the special aggregates give the
+    same rows on the card as on the CPU (the CPU tests hold the CPU to the
+    JAX package); f64 moments within rtol 1e-12."""
+    import myscaledb_tpu_torch as P
+    from myscaledb_tpu_torch.config import Settings
+    from myscaledb_tpu_torch.core.types import DataType
+    rng = np.random.default_rng(12)
+    data = _hits_like(rng, 200_003)
+    rows = []
+    for dev in ("cuda", "cpu"):
+        s = P.connect(Settings(uniq_combined_exact_rows=1000), device=dev)
+        s.create_table("t", data, dtypes={"d": DataType.DATE,
+                                          "ts": DataType.DATETIME})
+        rows.append(s.sql(sql).to_rows())
+    got, want = rows
+    assert len(got) == len(want)
+    for rg, rw in zip(got, want):
+        for x, y in zip(rg, rw):
+            if isinstance(y, float) and not np.isnan(y):
+                np.testing.assert_allclose(x, y, rtol=1e-12)
+            else:
+                assert repr(x) == repr(y)
+
+
+def test_hll_registers_on_card_equal_cpu(cuda):
+    from myscaledb_tpu_torch.ops import hll
+    g = torch.Generator().manual_seed(3)
+    keys = torch.randint(-2 ** 63, 2 ** 63 - 1, (1 << 20,), generator=g)
+    gid = torch.randint(0, 7, (1 << 20,), generator=g)
+    mask = torch.rand(1 << 20, generator=g) < 0.9
+    want = hll.hll_registers(hll.hash_key_columns([keys]), gid, mask, 7)
+    got = hll.hll_registers(hll.hash_key_columns([keys.cuda()]), gid.cuda(),
+                            mask.cuda(), 7)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(hll.hll_estimate(got).cpu(), hll.hll_estimate(want))

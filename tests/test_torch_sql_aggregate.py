@@ -175,17 +175,18 @@ def test_host_resident_table_streams(sessions):
 
 def test_not_ported_aggregates_name_their_slice(sessions):
     _, p = sessions
-    for sql in ("SELECT quantile(0.5)(v) FROM t",
-                "SELECT g, uniqExact(v) FROM t GROUP BY g",
-                "SELECT count(DISTINCT v) FROM t",
+    for sql in ("SELECT uniqState(v) FROM t",
+                "SELECT g, sum(v) FROM t GROUP BY g UNION ALL "
+                "SELECT g, sum(v) FROM t GROUP BY g",
+                "SELECT quantileTDigestState(0.5)(v) FROM t",
                 "SELECT sumState(v) FROM t"):
         with pytest.raises(myscaledb_tpu_torch.NotPortedError) as e:
             p.sql(sql)
         assert "'expression and function breadth' slice" in str(e.value)
     with pytest.raises(myscaledb_tpu_torch.NotPortedError,
-                       match=r"^aggregate function quantile\(\) is not "
+                       match=r"^aggregate function uniqState\(\) is not "
                              r"ported"):
-        p.sql("SELECT quantile(0.5)(v) FROM t")
+        p.sql("SELECT uniqState(v) FROM t")
 
 
 @pytest.mark.parametrize("sql", [

@@ -135,14 +135,14 @@ def test_error_texts_match(sessions, sql):
 
 
 @pytest.mark.parametrize("sql", [
-    "SELECT tag, uniqExact(id) FROM t GROUP BY tag",
-    "SELECT quantile(0.5)(price) FROM t",
+    "SELECT tag, arrayJoin([1, 2]) FROM t",
+    "SELECT id, x FROM t ARRAY JOIN [1, 2] AS x",
     "SELECT id FROM t AS a JOIN (SELECT id FROM t) AS b ON a.id = b.id",
     "CREATE VIEW u AS SELECT id FROM t",
     "SELECT sumState(price) FROM t",
     "SELECT TextSearch(tag, 'red') AS s FROM t ORDER BY s DESC LIMIT 3",
     "SELECT id FROM t WHERE id IN (SELECT id FROM t WHERE price < 3)",
-    "SELECT lower(tag) FROM t",
+    "SELECT arrayMap(x -> x + 1, [id]) FROM t",
 ])
 def test_outside_the_slice_raises_not_ported(sessions, sql):
     _, p, _ = sessions
