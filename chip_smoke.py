@@ -2,7 +2,7 @@
 
 Usage:  python3 chip_smoke.py [--seed N]
 
-Eight main paths, the SQL ones through the entry points a user calls
+Ten main paths, the SQL ones through the entry points a user calls
 (``connect()`` -> ``Session.create_table`` or SQL DDL -> ``Session.sql``):
 
   BASELINE config 1, the filtered exact vector top-k, over n = 1,000,000
@@ -60,6 +60,21 @@ Eight main paths, the SQL ones through the entry points a user calls
     SELECT toHour(EventTime) AS h, count(), uniq(UserID),
     uniqCombined(UserID), quantile(0.9)(ResolutionWidth) FROM hits
     GROUP BY h ORDER BY h
+
+  An event table shaped like URLCategories Array(UInt16) of ClickHouse's
+  hits_v1 example dataset, ev (id UInt32, cats Array(UInt16)), at
+  100,000,000 rows (about 400M elements) made on the card, under five
+  array statements:
+
+    SELECT c, count() FROM ev ARRAY JOIN cats AS c GROUP BY c
+    ORDER BY count() DESC LIMIT 10
+
+  BASELINE config 1 again with a metadata table meta (id UInt32, cat
+  UInt16) of 1M rows: query by example, a metadata filter through IN, a
+  facet join on a subquery, a CTE, UNION ALL and INTERSECT/EXCEPT:
+
+    SELECT id, distance(emb, (SELECT emb FROM t WHERE id = 4242)) AS d
+    FROM t WHERE price < 50 ORDER BY d LIMIT 10
 
   and the stateless goldens the port replays
   (tests/test_torch_goldens_stateless.py).
@@ -151,6 +166,22 @@ non-zero without printing a result:
               division, the inverted-CDF element of a sort), uniqCombined
               within 5% of the exact count; K3 must launch beside the
               special aggregates
+  sql_arrays  the event table's five statements (ARRAY JOIN ... GROUP BY,
+              LEFT ARRAY JOIN, has(), arraySum(arrayMap(...)),
+              length(arrayFilter(...))), each ten times after a warm-up
+              (median, p90), rows equal to plain torch on the card (a
+              bincount of the flat values, the row lengths, int64 sums,
+              per-row hits through searchsorted row ids); a profiler pass,
+              the host synchronisations of one statement and its peak
+              device memory; K3 must launch in the ARRAY JOIN ... GROUP BY
+  sql_subquery  config 1 with meta: by example (rows equal to the same
+              statement with the literal vector), IN (SELECT id FROM meta
+              ...), the top 1000 joined to meta and grouped, a CTE over
+              the top 100, UNION ALL of two top-10s, INTERSECT and EXCEPT
+              of two 1M-row sides; timed and profiled as above, ids equal
+              to a direct-formula top-k on the card, facet counts equal,
+              INTERSECT/EXCEPT equal to torch.isin over the sides; K1 must
+              launch in each of the first five, K3 in the facet join
   goldens_stateless  every case of tests/test_torch_goldens_stateless.py
               through run_golden_text(connect()), byte-identical
 
@@ -183,14 +214,16 @@ config-2 statements; the join build and count probes; the join statements
 up to the last timed one; the ten config-6 statements; on the DDL-built
 table the twenty distance statements, the ten batch statements at each
 nq, and the three identical-rows statements; config 3's statements; the
-window statements; each hits statement's runs) and read just after it;
+window statements; each hits, array and subquery statement's timed
+runs) and read just after it;
 each kernel must have launched in the run of its path, and the summary
 reports every kernel's count on every path.  Launches made to compare a
 kernel with its plain version, the profiler passes and the 10M-row
 branch statements count nowhere.  Config 3's and the windows' paths
 launch no kernel of the port (their JAX counterparts reach no Pallas
-kernel either), the hits statements only K3; their counts are reported
-all the same.  The last lines are the kernels summary, the
+kernel either), the hits and array statements only K3, the subquery
+statements K1 (K2 where the certificate fails) and K3; their counts are
+reported all the same.  The last lines are the kernels summary, the
 nvidia-smi name/power line, and {"ok": true, "device": {...}}.  Needs one
 CUDA card.
 """
@@ -2352,6 +2385,42 @@ def check_hits_rows(name, rows, want):
                                  f"{est} vs exact {u}")
 
 
+def run_statements_checked(s, statements, want, tag):
+    """Each statement ten times after a warm-up (median, p90), its rows
+    against the oracle's, then a profiler pass (device busy share) and a
+    count of its host synchronisations; the kernel launches of its timed
+    runs, zeroed just before and read just after."""
+    smi = nvidia_smi_line()
+    stats, totals = {}, {}
+    for name, stmt in statements.items():
+        zero_launches()
+        lat, rows = timed_sql(s, stmt, 10)
+        launches = read_launches()
+        check = want[name]
+        if callable(check):
+            check(rows)
+        elif rows != check:
+            raise AssertionError(f"{tag} {name}: {rows[:3]} != oracle "
+                                 f"{check[:3]}")
+        for k, c in launches.items():
+            totals[k] = totals.get(k, 0) + c
+        prof = profile_statements(s, [stmt])
+        syncs, sites = count_host_syncs(lambda: s.sql(stmt).to_rows())
+        torch.cuda.reset_peak_memory_stats()
+        s.sql(stmt).to_rows()
+        stats[name] = {"median_ms": float(np.median(lat)),
+                       "p90_ms": float(np.percentile(lat, 90)),
+                       "device_busy_share": prof["device_busy_share"],
+                       "device_ms_per_query": prof["device_ms_per_query"],
+                       "top_kernels_us": prof["top_kernels_us_per_query"],
+                       "host_syncs": syncs, "host_sync_sites": sites,
+                       "max_memory_allocated_bytes":
+                           torch.cuda.max_memory_allocated(),
+                       "launches_by_path": launches,
+                       "first_rows": repr(rows[:3]), "nvidia_smi": smi}
+    return stats, totals
+
+
 def phase_sql_hits(seed: int):
     """ClickBench-shaped statements over the 100M-row hits table: each
     statement's rows against its oracle on the card, ten timed runs after
@@ -2366,26 +2435,12 @@ def phase_sql_hits(seed: int):
     s.settings.max_memory_bytes_per_query = 32 << 30
     s.register("hits", table)
     want = hits_oracles(table, urls)
-    smi = nvidia_smi_line()
-    stats, totals = {}, {}
-    for name, stmt in HITS_STATEMENTS.items():
-        zero_launches()
-        lat, rows = timed_sql(s, stmt, 10)
-        launches = read_launches()
-        check_hits_rows(name, rows, want[name])
-        for k, c in launches.items():
-            totals[k] = totals.get(k, 0) + c
-        prof = profile_statements(s, [stmt])
-        syncs, _sites = count_host_syncs(lambda: s.sql(stmt).to_rows())
-        med = float(np.median(lat))
-        stats[name] = {"median_ms": med,
-                       "p90_ms": float(np.percentile(lat, 90)),
-                       "rows_per_s": NH / (med / 1e3),
-                       "device_busy_share": prof["device_busy_share"],
-                       "device_ms_per_query": prof["device_ms_per_query"],
-                       "top_kernels_us": prof["top_kernels_us_per_query"],
-                       "host_syncs": syncs, "launches_by_path": launches,
-                       "first_rows": repr(rows[:3]), "nvidia_smi": smi}
+    checks = {name: (lambda rows, n=name: check_hits_rows(n, rows, want[n]))
+              for name in HITS_STATEMENTS}
+    stats, totals = run_statements_checked(s, HITS_STATEMENTS, checks,
+                                           "sql_hits")
+    for st in stats.values():
+        st["rows_per_s"] = NH / (st["median_ms"] / 1e3)
     if stats["hour_sketches"]["launches_by_path"]["group_aggregate"] < 1:
         raise AssertionError("sql_hits: the count() beside the special "
                              "aggregates did not launch group_aggregate")
@@ -2401,6 +2456,245 @@ def phase_sql_hits(seed: int):
                     f"within {HITS_SKETCH_RTOL} of the exact count"})
     s.tables.clear()
     del table
+    torch.cuda.empty_cache()
+    return totals
+
+
+# the event table of sql_arrays: URLCategories Array(UInt16) of
+# ClickHouse's hits_v1 example dataset in shape, at 100M rows
+NA = 100_000_000
+NA_VALUES = 256                  # category ids: one K3 group each
+ARRAY_STATEMENTS = {
+    "array_join_groupby": "SELECT c, count() FROM ev ARRAY JOIN cats AS c "
+                          "GROUP BY c ORDER BY count() DESC LIMIT 10",
+    "left_array_join_count": "SELECT count() FROM ev LEFT ARRAY JOIN "
+                             "cats AS c",
+    "has": "SELECT count() FROM ev WHERE has(cats, 7)",
+    "array_sum_map": "SELECT sum(arraySum(arrayMap(x -> x * 2, cats))) "
+                     "FROM ev",
+    "filter_length": "SELECT count() FROM ev WHERE length(arrayFilter("
+                     "x -> x < 16, cats)) > 0",
+}
+
+
+def events_table(seed: int):
+    """ev (id UInt32, cats Array(UInt16)) made on the card: lengths
+    uniform in 0..8, values in [0, 256) drawn skewed to small ids.  The
+    Column keeps host offsets (the layout's); their device copy is the one
+    cumsum made here."""
+    from myscaledb_tpu_torch.core.table import Column, Table
+    from myscaledb_tpu_torch.core.types import DataType, Field
+    gen = torch.Generator(device="cuda").manual_seed(seed + 10)
+    lens = torch.randint(0, 9, (NA,), generator=gen, device="cuda")
+    doff = torch.zeros(NA + 1, dtype=torch.int64, device="cuda")
+    torch.cumsum(lens, 0, out=doff[1:])
+    total = int(doff[-1])
+    u = torch.rand(total, generator=gen, device="cuda")
+    cats = (u * u * NA_VALUES).to(torch.int32)
+    ids = torch.arange(NA, device="cuda")
+    cols = [Column(Field("id", DataType.UINT32), ids),
+            Column(Field("cats", DataType.ARRAY, elem=DataType.UINT16),
+                   cats, None, None, None, doff.cpu().numpy())]
+    return Table(cols, name="ev"), doff
+
+
+def arrays_oracles(flat, doff):
+    """Every statement's rows from plain torch on the card: a bincount of
+    the flat values, the row lengths, exact int64 sums, and per-row hits
+    through row ids from searchsorted over the offsets."""
+    lens = doff[1:] - doff[:-1]
+    counts = torch.bincount(flat.long(), minlength=NA_VALUES)
+    order = torch.sort(-counts, stable=True).indices[:10]
+    rid = torch.searchsorted(doff[1:], torch.arange(flat.numel(),
+                                                    device="cuda"),
+                             right=True)
+
+    def rows_with(hit):
+        per_row = torch.zeros(NA, dtype=torch.int64, device="cuda")
+        per_row.index_add_(0, rid[hit], torch.ones_like(rid[hit]))
+        return int((per_row > 0).sum())
+    want = {"array_join_groupby": [(int(c), int(counts[c]))
+                                   for c in order.tolist()],
+            "left_array_join_count": [(int(torch.clamp(lens, min=1)
+                                           .sum()),)],
+            "has": [(rows_with(flat == 7),)],
+            "array_sum_map": [(2 * int(flat.sum(dtype=torch.int64)),)],
+            "filter_length": [(rows_with(flat < 16),)]}
+    del rid
+    return want
+
+
+def phase_sql_arrays(seed: int):
+    """The event table at 100M rows (about 400M elements): ARRAY JOIN with
+    GROUP BY (K3), LEFT ARRAY JOIN, has(), arraySum over arrayMap and a
+    filter on arrayFilter's length, each checked against plain torch on
+    the card."""
+    import myscaledb_tpu_torch as P
+    t0 = time.perf_counter()
+    table, doff = events_table(seed)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    s = P.connect()
+    s.settings.max_memory_bytes_per_query = 32 << 30
+    s.register("ev", table)
+    flat = table["cats"].data
+    want = arrays_oracles(flat, doff)
+    elements = int(doff[-1])
+    del doff
+    stats, totals = run_statements_checked(s, ARRAY_STATEMENTS, want,
+                                           "sql_arrays")
+    if stats["array_join_groupby"]["launches_by_path"]["group_aggregate"] \
+            < 1:
+        raise AssertionError("sql_arrays: ARRAY JOIN ... GROUP BY did not "
+                             "launch group_aggregate")
+    for st in stats.values():
+        st["rows_per_s"] = NA / (st["median_ms"] / 1e3)
+        st["elements_per_s"] = elements / (st["median_ms"] / 1e3)
+    emit({"phase": "sql_arrays", "rows": NA, "elements": elements,
+          "table_gen_s": gen_s,
+          "source": "URLCategories Array(UInt16) of ClickHouse's hits_v1 "
+                    "example dataset (docs: getting-started/example-"
+                    "datasets/metrica)",
+          "statements": ARRAY_STATEMENTS, "per_statement": stats,
+          "launches": totals,
+          "oracle": "rows equal to plain torch on the card (bincount, row "
+                    "lengths, int64 sums, searchsorted row ids)"})
+    s.tables.clear()
+    del table, flat
+    torch.cuda.empty_cache()
+    return totals
+
+
+NQ_META = 16                     # meta.cat in [0, 16)
+
+
+def phase_sql_subquery(seed: int):
+    """Config 1 (1M x 128, price) with a metadata table meta (id UInt32,
+    cat UInt16): query by example, a metadata filter through IN, the top
+    1000 joined to meta and grouped, a CTE, UNION ALL of two top-10s and
+    INTERSECT/EXCEPT of two 1M-row sides, each checked against an oracle
+    on the card."""
+    import myscaledb_tpu_torch as P
+    rng = np.random.default_rng(seed + 11)
+    data = {"id": np.arange(N, dtype=np.int64),
+            "price": rng.integers(0, 100, N).astype(np.int32),
+            "emb": rng.standard_normal((N, D), dtype=np.float32)}
+    meta = {"id": rng.permutation(N).astype(np.uint32),
+            "cat": rng.integers(0, NQ_META, N).astype(np.uint16)}
+    s = P.connect()
+    s.create_table("t", data)
+    s.create_table("meta", meta)
+    x = s.tables["t"]["emb"].data
+    price = s.tables["t"]["price"].data
+    mid = s.tables["meta"]["id"].data
+    mcat = s.tables["meta"]["cat"].data
+    cat_of = torch.empty(N, dtype=torch.int64, device="cuda")
+    cat_of[mid.long()] = mcat.long()
+    qs = rng.standard_normal((2, D), dtype=np.float32)
+    q0 = torch.as_tensor(qs[0], device="cuda")
+    ex = 4242
+    q_lit = vec_sql(data["emb"][ex])
+    s.sql(f"SELECT id FROM t ORDER BY distance(emb, {q_lit}) LIMIT 1")
+
+    def top(q, keep, k):
+        dist = ((x - q[None, :]) ** 2).sum(1)
+        dist = torch.where(keep, dist, torch.inf)
+        ids = torch.sort(dist, stable=True).indices[:k]
+        return ids, dist[ids]
+
+    def ids_rows(want_ids, col=0):
+        def check(rows):
+            got = [r[col] for r in rows]
+            if got != want_ids.tolist():
+                raise AssertionError(f"sql_subquery: ids {got[:5]} != "
+                                     f"oracle {want_ids[:5].tolist()}")
+        return check
+
+    statements = {
+        "by_example": "SELECT id, distance(emb, (SELECT emb FROM t WHERE "
+                      f"id = {ex})) AS d FROM t WHERE price < 50 "
+                      "ORDER BY d LIMIT 10",
+        "in_metadata": f"SELECT id, distance(emb, {vec_sql(qs[0])}) AS d "
+                       "FROM t WHERE id IN (SELECT id FROM meta WHERE "
+                       "cat = 3) ORDER BY d LIMIT 10",
+        "facets": "SELECT m.cat, count(), min(c.d) FROM (SELECT id, "
+                  f"distance(emb, {vec_sql(qs[0])}) AS d FROM t ORDER BY d "
+                  "LIMIT 1000) AS c INNER JOIN meta AS m ON c.id = m.id "
+                  "GROUP BY m.cat ORDER BY m.cat",
+        "cte_top100": "WITH top AS (SELECT id, distance(emb, "
+                      f"{vec_sql(qs[1])}) AS d FROM t WHERE price < 50 "
+                      "ORDER BY d LIMIT 100) SELECT count(), sum(id) FROM "
+                      "top",
+        "union_all": f"SELECT id, distance(emb, {vec_sql(qs[0])}) AS d "
+                     "FROM t WHERE price < 50 ORDER BY d LIMIT 10 UNION ALL "
+                     f"SELECT id, distance(emb, {vec_sql(qs[1])}) AS d "
+                     "FROM t WHERE price >= 50 ORDER BY d LIMIT 10",
+        "intersect": "SELECT id FROM t WHERE price < 50 INTERSECT "
+                     "SELECT id FROM meta WHERE cat < 8",
+        "except": "SELECT id FROM t WHERE price < 50 EXCEPT "
+                  "SELECT id FROM meta WHERE cat < 8",
+    }
+    cheap = price < 50
+    want = {}
+    literal_rows = s.sql(statements["by_example"].replace(
+        f"(SELECT emb FROM t WHERE id = {ex})", q_lit)).to_rows()
+    ex_ids, _ = top(x[ex], cheap, K)
+    if [r[0] for r in literal_rows] != ex_ids.tolist():
+        raise AssertionError("sql_subquery: the literal vector's ids differ "
+                             "from the oracle's")
+
+    def same_as_literal(rows):
+        if rows != literal_rows:
+            raise AssertionError("sql_subquery by_example: rows differ from "
+                                 "the statement with the literal vector")
+    want["by_example"] = same_as_literal
+    want["in_metadata"] = ids_rows(top(q0, cat_of == 3, K)[0])
+    f_ids, f_d = top(q0, torch.ones_like(cheap), 1000)
+    f_cat = cat_of[f_ids]
+    f_cnt = torch.bincount(f_cat, minlength=NQ_META)
+    f_min = torch.full((NQ_META,), torch.inf, device="cuda").scatter_reduce(
+        0, f_cat, f_d, "amin")
+
+    def facets(rows):
+        present = torch.nonzero(f_cnt).flatten().tolist()
+        if [r[0] for r in rows] != present:
+            raise AssertionError("sql_subquery facets: groups differ")
+        for c, n, dmin in rows:
+            if n != int(f_cnt[c]):
+                raise AssertionError(f"sql_subquery facets: cat {c} count")
+            np.testing.assert_allclose(dmin, float(f_min[c]), rtol=SQL_RTOL)
+    want["facets"] = facets
+    c_ids, _ = top(torch.as_tensor(qs[1], device="cuda"), cheap, 100)
+    want["cte_top100"] = [(100, int(c_ids.sum()))]
+    u_ids = torch.cat([top(q0, cheap, K)[0],
+                       top(torch.as_tensor(qs[1], device="cuda"), ~cheap,
+                           K)[0]])
+    want["union_all"] = ids_rows(u_ids)
+    left = torch.nonzero(cheap).flatten()
+    right = mid[mcat < 8].long()
+    member = torch.isin(left, right)
+    want["intersect"] = [(i,) for i in left[member].tolist()]
+    want["except"] = [(i,) for i in left[~member].tolist()]
+    stats, totals = run_statements_checked(s, statements, want,
+                                           "sql_subquery")
+    for name in ("by_example", "in_metadata", "facets", "cte_top100",
+                 "union_all"):
+        if stats[name]["launches_by_path"]["segmin_sq8"] < 1:
+            raise AssertionError(f"sql_subquery {name}: segmin_sq8 did not "
+                                 "launch")
+    if stats["facets"]["launches_by_path"]["group_aggregate"] < 1:
+        raise AssertionError("sql_subquery facets: group_aggregate did not "
+                             "launch")
+    emit({"phase": "sql_subquery", "rows": N, "dim": D, "meta_rows": N,
+          "statements": {k: v.replace(vec_sql(qs[0]), "[q0]")
+                         .replace(vec_sql(qs[1]), "[q1]")
+                         for k, v in statements.items()},
+          "per_statement": stats, "launches": totals,
+          "oracle": "ids equal to a direct-formula L2 top-k on the card "
+                    "(ties by id), by_example equal to the literal vector's "
+                    "rows, facet counts equal and min(d) within rtol 2e-5, "
+                    "INTERSECT/EXCEPT equal to torch.isin over the sides"})
+    s.tables.clear()
     torch.cuda.empty_cache()
     return totals
 
@@ -2498,6 +2792,8 @@ def main() -> int:
     counts["sql_topn"] = phase_sql_topn(args.seed)
     counts["sql_window"] = phase_sql_window(args.seed)
     counts["sql_hits"] = phase_sql_hits(args.seed)
+    counts["sql_arrays"] = phase_sql_arrays(args.seed)
+    counts["sql_subquery"] = phase_sql_subquery(args.seed)
     phase_goldens_stateless()
 
     summary = []

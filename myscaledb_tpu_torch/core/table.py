@@ -17,6 +17,7 @@ session passes its own.
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -52,6 +53,75 @@ def to_tensor(arr, device) -> torch.Tensor:
     if not arr.flags.writeable:
         arr = arr.copy()
     return torch.from_numpy(arr).to(device)
+
+
+# device copies of host row offsets, by the id of the host array; an entry
+# dies with its array (weakref.finalize), so a Column's copy is made once
+# and kept as long as the Column holds its offsets
+_DEVICE_OFFSETS: dict = {}
+
+
+def device_offsets(off, device) -> torch.Tensor:
+    """The int64 row offsets (n + 1,) of an ARRAY layout on ``device``: a
+    ``DeviceOffsets``' own tensor, else the device copy of the host array,
+    made at first use and kept while the array lives."""
+    if isinstance(off, DeviceOffsets):
+        return off.dev
+    key = id(off)
+    hit = _DEVICE_OFFSETS.get(key)
+    want = torch.device(device)
+    if hit is not None and hit.device.type == want.type and (
+            want.index is None or hit.device.index == want.index):
+        return hit
+    dev = torch.from_numpy(np.ascontiguousarray(off, dtype=np.int64)) \
+        .to(device)
+    if hit is None:
+        weakref.finalize(off, _DEVICE_OFFSETS.pop, key, None)
+    _DEVICE_OFFSETS[key] = dev
+    return dev
+
+
+class DeviceOffsets:
+    """Row offsets (n + 1,) made on the device (by the array functions of
+    exec/arrays.py), with their element count.  Host code that needs them
+    (``np.asarray``) gets a host copy, made once; the device tensor stays
+    the one ``device_offsets`` returns for it."""
+
+    __slots__ = ("dev", "total", "_host", "__weakref__")
+
+    def __init__(self, dev: torch.Tensor, total: int):
+        self.dev = dev
+        self.total = int(total)
+        self._host = None
+
+    def __len__(self) -> int:
+        return int(self.dev.shape[0])
+
+    def __array__(self, dtype=None, copy=None):
+        if self._host is None:
+            self._host = self.dev.cpu().numpy()
+            _DEVICE_OFFSETS[id(self._host)] = self.dev
+            weakref.finalize(self._host, _DEVICE_OFFSETS.pop,
+                             id(self._host), None)
+        return self._host if dtype is None else \
+            self._host.astype(dtype, copy=False)
+
+
+def offsets_total(off) -> int:
+    """Element count of an ARRAY layout (its last offset)."""
+    return off.total if isinstance(off, DeviceOffsets) else int(off[-1])
+
+
+def take_runs(flat: torch.Tensor, starts: torch.Tensor,
+              out_doff: torch.Tensor, total: int) -> torch.Tensor:
+    """flat[starts[i] : starts[i] + len_i] for every row i, concatenated,
+    where len_i = out_doff[i + 1] - out_doff[i]: per-element source
+    positions from ``torch.repeat_interleave`` on the device."""
+    lens = out_doff[1:] - out_doff[:-1]
+    shift = torch.repeat_interleave(starts - out_doff[:-1], lens,
+                                    output_size=total)
+    src = torch.arange(total, device=flat.device) + shift
+    return flat.index_select(0, src)
 
 
 @dataclass
@@ -141,24 +211,21 @@ class Column:
                       offsets)
 
     def take_ragged(self, idx_np: np.ndarray) -> "Column":
-        """Row gather for ARRAY columns (host offset arithmetic, one device
-        gather for the flat elements)."""
-        off = self.offsets
+        """Row gather for ARRAY columns: the new offsets from the host
+        offsets (one value a row), the elements by one device gather whose
+        positions are made on the device (``take_runs``)."""
+        off = np.asarray(self.offsets, dtype=np.int64)
+        idx_np = np.asarray(idx_np, dtype=np.int64)
         lens = off[1:] - off[:-1]
-        out_lens = lens[idx_np]
         out_off = np.concatenate([np.zeros(1, dtype=np.int64),
-                                  np.cumsum(out_lens)])
-        total = int(out_off[-1])
-        starts = off[:-1][idx_np]
-        pos = (np.repeat(starts, out_lens) + np.arange(total, dtype=np.int64)
-               - np.repeat(out_off[:-1], out_lens))
+                                  np.cumsum(lens[idx_np])])
         dev = self.data.device
-        data = self.data.index_select(0, torch.as_tensor(pos, device=dev))
+        idx = torch.as_tensor(idx_np, device=dev)
+        data = take_runs(self.data, device_offsets(off, dev)[:-1][idx],
+                         device_offsets(out_off, dev), int(out_off[-1]))
         valid = None
         if self.valid is not None:
-            valid = self.valid.index_select(
-                0, torch.as_tensor(np.asarray(idx_np, dtype=np.int64),
-                                   device=dev))
+            valid = self.valid.index_select(0, idx)
         return Column(self.field, data, valid, self.dictionary, None, out_off)
 
     @staticmethod

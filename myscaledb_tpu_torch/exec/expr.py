@@ -4,10 +4,14 @@ The port of myscaledb_tpu/exec/expr.py: ``Value``, ``Env``, ``eval_expr``
 over literals, identifiers, vector literals, comparisons, arithmetic
 (Date/DateTime arithmetic and literals included), AND/OR/NOT, IN (list) and
 BETWEEN, and the scalar function registry: math, LIKE, the string functions
-evaluated on the dictionary, ``coalesce``/``nullIf``.  exec/datetime_fns.py
-and exec/scalar_fns.py register the rest at the bottom of this module.
-``dictGet*`` (external dictionaries) and ``joinGet*`` (Join-engine tables)
-raise ``NotPortedError``, as do subqueries and lambdas.
+evaluated on the dictionary, ``coalesce``/``nullIf``, and ``IN
+(subquery)`` through the executor's ``Env.subquery_runner`` (membership
+by ``torch.isin`` on the device).  exec/arrays.py (array functions and,
+for a call with a lambda argument, the higher-order functions),
+exec/datetime_fns.py and exec/scalar_fns.py register the rest at the
+bottom of this module.  ``dictGet*`` (external dictionaries),
+``joinGet*`` (Join-engine tables) and ``finalizeAggregation`` raise
+``NotPortedError``.
 
 String semantics ride the dictionary: predicates on strings are evaluated
 once over the (small) dictionary on the host, then mapped to rows with one
@@ -42,7 +46,8 @@ from myscaledb_tpu_torch.core.dictionary import StringDictionary, NULL_ID
 from myscaledb_tpu_torch.errors import NotPortedError
 from myscaledb_tpu_torch.sql.ast import (Expr, Literal, VectorLiteral, Ident,
                                          BinOp, UnOp, FuncCall, InList,
-                                         Between, WindowCall)
+                                         Between, WindowCall, InSubquery,
+                                         Lambda)
 
 EXPR_SLICE = "expression and function breadth"
 INT64_MAX = 2 ** 63 - 1
@@ -91,7 +96,11 @@ class Value:
 
 
 class Env:
-    """Name -> Column resolution over one table, on ``device``."""
+    """Name -> Column resolution over one table, on ``device``.  The
+    executor sets ``subquery_runner`` (SelectQuery -> Table) where ``IN
+    (subquery)`` may be evaluated."""
+
+    subquery_runner = None
 
     def __init__(self, table: Table, aliases: Optional[dict] = None,
                  device=None):
@@ -120,7 +129,9 @@ class Env:
                     data = to_tensor(data, self.device)   # expression
                     valid = to_tensor(valid, self.device) \
                         if valid is not None else None    # needs it here
-                umax = _WIDENED_UNSIGNED.get(c.dtype)
+                # an ARRAY value's umax is its elements'
+                umax = _WIDENED_UNSIGNED.get(
+                    c.field.elem if c.offsets is not None else c.dtype)
                 if c.dtype is DataType.UINT64 and bool((data < 0).any()):
                     # UInt64 bits past 2^63-1 (a hash a subquery or INSERT
                     # ... SELECT carried into a column): not bounded
@@ -191,18 +202,12 @@ def _scalar(x, device) -> torch.Tensor:
 
 _FUNCS: dict[str, Callable] = {}
 # the JAX package's functions this port does not have yet, by the slice
-# that brings them (ROADMAP queue 1): exec/arrays.py, finalizeAggregation
-# (the -State combinators) and joinGet* (Join-engine tables) with the next
-# breadth slice, dictGet* with runtime/dictionaries.py
+# that brings them (ROADMAP queue 1): finalizeAggregation (the -State
+# combinators) and joinGet* (Join-engine tables) with the next breadth
+# slice, dictGet* with runtime/dictionaries.py
 DEFERRED_FNS = {
     **{n: EXPR_SLICE for n in (
-        "arrayjoin", "arrayavg", "arrayconcat", "arraycumsum",
-        "arraydistinct", "arrayelement", "arrayenumerate", "arraymax",
-        "arraymin", "arraypopback", "arraypopfront", "arrayproduct",
-        "arraypushback", "arraypushfront", "arrayreverse",
-        "arrayreversesort", "arrayslice", "arraysort", "arraysum",
-        "arrayuniq", "countequal", "has", "hasall", "hasany", "indexof",
-        "notempty", "finalizeaggregation", "joinget", "joingetordefault",
+        "finalizeaggregation", "joinget", "joingetordefault",
         "joingetornull")},
     **{n: "storage, formats and runtime state"
        for n in ("dictget", "dictgetordefault", "dicthas")},
@@ -1139,6 +1144,8 @@ def eval_expr(e: Expr, env: Env) -> Value:
         if e.op in ("+", "-", "*", "/", "%"):
             return _arith(e.op, a, b, env)
         return _compare(e.op, a, b, env)
+    if isinstance(e, InSubquery):
+        return _in_subquery(e, env)
     if isinstance(e, InList):
         v = eval_expr(e.expr, env)
         hits = None
@@ -1164,6 +1171,8 @@ def eval_expr(e: Expr, env: Env) -> Value:
                 res = res & v.valid
         return Value(res)
     if isinstance(e, FuncCall):
+        if any(isinstance(a, Lambda) for a in e.args):
+            return _arrays.eval_hof(e, env)
         impl = _FUNCS.get(e.name.lower())
         if impl is None and e.name.lower() in DEFERRED_FNS:
             raise NotPortedError(f"function {e.name}()",
@@ -1178,8 +1187,50 @@ def eval_expr(e: Expr, env: Env) -> Value:
     raise NotPortedError(f"expression {type(e).__name__}", EXPR_SLICE)
 
 
-# register the datetime and extended scalar functions (imported at the
-# bottom: these modules need this one fully initialized, as in the JAX
+def _in_subquery(e: InSubquery, env: Env) -> Value:
+    """x [NOT] IN (subquery): the subquery's first column is the member
+    set; membership is ``torch.isin`` on the device.  Strings of another
+    dictionary are remapped on the host once per dictionary value.  A NULL
+    of x is never IN (and never NOT IN); a NULL in the subquery's column
+    matches nothing (the JAX package matches the value stored under it:
+    ROADMAP section 3)."""
+    runner = env.subquery_runner
+    if runner is None:
+        raise EvalError("IN (subquery) not available in this context")
+    sub_table = runner(e.query)
+    col = next(iter(sub_table.columns.values()), None)
+    v = eval_expr(e.expr, env)
+    n = env.n_rows
+    if col is None or sub_table.n_rows == 0:
+        base = torch.zeros(n, dtype=torch.bool, device=env.device)
+        return Value(~base if e.negated else base)
+    members = col.data if not col.is_host else to_tensor(col.data,
+                                                          env.device)
+    if col.valid is not None:
+        valid = col.valid if not col.is_host else to_tensor(col.valid,
+                                                            env.device)
+        members = members[valid]
+    if v.dictionary is not None or col.dictionary is not None:
+        if v.dictionary is None or col.dictionary is None:
+            raise EvalError("IN type mismatch: string vs numeric")
+        remap = np.array([v.dictionary.encode_one(s)
+                          for s in col.dictionary.values] or [-2],
+                         dtype=np.int32)
+        members = _dict_map(Value(members), remap)
+    x = v.data.expand(n) if v.is_scalar else v.data
+    hit = torch.isin(x, members.to(x.device))
+    if v.valid is not None:
+        hit = hit & v.valid
+    if e.negated:
+        hit = ~hit
+        if v.valid is not None:
+            hit = hit & v.valid
+    return Value(hit)
+
+
+# register the array, datetime and extended scalar functions (imported at
+# the bottom: these modules need this one fully initialized, as in the JAX
 # package)
+from myscaledb_tpu_torch.exec import arrays as _arrays  # noqa: E402
 from myscaledb_tpu_torch.exec import datetime_fns as _dt_fns  # noqa: E402,F401
 from myscaledb_tpu_torch.exec import scalar_fns as _scalar_fns  # noqa: E402,F401

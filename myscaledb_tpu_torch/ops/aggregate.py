@@ -176,7 +176,7 @@ def partial_aggregate(gid, mask, args, fns: tuple, num_groups: int,
     gid = gid.long()
     in_range = (gid >= 0) & (gid < G)
     tgt = torch.where(mask.bool() & in_range, gid, G)
-    group_count = torch.bincount(tgt, minlength=G + 1)[:G]
+    group_count = _counts(tgt, G)
 
     states = []
     for i, (fn, a) in enumerate(zip(fns, args)):
@@ -185,13 +185,19 @@ def partial_aggregate(gid, mask, args, fns: tuple, num_groups: int,
         if arg_valids is not None and arg_valids[i] is not None:
             at = torch.where(mask.bool() & arg_valids[i].bool() & in_range,
                              gid, G)
-            acount = torch.bincount(at, minlength=G + 1)[:G]
+            acount = _counts(at, G)
         if fn == "count":
             states.append(acount)
         elif fn in ("sum", "avg"):
             acc = _acc_dtype(TORCH_TO_NUMPY[a.dtype])
-            s = torch.zeros(G + 1, dtype=acc, device=dev).index_add_(
-                0, at, a.to(acc))[:G]
+            if G == 1 and not acc.is_floating_point:
+                # one group: a reduction, not n adds into one address
+                # (integer sums are exact in any order)
+                s = torch.where(at == 0, a.to(acc), 0).sum(dtype=acc) \
+                    .reshape(1)
+            else:
+                s = torch.zeros(G + 1, dtype=acc, device=dev).index_add_(
+                    0, at, a.to(acc))[:G]
             states.append((s, acount) if fn == "avg" else s)
         elif fn in ("min", "max"):
             ident = _minmax_identity(a, fn == "min")
@@ -213,6 +219,15 @@ def partial_aggregate(gid, mask, args, fns: tuple, num_groups: int,
         else:
             raise ValueError(f"unknown aggregate {fn}")
     return tuple(states), group_count
+
+
+def _counts(tgt: torch.Tensor, G: int) -> torch.Tensor:
+    """(G,) int64 rows per group of target slots in [0, G] (G: dropped).
+    One group is counted by a reduction: a bincount would queue every row
+    on one counter."""
+    if G == 1:
+        return (tgt == 0).sum(dtype=torch.int64).reshape(1)
+    return torch.bincount(tgt, minlength=G + 1)[:G]
 
 
 def merge_states(states_a, states_b, group_count_a, group_count_b, fns):

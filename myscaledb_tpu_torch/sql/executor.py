@@ -11,10 +11,15 @@ binary-vector and DDL slices of myscaledb_tpu/sql/executor.py (``VSInfo``,
 ``_expand_group_levels``, ``_expand_grouping_sets``, ``_totals_table``,
 ``_materialize_topk``, ``_project``, ``_distinct_rows``, ``_limit_by``,
 ``WINDOW_FNS``, ``walk_outside_windows``, ``_compute_windows``,
-``_apply_with_fill``, ``execute_select``).
+``_apply_with_fill``, ``map_expr``, ``_resolve_subqueries``,
+``_rewrite_arrayjoin_calls``, ``apply_array_join``, ``_align_to``,
+``execute_any``, ``execute_select``).
 
-Stage order (SQL semantics): source (table, ``numbers()``, or a FROM
-subquery) -> JOINs -> PREWHERE/WHERE -> [vector top-k] -> [GROUP BY /
+Stage order (SQL semantics): CTEs (materialized into session tables for
+the statement) -> scalar/EXISTS subqueries folded to constants -> source
+(table, ``numbers()``, or a FROM subquery) -> JOINs (a table or a
+subquery) -> [LEFT] ARRAY JOIN (``arrayJoin()`` calls become ARRAY JOIN
+items first) -> PREWHERE/WHERE -> [vector top-k] -> [GROUP BY /
 aggregates -> HAVING] -> window functions -> SELECT -> DISTINCT -> ORDER
 BY [WITH FILL] -> LIMIT BY -> OFFSET/LIMIT.  ORDER BY ... LIMIT takes the
 top-n selection (ops/sort.py); a host-resident key streams through the
@@ -31,16 +36,19 @@ combinators, HAVING, DISTINCT, ROLLUP/CUBE/GROUPING SETS and WITH TOTALS
 run; sum/count/avg go through K3 (ops/kernels/group_agg.py) for up to 256
 groups.  The special aggregates (uniqExact, count(DISTINCT), the uniq
 sketches, quantiles, argMin, ...) run in sql/agg_fns.py
-(``_special_call``, ``_special_aggregate``).  Everything else the JAX
-executor does — JOIN on a subquery, joinGet and Join engines, distributed
-joins, the -State/-Merge combinators, text and hybrid search,
-subqueries in expressions, CTEs, UNION and the other table functions —
+(``_special_call``, ``_special_aggregate``).  UNION [ALL|DISTINCT],
+INTERSECT and EXCEPT [DISTINCT] run in ``execute_any``; the multiset
+match of INTERSECT/EXCEPT is a device sort over keys encoded column by
+column (``_set_op_keep``).  Everything else the JAX executor does —
+joinGet and Join engines, distributed joins, the -State/-Merge
+combinators, text and hybrid search and the other table functions —
 raises ``NotPortedError`` naming the slice that brings it.  Error texts the
 goldens pin stay byte-equal to the JAX package's.
 """
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass
 from typing import Optional
 
@@ -50,7 +58,8 @@ import torch
 from myscaledb_tpu_torch.core.types import (DataType, Field, physical_dtype,
                                             torch_dtype)
 from myscaledb_tpu_torch.core.table import (BLOCK_ROWS, Table, Column,
-                                            concat_tables, fits_device,
+                                            concat_tables, device_offsets,
+                                            fits_device, offsets_total,
                                             to_tensor)
 from myscaledb_tpu_torch.core.dictionary import NULL_ID, StringDictionary
 from myscaledb_tpu_torch.config import TableSettings
@@ -62,12 +71,14 @@ from myscaledb_tpu_torch.sql.ast import (Expr, Literal, VectorLiteral, Ident,
                                          SelectQuery, UnionQuery, OrderItem,
                                          SelectItem, walk)
 from myscaledb_tpu_torch.sql.render import render, substitute
+from myscaledb_tpu_torch.sql.optimizer import remove_redundant_sorting
 from myscaledb_tpu_torch.sql.agg_kinds import (AGG_NAMES, SPECIAL_AGGS,
                                                IF_COMBINATORS, UNIQ_KINDS)
 from myscaledb_tpu_torch.sql.agg_fns import _column_range, _special_aggregate
 from myscaledb_tpu_torch.exec.expr import (DIST_FNS, UNSIGNED_OF_MAX, Env,
                                            Value, eval_expr, as_bool_mask,
                                            EvalError, _dict_map)
+from myscaledb_tpu_torch.exec.arrays import as_array
 from myscaledb_tpu_torch.ops.hash import float_bits_key
 from myscaledb_tpu_torch.ops.hashtable import build_group_ids, INT32_MAX
 from myscaledb_tpu_torch.ops.join import (hash_join_any, hash_join_all,
@@ -175,13 +186,8 @@ def analyze_vector_search(q: SelectQuery, session, table: Table,
         # argument is any constant string expression (char/unhex/unbin/...)
         return _analyze_binary_vector_search(q, session, table, call, col,
                                              vec_arg, is_batch)
-    if isinstance(vec_arg, Ident) and vec_arg.name in alias_exprs:
-        vec_arg = alias_exprs[vec_arg.name]
-    if not isinstance(vec_arg, (VectorLiteral, Ident, Literal)):
-        # the JAX package evaluates constant expressions (arrayMap, casts)
-        # into the query vector
-        raise NotPortedError("computed query vectors",
-                             "expression and function breadth")
+    if not isinstance(vec_arg, VectorLiteral):
+        vec_arg = _const_query_vector(vec_arg, alias_exprs, session.device)
     if not isinstance(vec_arg, VectorLiteral):
         raise ExecError(f"{call.name}: second argument must be a vector literal")
     if not table[col].dtype.is_vector:
@@ -207,6 +213,36 @@ def analyze_vector_search(q: SelectQuery, session, table: Table,
     info = VSInfo(call, render(call), alias, _metric_for(call, tsettings),
                   col, qv, is_batch)
     return _apply_vs_fusion(info, q)
+
+
+def _const_query_vector(vec_arg: Expr, alias_exprs: dict, device):
+    """Any constant expression as the query vector — a WITH alias,
+    ``arrayMap(x -> ..., range(...))``, a cast (a scalar subquery is a
+    VectorLiteral already): evaluated over one row.  An expression that
+    does not evaluate (``EvalError``) or gives no vector is returned as it
+    is, and the caller's "must be a vector literal" error follows, as in
+    the JAX package; every other exception propagates (the JAX package
+    swallows them all)."""
+    resolved = vec_arg
+    if isinstance(resolved, Ident) and resolved.name in alias_exprs:
+        resolved = alias_exprs[resolved.name]
+    if isinstance(resolved, VectorLiteral):
+        return resolved
+    one_row = Table([Column.from_numpy("dummy", np.zeros(1, dtype=np.int64),
+                                       build_zonemap=False, device=device)])
+    try:
+        v = eval_expr(resolved, Env(one_row, device=device))
+    except EvalError:
+        return resolved
+    if v.offsets is not None:
+        off = np.asarray(v.offsets)
+        if len(off) == 2:
+            arr = v.data[int(off[0]):int(off[1])].cpu().numpy() \
+                .astype(np.float32)
+            return VectorLiteral(arr.tolist())
+    elif v.is_scalar and isinstance(v.py, (list, tuple)):
+        return VectorLiteral(list(v.py))
+    return resolved
 
 
 def _apply_vs_fusion(info: VSInfo, q: SelectQuery) -> VSInfo:
@@ -322,6 +358,65 @@ def _expand_item_aliases(e: Expr, alias_exprs: dict, table: Table) -> Expr:
                        _expand_item_aliases(e.high, alias_exprs, table),
                        e.negated)
     return e
+
+
+def map_expr(e: Expr, f) -> Expr:
+    """Bottom-up expression-tree rewrite: apply f to every node after
+    rewriting its children."""
+    if isinstance(e, BinOp):
+        e = BinOp(e.op, map_expr(e.left, f), map_expr(e.right, f))
+    elif isinstance(e, UnOp):
+        e = UnOp(e.op, map_expr(e.operand, f))
+    elif isinstance(e, FuncCall):
+        e = FuncCall(e.name, [map_expr(a, f) for a in e.args], e.distinct)
+    elif isinstance(e, InList):
+        e = InList(map_expr(e.expr, f),
+                   [map_expr(i, f) for i in e.items], e.negated)
+    elif isinstance(e, Between):
+        e = Between(map_expr(e.expr, f), map_expr(e.low, f),
+                    map_expr(e.high, f), e.negated)
+    elif isinstance(e, Lambda):
+        e = Lambda(e.params, map_expr(e.body, f))
+    elif isinstance(e, InSubquery):
+        e = InSubquery(map_expr(e.expr, f), e.query, e.negated)
+    elif isinstance(e, WindowCall):
+        e = WindowCall(map_expr(e.func, f), [map_expr(p, f)
+                                             for p in e.partition_by],
+                       [OrderItem(map_expr(o.expr, f), o.ascending,
+                                  o.nulls_last, o.fill)
+                        for o in e.order_by], e.window_name, e.frame)
+    return f(e)
+
+
+def _resolve_subqueries(e: Expr, session) -> Expr:
+    """Evaluate uncorrelated scalar / EXISTS subqueries into literal
+    constants: a 0-row scalar is NULL, a 1-row multi-column result a
+    tuple, an array or vector result a VectorLiteral."""
+    def repl(node):
+        if isinstance(node, ExistsSubquery):
+            t = execute_any(session, node.query)
+            return Literal(1 if t.n_rows > 0 else 0)
+        if isinstance(node, ScalarSubquery):
+            t = execute_any(session, node.query)
+            if len(t.column_names) == 1 and t.n_rows <= 1:
+                if t.n_rows == 0:
+                    return Literal(None)
+                col = next(iter(t.columns.values()))
+                if col.data.dim() > 1 or col.offsets is not None:
+                    return VectorLiteral(list(col.to_python()[0]))
+                return Literal(col.to_python()[0])
+            if t.n_rows == 1:     # 1-row multi-column -> tuple literal
+                vals = [c.to_python()[0] for c in t.columns.values()]
+                return FuncCall("tuple", [Literal(v) for v in vals])
+            raise ExecError("scalar subquery must return at most one row")
+        return node
+
+    return map_expr(e, repl)
+
+
+def _has_subqueries(e: Expr) -> bool:
+    return any(isinstance(n, (ScalarSubquery, ExistsSubquery))
+               for n in walk(e))
 
 
 def _split_conjuncts(e: Optional[Expr]) -> list:
@@ -445,8 +540,12 @@ def _vector_sidecar(session, table_name, table, col, epoch=None):
             epoch = session._mutation_epoch
         key = (table_name, col, epoch)
         hit = session._vector_sidecars.get(key)
+        x = table[col].data
+        if hit is not None and hit[3]() is not x:
+            # another table under the same name in the same epoch (a CTE
+            # of an earlier statement): build anew
+            hit = None
         if hit is None:
-            x = table[col].data
             sqn = precompute_sqnorm(x)
             sq8 = None
             if x.dim() == 2 and sq8_supported(x.shape[1]) \
@@ -456,12 +555,12 @@ def _vector_sidecar(session, table_name, table, col, epoch=None):
             if x.is_cuda:
                 done = torch.cuda.Event()
                 done.record(torch.cuda.current_stream(x.device))
-            hit = ((sqn, sq8), done, x.device)
+            hit = ((sqn, sq8), done, x.device, weakref.ref(x))
             stale = [k for k in session._vector_sidecars if k[2] != epoch]
             for k in stale:
                 del session._vector_sidecars[k]
             session._vector_sidecars[key] = hit
-    out, done, dev = hit
+    out, done, dev, _ = hit
     if done is not None:
         done.wait(torch.cuda.current_stream(dev))
     return out
@@ -624,12 +723,12 @@ def _expand_order_tuples(order_by):
 def apply_join(session, left: Table, jc, alias_prefixes: dict,
                settings=None) -> Table:
     if jc.subquery is not None:
-        raise NotPortedError("JOIN on a subquery",
-                             "expression and function breadth")
-    try:
-        right = session.read_table_checked(jc.table)
-    except KeyError:
-        raise ExecError(f"unknown join table {jc.table!r}")
+        right = execute_any(session, jc.subquery)
+    else:
+        try:
+            right = session.read_table_checked(jc.table)
+        except KeyError:
+            raise ExecError(f"unknown join table {jc.table!r}")
     ralias = jc.alias or jc.table or "_subquery"
     dev = session.device
 
@@ -1226,17 +1325,14 @@ def run_aggregate(env: Env, q: SelectQuery, mask, session,
     if not key_vals and len(present) == 0:
         present = np.array([0])   # global agg over empty set still yields a row
 
-    # representative row per group (scatter-min of row ids) -> group key
-    # output values
-    tgt = torch.where(m & (gid >= 0) & (gid < G), gid.to(torch.int64), G)
-    rep = torch.full((G + 1,), INT32_MAX, dtype=torch.int32, device=dev)
-    rep.scatter_reduce_(0, tgt, torch.arange(n, dtype=torch.int32,
-                                             device=dev), "amin")
-    rep_np = rep[:G].cpu().numpy()[present]
-    rep_np = np.where(rep_np == INT32_MAX, 0, rep_np)
-    rep_dev = torch.as_tensor(rep_np, dtype=torch.int64, device=dev)
+    # representative row per group (its lowest row id) -> group key output
+    # values; a global aggregate has no key to fetch
+    if key_vals:
+        rep_np = _first_rows(gid, m, G, dev).cpu().numpy()[present]
+        rep_np = np.where(rep_np == INT32_MAX, 0, rep_np)
+        rep_dev = torch.as_tensor(rep_np, dtype=torch.int64, device=dev)
     gid_kept = gid if special else None
-    del tgt, rep, gid
+    del gid
 
     cols = []
     mapping = {}
@@ -1264,6 +1360,31 @@ def run_aggregate(env: Env, q: SelectQuery, mask, session,
 
 
 _TWO_ARG_AGGS = {"argmin", "argmax", "covarpop", "covarsamp", "corr"}
+
+
+# slots the lowest-row scatter may spread its rows over (int32 each)
+FIRST_ROW_SLOTS = 1 << 24
+
+
+def _first_rows(gid, m, G: int, dev) -> torch.Tensor:
+    """(G,) int32: each group's lowest row id among the rows ``m`` keeps
+    (INT32_MAX for none).  A scatter-min into (chunk, group) slots, then a
+    min over the chunks: with one slot a group, every row of a group (and
+    every row the mask drops, into the spare slot) queues on one address
+    (PERF.md); chunks of consecutive rows split that queue up to
+    ``FIRST_ROW_SLOTS`` ways.  The minimum is the same."""
+    n = gid.shape[0]
+    tgt = torch.where(m & (gid >= 0) & (gid < G), gid.to(torch.int64), G)
+    chunks = max(1, min(n >> 16, FIRST_ROW_SLOTS // (G + 1)))
+    size = -(-n // chunks) if n else 1
+    rows = torch.arange(n, dtype=torch.int32, device=dev)
+    if chunks > 1:
+        tgt = tgt + torch.div(rows, size, rounding_mode="floor") \
+            .to(torch.int64) * (G + 1)
+    rep = torch.full((chunks * (G + 1),), INT32_MAX, dtype=torch.int32,
+                     device=dev)
+    rep.scatter_reduce_(0, tgt, rows, "amin")
+    return rep.view(chunks, G + 1).amin(0)[:G]
 
 
 def _special_call(name: str, call: FuncCall, env: Env, alias_exprs: dict,
@@ -1392,6 +1513,335 @@ def _totals_table(env, q, mask, session, alias_exprs,
 # ---------------------------------------------------------------------------
 # the slice boundary
 
+def _session_env(session, table: Table, aliases=None) -> Env:
+    """An Env of the statement's session: on its device, with the runner
+    ``IN (subquery)`` evaluates through (the JAX package sets it only on
+    the first Env of a statement: ROADMAP section 3)."""
+    env = Env(table, aliases, device=session.device)
+    env.subquery_runner = lambda sub: execute_any(session, sub)
+    return env
+
+
+# ---------------------------------------------------------------------------
+# arrayJoin() and [LEFT] ARRAY JOIN
+
+def _rewrite_arrayjoin_calls(q: SelectQuery):
+    """Rewrite arrayJoin(arr) calls into internal ARRAY JOIN items named
+    ``__aj<i>``, one per distinct argument: identical arguments expand
+    together, distinct ones one after another (a cartesian product)."""
+    from dataclasses import replace as dc_replace
+    mapping: dict = {}
+
+    def rewrite(e):
+        if isinstance(e, FuncCall):
+            if e.name.lower() == "arrayjoin" and len(e.args) == 1:
+                key = render(e.args[0])
+                if key not in mapping:
+                    mapping[key] = (f"__aj{len(mapping)}", rewrite(e.args[0]))
+                return Ident(mapping[key][0])
+            return FuncCall(e.name, [rewrite(a) for a in e.args], e.distinct)
+        if isinstance(e, BinOp):
+            return BinOp(e.op, rewrite(e.left), rewrite(e.right))
+        if isinstance(e, UnOp):
+            return UnOp(e.op, rewrite(e.operand))
+        if isinstance(e, Between):
+            return Between(rewrite(e.expr), rewrite(e.low), rewrite(e.high),
+                           e.negated)
+        if isinstance(e, InList):
+            return InList(rewrite(e.expr), e.items, e.negated)
+        return e
+
+    new_items = []
+    for it in q.items:
+        ne = rewrite(it.expr)
+        if ne is not it.expr:
+            new_items.append(SelectItem(ne, it.alias or render(it.expr)))
+        else:
+            new_items.append(it)
+    if not mapping:
+        return q
+    new_where = rewrite(q.where) if q.where is not None else None
+    new_having = rewrite(q.having) if q.having is not None else None
+    new_group = [rewrite(g) for g in q.group_by]
+    # as in the JAX package, the rewritten ORDER BY keeps no WITH FILL
+    new_order = [OrderItem(rewrite(o.expr), o.ascending, o.nulls_last)
+                 for o in q.order_by]
+    ajs = list(q.array_joins) + [(expr, alias, False)
+                                 for alias, expr in mapping.values()]
+    return dc_replace(q, items=new_items, where=new_where, having=new_having,
+                      group_by=new_group, order_by=new_order, array_joins=ajs)
+
+
+def _is_call_item(item) -> bool:
+    """An ARRAY JOIN item made from an arrayJoin() call."""
+    return (item[1] or "").startswith("__aj")
+
+
+def _names_read(exprs) -> set:
+    names = set()
+    for e in exprs:
+        for node in walk(e):
+            if isinstance(node, Ident):
+                names.add(node.name)
+                names.add(node.qualified)
+            elif isinstance(node, WindowCall):
+                names.update(i.name for p in node.partition_by
+                             for i in walk(p) if isinstance(i, Ident))
+    return names
+
+
+def _referenced_columns(q: SelectQuery):
+    """Names the query reads after its ARRAY JOIN, or None when a ``*``
+    reads every column."""
+    exprs = [it.expr for it in q.items]
+    if any(isinstance(e, Star) for e in exprs):
+        return None
+    exprs += [e for e in (q.where, q.prewhere, q.having) if e is not None]
+    exprs += list(q.group_by) + [o.expr for o in q.order_by]
+    exprs += [e for _n, e in q.with_aliases]
+    if q.limit_by is not None:
+        exprs += list(q.limit_by[1])
+    for spec in (q.windows or {}).values():
+        exprs += list(spec[0]) + [o.expr for o in spec[1]]
+    return _names_read(exprs)
+
+
+def apply_array_join(session, table: Table, items: list,
+                     keep=None) -> Table:
+    """[LEFT] ARRAY JOIN: expand each row into one row per array element.
+    All joined arrays must have equal per-row lengths; LEFT keeps rows with
+    empty arrays, filling the element with the type default.  Row ids and
+    element positions are made on the device (``repeat_interleave`` over
+    the row lengths); the other columns follow by one gather.  ``keep``:
+    the column names the query reads later (None: all), the only other
+    columns carried (the rows are the same; the JAX package carries all).
+    Without any, an inner ARRAY JOIN makes no row ids: its element column
+    is the array's flat tensor as it is."""
+    dev = session.device
+    env = _session_env(session, table)
+    n = table.n_rows
+    is_left = any(left for _, _, left in items)
+    cols = []      # (out_name, flat, dictionary, replaces_source, umax)
+    off = None
+    for expr, alias, _ in items:
+        v = eval_expr(expr, env)
+        flat, o, d = as_array(v, env)
+        if off is None:
+            off = o
+        elif o is not off and not torch.equal(device_offsets(o, dev),
+                                              device_offsets(off, dev)):
+            raise ExecError("ARRAY JOIN requires arrays of equal sizes")
+        out_name = alias or render(expr)
+        replaces = alias is None and isinstance(expr, Ident)
+        cols.append((out_name, flat, d, replaces, v.umax))
+    doff = device_offsets(off, dev)
+    lens = doff[1:] - doff[:-1]
+    total = offsets_total(off)
+    out_lens, out_doff, total_out = lens, doff, total
+    if is_left:
+        out_lens = torch.clamp(lens, min=1)
+        out_doff = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+        torch.cumsum(out_lens, 0, out=out_doff[1:])
+        total_out = int(out_doff[-1]) if n else 0
+    replaced = {name for name, _, _, rep, _ in cols if rep}
+    base_cols = [c for c in table.columns.values()
+                 if c.name not in replaced and (
+                     keep is None or c.name in keep
+                     or c.name.rsplit(".", 1)[-1] in keep)]
+    rid = None
+    if base_cols or is_left:
+        rid = torch.repeat_interleave(torch.arange(n, device=dev), out_lens,
+                                      output_size=total_out)
+    src = real = None
+    if is_left:
+        pos = torch.arange(total_out, device=dev) \
+            - out_doff[:-1].index_select(0, rid)
+        real = pos < lens.index_select(0, rid)
+        src = torch.where(real, doff[:-1].index_select(0, rid) + pos, 0)
+        all_real = bool(real.all())
+    out = Table(base_cols, name=table.name).take(rid) if base_cols \
+        else Table([], name=table.name)
+    for name, flat, d, _, umax in cols:
+        data = flat
+        if src is not None:
+            data = flat.index_select(0, src) if total else \
+                torch.zeros(total_out, dtype=flat.dtype, device=dev)
+            if not all_real:
+                default = d.encode_one("", grow=True) if d is not None \
+                    else 0
+                data = torch.where(real, data,
+                                   torch.tensor(default, dtype=data.dtype,
+                                                device=dev))
+        dt = DataType.STRING if d is not None else \
+            _logical_dtype_of(data, Value(data, umax=umax))
+        out = out.with_column(Column(Field(name, dt), data, None, d))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# UNION / INTERSECT / EXCEPT
+
+def _align_to(first: Table, p: Table) -> Table:
+    """Rename p's columns positionally to match first's (set-op alignment)."""
+    if len(p.column_names) != len(first.column_names):
+        raise ExecError("set operation arity mismatch")
+    cols = []
+    for tgt_name, c in zip(first.column_names, p.columns.values()):
+        cols.append(Column(Field(tgt_name, c.dtype, c.field.nullable,
+                                 c.field.vector_dim, c.field.elem),
+                           c.data, c.valid, c.dictionary, None,
+                           c.offsets))
+    return Table(cols)
+
+
+# the kinds of value a set-operation key compares (a NULL is its own kind:
+# the JAX package compares to_python() values, and None equals None)
+_K_NULL, _K_NUM, _K_STR, _K_DATE, _K_DATETIME, _K_SEQ = range(6)
+
+
+def _key_kind(dtype, dictionary, seq: bool) -> int:
+    if seq:
+        return _K_SEQ
+    if dictionary is not None:
+        return _K_STR
+    return {DataType.DATE: _K_DATE,
+            DataType.DATETIME: _K_DATETIME}.get(dtype, _K_NUM)
+
+
+def _pair_keys(lx, lkind, lmeta, rx, rkind, rmeta, dev):
+    """Two int64 key columns over the rows of both sides (left, then
+    right) whose equality is Python's equality of the values: strings of
+    two dictionaries through one merged dictionary, an integer equal to
+    the float of the same value, -0.0 equal to 0.0, a NaN equal to
+    nothing, a UInt64 past 2^63-1 unequal to the negative integer of the
+    same bits.  Values of two kinds never compare equal (the kind is a
+    key column of its own).  lmeta/rmeta: (dictionary, u64)."""
+    nl, nr = lx.shape[0], rx.shape[0]
+    zero = torch.zeros(nl + nr, dtype=torch.int64, device=dev)
+    if lkind != rkind:
+        return zero, zero
+    if lkind == _K_STR:
+        base = StringDictionary()
+        parts = []
+        for x, (d, _u) in ((lx, lmeta), (rx, rmeta)):
+            remap = base.merge_from(d)
+            lut = to_tensor(np.append(remap, -1).astype(np.int64), dev)
+            parts.append(lut[torch.where(x < 0, len(remap), x).long()])
+        return torch.cat(parts), zero
+    if lx.is_floating_point() or rx.is_floating_point():
+        x = torch.cat([_f64_of(lx, lmeta[1]), _f64_of(rx, rmeta[1])]) + 0.0
+        nan = torch.isnan(x)
+        return torch.where(nan, 0.0, x).view(torch.int64), \
+            torch.where(nan, torch.arange(1, nl + nr + 1, device=dev), 0)
+    big = [x.to(torch.int64) < 0 if u else
+           torch.zeros(x.shape[0], dtype=torch.bool, device=dev)
+           for x, u in ((lx, lmeta[1]), (rx, rmeta[1]))]
+    return torch.cat([lx.to(torch.int64), rx.to(torch.int64)]), \
+        torch.cat(big).to(torch.int64)
+
+
+def _f64_of(x: torch.Tensor, u64: bool) -> torch.Tensor:
+    x64 = x.to(torch.float64)
+    if u64:
+        x64 = x64 + (x < 0).to(torch.float64) * 2.0 ** 64
+    return x64
+
+
+def _seq_row_ids(lseq, rseq, lmeta, rmeta, dev) -> torch.Tensor:
+    """One int64 key per array (or vector) row of both sides, equal where
+    the rows hold equal elements in the same order: element keys by
+    ``_pair_keys``, element ids by one unique, then one unique over the
+    rows' (length, element ids) padded to the longest row."""
+    (lf, loff), (rf, roff) = lseq, rseq
+    ekind = [_key_kind(None, m[0], False) for m in (lmeta, rmeta)]
+    ea, eb = _pair_keys(lf, ekind[0], lmeta, rf, ekind[1], rmeta, dev)
+    etag = torch.cat([torch.full((lf.shape[0],), ekind[0], device=dev),
+                      torch.full((rf.shape[0],), ekind[1], device=dev)])
+    doff = torch.cat([loff, roff[1:] + loff[-1]])
+    lens = doff[1:] - doff[:-1]
+    rows = lens.shape[0]
+    total = lf.shape[0] + rf.shape[0]
+    if total == 0:
+        return torch.zeros(rows, dtype=torch.int64, device=dev)
+    _, eid = torch.unique(torch.stack([etag, ea, eb], dim=1), dim=0,
+                          return_inverse=True)
+    width = int(lens.max())
+    rid = torch.repeat_interleave(torch.arange(rows, device=dev), lens,
+                                  output_size=total)
+    pos = torch.arange(total, device=dev) - doff[:-1].index_select(0, rid)
+    mat = torch.full((rows, width + 1), -1, dtype=torch.int64, device=dev)
+    mat[:, 0] = lens
+    mat[rid, pos + 1] = eid
+    return torch.unique(mat, dim=0, return_inverse=True)[1]
+
+
+def _seq_parts(c: Column, dev):
+    """(flat elements, device offsets) of an ARRAY or vector column."""
+    if c.offsets is not None:
+        return c.data, device_offsets(c.offsets, dev)
+    n, k = c.data.shape[0], c.data.shape[1]
+    return c.data.reshape(-1), torch.arange(n + 1, device=dev) * k
+
+
+def _set_op_keep(left: Table, right: Table, intersect: bool, dev):
+    """Which left rows INTERSECT (EXCEPT) keeps, with multiset semantics:
+    a row whose value tuple occurs c_R times on the right keeps its first
+    min(c_L, c_R) copies under INTERSECT, and EXCEPT keeps the others, in
+    the left side's order; tuples compare as the JAX package's Python
+    tuples of to_python() values do.  On the device: every column pair
+    encoded into comparable int64 keys, one unique over the keys of both
+    sides, then each left row's rank within its key from a stable sort."""
+    nl, nr = left.n_rows, right.n_rows
+    keys = []
+    for lc, rc in zip(left.columns.values(), right.columns.values()):
+        lx, rx = (to_tensor(c.data, dev) if c.is_host else c.data
+                  for c in (lc, rc))
+        lseq = lc.offsets is not None or lx.dim() > 1
+        rseq = rc.offsets is not None or rx.dim() > 1
+        lk = _key_kind(lc.dtype, lc.dictionary, lseq)
+        rk = _key_kind(rc.dtype, rc.dictionary, rseq)
+        lmeta = (lc.dictionary, lc.dtype is DataType.UINT64)
+        rmeta = (rc.dictionary, rc.dtype is DataType.UINT64)
+        if lk == rk == _K_SEQ:
+            a = _seq_row_ids(_seq_parts(lc, dev), _seq_parts(rc, dev),
+                             lmeta, rmeta, dev)
+            b = torch.zeros_like(a)
+        elif _K_SEQ in (lk, rk):
+            a = b = torch.zeros(nl + nr, dtype=torch.int64, device=dev)
+        else:
+            a, b = _pair_keys(lx, lk, lmeta, rx, rk, rmeta, dev)
+        kind = torch.cat([torch.full((nl,), lk, device=dev),
+                          torch.full((nr,), rk, device=dev)])
+        valid = torch.cat([_valid_rows(c, dev) for c in (lc, rc)])
+        keys += [torch.where(valid, kind, _K_NULL),
+                 torch.where(valid, a, 0), torch.where(valid, b, 0)]
+    if nl == 0:
+        return torch.zeros(0, dtype=torch.bool, device=dev)
+    if not keys:
+        keys = [torch.zeros(nl + nr, dtype=torch.int64, device=dev)]
+    _, gid = torch.unique(torch.stack(keys, dim=1), dim=0,
+                          return_inverse=True)
+    gl = gid[:nl]
+    count_r = torch.bincount(gid[nl:], minlength=nl + nr).index_select(0, gl)
+    order = torch.sort(gl, stable=True).indices
+    gs = gl.index_select(0, order)
+    first = torch.ones(nl, dtype=torch.bool, device=dev)
+    first[1:] = gs[1:] != gs[:-1]
+    run = torch.cumsum(first, 0) - 1
+    starts = torch.nonzero(first).flatten()
+    rank = torch.empty(nl, dtype=torch.int64, device=dev)
+    rank[order] = torch.arange(nl, device=dev) - starts.index_select(0, run)
+    return rank < count_r if intersect else rank >= count_r
+
+
+def _valid_rows(c: Column, dev) -> torch.Tensor:
+    n = len(c)
+    if c.valid is None:
+        return torch.ones(n, dtype=torch.bool, device=dev)
+    v = to_tensor(c.valid, dev) if c.is_host else c.valid
+    return v.expand(n) if v.dim() == 0 else v
+
+
 # the -State/-Merge combinator spellings (sql/agg_fns.py
 # ``_state_combinator`` in the JAX package)
 _UNPORTED_AGGS = {n for n in AGG_NAMES if n.endswith(("state", "merge"))}
@@ -1400,15 +1850,10 @@ _UNPORTED_AGGS = {n for n in AGG_NAMES if n.endswith(("state", "merge"))}
 def _reject_unported(q: SelectQuery) -> None:
     """Raise NotPortedError for every clause the JAX executor runs and this
     one does not yet."""
-    if q.ctes:
-        raise NotPortedError("WITH ... AS (SELECT)",
-                             "expression and function breadth")
     tf = getattr(q, "table_function", None)
     if tf is not None and tf[0] != "numbers":
         raise NotPortedError(f"table function {tf[0]}()",
                              "storage, formats and runtime state")
-    if q.array_joins:
-        raise NotPortedError("ARRAY JOIN", "expression and function breadth")
     if q.sample is not None:
         raise NotPortedError("SAMPLE", "storage, formats and runtime state")
     slots = [it.expr for it in q.items] + [o.expr for o in q.order_by] + \
@@ -1419,13 +1864,6 @@ def _reject_unported(q: SelectQuery) -> None:
         # against WINDOW_FNS where the windows are computed
         window_fns = {id(w.func) for w in walk(e) if isinstance(w, WindowCall)}
         for node in walk(e):
-            if isinstance(node, (InSubquery, ScalarSubquery,
-                                 ExistsSubquery)):
-                raise NotPortedError("subqueries",
-                                     "expression and function breadth")
-            if isinstance(node, Lambda):
-                raise NotPortedError("lambda functions",
-                                     "expression and function breadth")
             if isinstance(node, FuncCall):
                 fn = node.name.lower()
                 if fn.startswith("joinget"):
@@ -1441,9 +1879,28 @@ def _reject_unported(q: SelectQuery) -> None:
 
 
 def execute_any(session, q) -> Table:
+    """Dispatch SelectQuery | UnionQuery (UNION [ALL|DISTINCT] / INTERSECT
+    / EXCEPT [DISTINCT])."""
     if isinstance(q, UnionQuery):
-        raise NotPortedError("UNION / INTERSECT / EXCEPT",
-                             "expression and function breadth")
+        ops = q.ops or ["UNION ALL"] * (len(q.selects) - 1)
+        result = execute_any(session, q.selects[0])
+        for op, sel in zip(ops, q.selects[1:]):
+            p = _align_to(result, execute_any(session, sel))
+            if op in ("UNION ALL", "UNION DISTINCT"):
+                result = concat_tables([result, p], name=result.name)
+                if op == "UNION DISTINCT" and result.n_rows:
+                    result = _distinct_rows(result)
+            else:
+                # INTERSECT / EXCEPT [DISTINCT]: multiset semantics for
+                # the ALL forms, set semantics for DISTINCT
+                with span("set_operation", op=op, rows=result.n_rows):
+                    keep = _set_op_keep(result, p,
+                                        op.startswith("INTERSECT"),
+                                        session.device)
+                    result = result.take(torch.nonzero(keep).flatten())
+                if op.endswith("DISTINCT") and result.n_rows:
+                    result = _distinct_rows(result)
+        return result
     return execute_select(session, q)
 
 
@@ -1464,8 +1921,49 @@ def execute_select(session, q: SelectQuery) -> Table:
     if q.order_by:
         q = SelectQuery(**{**vars(q),
                            "order_by": _expand_order_tuples(q.order_by)})
+    # inner ORDER BYs the outer query destroys (FROM and IN subqueries)
+    remove_redundant_sorting(q)
+    # CTEs: materialized into session tables for this statement, the
+    # earlier bindings restored even when the statement raises
+    if q.ctes:
+        saved = {}
+        try:
+            for name, sub in q.ctes:
+                saved.setdefault(name, session.tables.get(name))
+                t = execute_any(session, sub)
+                t.name = name
+                session.tables[name] = t
+            return execute_select(session,
+                                  SelectQuery(**{**vars(q), "ctes": []}))
+        finally:
+            for name, old in saved.items():
+                if old is None:
+                    session.tables.pop(name, None)
+                else:
+                    session.tables[name] = old
+    # uncorrelated scalar / EXISTS subqueries -> constants
+    slots = [it.expr for it in q.items] + \
+        [e for e in (q.where, q.prewhere, q.having) if e is not None] + \
+        list(q.group_by) + [o.expr for o in q.order_by] + \
+        [e for _, e in q.with_aliases]
+    if any(_has_subqueries(e) for e in slots):
+        from dataclasses import replace as dc_replace
+
+        def res(e):
+            return None if e is None else _resolve_subqueries(e, session)
+        q = dc_replace(
+            q, items=[SelectItem(res(it.expr), it.alias) for it in q.items],
+            where=res(q.where), prewhere=res(q.prewhere),
+            having=res(q.having), group_by=[res(e) for e in q.group_by],
+            order_by=[OrderItem(res(o.expr), o.ascending, o.nulls_last,
+                                o.fill) for o in q.order_by],
+            with_aliases=[(n, res(e)) for n, e in q.with_aliases])
     _reject_unported(q)
     dev = session.device
+    # arrayJoin() calls become ARRAY JOIN items before the LIMIT pushdown
+    # looks at the query, so LIMIT counts the expanded rows (the JAX
+    # package pushes the LIMIT first: ROADMAP section 3)
+    q = _rewrite_arrayjoin_calls(q)
 
     # 1. source
     if getattr(q, "table_function", None) is not None:
@@ -1497,8 +1995,23 @@ def execute_select(session, q: SelectQuery) -> Table:
         alias_prefixes[q.table_alias] = ""
     for jc in q.joins:
         table = apply_join(session, table, jc, alias_prefixes, settings)
+    if q.array_joins:
+        # the ARRAY JOIN clause's arrays expand together, then each distinct
+        # arrayJoin() argument on its own: a cartesian product (the JAX
+        # package expands them all together and fails unless their sizes
+        # agree: ROADMAP section 3)
+        refs = _referenced_columns(q)
+        called = [it for it in q.array_joins if _is_call_item(it)]
+        clause = [it for it in q.array_joins if not _is_call_item(it)]
+        groups = ([clause] if clause else []) + [[it] for it in called]
+        with span("array_join", rows=table.n_rows):
+            for i, items in enumerate(groups):
+                # carried: what the query and the later groups read
+                keep = None if refs is None else refs | _names_read(
+                    e for g in groups[i + 1:] for e, _a, _l in g)
+                table = apply_array_join(session, table, items, keep)
 
-    env = Env(table, alias_prefixes, device=dev)
+    env = _session_env(session, table, alias_prefixes)
     alias_exprs = {it.alias: it.expr for it in q.items if it.alias}
     for _wname, _wexpr in q.with_aliases:
         alias_exprs.setdefault(_wname, _wexpr)
@@ -1538,7 +2051,7 @@ def execute_select(session, q: SelectQuery) -> Table:
             if nblocks == 0:
                 M.increment("ZonemapPrunedScans")
                 table = table.head(0)
-                env = Env(table, alias_prefixes, device=dev)
+                env = _session_env(session, table, alias_prefixes)
                 pre_terms, post_terms = [], []
                 pre_expr = None
             else:
@@ -1550,7 +2063,7 @@ def execute_select(session, q: SelectQuery) -> Table:
                 idx = np.concatenate(keep)
                 M.increment("ZonemapSkippedRows", nrows - len(idx))
                 table = table.take(torch.as_tensor(idx, device=dev))
-                env = Env(table, alias_prefixes, device=dev)
+                env = _session_env(session, table, alias_prefixes)
     mask = None
     if pre_expr is not None:
         mask = as_bool_mask(eval_expr(pre_expr, env), table.n_rows)
@@ -1613,6 +2126,7 @@ def execute_select(session, q: SelectQuery) -> Table:
             with span("materialize", rows=int(ids.numel())):
                 table, env = _materialize_topk(table, vs, d, ids,
                                                tuple_groups, dev)
+                env.subquery_runner = lambda sub: execute_any(session, sub)
         mask = None
         # post-search filters on the distance value (WHERE d < x applies
         # AFTER the top-k search)
@@ -1621,7 +2135,7 @@ def execute_select(session, q: SelectQuery) -> Table:
                            for c in post_terms])
             pm = as_bool_mask(eval_expr(pe, env), table.n_rows)
             table, _ = compact_table_host(table, pm)
-            env = Env(table, device=dev)
+            env = _session_env(session, table)
             if vs.alias and vs.name in table:
                 c = table[vs.name]
                 env.extra[vs.alias] = Value(c.data, c.valid)
@@ -1674,7 +2188,7 @@ def execute_select(session, q: SelectQuery) -> Table:
                                        agg_table)
         # rewrite remaining clauses against the aggregated table
         table = agg_table
-        env = Env(table, device=dev)
+        env = _session_env(session, table)
         mask = None
 
         def rewrite(e):
@@ -1688,7 +2202,7 @@ def execute_select(session, q: SelectQuery) -> Table:
         if having is not None:
             hm = as_bool_mask(eval_expr(having, env), table.n_rows)
             table, _ = compact_table_host(table, hm)
-            env = Env(table, device=dev)
+            env = _session_env(session, table)
         # default deterministic order: by group key columns ascending
         if not order_by and q.group_by:
             order_by = [OrderItem(Ident(render(k)), True, True)
@@ -1698,7 +2212,7 @@ def execute_select(session, q: SelectQuery) -> Table:
         order_by = q.order_by
         if mask is not None:
             table, _ = compact_table_host(table, mask)
-            new_env = Env(table, alias_prefixes, device=dev)
+            new_env = _session_env(session, table, alias_prefixes)
             # recompute the non-fused distance on the compacted table
             if vs is not None and not vs.fused and vs.name in env.extra:
                 dist = rowwise_distance(table[vs.col].data, vs.qvec,
@@ -1727,7 +2241,7 @@ def execute_select(session, q: SelectQuery) -> Table:
     if order_by:
         n2 = proj_table.n_rows
         sks = []
-        penv = Env(proj_table, device=dev)
+        penv = _session_env(session, proj_table)
         for o in order_by:
             oe = _expand_item_aliases(o.expr, alias_exprs, table)
             # resolve against projected/materialized columns first (a fused
@@ -1811,7 +2325,7 @@ def execute_select(session, q: SelectQuery) -> Table:
     final = proj_table.select(out_order)
     final.tuple_groups = tuple_groups
     if totals_src is not None:
-        tcols, torder = _project(items, Env(totals_src, device=dev),
+        tcols, torder = _project(items, _session_env(session, totals_src),
                                  totals_src, alias_exprs, {}, dev)
         final.totals = Table(tcols, name="totals").select(torder)
     return final

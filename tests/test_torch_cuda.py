@@ -653,3 +653,91 @@ def test_hll_registers_on_card_equal_cpu(cuda):
                             mask.cuda(), 7)
     assert torch.equal(got.cpu(), want)
     assert torch.equal(hll.hll_estimate(got).cpu(), hll.hll_estimate(want))
+
+
+def _slice9_data(rng, n):
+    lens = rng.integers(0, 9, n)
+    return {"id": np.arange(n, dtype=np.int64),
+            "k": rng.integers(0, 50, n).astype(np.int64),
+            "s": [f"w{i}" for i in rng.integers(0, 40, n)],
+            "f": rng.integers(-8, 8, n) / 4.0,
+            "cats": [rng.integers(0, 256, m).tolist() for m in lens],
+            "tags": [[f"t{i}" for i in rng.integers(0, 30, m)]
+                     for m in lens]}
+
+
+@pytest.mark.parametrize("sql", [
+    # ARRAY JOIN and arrayJoin(): row ids and positions on the card
+    "SELECT id, c FROM t ARRAY JOIN cats AS c ORDER BY id, c",
+    "SELECT c, count() FROM t ARRAY JOIN cats AS c GROUP BY c ORDER BY c",
+    "SELECT count(), sum(c) FROM t LEFT ARRAY JOIN cats AS c",
+    "SELECT id, x, y FROM t ARRAY JOIN cats AS x, tags AS y ORDER BY id, x",
+    "SELECT arrayJoin(tags) AS w, count() FROM t GROUP BY w ORDER BY w",
+    # the HOF env and the segment reductions over the flat element axis
+    "SELECT id, arrayMap(x -> x * 2 + k, cats), arrayFilter(x -> x < 16, "
+    "cats), arrayExists(x -> x = 7, cats), arrayCount(x -> x > k, cats), "
+    "arrayFirstIndex(x -> x > 100, cats), arraySort(x -> -x, cats) FROM t "
+    "ORDER BY id",
+    "SELECT sum(arraySum(arrayMap(x -> x * 2, cats))), count() FROM t "
+    "WHERE length(arrayFilter(x -> x < 16, cats)) > 0",
+    "SELECT id, has(cats, 7), indexOf(tags, 't3'), countEqual(cats, k), "
+    "hasAny(cats, [1, 2, 3]), hasAll(tags, ['t1']), arrayUniq(cats), "
+    "arrayDistinct(tags), arraySlice(cats, 2, 3), arrayReverse(cats), "
+    "cats[-1], arrayCumSum(cats), arrayConcat(cats, [k]) FROM t ORDER BY id",
+    # set operations and IN (subquery) membership
+    "SELECT k, s FROM t WHERE id < 5000 INTERSECT SELECT k, s FROM t "
+    "WHERE id >= 3000",
+    "SELECT f FROM t WHERE id % 3 = 0 EXCEPT SELECT f FROM t "
+    "WHERE id % 5 = 0",
+    "SELECT s FROM t WHERE k < 25 INTERSECT DISTINCT SELECT s FROM t "
+    "WHERE k > 10",
+    "SELECT count() FROM t WHERE s IN (SELECT s FROM t WHERE k = 3) "
+    "AND k NOT IN (SELECT k FROM t WHERE id < 100)",
+])
+def test_slice9_device_code_on_card_equals_cpu(cuda, sql):
+    """ARRAY JOIN, the lambda functions, the array functions, the set
+    operations' multiset match and IN (subquery) give the same rows on the
+    card as on the CPU (the CPU tests hold the CPU to the JAX package)."""
+    import myscaledb_tpu_torch as P
+    data = _slice9_data(np.random.default_rng(9), 20_011)
+    rows = []
+    for dev in ("cuda", "cpu"):
+        s = P.connect(device=dev)
+        s.create_table("t", data)
+        rows.append(s.sql(sql).to_rows())
+    assert repr(rows[0]) == repr(rows[1])
+
+
+def test_element_row_ids_need_no_host_sync(cuda):
+    """The per-element row ids and positions, the integer segment sums and
+    the lambda env's broadcast of an outer column are made on the card
+    without waiting for it (sync debug mode raises on a synchronisation)."""
+    import myscaledb_tpu_torch as P
+    from myscaledb_tpu_torch.exec import arrays as A
+    from myscaledb_tpu_torch.exec.expr import Env
+    from myscaledb_tpu_torch.sql.ast import Ident
+    s = P.connect(device="cuda")
+    s.create_table("t", _slice9_data(np.random.default_rng(4), 5003))
+    t = s.tables["t"]
+    env = Env(t, device=s.device)
+    v = env.resolve(Ident("cats"))
+    flat, off, _ = A.as_array(v, env)
+    A.device_offsets(off, s.device)                 # the one upload
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rid = A._rid(off, s.device)
+        pos = A._pos(off, s.device, rid)
+        sums = A._seg_sum(off, flat, torch.int64, s.device)
+        kk = A._ElemEnv(env, off, {}).resolve(Ident("k"))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    o = torch.as_tensor(off)
+    lens = o[1:] - o[:-1]
+    want_rid = torch.repeat_interleave(torch.arange(len(lens)), lens)
+    assert torch.equal(rid.cpu(), want_rid)
+    assert torch.equal(pos.cpu(), torch.arange(int(o[-1])) - o[:-1][want_rid])
+    assert torch.equal(kk.data.cpu(), t["k"].data.cpu()[want_rid])
+    want_sums = torch.zeros(len(lens), dtype=torch.int64).index_add_(
+        0, want_rid, flat.cpu().long())
+    assert torch.equal(sums.cpu(), want_sums)

@@ -176,8 +176,7 @@ def test_host_resident_table_streams(sessions):
 def test_not_ported_aggregates_name_their_slice(sessions):
     _, p = sessions
     for sql in ("SELECT uniqState(v) FROM t",
-                "SELECT g, sum(v) FROM t GROUP BY g UNION ALL "
-                "SELECT g, sum(v) FROM t GROUP BY g",
+                "SELECT g, sumMerge(v) FROM t GROUP BY g",
                 "SELECT quantileTDigestState(0.5)(v) FROM t",
                 "SELECT sumState(v) FROM t"):
         with pytest.raises(myscaledb_tpu_torch.NotPortedError) as e:

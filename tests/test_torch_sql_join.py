@@ -191,7 +191,7 @@ def test_error_texts_match(sessions, sql):
 
 
 @pytest.mark.parametrize("sql,slice_name", [
-    ("SELECT * FROM l INNER JOIN (SELECT k, rv FROM r) AS x ON l.k = x.k",
+    ("EXPLAIN PLAN SELECT * FROM l INNER JOIN r ON l.k = r.k",
      "expression and function breadth"),
     ("SELECT joinGet('j', 'v', k) FROM l", "expression and function breadth"),
 ])

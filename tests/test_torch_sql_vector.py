@@ -135,14 +135,14 @@ def test_error_texts_match(sessions, sql):
 
 
 @pytest.mark.parametrize("sql", [
-    "SELECT tag, arrayJoin([1, 2]) FROM t",
-    "SELECT id, x FROM t ARRAY JOIN [1, 2] AS x",
-    "SELECT id FROM t AS a JOIN (SELECT id FROM t) AS b ON a.id = b.id",
+    "EXPLAIN PLAN SELECT id FROM t",
+    "SELECT finalizeAggregation(price) FROM t",
+    "SELECT joinGet('j', 'v', id) FROM t",
     "CREATE VIEW u AS SELECT id FROM t",
     "SELECT sumState(price) FROM t",
     "SELECT TextSearch(tag, 'red') AS s FROM t ORDER BY s DESC LIMIT 3",
-    "SELECT id FROM t WHERE id IN (SELECT id FROM t WHERE price < 3)",
-    "SELECT arrayMap(x -> x + 1, [id]) FROM t",
+    "CREATE MATERIALIZED VIEW mv ENGINE = Memory AS SELECT id FROM t",
+    "SELECT id FROM t SAMPLE 0.5",
 ])
 def test_outside_the_slice_raises_not_ported(sessions, sql):
     _, p, _ = sessions
