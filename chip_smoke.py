@@ -2,7 +2,7 @@
 
 Usage:  python3 chip_smoke.py [--seed N]
 
-Ten main paths, the SQL ones through the entry points a user calls
+Eleven main paths, the SQL ones through the entry points a user calls
 (``connect()`` -> ``Session.create_table`` or SQL DDL -> ``Session.sql``):
 
   BASELINE config 1, the filtered exact vector top-k, over n = 1,000,000
@@ -75,6 +75,14 @@ Ten main paths, the SQL ones through the entry points a user calls
 
     SELECT id, distance(emb, (SELECT emb FROM t WHERE id = 4242)) AS d
     FROM t WHERE price < 50 ORDER BY d LIMIT 10
+
+  The MS MARCO passage corpus in shape (BEIR, Thakur et al. 2021), cut
+  to 1,000,000 passages made on the card (Zipf words, lognormal lengths
+  of mean 56) with 768-dim embeddings and a price Float32, under text
+  and hybrid search (20 queries of 2-6 words each):
+
+    SELECT id, HybridSearch('fusion_type=rsf')(emb, body, [q...], 'words')
+    AS s FROM p WHERE price < 50 ORDER BY s DESC LIMIT 10
 
   and the stateless goldens the port replays
   (tests/test_torch_goldens_stateless.py).
@@ -182,6 +190,18 @@ non-zero without printing a result:
               to a direct-formula top-k on the card, facet counts equal,
               INTERSECT/EXCEPT equal to torch.isin over the sides; K1 must
               launch in each of the first five, K3 in the facet join
+  sql_text    the passage table: its BM25 index build (host tokenize
+              seconds, device build ms, postings bytes) timed apart, then
+              TextSearch OR, AND and under WHERE price < 50, HybridSearch
+              RSF and RRF under it (30 candidates a side), a non-fused
+              score column over 1000 rows and ftsIndex, each over the 20
+              queries after a warm-up (median, p90, busy share, host
+              syncs, peak memory); BM25 against an f64 oracle from the
+              generator's own (passage, word) pairs (scores within rtol
+              1e-5, ids equal wherever the gap at a rank exceeds it), the
+              vector half against an f64 distance top-30 and the fusion
+              against numpy RSF/RRF over the oracle lists; K2 must launch
+              once in every HybridSearch statement
   goldens_stateless  every case of tests/test_torch_goldens_stateless.py
               through run_golden_text(connect()), byte-identical
 
@@ -214,7 +234,7 @@ config-2 statements; the join build and count probes; the join statements
 up to the last timed one; the ten config-6 statements; on the DDL-built
 table the twenty distance statements, the ten batch statements at each
 nq, and the three identical-rows statements; config 3's statements; the
-window statements; each hits, array and subquery statement's timed
+window statements; each hits, array, subquery and text statement's timed
 runs) and read just after it;
 each kernel must have launched in the run of its path, and the summary
 reports every kernel's count on every path.  Launches made to compare a
@@ -222,10 +242,11 @@ kernel with its plain version, the profiler passes and the 10M-row
 branch statements count nowhere.  Config 3's and the windows' paths
 launch no kernel of the port (their JAX counterparts reach no Pallas
 kernel either), the hits and array statements only K3, the subquery
-statements K1 (K2 where the certificate fails) and K3; their counts are
-reported all the same.  The last lines are the kernels summary, the
-nvidia-smi name/power line, and {"ok": true, "device": {...}}.  Needs one
-CUDA card.
+statements K1 (K2 where the certificate fails) and K3, the HybridSearch
+statements of sql_text K2 (each text statement's timed runs are zeroed
+and read the same way); their counts are reported all the same.  The
+last lines are the kernels summary, the nvidia-smi name/power line, and
+{"ok": true, "device": {...}}.  Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -1887,7 +1908,6 @@ def phase_sql_ddl(seed: int):
         s.sql(f"DROP TABLE {t}")
     if s.tables:
         raise AssertionError(f"tables left: {list(s.tables)}")
-    s._vector_sidecars.clear()
     del s
     torch.cuda.empty_cache()
     emit({"phase": "sql_ddl", "rows": N, "dim": D, "k": K, **out,
@@ -2699,6 +2719,393 @@ def phase_sql_subquery(seed: int):
     return totals
 
 
+# phase sql_text: the MS MARCO passage corpus in shape (BEIR, Thakur et
+# al. 2021: 8,841,823 passages, mean 55.98 words), cut to 1M passages
+NT, NT_WORDS, DT = 1_000_000, 1 << 20, 768
+NT_MEAN_WORDS, NT_SIGMA, NT_MAX_WORDS = 56, 0.5, 256
+NT_QUERIES, KT = 20, 10
+BM25_K1, BM25_B = 1.2, 0.75
+# BM25 against the f64 oracle: the port scores in f32 (doc lengths over
+# the f32 mean, f32 products and divisions, f32 sums over at most six
+# terms), a few f32 ulps of each score
+TEXT_RTOL = 1e-5
+# fused scores live in [0, 1]: RSF normalizes distances of ~1.5e3 whose
+# K2 error is ~1e-3 over a top-30 range of ~1e2, and BM25 scores at
+# TEXT_RTOL, so the fused score moves by ~1e-5; RRF sums exact ranks
+FUSION_ATOL = {"RSF": 1e-4, "RRF": 1e-7}
+
+
+def text_corpus(seed: int):
+    """The passage table's data, made on the card from ``seed``: 2^20
+    distinct lowercase words of 3-12 letters (a word's letters are the
+    base-26 digits of a distinct code, so no two words are equal), Zipf
+    (s = 1.0) word draws, lognormal passage lengths of mean 56 clipped to
+    [1, 256].  Returns the passages as Python strings, each token's
+    (passage, word) pair on the card, the word table and the Zipf CDF."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 10)
+    dev = "cuda"
+    code = torch.randperm(NT_WORDS, generator=g, device=dev)
+    need = torch.where(code < 26 ** 3, 3, torch.where(code < 26 ** 4, 4, 5))
+    wlen = torch.maximum(torch.randint(3, 13, (NT_WORDS,), generator=g,
+                                       device=dev), need)
+    pos = torch.arange(13, device=dev)
+    digit = (wlen[:, None] - 1 - pos[None, :]).clamp(min=0)
+    letters = (code[:, None] // (26 ** digit.clamp(max=4))) % 26
+    letters = torch.where(digit > 4, 0, letters)
+    table = torch.where(pos[None, :] < wlen[:, None], 97 + letters,
+                        torch.where(pos[None, :] == wlen[:, None], 32, 0)
+                        ).to(torch.uint8)
+    ranks = torch.arange(1, NT_WORDS + 1, device=dev, dtype=torch.float64)
+    cdf = torch.cumsum(1.0 / ranks, 0)
+    cdf /= cdf[-1].clone()
+    mu = np.log(NT_MEAN_WORDS) - NT_SIGMA ** 2 / 2
+    lens = torch.exp(mu + NT_SIGMA * torch.randn(
+        NT, generator=g, device=dev, dtype=torch.float64))
+    lens = lens.round().clamp(1, NT_MAX_WORDS).to(torch.int64)
+    total = int(lens.sum())
+    u = torch.rand(total, generator=g, device=dev, dtype=torch.float64)
+    word = torch.searchsorted(cdf, u).clamp(max=NT_WORDS - 1)
+    del u
+    doc = torch.repeat_interleave(torch.arange(NT, device=dev), lens,
+                                  output_size=total)
+    # each token's letters and one space: (tokens, 13) masked to the row
+    tw = wlen[word]
+    flat = table[word][pos[None, :] <= tw[:, None]].cpu().numpy()
+    nbytes = torch.zeros(NT, dtype=torch.int64, device=dev).index_add_(
+        0, doc, tw + 1)
+    ends = torch.cumsum(nbytes, 0).cpu().numpy()
+    text = flat.tobytes().decode("ascii")
+    del flat
+    starts = np.concatenate([[0], ends[:-1]])
+    passages = [text[a:b - 1] for a, b in zip(starts.tolist(),
+                                              ends.tolist())]
+    return (passages, doc.to(torch.int32), word.to(torch.int32), table,
+            wlen, cdf, g)
+
+
+def word_strings(table, wlen, ids) -> list:
+    rows = table[ids].cpu().numpy()
+    lens = wlen[ids].cpu().numpy()
+    return [bytes(r[:n]).decode() for r, n in zip(rows, lens)]
+
+
+def bm25_oracle(tok_doc, tok_word, doc_len, avg, terms, mask, operator):
+    """Dense f64 BM25 (tantivy/Lucene, k1 = 1.2, b = 0.75) of the unique
+    query ``terms`` (word ids) from the generator's own (passage, word)
+    pairs: tf by bincount of the passages a word's tokens fall in, df the
+    passages with tf > 0.  Masked-out passages score 0."""
+    score = torch.zeros(NT, dtype=torch.float64, device="cuda")
+    hits = torch.zeros(NT, dtype=torch.int32, device="cuda")
+    norm = BM25_K1 * (1 - BM25_B + BM25_B * doc_len / avg)
+    for t in terms:
+        tf = torch.bincount(tok_doc[tok_word == t].to(torch.int64),
+                            minlength=NT).double()
+        has = tf > 0
+        df = int(has.sum())
+        if df == 0:
+            continue
+        idf = float(np.log(1 + (NT - df + 0.5) / (df + 0.5)))
+        score += torch.where(has, idf * tf * (BM25_K1 + 1) / (tf + norm),
+                             0.0)
+        hits += has.to(torch.int32)
+    if operator == "AND":
+        score = torch.where(hits == len(terms), score, 0.0)
+    if mask is not None:
+        score = torch.where(mask, score, 0.0)
+    return score
+
+
+def ranked_oracle(dense, k: int, descending: bool):
+    """The oracle's top-k (ids, values) of a dense f64 score, ties by id;
+    for descending scores only positive ones rank, for ascending ones
+    only finite ones."""
+    ok = dense > 0 if descending else torch.isfinite(dense)
+    key = torch.where(ok, -dense if descending else dense, torch.inf)
+    order = torch.sort(key, stable=True).indices[:k]
+    order = order[ok[order]]
+    return order.cpu().numpy(), dense[order].cpu().numpy()
+
+
+def check_ranked(tag, ids, vals, dense, k, descending, rtol, atol=0.0):
+    """``ids``/``vals`` are a valid top-k of ``dense`` within the
+    tolerance: as many as the oracle's, distinct, each id's oracle value
+    within tolerance of the oracle's value at that rank and of the value
+    the port printed (so ids are equal wherever the gap at a rank exceeds
+    the tolerance)."""
+    o_ids, o_vals = ranked_oracle(dense, k, descending)
+    ids = np.asarray(ids, dtype=np.int64)
+    vals = np.asarray(vals, dtype=np.float64)
+    if len(ids) != len(o_ids) or len(set(ids.tolist())) != len(ids):
+        raise AssertionError(f"{tag}: {len(ids)} ids, the oracle "
+                             f"{len(o_ids)}: {ids[:5]} vs {o_ids[:5]}")
+    if len(ids) == 0:
+        return 0.0
+    true = dense[torch.as_tensor(ids, device="cuda")].cpu().numpy()
+    tol = rtol * np.abs(o_vals) + atol
+    err = np.maximum(np.abs(true - o_vals), np.abs(vals - true))
+    if not (np.isfinite(true).all() and (err <= tol).all()):
+        i = int(np.argmax(err - tol))
+        raise AssertionError(f"{tag}: rank {i} id {ids[i]} value {vals[i]} "
+                             f"(oracle {true[i]}), the oracle's rank {i} "
+                             f"is id {o_ids[i]} at {o_vals[i]}")
+    return float((np.abs(vals - true) / np.maximum(np.abs(true), 1e-30)
+                  ).max())
+
+
+def fusion_oracle(kind, v_ids, v_d, t_ids, t_s, weight, fusion_k):
+    """RSF / RRF over the oracle's candidate lists, in f64 numpy (the
+    reference's HybridSearchUtils.cpp semantics; vector lists ascending,
+    L2).  Returns {id: fused score}."""
+    fused = {}
+    if kind == "RRF":
+        for lst in (v_ids, t_ids):
+            for r, i in enumerate(lst):
+                fused[int(i)] = fused.get(int(i), 0.0) + 1.0 / (
+                    fusion_k + r + 1)
+        return fused
+
+    def norm(x):
+        x = np.asarray(x, dtype=np.float64)
+        if len(x) == 0 or x.max() == x.min():
+            return np.ones_like(x)
+        return (x - x.min()) / (x.max() - x.min())
+    for i, c in zip(v_ids, norm(v_d)):
+        fused[int(i)] = fused.get(int(i), 0.0) + (1 - weight) * (1 - c)
+    for i, c in zip(t_ids, norm(t_s)):
+        fused[int(i)] = fused.get(int(i), 0.0) + weight * c
+    return fused
+
+
+def check_fused(tag, rows, fused, k, atol):
+    order = sorted(fused.items(), key=lambda kv: (-kv[1], kv[0]))[:k]
+    if len(rows) != len(order):
+        raise AssertionError(f"{tag}: {len(rows)} rows, oracle {len(order)}")
+    for r, ((oid, oval), (gid, gval)) in enumerate(zip(order, rows)):
+        true = fused.get(int(gid))
+        if true is None or abs(true - oval) > atol or \
+                abs(gval - true) > atol:
+            raise AssertionError(f"{tag}: rank {r} id {gid} score {gval} "
+                                 f"(oracle {true}); oracle rank {r} is "
+                                 f"{oid} at {oval}")
+
+
+def phase_sql_text(seed: int):
+    """Text and hybrid search over 1M MS MARCO-shaped passages with
+    768-dim embeddings: the BM25 index build timed apart, then seven
+    statements x 20 queries each (after a warm-up query each), every
+    result against an oracle that shares no code with the port (BM25 in
+    f64 from the generator's (passage, word) pairs; an f64 distance
+    top-30; RSF/RRF in numpy over those lists); median, p90, busy share,
+    host syncs and peak memory of each statement; K2 must launch once in
+    every HybridSearch statement."""
+    import myscaledb_tpu_torch as P
+    from myscaledb_tpu_torch.core.table import Column, Table
+    from myscaledb_tpu_torch.core.types import DataType, Field
+    from myscaledb_tpu_torch.ops.vector import distance_scan
+
+    t0 = time.perf_counter()
+    passages, tok_doc, tok_word, wtable, wlen, cdf, g = text_corpus(seed)
+    gen_s = time.perf_counter() - t0
+    n_tokens = int(tok_doc.shape[0])
+    emb = torch.randn(NT, DT, generator=g, device="cuda")
+    price = torch.rand(NT, generator=g, device="cuda") * 100
+    t0 = time.perf_counter()
+    body = Column.from_numpy("body", np.array(passages, dtype=object),
+                             DataType.STRING, device="cuda")
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    del passages
+    s = P.connect()
+    s.register("p", Table([
+        Column.from_numpy("id", np.arange(NT, dtype=np.int64),
+                          device="cuda"),
+        body, Column(Field("price", DataType.FLOAT32), price),
+        Column(Field("emb", DataType.FLOAT32_VECTOR, vector_dim=DT), emb)]))
+    t0 = time.perf_counter()
+    idx = s.text_index("p", "body")
+    index_s = time.perf_counter() - t0
+    build = {"tokenize_s": idx.build_seconds["tokenize"],
+             "device_build_ms": idx.build_seconds["device"] * 1e3,
+             "index_s": index_s, "vocab": len(idx.vocab),
+             "postings": int(idx.post_docs.shape[0]),
+             "postings_bytes": idx.postings_bytes(),
+             "tokens": idx.total_tokens}
+    if idx.total_tokens != n_tokens or idx.stat_docs != NT:
+        raise AssertionError(f"sql_text: the index holds {idx.total_tokens} "
+                             f"tokens of {idx.stat_docs} passages, the "
+                             f"generator made {n_tokens} of {NT}")
+
+    # the queries: 2-6 words from the same Zipf law; vectors near a row
+    rng = np.random.default_rng(seed + 10)
+    qlens = rng.integers(2, 7, NT_QUERIES)
+    u = torch.as_tensor(rng.random(int(qlens.sum())), device="cuda")
+    qwords = torch.searchsorted(cdf, u).clamp(max=NT_WORDS - 1)
+    wstr = word_strings(wtable, wlen, qwords)
+    qwid = qwords.cpu().numpy()
+    queries, at = [], 0
+    for ln in qlens:
+        queries.append((" ".join(wstr[at:at + ln]),
+                        list(dict.fromkeys(qwid[at:at + ln].tolist()))))
+        at += ln
+    rows_q = rng.integers(0, NT, NT_QUERIES)
+    qvecs = (emb[torch.as_tensor(rows_q, device="cuda")] + 0.5 * torch.randn(
+        NT_QUERIES, DT, generator=g, device="cuda"))
+    qlits = [vec_sql(v) for v in qvecs.cpu().numpy()]
+
+    doc_len = torch.bincount(tok_doc.to(torch.int64), minlength=NT).double()
+    avg = float(doc_len.sum()) / NT
+    keep = price < 50
+    lo_range = int(rng.integers(0, NT - 1000))
+    in_range = torch.zeros(NT, dtype=torch.bool, device="cuda")
+    in_range[lo_range:lo_range + 1000] = True
+    settings = s.settings
+    ncand = KT * settings.hybrid_search_top_k_multiple_base
+
+    def vec_dense(qi):
+        q = qvecs[qi].double()
+        dist = torch.empty(NT, dtype=torch.float64, device="cuda")
+        for a in range(0, NT, 1 << 17):
+            xb = emb[a:a + (1 << 17)].double()
+            dist[a:a + (1 << 17)] = ((xb - q[None, :]) ** 2).sum(1)
+        return torch.where(keep, dist, torch.inf)
+
+    vdense = {}
+    errs = {}
+
+    def hybrid_check(kind):
+        def check(qi, rows):
+            text, terms = queries[qi]
+            if qi not in vdense:
+                vdense[qi] = vec_dense(qi)
+            v_ids, v_d = ranked_oracle(vdense[qi], ncand, False)
+            t_ids, t_s = ranked_oracle(
+                bm25_oracle(tok_doc, tok_word, doc_len, avg, terms, keep,
+                            "OR"), ncand, True)
+            fused = fusion_oracle(kind, v_ids, v_d, t_ids, t_s,
+                                  settings.hybrid_search_fusion_weight,
+                                  settings.hybrid_search_fusion_k)
+            check_fused(f"sql_text hybrid_{kind} query {qi}", rows, fused,
+                        KT, FUSION_ATOL[kind])
+        return check
+
+    def text_check(name, mask, operator):
+        def check(qi, rows):
+            dense = bm25_oracle(tok_doc, tok_word, doc_len, avg,
+                                queries[qi][1], mask, operator)
+            errs[name] = max(errs.get(name, 0.0), check_ranked(
+                f"sql_text {name} query {qi}", [r[0] for r in rows],
+                [r[1] for r in rows], dense, KT, True, TEXT_RTOL))
+        return check
+
+    def range_check(qi, rows):
+        dense = bm25_oracle(tok_doc, tok_word, doc_len, avg, queries[qi][1],
+                            None, "OR")[lo_range:lo_range + 1000]
+        ids = [r[0] for r in rows]
+        got = np.array([r[1] for r in rows])
+        want = dense.cpu().numpy()
+        if ids != list(range(lo_range, lo_range + 1000)) or not np.all(
+                np.abs(got - want) <= TEXT_RTOL * np.abs(want)):
+            raise AssertionError(f"sql_text score_column query {qi}: rows "
+                                 "differ from the oracle")
+
+    def fts_check(qi, rows):
+        _text, terms = queries[qi]
+        want = []
+        for t, w in zip(terms, word_strings(wtable, wlen, torch.as_tensor(
+                terms, device="cuda"))):
+            sel = tok_word == t
+            want.append((w, int(torch.unique(tok_doc[sel]).numel()),
+                         int(sel.sum()), NT, n_tokens))
+        if sorted(rows) != sorted(want):
+            raise AssertionError(f"sql_text ftsindex query {qi}: {rows} != "
+                                 f"{want}")
+
+    statements = {
+        "text_or": ("SELECT id, TextSearch(body, '{t}') AS s FROM p "
+                    "ORDER BY s DESC LIMIT 10", text_check("text_or", None,
+                                                           "OR")),
+        "text_and": ("SELECT id, TextSearch('operator=AND')(body, '{t}') "
+                     "AS s FROM p ORDER BY s DESC LIMIT 10",
+                     text_check("text_and", None, "AND")),
+        "text_filtered": ("SELECT id, TextSearch(body, '{t}') AS s FROM p "
+                          "WHERE price < 50 ORDER BY s DESC LIMIT 10",
+                          text_check("text_filtered", keep, "OR")),
+        "hybrid_rsf": ("SELECT id, HybridSearch('fusion_type=rsf')(emb, "
+                       "body, {v}, '{t}') AS s FROM p WHERE price < 50 "
+                       "ORDER BY s DESC LIMIT 10", hybrid_check("RSF")),
+        "hybrid_rrf": ("SELECT id, HybridSearch('fusion_type=rrf')(emb, "
+                       "body, {v}, '{t}') AS s FROM p WHERE price < 50 "
+                       "ORDER BY s DESC LIMIT 10", hybrid_check("RRF")),
+        "score_column": (f"SELECT id, TextSearch(body, '{{t}}') AS s FROM p "
+                         f"WHERE id >= {lo_range} AND id < "
+                         f"{lo_range + 1000} ORDER BY id", range_check),
+        "ftsindex": ("SELECT term, doc_freq, total_term_freq, total_docs, "
+                     "total_tokens FROM ftsIndex(p, body, '{t}')",
+                     fts_check),
+    }
+    smi = nvidia_smi_line()
+    stats, totals = {}, {}
+    for name, (tmpl, check) in statements.items():
+        sqls = [tmpl.format(t=queries[qi][0], v=qlits[qi])
+                for qi in range(NT_QUERIES)]
+        s.sql(sqls[0]).to_rows()                      # warm-up
+        zero_launches()
+        lat, results = [], []
+        for stmt in sqls:
+            t0 = time.perf_counter()
+            results.append(s.sql(stmt).to_rows())
+            lat.append((time.perf_counter() - t0) * 1e3)
+        launches = read_launches()
+        for qi, rows in enumerate(results):
+            check(qi, rows)
+        for k, c in launches.items():
+            totals[k] = totals.get(k, 0) + c
+        if name.startswith("hybrid") and \
+                launches["segmin_f32"] != NT_QUERIES:
+            raise AssertionError(f"sql_text {name}: segmin_f32 launched "
+                                 f"{launches['segmin_f32']} times in "
+                                 f"{NT_QUERIES} statements")
+        prof = profile_statements(s, sqls[:3])
+        syncs, sites = count_host_syncs(lambda: s.sql(sqls[1]).to_rows())
+        torch.cuda.reset_peak_memory_stats()
+        s.sql(sqls[1]).to_rows()
+        stats[name] = {"median_ms": float(np.median(lat)),
+                       "p90_ms": float(np.percentile(lat, 90)),
+                       "device_busy_share": prof["device_busy_share"],
+                       "device_ms_per_query": prof["device_ms_per_query"],
+                       "top_kernels_us": prof["top_kernels_us_per_query"],
+                       "host_syncs": syncs, "host_sync_sites": sites,
+                       "max_memory_allocated_bytes":
+                           torch.cuda.max_memory_allocated(),
+                       "launches_by_path": launches,
+                       "statement": tmpl.format(t="<query>", v="<768 f32>"),
+                       "first_rows": repr(results[0][:3]),
+                       "nvidia_smi": smi}
+    emit({"phase": "sql_text", "passages": NT, "tokens": n_tokens,
+          "dim": DT, "queries": NT_QUERIES, "k": KT,
+          "query_words": qlens.tolist(),
+          "source": "MS MARCO passage corpus (BEIR, Thakur et al. 2021: "
+                    "8,841,823 passages, mean 55.98 words; queries 5.96)",
+          "reduced": ["8.84M passages cut to 1M for the run's time limit "
+                      "(the host builds and tokenizes the strings)",
+                      "words: Zipf (s = 1.0) over 2^20 made-up words of "
+                      "3-12 letters; embeddings: standard normal"],
+          "corpus_gen_s": gen_s, "dictionary_encode_s": encode_s,
+          "index_build": build, "per_statement": stats,
+          "launches": totals,
+          "max_rel_err_text": errs,
+          "oracle": "BM25 in f64 from the generator's (passage, word) "
+                    f"pairs (rtol {TEXT_RTOL}); an f64 distance top-"
+                    f"{ncand}; RSF/RRF in numpy over the oracle lists "
+                    f"(atol {FUSION_ATOL})"})
+    s.sql("DROP TABLE p")
+    if s.tables:
+        raise AssertionError(f"tables left: {list(s.tables)}")
+    del emb, tok_doc, tok_word, idx
+    torch.cuda.empty_cache()
+    return totals
+
+
 def phase_goldens_stateless() -> int:
     """Every case of tests/test_torch_goldens_stateless.py's CASES through
     run_golden_text(connect()) on the card, each byte-identical to its
@@ -2752,12 +3159,18 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
+    from concurrent.futures import ThreadPoolExecutor
     from myscaledb_tpu_torch.ops.kernels import build
     t0 = time.perf_counter()
-    build.build()
-    build.library()
+    with ThreadPoolExecutor(1) as pool:
+        # the host library (c++) compiles beside the kernels (nvcc)
+        host = pool.submit(build.host_library)
+        build.build()
+        build.library()
+        host_lib = host.result()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": str(build.library_path().name),
+          "host_library": host_lib.name,
           "ptxas": ptxas_summary(build.BUILD_LOG)})
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2794,6 +3207,7 @@ def main() -> int:
     counts["sql_hits"] = phase_sql_hits(args.seed)
     counts["sql_arrays"] = phase_sql_arrays(args.seed)
     counts["sql_subquery"] = phase_sql_subquery(args.seed)
+    counts["sql_text"] = phase_sql_text(args.seed)
     phase_goldens_stateless()
 
     summary = []

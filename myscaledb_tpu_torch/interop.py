@@ -9,8 +9,9 @@ package's derived state, after ``np.asarray``, into this package's:
 ``sq8_sidecar_from_numpy`` the SQ8 sidecar of ``build_sq8``,
 ``count_probe_build_from_numpy`` the count-probe build of
 ``merge_count.prepare_build``, and ``binary_sidecar_from_numpy`` the
-segment-major words of ``pack_binary_segs`` — so both packages can run on
-one state.
+segment-major words of ``pack_binary_segs``, and
+``bm25_index_from_jax_state`` a ``BM25Index``'s vocabulary, postings and
+statistics — so both packages can run on one state.
 """
 
 from __future__ import annotations
@@ -109,3 +110,30 @@ def binary_sidecar_from_numpy(x3: np.ndarray, device) -> torch.Tensor:
                          f"a multiple of {SEGS_PER_STEP}, got {x3.dtype} "
                          f"{x3.shape}")
     return torch.from_numpy(np.array(x3, order="C").view(np.int32)).to(device)
+
+
+def bm25_index_from_jax_state(vocab: dict, post_docs, post_tfs, df, doc_len,
+                              avg_len: float, stat_docs: int,
+                              total_tokens: int, *, device):
+    """A JAX ``BM25Index``'s state — ``vocab`` {term: id}, per-term posting
+    doc ids and tf (its ``_post_docs``/``_post_tfs`` lists of numpy
+    arrays), ``df``, ``doc_len`` and the statistics — as this package's
+    ``text.bm25.BM25Index`` on ``device``, its postings laid out in CSR
+    order of term id."""
+    from myscaledb_tpu_torch.text.bm25 import BM25Index
+    nv = len(vocab)
+    if len(post_docs) != nv or len(post_tfs) != nv:
+        raise ValueError(f"{nv} terms but {len(post_docs)} doc lists and "
+                         f"{len(post_tfs)} tf lists")
+    lens = np.array([len(p) for p in post_docs], dtype=np.int64)
+    if not np.array_equal(lens, np.asarray(df, dtype=np.int64)):
+        raise ValueError("df does not match the posting lengths")
+    starts = np.zeros(nv + 1, dtype=np.int64)
+    np.cumsum(lens, out=starts[1:])
+    docs = np.concatenate([np.asarray(p, np.int32) for p in post_docs]) \
+        if nv else np.zeros(0, np.int32)
+    tfs = np.concatenate([np.asarray(p, np.float32) for p in post_tfs]) \
+        if nv else np.zeros(0, np.float32)
+    return BM25Index.from_state(vocab, starts, docs, tfs,
+                                np.asarray(doc_len, np.float32), avg_len,
+                                stat_docs, total_tokens, device=device)

@@ -7,6 +7,12 @@ The library goes to ``myscaledb_tpu_torch/_build/`` under a name that
 hashes the sources and flags, so a changed source rebuilds and an
 unchanged one is reused.  Nothing is built at import: the first kernel
 launch (or ``build()``) does it.
+
+The native host library (``csrc/host/msdb_host.cpp``: dictionary
+encoding and corpus tokenization) is plain C++
+and needs no ``nvcc``: ``host_library()`` compiles it at first use with
+the host compiler (``$CXX``, else ``c++``) into the same directory, named
+by a hash of the source and flags.  A failed build raises.
 """
 
 from __future__ import annotations
@@ -56,6 +62,10 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib = None
 BUILD_LOG = ""
+
+HOST_SOURCE = CSRC / "host" / "msdb_host.cpp"
+HOST_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-Wextra", "-shared"]
+_host_lock = threading.Lock()
 
 
 def nvcc() -> str:
@@ -136,3 +146,41 @@ def check(rc: int, kernel: str) -> None:
     if rc != 0:
         msg = library().msdb_cuda_error_string(rc).decode()
         raise RuntimeError(f"{kernel} launch failed: CUDA error {rc} ({msg})")
+
+
+def host_library_path() -> Path:
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    h.update(HOST_SOURCE.read_bytes())
+    return BUILD_DIR / f"libmsdb_host-{h.hexdigest()[:16]}.so"
+
+
+def host_library() -> Path:
+    """Path of the native host library, compiled on first use.  Raises
+    when the compiler is missing or fails: no caller falls back to Python
+    loops."""
+    with _host_lock:
+        out = host_library_path()
+        if out.exists():
+            return out
+        cxx = os.environ.get("CXX") or shutil.which("c++") or \
+            shutil.which("g++")
+        if not cxx:
+            raise RuntimeError("no C++ compiler (set CXX): the native host "
+                               f"library {HOST_SOURCE} cannot be built")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # a private name, then an atomic rename: processes that build at
+        # once never load a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            res = subprocess.run([cxx, *HOST_FLAGS, "-o", tmp,
+                                  str(HOST_SOURCE)], stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"{cxx} failed on {HOST_SOURCE}:\n"
+                                   f"{res.stdout}")
+            os.replace(tmp, out)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+        return out

@@ -12,7 +12,7 @@ lifecycle events, constraints and order keys.  ``system.parts`` and
 are not ported yet.
 
 Index builds may run on the background executor's thread: the index list
-is guarded by ``vi_lock``, the sidecar dict by ``sidecar_lock``.
+is guarded by ``vi_lock``, the derived-state dict by ``sidecar_lock``.
 """
 
 from __future__ import annotations
@@ -37,9 +37,10 @@ class Session:
         self.query_log = deque(maxlen=10_000)
         self._mutation_epoch = 0
         self._query_cache = {}
-        # per-(table, column, epoch) scan artifacts: squared norms + SQ8
-        # quantized sidecar (+ the CUDA event recorded after the build)
-        self._vector_sidecars = {}
+        # state derived from a column, per (kind, table, column, epoch):
+        # squared norms, the SQ8 sidecar, packed binary words, the BM25
+        # index (sql/executor.py::_derived)
+        self._derived = {}
         self.sidecar_lock = threading.Lock()
         self.access = AccessControl()
         self.current_user = "default"
@@ -108,6 +109,17 @@ class Session:
         with self.vi_lock:
             self.vector_indices[:] = [i for i in self.vector_indices
                                       if i["table"] != name]
+        with self.sidecar_lock:
+            self._derived = {k: v for k, v in self._derived.items()
+                             if k[1] != name}
+
+    def text_index(self, table: str, column: str):
+        """The BM25 index that TextSearch and HybridSearch read for
+        ``table.column``, built on first use and kept until the table
+        changes."""
+        from myscaledb_tpu_torch.sql.executor import _get_text_index
+        return _get_text_index(self, table, self.read_table_checked(table),
+                               column)
 
     def register(self, name: str, table: Table, settings=None) -> None:
         table.name = name

@@ -13,13 +13,14 @@ binary-vector and DDL slices of myscaledb_tpu/sql/executor.py (``VSInfo``,
 ``WINDOW_FNS``, ``walk_outside_windows``, ``_compute_windows``,
 ``_apply_with_fill``, ``map_expr``, ``_resolve_subqueries``,
 ``_rewrite_arrayjoin_calls``, ``apply_array_join``, ``_align_to``,
-``execute_any``, ``execute_select``).
+``execute_any``, ``execute_select``, ``TSInfo``, ``_parse_search_params``,
+``analyze_text_search``, ``_get_text_index``, ``_ftsindex_table``).
 
 Stage order (SQL semantics): CTEs (materialized into session tables for
 the statement) -> scalar/EXISTS subqueries folded to constants -> source
-(table, ``numbers()``, or a FROM subquery) -> JOINs (a table or a
+(table, ``numbers()``, ``ftsIndex()`` or a FROM subquery) -> JOINs (a table or a
 subquery) -> [LEFT] ARRAY JOIN (``arrayJoin()`` calls become ARRAY JOIN
-items first) -> PREWHERE/WHERE -> [vector top-k] -> [GROUP BY /
+items first) -> PREWHERE/WHERE -> [vector, text or hybrid top-k] -> [GROUP BY /
 aggregates -> HAVING] -> window functions -> SELECT -> DISTINCT -> ORDER
 BY [WITH FILL] -> LIMIT BY -> OFFSET/LIMIT.  ORDER BY ... LIMIT takes the
 top-n selection (ops/sort.py); a host-resident key streams through the
@@ -41,8 +42,13 @@ INTERSECT and EXCEPT [DISTINCT] run in ``execute_any``; the multiset
 match of INTERSECT/EXCEPT is a device sort over keys encoded column by
 column (``_set_op_keep``).  Everything else the JAX executor does —
 joinGet and Join engines, distributed joins, the -State/-Merge
-combinators, text and hybrid search and the other table functions —
-raises ``NotPortedError`` naming the slice that brings it.  Error texts the
+combinators and the table functions other than numbers() and ftsIndex()
+— raises ``NotPortedError`` naming the slice that brings it.
+``TextSearch`` (BM25, text/bm25.py) and ``HybridSearch`` (RSF/RRF over a
+vector and a text candidate list, text/fusion.py) fuse with ORDER BY
+<score> DESC LIMIT k; TextSearch outside that is a score column.  Their
+index is cached per (table, column, mutation epoch) (``_get_text_index``),
+and ``ftsIndex(table, column, 'query')`` reads its statistics.  Error texts the
 goldens pin stay byte-equal to the JAX package's.
 """
 
@@ -334,6 +340,200 @@ def _analyze_binary_vector_search(q, session, table, call, col,
 # ---------------------------------------------------------------------------
 # expression helpers
 
+# ---------------------------------------------------------------------------
+# text / hybrid search analysis (reference: TextSearchInfo / HybridSearchInfo,
+# src/VectorIndex/Storages/VSDescription.h:72,110)
+
+@dataclass
+class TSInfo:
+    call: FuncCall
+    name: str
+    alias: Optional[str]
+    kind: str                    # 'text' | 'hybrid'
+    text_col: str = ""
+    query: str = ""
+    operator: str = "OR"
+    vec_col: str = ""
+    qvec: Optional[np.ndarray] = None
+    metric: str = "L2"
+    fusion_type: str = "RSF"
+    fused: bool = False
+    k: int = 0
+    is_batch: bool = False       # single-list results (matches VSInfo shape)
+
+
+def _parse_search_params(s: str) -> dict:
+    out = {}
+    for kv in s.replace(",", "&").split("&"):
+        if "=" in kv:
+            k, v = kv.split("=", 1)
+            out[k.strip().lower()] = v.strip()
+    return out
+
+
+def analyze_text_search(q: SelectQuery, session, table: Table,
+                        alias_exprs: dict) -> Optional[TSInfo]:
+    call = None
+    for it in q.items:
+        for node in walk(it.expr):
+            if isinstance(node, FuncCall) and node.name.lower() in TEXT_FNS:
+                call = node
+                break
+    if call is None:
+        return None
+    kind = "text" if call.name.lower() == "textsearch" else "hybrid"
+    args = list(call.args)
+    params = {}
+    if args and isinstance(args[0], Literal) and isinstance(args[0].value, str) \
+            and ("=" in args[0].value):
+        params = _parse_search_params(args[0].value)
+        args = args[1:]
+    alias = None
+    for it in q.items:
+        if it.alias and render(it.expr) == render(call):
+            alias = it.alias
+    info = TSInfo(call, render(call), alias, kind,
+                  operator=params.get("operator", "OR").upper(),
+                  fusion_type=params.get("fusion_type", "rsf").upper())
+    if kind == "text":
+        if len(args) != 2 or not isinstance(args[0], Ident) \
+                or not isinstance(args[1], Literal):
+            raise ExecError("TextSearch expects (column, 'query text')")
+        info.text_col = args[0].name
+        info.query = str(args[1].value)
+    else:
+        if len(args) != 4 or not isinstance(args[0], Ident) \
+                or not isinstance(args[1], Ident) \
+                or not isinstance(args[2], VectorLiteral) \
+                or not isinstance(args[3], Literal):
+            raise ExecError("HybridSearch expects "
+                            "(vector_col, text_col, [qvec], 'query text')")
+        info.vec_col = args[0].name
+        info.text_col = args[1].name
+        info.qvec = np.asarray(args[2].values, dtype=np.float32)
+        if info.qvec.ndim == 1:
+            info.qvec = info.qvec[None, :]
+        info.query = str(args[3].value)
+        tsettings = session.table_settings.get(table.name, TableSettings())
+        info.metric = tsettings.float_vector_search_metric_type
+    if info.text_col not in table or not table[info.text_col].dtype.is_string:
+        raise ExecError(f"{call.name}: {info.text_col!r} is not a string column")
+
+    # fusion: ORDER BY <score> DESC LIMIT k (scores are descending-better)
+    def refs(e):
+        r = render(e)
+        return r == info.name or (alias and isinstance(e, Ident)
+                                  and e.table is None and e.name == alias)
+    if q.order_by and q.limit is not None and not q.group_by \
+            and refs(q.order_by[0].expr) and not q.order_by[0].ascending:
+        info.fused = True
+        info.k = q.limit + q.offset
+    return info
+
+
+def _get_text_index(session, table_name: str, table: Table, col: str):
+    """The BM25 index of a String column, kept in the session's derived
+    state per (table, column, mutation epoch) with the column's identity
+    checked: a DELETE and an INSERT that leave the row count unchanged
+    move the epoch, so the next query reads the new rows (the JAX package
+    keys its cache by the row count and serves the old index)."""
+    from myscaledb_tpu_torch.text.bm25 import BM25Index
+    return _derived(session, "bm25", table_name, table, col,
+                    lambda c: BM25Index.from_column(c, session.device))
+
+
+def _ftsindex_table(session, table_name: str, col: str, query: str) -> Table:
+    """ftsIndex(table, column, 'query') — the FTS-statistics table function
+    (reference: TableFunctionFtsIndex.h:23 + StorageFtsIndex.h exposing
+    total_docs / field_tokens / terms_freq, the inputs the distributed
+    initiator merges into global BM25 stats, BM25InfoInDataParts.h), one
+    row per query term: (term, doc_freq, total_term_freq, total_docs,
+    total_tokens)."""
+    from myscaledb_tpu_torch.text.bm25 import tokenize
+    try:
+        table = session.read_table_checked(table_name)
+    except KeyError:
+        raise ExecError(f"unknown table {table_name!r}")
+    if col not in table:
+        raise ExecError(f"unknown column {col!r} in {table_name!r}")
+    idx = _get_text_index(session, table_name, table, col)
+    terms = list(dict.fromkeys(tokenize(query)))
+    dfs = [idx.term_df(t) for t in terms]
+    tfs = [int(idx.term_postings(t)[1].to(torch.int64).sum())
+           for t in terms]
+    n = len(terms)
+    dev = session.device
+
+    def int_col(name, vals):
+        return Column.from_numpy(name, np.asarray(vals, dtype=np.int64),
+                                 build_zonemap=False, device=dev)
+    return Table([
+        Column.from_numpy("term", np.array(terms, dtype=object),
+                          DataType.STRING, build_zonemap=False, device=dev),
+        int_col("doc_freq", dfs), int_col("total_term_freq", tfs),
+        int_col("total_docs", np.full(n, idx.stat_docs)),
+        int_col("total_tokens", np.full(n, idx.total_tokens)),
+    ], name="ftsIndex")
+
+
+def _text_search_topk(session, q: SelectQuery, table: Table, ts: TSInfo,
+                      mask, settings):
+    """The fused TextSearch / HybridSearch top-k: (scores (1, k), ids (1,
+    k)) tensors, INVALID_ID-padded.  HybridSearch scans its vector half
+    with no SQ8 sidecar, as the JAX package does (at 2^16 rows and more
+    the segment-min kernel K2), over the column's cached squared norms
+    (the JAX package computes them on every query), and fuses the two
+    candidate lists on the host (text/fusion.py)."""
+    from myscaledb_tpu_torch.text.fusion import (relative_score_fusion,
+                                                 reciprocal_rank_fusion)
+    dev = session.device
+    idx = _get_text_index(session, q.table, table, ts.text_col)
+    if ts.kind == "text":
+        with span("text_search", k=ts.k, rows=table.n_rows):
+            scores, ids = idx.search(ts.query, ts.k, mask=mask,
+                                     operator=ts.operator)
+        return scores[None, :], ids[None, :]
+    ncand = ts.k * settings.hybrid_search_top_k_multiple_base
+    with span("hybrid_search", k=ts.k, rows=table.n_rows):
+        vcol = table[ts.vec_col]
+        qv = torch.as_tensor(ts.qvec, device=dev)
+        if vcol.is_host:
+            vd, vids = distance_scan_streaming(
+                vcol.data, qv, metric=ts.metric, k=ncand,
+                mask=None if mask is None else mask.cpu().numpy())
+        else:
+            # the squared norms the JAX package computes on every query,
+            # kept with the column's other derived state
+            sqn = _derived(session, "sqnorm", q.table, table, ts.vec_col,
+                           lambda c: precompute_sqnorm(c.data))
+            vd, vids = distance_scan(
+                vcol.data, qv, metric=ts.metric, k=ncand, mask=mask,
+                block_rows=settings.vector_scan_block_rows, x_sqnorm=sqn)
+        tscores, tids = idx.search(ts.query, ncand, mask=mask,
+                                   operator=ts.operator)
+        vids_np = vids[0].cpu().numpy()
+        vd_np = vd[0].cpu().numpy()
+        tids_np = tids.cpu().numpy()
+        ts_np = tscores.cpu().numpy()
+    vok = vids_np != INVALID_ID
+    tok = tids_np != INVALID_ID
+    if ts.fusion_type == "RRF":
+        fids, fscores = reciprocal_rank_fusion(
+            [vids_np[vok], tids_np[tok]], settings.hybrid_search_fusion_k)
+    else:
+        fids, fscores = relative_score_fusion(
+            vids_np[vok], vd_np[vok], tids_np[tok], ts_np[tok],
+            weight=settings.hybrid_search_fusion_weight,
+            vector_descending=(ts.metric == "IP"))
+    fids = fids[:ts.k]
+    fscores = fscores[:ts.k]
+    pad = ts.k - len(fids)
+    d2 = np.concatenate([fscores, np.full(pad, -np.inf, dtype=np.float32)])
+    i2 = np.concatenate([fids.astype(np.int64),
+                         np.full(pad, INVALID_ID, dtype=np.int64)])
+    return torch.as_tensor(d2[None, :]), torch.as_tensor(i2[None, :])
+
+
 def _expand_item_aliases(e: Expr, alias_exprs: dict, table: Table) -> Expr:
     """Replace Ident(alias) with its SELECT expression (unless the name is a
     real column — real columns win, like the reference's scope rules)."""
@@ -525,45 +725,59 @@ def _key_on_device(sk: SortKey, device) -> SortKey:
     return SortKey(values, sk.ascending, valid, sk.nulls_last)
 
 
-def _vector_sidecar(session, table_name, table, col, epoch=None):
-    """Lazy per-(table, column, mutation epoch) scan artifacts: squared
-    norms + the SQ8 certified-quantization sidecar.  Built in one device
-    pass on first use; prior-epoch entries are dropped.  A failure to build
-    the sidecar raises (the JAX package silently skipped it).
+def _derived(session, kind: str, table_name, table, col, build,
+             epoch=None):
+    """State derived from one column and kept in the session: squared
+    norms (``sqnorm``), the SQ8 sidecar (``sq8``), packed binary words
+    (``binary``) and the BM25 index (``bm25``).  One cache, keyed by
+    (kind, table, column, mutation epoch), with one rule: storing an
+    entry drops every entry of an earlier epoch, and an entry whose column
+    is no longer the one it was built from (another table under the same
+    name in the same epoch, a CTE of an earlier statement) is built anew.
+    ``build(column)`` runs under the session's sidecar lock, so of two
+    threads that want the same entry one builds and the other waits.
 
-    An index build may run this on the background executor's thread while
-    a query wants the same artifact: the session's sidecar lock makes one
-    of them build and the other wait, and on the card a CUDA event recorded
-    after the build orders the reader's stream after the building thread's."""
+    An index build may run this on the background executor's thread: on
+    the card a CUDA event recorded after the build orders the reader's
+    stream after the building thread's."""
     with session.sidecar_lock:
         if epoch is None:
             epoch = session._mutation_epoch
-        key = (table_name, col, epoch)
-        hit = session._vector_sidecars.get(key)
-        x = table[col].data
-        if hit is not None and hit[3]() is not x:
-            # another table under the same name in the same epoch (a CTE
-            # of an earlier statement): build anew
+        key = (kind, table_name, col, epoch)
+        hit = session._derived.get(key)
+        data = table[col].data
+        if hit is not None and hit[2]() is not data:
             hit = None
         if hit is None:
-            sqn = precompute_sqnorm(x)
-            sq8 = None
-            if x.dim() == 2 and sq8_supported(x.shape[1]) \
-                    and x.shape[0] >= (1 << 16):
-                sq8 = build_sq8(x)
+            out = build(table[col])
             done = None
-            if x.is_cuda:
+            if session.device.type == "cuda":
                 done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(x.device))
-            hit = ((sqn, sq8), done, x.device, weakref.ref(x))
-            stale = [k for k in session._vector_sidecars if k[2] != epoch]
-            for k in stale:
-                del session._vector_sidecars[k]
-            session._vector_sidecars[key] = hit
-    out, done, dev, _ = hit
+                done.record(torch.cuda.current_stream(session.device))
+            hit = (out, done, weakref.ref(data))
+            for k in [k for k in session._derived if k[3] != epoch]:
+                del session._derived[k]
+            session._derived[key] = hit
+    out, done, _ = hit
     if done is not None:
-        done.wait(torch.cuda.current_stream(dev))
+        done.wait(torch.cuda.current_stream(session.device))
     return out
+
+
+def _vector_sidecar(session, table_name, table, col, epoch=None):
+    """The scan artifacts of a vector column: its squared norms and, from
+    2^16 rows at a supported width, the SQ8 certified-quantization sidecar,
+    each built on first use.  A failure to build the sidecar raises (the
+    JAX package silently skipped it)."""
+    def sq8(c):
+        x = c.data
+        if x.dim() == 2 and sq8_supported(x.shape[1]) \
+                and x.shape[0] >= (1 << 16):
+            return build_sq8(x)
+        return None
+    sqn = _derived(session, "sqnorm", table_name, table, col,
+                   lambda c: precompute_sqnorm(c.data), epoch)
+    return sqn, _derived(session, "sq8", table_name, table, col, sq8, epoch)
 
 
 def _pack_column(c: Column) -> np.ndarray:
@@ -577,25 +791,15 @@ def _pack_column(c: Column) -> np.ndarray:
 
 
 def _binary_sidecar(session, table_name, table, col):
-    """Packed words of a FixedString binary-vector column, cached per
-    (table, column, mutation epoch) like the SQ8 sidecar, in the
-    segment-major (nseg, words, SEG) layout of K5 with the real row count
-    alongside.  The JAX package packs row by row through ``to_python()``;
-    here each dictionary value is packed once and the rows gather them,
-    which gives the same words."""
-    epoch = session._mutation_epoch
-    key = (table_name, col + "\x00binary", epoch)
-    hit = session._vector_sidecars.get(key)
-    if hit is not None:
-        return hit
-    xw = _pack_column(table[col])
-    x3 = words_tensor(to_segs_layout(xw), session.device)
-    out = (x3, len(xw))
-    stale = [k for k in session._vector_sidecars if k[2] != epoch]
-    for k in stale:
-        del session._vector_sidecars[k]
-    session._vector_sidecars[key] = out
-    return out
+    """Packed words of a FixedString binary-vector column, kept like the
+    SQ8 sidecar, in the segment-major (nseg, words, SEG) layout of K5 with
+    the real row count alongside.  The JAX package packs row by row
+    through ``to_python()``; here each dictionary value is packed once and
+    the rows gather them, which gives the same words."""
+    def build(c):
+        xw = _pack_column(c)
+        return words_tensor(to_segs_layout(xw), session.device), len(xw)
+    return _derived(session, "binary", table_name, table, col, build)
 
 
 def _limit_prunable(q) -> bool:
@@ -614,6 +818,8 @@ def _limit_prunable(q) -> bool:
                 return False
             if isinstance(sub, FuncCall) and sub.name.lower() in AGG_NAMES:
                 return False
+            if isinstance(sub, FuncCall) and sub.name.lower() in TEXT_FNS:
+                return False    # BM25 statistics cover the whole table
     return True
 
 
@@ -1095,6 +1301,47 @@ def _aggregate_column(name: str, arr: np.ndarray, dtype, device) -> Column:
                              to_device=not host, device=device)
 
 
+# aggregates whose state over a String argument is an order (min, max:
+# the dictionary's sort rank) or a row's dictionary id (any)
+_STRING_STATE_FNS = ("min", "max", "any")
+
+
+def _string_state(r: str, fn: str, v: Value, data: torch.Tensor, valid,
+                  string_aggs: dict) -> torch.Tensor:
+    """The state input of a String min/max/any: min/max compare the
+    dictionary's sort ranks, any keeps the id.  Records what turns the
+    state back into strings in ``string_aggs[r]``."""
+    string_aggs[r] = (v.dictionary, fn, valid, v.valid is not None)
+    if fn == "any":
+        return data
+    ranks = to_tensor(v.dictionary.ranks(), data.device)
+    if ranks.numel() == 0:
+        return torch.zeros_like(data)
+    return ranks[torch.clamp(data.to(torch.int64), min=0)]
+
+
+def _string_aggregate_column(name: str, state: np.ndarray, cnt: np.ndarray,
+                             info: tuple, device) -> Column:
+    """A String min/max/any result over the argument's dictionary: the ids
+    the states name, '' for a group with no argument row (NULL when the
+    argument is Nullable), as ClickHouse gives them."""
+    d, fn, _valid, nullable = info
+    ids = np.asarray(state, dtype=np.int64)
+    if fn != "any" and len(d):
+        ids = np.argsort(d.ranks(), kind="stable")[np.clip(ids, 0,
+                                                           len(d) - 1)]
+    empty = np.asarray(cnt) == 0
+    valid = None
+    if empty.any():
+        if nullable:
+            ids = np.where(empty, NULL_ID, ids)
+            valid = to_tensor(~empty, device)
+        else:
+            ids = np.where(empty, d.encode_one("", grow=True), ids)
+    return Column(Field(name, DataType.STRING, valid is not None),
+                  to_tensor(ids.astype(np.int32), device), valid, d)
+
+
 def _maybe_streaming_aggregate(env: Env, q: SelectQuery, mask, session,
                                alias_exprs: dict):
     """Out-of-device GROUP BY: when the aggregation touches host-resident
@@ -1155,6 +1402,10 @@ def _maybe_streaming_aggregate(env: Env, q: SelectQuery, mask, session,
                                               table))
         if col is None or col.offsets is not None or \
                 getattr(col.data, "ndim", 1) != 1:
+            return None
+        if name in _STRING_STATE_FNS and col.dtype.is_string:
+            # merged states would compare ids, not the dictionary's
+            # order: the resident path's String min/max/any takes these
             return None
         fns.append(name)
         args.append(col)
@@ -1236,6 +1487,7 @@ def run_aggregate(env: Env, q: SelectQuery, mask, session,
     fns, args, arg_valids, arg_ranges, logical = [], [], [], [], []
     normal_order: list[str] = []
     special: dict[str, tuple] = {}       # render -> (kind, arg Values, params)
+    string_aggs: dict[str, tuple] = {}   # render -> String min/max/any state
     out_types = {}
     for r, call in agg_calls.items():
         name = call.name.lower()
@@ -1269,6 +1521,8 @@ def run_aggregate(env: Env, q: SelectQuery, mask, session,
             lt = _expr_logical_dtype(arg_e, v, table)
             data = v.data.expand(n) if v.is_scalar else v.data
             valid = cond if v.valid is None else cond & v.valid
+            if base in _STRING_STATE_FNS and v.is_string and not v.is_scalar:
+                data = _string_state(r, base, v, data, valid, string_aggs)
             fns.append(base)
             args.append(None if base == "count" else data)
             arg_valids.append(valid)
@@ -1294,6 +1548,8 @@ def run_aggregate(env: Env, q: SelectQuery, mask, session,
                             "is not supported by the torch port")
         lt = _expr_logical_dtype(arg_e, v, table)
         data = v.data.expand(n) if v.is_scalar else v.data
+        if name in _STRING_STATE_FNS and v.is_string and not v.is_scalar:
+            data = _string_state(r, name, v, data, v.valid, string_aggs)
         fns.append(name)
         args.append(None if name == "count" else data)
         arg_valids.append(v.valid)
@@ -1316,6 +1572,14 @@ def run_aggregate(env: Env, q: SelectQuery, mask, session,
     else:
         gid, G = torch.zeros(n, dtype=torch.int32, device=dev), 1
 
+    # a String min/max/any also counts its argument's rows per group: an
+    # empty group gives '' (NULL for a Nullable argument)
+    for r, (_d, _f, valid, _nl) in string_aggs.items():
+        fns.append("count")
+        args.append(None)
+        arg_valids.append(valid)
+        arg_ranges.append(None)
+        logical.append(None)
     states, gc = partial_aggregate_matmul(gid, m, tuple(args), tuple(fns), G,
                                           tuple(arg_valids),
                                           tuple(arg_ranges), tuple(logical))
@@ -1345,8 +1609,15 @@ def run_aggregate(env: Env, q: SelectQuery, mask, session,
                                  valid is not None),
                            data, valid, kv.dictionary))
         mapping[name] = name
+    counts = dict(zip(string_aggs, outs[len(normal_order):]))
     for r, out in zip(normal_order, outs):
-        cols.append(_aggregate_column(r, out[present], out_types.get(r), dev))
+        if r in string_aggs:
+            cols.append(_string_aggregate_column(r, out[present],
+                                                 counts[r][present],
+                                                 string_aggs[r], dev))
+        else:
+            cols.append(_aggregate_column(r, out[present], out_types.get(r),
+                                          dev))
         mapping[r] = r
     for r, (kind, vals, sparams) in special.items():
         col = _special_aggregate(kind, vals, gid_kept, m, G, present, n,
@@ -1851,7 +2122,7 @@ def _reject_unported(q: SelectQuery) -> None:
     """Raise NotPortedError for every clause the JAX executor runs and this
     one does not yet."""
     tf = getattr(q, "table_function", None)
-    if tf is not None and tf[0] != "numbers":
+    if tf is not None and tf[0] not in ("numbers", "ftsindex"):
         raise NotPortedError(f"table function {tf[0]}()",
                              "storage, formats and runtime state")
     if q.sample is not None:
@@ -1873,9 +2144,6 @@ def _reject_unported(q: SelectQuery) -> None:
                 if id(node) not in window_fns and fn in _UNPORTED_AGGS:
                     raise NotPortedError(f"aggregate function {node.name}()",
                                          "expression and function breadth")
-                if fn in TEXT_FNS:
-                    raise NotPortedError(f"{node.name}()",
-                                         "text and hybrid search")
 
 
 def execute_any(session, q) -> Table:
@@ -1967,12 +2235,16 @@ def execute_select(session, q: SelectQuery) -> Table:
 
     # 1. source
     if getattr(q, "table_function", None) is not None:
-        # numbers(n) / numbers(a, n): UInt64 0..n-1 / a..a+n-1
-        a, b = q.table_function[1]
-        start, count = (0, a) if b is None else (a, b)
-        base = Table([Column.from_numpy(
-            "number", np.arange(start, start + count, dtype=np.uint64),
-            build_zonemap=False, device=dev)])
+        kind, params = q.table_function
+        if kind == "ftsindex":
+            base = _ftsindex_table(session, *params)
+        else:
+            # numbers(n) / numbers(a, n): UInt64 0..n-1 / a..a+n-1
+            a, b = params
+            start, count = (0, a) if b is None else (a, b)
+            base = Table([Column.from_numpy(
+                "number", np.arange(start, start + count, dtype=np.uint64),
+                build_zonemap=False, device=dev)])
     elif q.subquery is not None:
         base = execute_any(session, q.subquery)
     elif q.table is not None:
@@ -2017,21 +2289,24 @@ def execute_select(session, q: SelectQuery) -> Table:
         alias_exprs.setdefault(_wname, _wexpr)
     tuple_groups: dict[str, list] = {}
 
-    # 2. vector-search analysis
+    # 2. search analysis (vector / text / hybrid pseudo-functions)
     with span("analyze"):
         vs = analyze_vector_search(q, session, table, alias_exprs) \
+            if q.table is not None else None
+        ts = analyze_text_search(q, session, table, alias_exprs) \
             if q.table is not None else None
 
     # 3. WHERE/PREWHERE split into pre-search and post-search terms
     def refs_dist(e: Expr) -> bool:
-        if vs is None:
-            return False
+        searches = [x for x in (vs, ts) if x is not None]
         for node in walk(e):
-            if render(node) == vs.name:
-                return True
-            if isinstance(node, Ident) and node.table is None \
-                    and vs.alias and node.name == vs.alias:
-                return True
+            r = render(node)
+            for x in searches:
+                if r == x.name:
+                    return True
+                if isinstance(node, Ident) and node.table is None \
+                        and x.alias and node.name == x.alias:
+                    return True
         return False
 
     conjuncts = _split_conjuncts(q.prewhere) + _split_conjuncts(q.where)
@@ -2040,8 +2315,10 @@ def execute_select(session, q: SelectQuery) -> Table:
     pre_expr = _conjoin([_expand_item_aliases(c, alias_exprs, table)
                          for c in pre_terms])
     # zone-map pruning: if min/max stats prove the filter empty, short-cut
-    # the whole scan
-    if pre_terms:
+    # the whole scan.  A text search keeps every row: its BM25 statistics
+    # and its index cover the whole table, and the filter becomes its mask
+    # (the JAX package prunes here and scores the kept blocks alone)
+    if pre_terms and ts is None:
         bmask = _zonemap_block_mask(
             table, [_expand_item_aliases(c, alias_exprs, table)
                     for c in pre_terms])
@@ -2140,6 +2417,45 @@ def execute_select(session, q: SelectQuery) -> Table:
                 c = table[vs.name]
                 env.extra[vs.alias] = Value(c.data, c.valid)
             post_terms = []
+    elif ts is not None and ts.fused:
+        # 4a'. fused text / hybrid top-k
+        d2, i2 = _text_search_topk(session, q, table, ts, mask, settings)
+        with span("materialize", rows=int(i2.numel())):
+            table, env = _materialize_topk(table, ts, d2, i2, tuple_groups,
+                                           dev)
+            env.subquery_runner = lambda sub: execute_any(session, sub)
+        mask = None
+        if post_terms:
+            pe = _conjoin([substitute(c, {ts.name: ts.name})
+                           for c in post_terms])
+            pm = as_bool_mask(eval_expr(pe, env), table.n_rows)
+            table, _ = compact_table_host(table, pm)
+            env = _session_env(session, table)
+            if ts.alias and ts.name in table:
+                c = table[ts.name]
+                env.extra[ts.alias] = Value(c.data, c.valid)
+            post_terms = []
+    elif ts is not None and ts.kind == "text":
+        # non-fused TextSearch: the full score column, masked like the JAX
+        # package's; the score terms of the WHERE filter it afterwards (the
+        # JAX package drops them)
+        idx = _get_text_index(session, q.table, table, ts.text_col)
+        sc = idx.scores(ts.query, ts.operator)
+        if mask is not None:
+            sc = torch.where(mask, sc, 0.0)
+        env.extra[ts.name] = Value(sc)
+        if ts.alias:
+            env.extra[ts.alias] = Value(sc)
+        if post_terms:
+            pe = _conjoin([substitute(_expand_item_aliases(c, alias_exprs,
+                                                           table),
+                                      {ts.name: ts.name})
+                           for c in post_terms])
+            pm = as_bool_mask(eval_expr(pe, env), table.n_rows)
+            mask = pm if mask is None else mask & pm
+            post_terms = []
+    elif ts is not None:
+        raise ExecError("HybridSearch requires ORDER BY <score> DESC LIMIT k")
     elif vs is not None:
         if vs.binary:
             # the JAX package runs the float formula over the string ids
@@ -2211,6 +2527,9 @@ def execute_select(session, q: SelectQuery) -> Table:
         items = q.items
         order_by = q.order_by
         if mask is not None:
+            carry_ts = ts is not None and not ts.fused \
+                and ts.name in env.extra
+            keep = torch.nonzero(mask.bool()).flatten() if carry_ts else None
             table, _ = compact_table_host(table, mask)
             new_env = _session_env(session, table, alias_prefixes)
             # recompute the non-fused distance on the compacted table
@@ -2220,6 +2539,13 @@ def execute_select(session, q: SelectQuery) -> Table:
                 new_env.extra[vs.name] = Value(dist)
                 if vs.alias:
                     new_env.extra[vs.alias] = Value(dist)
+            # the non-fused text score follows its rows (the JAX package
+            # loses it here and fails on the TextSearch() call)
+            if carry_ts:
+                sc = Value(env.extra[ts.name].data[keep])
+                new_env.extra[ts.name] = sc
+                if ts.alias:
+                    new_env.extra[ts.alias] = sc
             env = new_env
             mask = None
 
@@ -2331,9 +2657,9 @@ def execute_select(session, q: SelectQuery) -> Table:
     return final
 
 
-def _materialize_topk(table: Table, vs: VSInfo, d, ids, tuple_groups,
-                      device):
-    """Gather the top-k rows and attach the distance column — for
+def _materialize_topk(table: Table, vs, d, ids, tuple_groups, device):
+    """Gather the top-k rows of a VSInfo or a TSInfo search and attach its
+    distance or score column — for
     batch_distance the (query index, distance) tuple members ``<alias>.1``
     (UInt32) and ``<alias>.2`` (Float32), rows in query order."""
     d_np = d.cpu().numpy()

@@ -741,3 +741,72 @@ def test_element_row_ids_need_no_host_sync(cuda):
     want_sums = torch.zeros(len(lens), dtype=torch.int64).index_add_(
         0, want_rid, flat.cpu().long())
     assert torch.equal(sums.cpu(), want_sums)
+
+
+def _text_corpus(rng, n):
+    words = np.array([f"w{i}" for i in range(400)])
+    lens = rng.integers(0, 30, n)
+    ranks = np.minimum(rng.zipf(1.3, int(lens.sum())) - 1, 399)
+    docs, at = [], 0
+    for ln in lens:
+        docs.append(" ".join(words[ranks[at:at + ln]]))
+        at += ln
+    docs[3] = None
+    return docs
+
+
+def test_bm25_on_card_bit_equals_cpu(cuda):
+    """The BM25 index built on the card (device expansion, sort, run
+    lengths) scores every query bit for bit as on the CPU (the CPU tests
+    hold the CPU to the JAX package), and its top-k ids are equal."""
+    from myscaledb_tpu_torch.text.bm25 import BM25Index
+    rng = np.random.default_rng(10)
+    docs = _text_corpus(rng, 30_011)
+    idx = {dev: BM25Index(docs, device=dev) for dev in ("cuda", "cpu")}
+    assert idx["cuda"].avg_len == idx["cpu"].avg_len
+    for dev in ("starts", "post_docs", "post_tfs", "df", "doc_len"):
+        assert torch.equal(getattr(idx["cuda"], dev).cpu(),
+                           getattr(idx["cpu"], dev))
+    mask = rng.random(len(docs)) < 0.5
+    for q in ["w0 w1", "w5 w5 w77 nothing", "w3", "w10 w2 w399 w150"]:
+        for op in ("OR", "AND"):
+            a = idx["cuda"].scores(q, op).cpu()
+            b = idx["cpu"].scores(q, op)
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+            for m in (None, mask):
+                sa, ia = idx["cuda"].search(q, 25, mask=m, operator=op)
+                sb, ib = idx["cpu"].search(q, 25, mask=m, operator=op)
+                assert torch.equal(ia.cpu(), ib)
+                assert torch.equal(sa.cpu(), sb)
+
+
+def test_sql_hybrid_search_launches_k2_on_card(cuda):
+    """HybridSearch's vector half scans with no SQ8 sidecar: at 2^16 rows
+    and more it launches K2 once a statement.  RRF's rows equal the CPU's (the
+    lists' ids are); RSF's ids are, its scores within 1e-5 (K2's 3xTF32
+    distances normalize to a few f32 ulps from the CPU's)."""
+    import myscaledb_tpu_torch as P
+    rng = np.random.default_rng(12)
+    n, d = (1 << 16) + 5, 128
+    data = {"id": np.arange(n, dtype=np.int64),
+            "body": _text_corpus(rng, n),
+            "price": rng.integers(0, 100, n).astype(np.int32),
+            "emb": rng.standard_normal((n, d)).astype(np.float32)}
+    qv = "[" + ",".join(repr(float(v)) for v in
+                        data["emb"][77] + 0.3) + "]"
+    res = {}
+    for dev in ("cuda", "cpu"):
+        s = P.connect(device=dev)
+        s.create_table("p", data)
+        for fusion in ("rsf", "rrf"):
+            before = K2.segmin_f32.launches
+            res[dev, fusion] = s.sql(
+                f"SELECT id, HybridSearch('fusion_type={fusion}')(emb, body, "
+                f"{qv}, 'w1 w9 w40') AS s FROM p WHERE price < 50 "
+                "ORDER BY s DESC LIMIT 10").to_rows()
+            assert K2.segmin_f32.launches == before + (dev == "cuda")
+    assert res["cuda", "rrf"] == res["cpu", "rrf"]
+    got, want = res["cuda", "rsf"], res["cpu", "rsf"]
+    assert [r[0] for r in got] == [r[0] for r in want]
+    np.testing.assert_allclose([r[1] for r in got], [r[1] for r in want],
+                               rtol=1e-5)

@@ -239,19 +239,19 @@ def test_epoch_moves_with_data_and_not_with_detach(monkeypatch):
     p.sql("INSERT INTO t SELECT number, [number, number, number] "
           "FROM numbers(1000)")
     p.sql("ALTER TABLE t ADD VECTOR INDEX i v TYPE MSTG")
-    built = dict(p._vector_sidecars)
+    built = dict(p._derived)
     q = "SELECT id FROM t ORDER BY distance(v, [7.0, 7.0, 7.0]) LIMIT 3"
     assert [r[0] for r in p.sql(q).to_rows()] == [7, 6, 8]
-    assert p._vector_sidecars == built          # the index's build served
+    assert p._derived == built          # the index's build served
     p.sql("DETACH TABLE t")
     p.sql("ATTACH TABLE t")
     p.sql(q)
-    assert p._vector_sidecars == built
+    assert p._derived == built
     epoch = p._mutation_epoch
     p.sql("DELETE FROM t WHERE id = 7")
     assert p._mutation_epoch == epoch + 1
     assert [r[0] for r in p.sql(q).to_rows()] == [6, 8, 5]
-    assert p._vector_sidecars.keys() != built.keys()
+    assert p._derived.keys() != built.keys()
 
 
 def test_detach_with_the_query_cache_on_forgets_the_cached_rows():

@@ -94,9 +94,10 @@ EXACT_SQL = [
     # result types: sum(Int32) Int64, sum(UInt32/UInt16) UInt64, avg Float64
     "SELECT sum(v), sum(u), sum(u16), avg(v), avg(u), sum(toInt64(v)) "
     "FROM t",
-    # scatter path: min/max/any, unsigned and Date-free extremes
-    "SELECT g, min(v), max(v), any(v), min(u), max(u16), any(tag) FROM t "
-    "GROUP BY g",
+    # scatter path: min/max/any, unsigned and Date-free extremes (any()
+    # of a String: tests/test_torch_sql_faults.py, where the port returns
+    # the string and the JAX package its dictionary id)
+    "SELECT g, min(v), max(v), any(v), min(u), max(u16) FROM t GROUP BY g",
     # group modifiers
     "SELECT g, tag, sum(v) FROM t WHERE g < 3 GROUP BY g, tag WITH ROLLUP",
     "SELECT g, tag, count() FROM t WHERE g < 3 GROUP BY CUBE(g, tag)",

@@ -3,8 +3,9 @@ run through both packages on the CPU (ROADMAP section 3): OFFSET past the
 end of the rows, the NULL branch of if() and CASE without ELSE (with
 string branches), LEFT/FULL JOIN onto an empty table with a String column,
 UInt64 aggregates past 2^63-1 or over no rows, and arithmetic over UInt
-columns.  Where the port keeps another answer than the JAX package's, the
-test pins both and points to the ROADMAP entry."""
+columns; and a fault of the reference the port repairs, min/max/any over a
+String column.  Where the port keeps another answer than the JAX
+package's, the test pins both and points to the ROADMAP entry."""
 
 import numpy as np
 import pytest
@@ -191,3 +192,87 @@ def test_uint_arithmetic_tests_overflow_only_where_types_allow_it(
     assert tested == []
     p.sql("SELECT w * w, u + 1 FROM e WHERE id = 3")
     assert tested == ["*", "+"]
+
+
+@pytest.fixture(scope="module")
+def fruit():
+    out = []
+    for s in (myscaledb_tpu.connect(),
+              myscaledb_tpu_torch.connect(device="cpu")):
+        s.sql("CREATE TABLE u (id UInt32, s String, g UInt8, "
+              "ns Nullable(String)) ENGINE = MergeTree ORDER BY id")
+        s.sql("INSERT INTO u VALUES (1, 'pear', 0, NULL), "
+              "(2, 'apple', 1, 'b'), (3, 'zebra', 0, 'a'), "
+              "(4, 'mango', 1, NULL)")
+        out.append(s)
+    return tuple(out)
+
+
+@pytest.mark.parametrize("sql,port,jax", [
+    ("SELECT min(s), max(s), any(s), anyLast(s) FROM u",
+     [("apple", "zebra", "pear", "mango")], [(0, 3, 0, "mango")]),
+    ("SELECT g, min(s), max(s), minIf(s, id > 1), maxIf(s, id < 4), any(s) "
+     "FROM u GROUP BY g ORDER BY g",
+     [(0, "pear", "zebra", "zebra", "zebra", "pear"),
+      (1, "apple", "mango", "apple", "apple", "apple")],
+     [(0, 0, 2, 2, 2, 0), (1, 1, 3, 1, 1, 1)]),
+    ("SELECT min(ns), max(ns), any(ns) FROM u", [("a", "b", "b")],
+     [(0, 1, 0)]),
+    ("SELECT g, max(s) AS m FROM u GROUP BY g ORDER BY m DESC",
+     [(0, "zebra"), (1, "mango")], [(1, 3), (0, 2)]),
+])
+def test_string_min_max_any_return_strings(fruit, sql, port, jax):
+    """A fault of the reference, pinned (ROADMAP section 3): the JAX
+    package's min/max/minIf/maxIf/any over a String column return the
+    dictionary id; the port, as ClickHouse, compares by the dictionary's
+    sort rank and returns the string."""
+    j, p = fruit
+    assert j.sql(sql).to_rows() == jax
+    assert p.sql(sql).to_rows() == port
+
+
+@pytest.mark.parametrize("sql,rows", [
+    ("SELECT min(s), max(s), any(s) FROM u WHERE id > 10", [("", "", "")]),
+    ("SELECT min(ns), maxIf(ns, id > 3), any(ns) FROM u WHERE id = 1",
+     [(None, None, None)]),
+    ("SELECT g, minIf(s, id > 3), maxIf(ns, id > 2) FROM u GROUP BY g "
+     "ORDER BY g", [(0, "", "a"), (1, "mango", None)]),
+])
+def test_string_min_max_any_of_no_rows(fruit, sql, rows):
+    """Over no rows a String min/max/any gives '' (NULL for a Nullable
+    argument), as ClickHouse; the JAX package fails on the empty set or
+    prints ids, so only the port's rows are held."""
+    _j, p = fruit
+    assert p.sql(sql).to_rows() == rows
+
+
+def test_string_min_max_any_over_a_host_resident_table():
+    """A host-resident column sends an aggregation through the streaming
+    path, whose merged states would compare dictionary ids: a String
+    min/max/any leaves it for the resident path and still returns the
+    dictionary's order and the first row's string, while the same
+    statement without them streams."""
+    from myscaledb_tpu_torch.runtime import metrics as M
+    rng = np.random.default_rng(7)
+    n = 3000
+    words = np.array(["pear", "apple", "zebra", "mango", "kiwi", "fig"])
+    g = rng.integers(0, 4, n).astype(np.int32)
+    s = [str(w) for w in words[rng.integers(0, 6, n)]]
+    v = rng.integers(0, 10000, n).astype(np.int64)
+    p = myscaledb_tpu_torch.connect(myscaledb_tpu_torch.config.Settings(
+        max_hbm_bytes_per_column=1024, stream_chunk_rows=1000), device="cpu")
+    p.create_table("h", {"g": g, "v": v, "s": s})
+    assert p.tables["h"]["v"].is_host
+    want = []
+    for k in range(4):
+        rows = np.flatnonzero(g == k)
+        grp = [s[i] for i in rows]
+        want.append((k, min(grp), max(grp), grp[0], int(v[rows].sum())))
+    before = M.events_snapshot().get("StreamingAggregations", 0)
+    got = p.sql("SELECT g, min(s), max(s), any(s), sum(v) FROM h "
+                "GROUP BY g ORDER BY g").to_rows()
+    assert got == want
+    assert M.events_snapshot().get("StreamingAggregations", 0) == before
+    assert p.sql("SELECT g, sum(v) FROM h GROUP BY g ORDER BY g").to_rows() \
+        == [(k, w[-1]) for k, w in enumerate(want)]
+    assert M.events_snapshot().get("StreamingAggregations", 0) == before + 1

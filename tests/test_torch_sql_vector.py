@@ -140,7 +140,7 @@ def test_error_texts_match(sessions, sql):
     "SELECT joinGet('j', 'v', id) FROM t",
     "CREATE VIEW u AS SELECT id FROM t",
     "SELECT sumState(price) FROM t",
-    "SELECT TextSearch(tag, 'red') AS s FROM t ORDER BY s DESC LIMIT 3",
+    "SELECT * FROM file('t.csv', 'CSV', 'id Int64')",
     "CREATE MATERIALIZED VIEW mv ENGINE = Memory AS SELECT id FROM t",
     "SELECT id FROM t SAMPLE 0.5",
 ])

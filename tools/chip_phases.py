@@ -7,8 +7,9 @@ Usage (from the repo root, on the machine with the card):
         .:groupby,hits PARENT:groupby,hits
 
 Each argument is ``checkout:phase,phase``; phases are ``groupby``
-(sql_groupby), ``hits`` (sql_hits), ``arrays`` (sql_arrays) and
-``subquery`` (sql_subquery), the ones a checkout's chip_smoke.py has.
+(sql_groupby), ``binary`` (sql_binary), ``hits`` (sql_hits), ``arrays``
+(sql_arrays), ``subquery`` (sql_subquery) and ``text`` (sql_text), the
+ones a checkout's chip_smoke.py has.
 Each argument runs in a process of its own with the checkout as the
 working directory (so it imports that checkout's package and builds its
 kernels), after that checkout's kernel build.  The full output of run i
@@ -27,9 +28,12 @@ sys.path.insert(0, '.')
 import chip_smoke as C
 from myscaledb_tpu_torch.ops.kernels import build
 build.build(); build.library()
+if hasattr(build, 'host_library'):   # older checkouts have none
+    build.host_library()
 torch.backends.cuda.matmul.allow_tf32 = False
-names = {'groupby': 'phase_groupby', 'hits': 'phase_sql_hits',
-         'arrays': 'phase_sql_arrays', 'subquery': 'phase_sql_subquery'}
+names = {'groupby': 'phase_groupby', 'binary': 'phase_sql_binary',
+         'hits': 'phase_sql_hits', 'arrays': 'phase_sql_arrays',
+         'subquery': 'phase_sql_subquery', 'text': 'phase_sql_text'}
 for ph in sys.argv[1].split(','):
     getattr(C, names[ph])(0)
 """
@@ -44,6 +48,9 @@ def summarize(stdout: str) -> None:
             prof = d.get("profile_3_queries", {})
             print(f"  sql_groupby median {d['median_query_ms']:.3f} "
                   f"busy {prof.get('device_busy_share', 0):.3f}")
+        if d.get("phase") == "sql_binary":
+            print(f"  sql_binary load_s {d['load_s']:.3f} median "
+                  f"{d['median_query_ms']:.3f}")
         for name, st in d.get("per_statement", {}).items():
             print(f"  {d['phase']} {name} median {st['median_ms']:.3f} "
                   f"device {st['device_ms_per_query']:.3f} "
