@@ -2,7 +2,7 @@
 
 Usage:  python3 chip_smoke.py [--seed N]
 
-Eleven main paths, the SQL ones through the entry points a user calls
+Twelve main paths, the SQL ones through the entry points a user calls
 (``connect()`` -> ``Session.create_table`` or SQL DDL -> ``Session.sql``):
 
   BASELINE config 1, the filtered exact vector top-k, over n = 1,000,000
@@ -83,6 +83,18 @@ Eleven main paths, the SQL ones through the entry points a user calls
 
     SELECT id, HybridSearch('fusion_type=rsf')(emb, body, [q...], 'words')
     AS s FROM p WHERE price < 50 ORDER BY s DESC LIMIT 10
+
+  Storage: ClickHouse's documented hits_v1 table (the Yandex.Metrica
+  example dataset's DDL) cut to five columns, 100,000,000 rows made on
+  the card and loaded by ten INSERT ... SELECT batches into
+
+    ev (EventDate Date, CounterID UInt32, UserID UInt64, g UInt16, v Int32,
+        INDEX uid UserID TYPE bloom_filter(0.025) GRANULARITY 1)
+    ENGINE = MergeTree PARTITION BY EventDate ORDER BY (CounterID, EventDate)
+
+  under a day's and a week's GROUP BY, a UserID lookup, DROP PARTITION
+  and a TTL copy OPTIMIZEd; config 1 partitioned by a day column; and
+  that table written as ten on-disk parts and reopened;
 
   and the stateless goldens the port replays
   (tests/test_torch_goldens_stateless.py).
@@ -202,6 +214,16 @@ non-zero without printing a result:
               vector half against an f64 distance top-30 and the fusion
               against numpy RSF/RRF over the oracle lists; K2 must launch
               once in every HybridSearch statement
+  sql_storage (a) the ten batches timed (insert rows/s), the bloom
+              index built apart, then the three statements ten times
+              after a warm-up (median, p90, busy share, host syncs, peak
+              memory, blocks kept of all), groups against bincount on the
+              card, K3 in each GROUP BY; DROP PARTITION of the last day
+              and OPTIMIZE of the TTL copy, counts checked; (b) 20 pruned
+              and 20 unpruned vector statements, ids against a
+              direct-formula oracle, K1 once each, build_sq8 once for the
+              phase; (c) ten parts written (emb in lz) and read back
+              (MB/s, bytes on disk), (b)'s statements again, rows equal
   goldens_stateless  every case of tests/test_torch_goldens_stateless.py
               through run_golden_text(connect()), byte-identical
 
@@ -234,8 +256,8 @@ config-2 statements; the join build and count probes; the join statements
 up to the last timed one; the ten config-6 statements; on the DDL-built
 table the twenty distance statements, the ten batch statements at each
 nq, and the three identical-rows statements; config 3's statements; the
-window statements; each hits, array, subquery and text statement's timed
-runs) and read just after it;
+window statements; each hits, array, subquery, text and storage
+statement's timed runs) and read just after it;
 each kernel must have launched in the run of its path, and the summary
 reports every kernel's count on every path.  Launches made to compare a
 kernel with its plain version, the profiler passes and the 10M-row
@@ -254,6 +276,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import os
 import subprocess
 import sys
 import time
@@ -3106,6 +3129,366 @@ def phase_sql_text(seed: int):
     return totals
 
 
+# sql_storage (a): ClickHouse's documented hits_v1 table (the DDL of the
+# Yandex.Metrica example dataset in the ClickHouse docs, PARTITION BY
+# toYYYYMM(EventDate)) cut to the columns the statements read; the JAX
+# grammar takes column names only as a partition key, so the key is the day
+NS = 100_000_000
+NS_BATCHES = 10
+NS_DAYS = 31
+STORAGE_DDL = ("CREATE TABLE {name} (EventDate Date, CounterID UInt32, "
+               "UserID UInt64, g UInt16, v Int32, INDEX uid UserID TYPE "
+               "bloom_filter(0.025) GRANULARITY 1) ENGINE = MergeTree "
+               "PARTITION BY EventDate ORDER BY (CounterID, EventDate){ttl}")
+# sql_storage (b): config 1 with a day column over ten values
+NB_DAYS = 10
+PRUNED_SQL = ("SELECT id, distance(emb, {q}) AS d FROM {t} WHERE day = 3 "
+              "AND price < 50 ORDER BY d LIMIT 10")
+UNPRUNED_SQL = ("SELECT id, distance(emb, {q}) AS d FROM {t} WHERE "
+                "price < 50 ORDER BY d LIMIT 10")
+
+
+def storage_source(seed: int):
+    """The source table of sql_storage (a) on the card, with the batch
+    number b of each row: EventDate uniform over 31 consecutive days
+    ending two days before the run's date (so that TTL EventDate +
+    INTERVAL 30 DAY expires exactly the first three), UserID uniform over
+    2^40 with one id placed twice, g in [0, 256), v in [-1000, 1000) as
+    config 2, CounterID skewed as in sql_hits."""
+    from myscaledb_tpu_torch.core.table import Column, Table
+    from myscaledb_tpu_torch.core.types import DataType, Field
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    first_day = int(time.time() // 86400) - 32
+    day = first_day + torch.randint(0, NS_DAYS, (NS,), generator=gen,
+                                    device="cuda", dtype=torch.int32)
+    u = torch.rand(NS, generator=gen, device="cuda", dtype=torch.float64)
+    counter = torch.where(u < 0.3, 62, (u ** 3 * 7000).long() + 1)
+    user = torch.randint(0, 1 << 40, (NS,), generator=gen, device="cuda")
+    twice = (NS // 3, 2 * NS // 3)
+    user[twice[1]] = user[twice[0]]
+    g = torch.randint(0, 256, (NS,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    v = torch.randint(-1000, 1000, (NS,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    b = (torch.arange(NS, device="cuda") // (NS // NS_BATCHES)).to(
+        torch.int32)
+
+    def col(name, dt, data):
+        return Column(Field(name, dt), data)
+    t = Table([col("EventDate", DataType.DATE, day),
+               col("CounterID", DataType.UINT32, counter),
+               col("UserID", DataType.UINT64, user),
+               col("g", DataType.UINT16, g), col("v", DataType.INT32, v),
+               col("b", DataType.INT32, b)], name="src")
+    return t, first_day, int(user[twice[0]])
+
+
+def day_str(day: int) -> str:
+    import datetime
+    return str(datetime.date(1970, 1, 1) + datetime.timedelta(days=day))
+
+
+def blocks_pruned(s, stmt):
+    """Zone-map blocks one run of ``stmt`` prunes (zone maps and skip
+    indexes; the ZonemapPrunedBlocks counter)."""
+    from myscaledb_tpu_torch.runtime import metrics as M
+    before = M.events_snapshot().get("ZonemapPrunedBlocks", 0)
+    s.sql(stmt).to_rows()
+    pruned = M.events_snapshot().get("ZonemapPrunedBlocks", 0) - before
+    return pruned
+
+
+def vector_oracle(x, sel, q, k):
+    """Direct-formula L2 over the selected rows on the card, stable sort
+    by (distance, row)."""
+    dist = ((x - q[None, :]) ** 2).sum(1)
+    dist = torch.where(sel, dist, torch.inf)
+    order = torch.sort(dist, stable=True).indices[:k]
+    return order.cpu().numpy(), dist[order].cpu().numpy()
+
+
+def check_vector_rows(rows, want, tag):
+    ids = np.array([r[0] for r in rows])
+    if not np.array_equal(ids, want[0]):
+        raise AssertionError(f"{tag}: ids {ids} != oracle {want[0]}")
+    np.testing.assert_allclose(np.array([r[1] for r in rows],
+                                        dtype=np.float32), want[1],
+                               rtol=SQL_RTOL)
+
+
+def phase_sql_storage(seed: int):
+    """Storage through SQL on the card: (a) a 100M-row events table
+    partitioned by day with a bloom-filter skip index, loaded by ten
+    INSERT ... SELECT batches with merges stopped, under two pruned GROUP
+    BY statements (K3), a bloom-pruned point lookup, DROP PARTITION and a
+    TTL copy OPTIMIZEd; (b) config 1 partitioned by a day column, 20
+    pruned and 20 unpruned vector statements (K1 once each, one SQ8
+    sidecar build for the phase); (c) that table written as ten on-disk
+    parts, reopened with open_table and queried again, rows equal."""
+    import shutil
+    import tempfile
+    import myscaledb_tpu_torch as P
+    from myscaledb_tpu_torch.core.table import BLOCK_ROWS, Table
+    from myscaledb_tpu_torch.sql import executor
+    from myscaledb_tpu_torch.storage.codecs import default_codec
+    from myscaledb_tpu_torch.storage.skip_index import sidecar_for
+    from myscaledb_tpu_torch.storage.table_store import TableStore, open_table
+    smi = nvidia_smi_line()
+    out = {"nvidia_smi": smi}
+    totals = {}
+
+    # (a) the partitioned events table
+    s = P.connect()
+    src, first_day, dup_user = storage_source(seed)
+    s.register("src", src)
+    s.sql(STORAGE_DDL.format(name="ev", ttl=""))
+    s.sql("SYSTEM STOP MERGES ev")
+    torch.cuda.synchronize()
+    ins = []
+    t0 = time.perf_counter()
+    for i in range(NS_BATCHES):
+        t1 = time.perf_counter()
+        s.sql("INSERT INTO ev SELECT EventDate, CounterID, UserID, g, v "
+              f"FROM src WHERE b = {i}")
+        torch.cuda.synchronize()
+        ins.append((time.perf_counter() - t1) * 1e3)
+    insert_s = time.perf_counter() - t0
+    ev = s.tables["ev"]
+    if ev.n_rows != NS:
+        raise AssertionError(f"sql_storage: {ev.n_rows} rows after the "
+                             "inserts")
+    nblocks = -(-NS // BLOCK_ROWS)
+    t0 = time.perf_counter()
+    idx = s._table_skip_indexes["ev"][0]
+    sidecar_for(s, ev, "UserID", idx)
+    torch.cuda.synchronize()
+    index_ms = (time.perf_counter() - t0) * 1e3
+    sday, sg, sv, suser = (src["EventDate"].data, src["g"].data,
+                           src["v"].data, src["UserID"].data)
+    d1, d7, d31 = first_day, first_day + 6, first_day + 30
+    statements = {
+        "day_groupby": "SELECT g, count(), sum(v), avg(v) FROM ev WHERE "
+                       f"EventDate = '{day_str(d7)}' GROUP BY g ORDER BY g",
+        "week_groupby": "SELECT g, count(), sum(v), avg(v) FROM ev WHERE "
+                        f"EventDate BETWEEN '{day_str(d1)}' AND "
+                        f"'{day_str(d7)}' GROUP BY g ORDER BY g",
+        "user_lookup": "SELECT count(), sum(v) FROM ev WHERE UserID = "
+                       f"{dup_user}"}
+    masks = {"day_groupby": sday == d7,
+             "week_groupby": (sday >= d1) & (sday <= d7)}
+
+    def check_groups(name):
+        cnt, sums = groupby_oracle(sg, sv, masks[name], G2)
+
+        def check(rows):
+            check_groupby_rows([(r[0], r[2], r[1], r[3]) for r in rows],
+                               cnt, sums, f"sql_storage {name}")
+        return check
+    hit = suser == dup_user
+    want_user = [(int(hit.sum()), int(sv[hit].long().sum()))]
+    if want_user[0][0] < 2:
+        raise AssertionError("sql_storage: the repeated UserID is missing")
+    checks = {"day_groupby": check_groups("day_groupby"),
+              "week_groupby": check_groups("week_groupby"),
+              "user_lookup": want_user}
+    stats, launches = run_statements_checked(s, statements, checks,
+                                             "sql_storage")
+    for name, stmt in statements.items():
+        pruned = blocks_pruned(s, stmt)
+        stats[name]["blocks_kept"] = nblocks - pruned
+        stats[name]["blocks_all"] = nblocks
+        if pruned <= 0:
+            raise AssertionError(f"sql_storage {name}: no block pruned")
+    for name in ("day_groupby", "week_groupby"):
+        if stats[name]["launches_by_path"]["group_aggregate"] < 10:
+            raise AssertionError(f"sql_storage {name}: K3 launched "
+                                 f"{stats[name]['launches_by_path']}")
+    for k, c in launches.items():
+        totals[k] = totals.get(k, 0) + c
+    s.sql("DROP TABLE src")
+    del src, sday, sg, sv, suser, hit, masks
+    torch.cuda.empty_cache()
+
+    # DROP PARTITION of the last day, then the count
+    want_left = NS - int((s.tables["ev"]["EventDate"].data == d31).sum())
+    t0 = time.perf_counter()
+    s.sql(f"ALTER TABLE ev DROP PARTITION '{day_str(d31)}'")
+    torch.cuda.synchronize()
+    drop_ms = (time.perf_counter() - t0) * 1e3
+    left = s.sql("SELECT count() FROM ev").to_rows()[0][0]
+    if left != want_left:
+        raise AssertionError(f"sql_storage: {left} rows after DROP "
+                             f"PARTITION, want {want_left}")
+
+    # a copy under TTL EventDate + INTERVAL 30 DAY: OPTIMIZE expires the
+    # first three days
+    s.sql(STORAGE_DDL.format(name="evt",
+                             ttl=" TTL EventDate + INTERVAL 30 DAY"))
+    s.sql("SYSTEM STOP MERGES evt")
+    s.sql("INSERT INTO evt SELECT * FROM ev")
+    s.sql("DROP TABLE ev")
+    torch.cuda.empty_cache()
+    dates = s.tables["evt"]["EventDate"].data
+    want_removed = int((dates <= d1 + 2).sum())
+    del dates
+    t0 = time.perf_counter()
+    s.sql("OPTIMIZE TABLE evt FINAL")
+    torch.cuda.synchronize()
+    optimize_ms = (time.perf_counter() - t0) * 1e3
+    after = s.sql("SELECT count(), min(EventDate) FROM evt").to_rows()[0]
+    if left - after[0] != want_removed or \
+            str(after[1]) != day_str(d1 + 3):
+        raise AssertionError(f"sql_storage: OPTIMIZE left {after}, "
+                             f"removed {left - after[0]} of "
+                             f"{want_removed}")
+    s.sql("DROP TABLE evt")
+    torch.cuda.empty_cache()
+    out["events"] = {
+        "rows": NS, "batches": NS_BATCHES,
+        "source": "ClickHouse docs, Yandex.Metrica example dataset: "
+                  "hits_v1 DDL (PARTITION BY toYYYYMM(EventDate))",
+        "reduced": ["partition key is the day, not toYYYYMM(EventDate): "
+                    "the JAX grammar takes column names only",
+                    "only the columns the statements read"],
+        "insert_s": insert_s, "insert_rows_per_s": NS / insert_s,
+        "insert_batch_ms": ins, "bloom_index_build_ms": index_ms,
+        "statements": statements, "per_statement": stats,
+        "drop_partition_ms": drop_ms,
+        "rows_after_drop_partition": left,
+        "optimize_ttl_ms": optimize_ms, "ttl_rows_removed": want_removed,
+        "launches": launches}
+
+    # (b) config 1 partitioned by day
+    builds = []
+    real_build = executor.build_sq8
+
+    def counted_build(x):
+        builds.append(tuple(x.shape))
+        if len(builds) > 1:
+            raise AssertionError("sql_storage: build_sq8 ran again: "
+                                 f"{builds}")
+        return real_build(x)
+    rng = np.random.default_rng(seed + 12)
+    data = {"id": np.arange(N, dtype=np.int64),
+            "price": rng.integers(0, 100, N).astype(np.int32),
+            "day": rng.integers(0, NB_DAYS, N).astype(np.uint8),
+            "emb": rng.standard_normal((N, D), dtype=np.float32)}
+    s.create_table("src1", data)
+    s.sql("CREATE TABLE tp (id UInt32, price Int32, day UInt8, emb "
+          f"Array(Float32), CONSTRAINT c CHECK length(emb) = {D}) "
+          "ENGINE = MergeTree PARTITION BY day ORDER BY id")
+    s.sql("SYSTEM STOP MERGES tp")
+    # one bulk INSERT: the batch is clustered by day, so a day's rows
+    # fill about two of the 16 blocks
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.sql("INSERT INTO tp SELECT id, price, day, emb FROM src1")
+    torch.cuda.synchronize()
+    tp_insert_s = time.perf_counter() - t0
+    step = N // 10
+    s.sql("DROP TABLE src1")
+    x = torch.as_tensor(data["emb"], device="cuda")
+    price = torch.as_tensor(data["price"], device="cuda")
+    day = torch.as_tensor(data["day"], device="cuda")
+    qs = rng.standard_normal((41, D), dtype=np.float32)
+    sels = {"pruned": (day == 3) & (price < 50), "unpruned": price < 50}
+    wants = {kind: [vector_oracle(x, sels[kind], torch.as_tensor(
+        q, device="cuda"), K) for q in qs[1:]] for kind in sels}
+    del x
+    torch.cuda.empty_cache()
+
+    def run_vector(table, tag):
+        res = {}
+        s.sql(PRUNED_SQL.format(q=vec_sql(qs[0]), t=table))     # warm-up
+        for kind, sql in (("pruned", PRUNED_SQL),
+                          ("unpruned", UNPRUNED_SQL)):
+            stmts = [sql.format(q=vec_sql(q), t=table) for q in qs[1:21]] \
+                if kind == "pruned" else \
+                [sql.format(q=vec_sql(q), t=table) for q in qs[21:]]
+            zero_launches()
+            lat, rows, k2 = timed_statements(s, stmts)
+            c = read_launches()
+            ws = wants[kind][:20] if kind == "pruned" else wants[kind][20:]
+            for i, (r, w) in enumerate(zip(rows, ws)):
+                check_vector_rows(r, w, f"sql_storage {tag} {kind} {i}")
+            if c["segmin_sq8"] != 20:
+                raise AssertionError(f"sql_storage {tag} {kind}: {c}")
+            pruned = blocks_pruned(s, stmts[0])
+            res[kind] = {**summary_ms(lat), "launches": c,
+                         "k2_statements": sum(1 for n in k2 if n),
+                         "blocks_kept": -(-N // BLOCK_ROWS) - pruned,
+                         "blocks_all": -(-N // BLOCK_ROWS)}
+            for k_, v_ in c.items():
+                totals[k_] = totals.get(k_, 0) + v_
+        return res
+
+    executor.build_sq8 = counted_build
+    try:
+        out["partitioned_config1"] = {
+            "rows": N, "dim": D, "days": NB_DAYS,
+            "insert_s": tp_insert_s, "insert_rows_per_s": N / tp_insert_s,
+            **run_vector("tp", "partitioned")}
+        if len(builds) != 1:
+            raise AssertionError(f"sql_storage: build_sq8 ran {builds}")
+        out["partitioned_config1"]["build_sq8_runs"] = len(builds)
+    finally:
+        executor.build_sq8 = real_build
+
+    # (c) the same table as ten parts on disk (about one day each, the
+    # rows being clustered by day), reopened
+    tmp = tempfile.mkdtemp(prefix="msdb_parts_")
+    try:
+        tp = s.tables["tp"]
+        store = TableStore(os.path.join(tmp, "tp"), device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a in range(0, N, step):
+            store.insert(tp.take(torch.arange(a, a + step, device="cuda")),
+                         codec_overrides={"emb": "lz"})
+        write_s = time.perf_counter() - t0
+        disk = sum(os.path.getsize(os.path.join(r, f))
+                   for r, _d, fs in os.walk(tmp) for f in fs)
+        raw = sum(c.data.numel() * physical_dtype_np(c).itemsize
+                  for c in tp.columns.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = open_table(os.path.join(tmp, "tp"), device="cuda")
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        if len(store.parts()) != 10 or loaded.n_rows != N:
+            raise AssertionError(f"sql_storage parts: {len(store.parts())}"
+                                 f" parts, {loaded.n_rows} rows")
+        s.register("tparts", loaded)
+        s.sql("DROP TABLE tp")
+        torch.cuda.empty_cache()
+        codecs_used = {c.name: "lz" if c.name == "emb" else
+                       default_codec(physical_dtype_np(c))
+                       for c in loaded.columns.values()}
+        out["parts"] = {"parts": 10, "codecs": codecs_used,
+                        "bytes_on_disk": disk, "raw_bytes": raw,
+                        "write_s": write_s, "write_mb_per_s":
+                            raw / write_s / 1e6,
+                        "read_s": read_s, "read_mb_per_s":
+                            raw / read_s / 1e6,
+                        **run_vector("tparts", "parts")}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        s.tables.clear()
+        torch.cuda.empty_cache()
+    emit({"phase": "sql_storage", **out, "launches": totals,
+          "oracle": "groups equal to bincount/index_add_ on the card; the "
+                    "lookup's count and sum; counts after DROP PARTITION "
+                    "and OPTIMIZE; vector ids equal to a direct-formula "
+                    "oracle, distances rtol 2e-5"})
+    return totals
+
+
+def physical_dtype_np(c):
+    from myscaledb_tpu_torch.core.types import physical_dtype
+    return np.dtype(np.int32) if c.dictionary is not None else \
+        np.dtype(physical_dtype(c.dtype))
+
+
 def phase_goldens_stateless() -> int:
     """Every case of tests/test_torch_goldens_stateless.py's CASES through
     run_golden_text(connect()) on the card, each byte-identical to its
@@ -3208,6 +3591,7 @@ def main() -> int:
     counts["sql_arrays"] = phase_sql_arrays(args.seed)
     counts["sql_subquery"] = phase_sql_subquery(args.seed)
     counts["sql_text"] = phase_sql_text(args.seed)
+    counts["sql_storage"] = phase_sql_storage(args.seed)
     phase_goldens_stateless()
 
     summary = []

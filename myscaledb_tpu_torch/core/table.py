@@ -145,6 +145,32 @@ class ZoneMap:
                 maxs[b] = chunk.max()
         return ZoneMap(mins, maxs)
 
+    @staticmethod
+    def build_device(data: torch.Tensor, host_dtype,
+                     block_rows: int = BLOCK_ROWS) -> "ZoneMap":
+        """``build`` over a device column: the per-block minima and maxima
+        are taken on the device and only those 2 x blocks values are
+        copied to the host, in ``host_dtype`` (the column's logical numpy
+        dtype).  The same values as ``build`` of the column's host copy."""
+        n = int(data.shape[0])
+        if n == 0:
+            z = np.zeros(1, dtype=host_dtype)
+            return ZoneMap(z, z.copy())
+        full = n // block_rows
+        mins, maxs = [], []
+        if full:
+            lo, hi = torch.aminmax(data[:full * block_rows]
+                                   .view(full, block_rows), dim=1)
+            mins.append(lo)
+            maxs.append(hi)
+        if n > full * block_rows:
+            lo, hi = torch.aminmax(data[full * block_rows:])
+            mins.append(lo.reshape(1))
+            maxs.append(hi.reshape(1))
+        both = torch.stack([torch.cat(mins), torch.cat(maxs)]).cpu().numpy()
+        both = both.astype(host_dtype, copy=False)
+        return ZoneMap(both[0].copy(), both[1].copy())
+
 
 class Column:
     """One column: logical field + device tensor (+ optional validity).

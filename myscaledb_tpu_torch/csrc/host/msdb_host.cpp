@@ -4,9 +4,10 @@
 // The reference implements its host data plane in C++ (tokenizers for the FTS
 // index, LowCardinality ingest in src/Columns/).  String dictionary encoding
 // and corpus tokenization are implemented here and exposed over a C ABI
-// consumed via ctypes (myscaledb_tpu_torch/native.py).  The JAX library's
-// partition hashing, LZ block codec and CSV column parsing come with the
-// slice that ports storage and formats.
+// consumed via ctypes (myscaledb_tpu_torch/native.py), with the LZ block
+// codec of on-disk parts (storage/codecs.py, codec "lz"): its compressor
+// writes the JAX library's bytes.  The JAX library's partition hashing and
+// CSV column parsing come with the slices that call them.
 //
 // Build: at first use, ops/kernels/build.py::host_library() runs
 // c++ -O3 -fPIC -std=c++17 -shared on this file into
@@ -162,5 +163,126 @@ void msdb_tok_copy(void* h, int32_t* term_ids, int32_t* doc_ids,
                 r->vocab_offsets.size() * sizeof(int64_t));
 }
 void msdb_tok_free(void* h) { delete static_cast<TokenizeResult*>(h); }
+
+// ---------------------------------------------------------------------------
+// fast LZ block codec ("msdb-lz"): greedy hash-chain LZ77, byte-aligned
+// format (the LZ4-class slot in src/Compression/).  Token layout per LZ4:
+//   [token: 4b lit_len | 4b match_len] [ext lit len bytes] [literals]
+//   [2B little-endian offset] [ext match len bytes]
+// match_len stored as len-4 (min match 4); final block is literals-only.
+
+static inline uint32_t lz_hash(uint32_t v) { return (v * 2654435761u) >> 19; } // 13-bit
+
+int64_t msdb_lz_compress_bound(int64_t n) { return n + n / 255 + 64; }
+
+int64_t msdb_lz_compress(const uint8_t* src, int64_t n, uint8_t* dst) {
+    const int64_t HASH_SIZE = 1 << 13;
+    std::vector<int64_t> table(HASH_SIZE, -1);
+    int64_t ip = 0, op = 0, anchor = 0;
+    if (n >= 13) {
+        const int64_t mflimit = n - 12;
+        while (ip < mflimit) {
+            uint32_t seq;
+            std::memcpy(&seq, src + ip, 4);
+            uint32_t h = lz_hash(seq);
+            int64_t ref = table[h];
+            table[h] = ip;
+            uint32_t refseq = 0;
+            if (ref >= 0 && ip - ref <= 65535) {
+                std::memcpy(&refseq, src + ref, 4);
+            }
+            if (ref < 0 || ip - ref > 65535 || refseq != seq) {
+                ++ip;
+                continue;
+            }
+            // extend match
+            int64_t mlen = 4;
+            while (ip + mlen < n - 5 && src[ref + mlen] == src[ip + mlen]) ++mlen;
+            int64_t litlen = ip - anchor;
+            // emit token
+            uint8_t* token = dst + op++;
+            if (litlen >= 15) {
+                *token = 0xF0;
+                int64_t l = litlen - 15;
+                for (; l >= 255; l -= 255) dst[op++] = 255;
+                dst[op++] = static_cast<uint8_t>(l);
+            } else {
+                *token = static_cast<uint8_t>(litlen << 4);
+            }
+            std::memcpy(dst + op, src + anchor, static_cast<size_t>(litlen));
+            op += litlen;
+            uint16_t off = static_cast<uint16_t>(ip - ref);
+            dst[op++] = static_cast<uint8_t>(off & 0xFF);
+            dst[op++] = static_cast<uint8_t>(off >> 8);
+            int64_t mstore = mlen - 4;
+            if (mstore >= 15) {
+                *token |= 0x0F;
+                int64_t m = mstore - 15;
+                for (; m >= 255; m -= 255) dst[op++] = 255;
+                dst[op++] = static_cast<uint8_t>(m);
+            } else {
+                *token |= static_cast<uint8_t>(mstore);
+            }
+            ip += mlen;
+            anchor = ip;
+        }
+    }
+    // final literal run
+    int64_t litlen = n - anchor;
+    uint8_t* token = dst + op++;
+    if (litlen >= 15) {
+        *token = 0xF0;
+        int64_t l = litlen - 15;
+        for (; l >= 255; l -= 255) dst[op++] = 255;
+        dst[op++] = static_cast<uint8_t>(l);
+    } else {
+        *token = static_cast<uint8_t>(litlen << 4);
+    }
+    std::memcpy(dst + op, src + anchor, static_cast<size_t>(litlen));
+    op += litlen;
+    return op;
+}
+
+int64_t msdb_lz_decompress(const uint8_t* src, int64_t srclen, uint8_t* dst,
+                           int64_t dstlen) {
+    // the same format as the JAX package's decoder; every read of the
+    // frame is bounds-checked, since it comes from a file on disk
+    int64_t ip = 0, op = 0;
+    while (ip < srclen) {
+        uint8_t token = src[ip++];
+        int64_t litlen = token >> 4;
+        if (litlen == 15) {
+            uint8_t b;
+            do {
+                if (ip >= srclen) return -1;
+                b = src[ip++];
+                litlen += b;
+            } while (b == 255);
+        }
+        if (op + litlen > dstlen || ip + litlen > srclen) return -1;
+        std::memcpy(dst + op, src + ip, static_cast<size_t>(litlen));
+        ip += litlen;
+        op += litlen;
+        if (ip >= srclen) break;   // final literals-only block
+        if (ip + 2 > srclen) return -1;
+        uint16_t off = static_cast<uint16_t>(src[ip] | (src[ip + 1] << 8));
+        ip += 2;
+        int64_t mlen = (token & 0x0F);
+        if (mlen == 15) {
+            uint8_t b;
+            do {
+                if (ip >= srclen) return -1;
+                b = src[ip++];
+                mlen += b;
+            } while (b == 255);
+        }
+        mlen += 4;
+        if (off == 0 || op - off < 0 || op + mlen > dstlen) return -1;
+        // overlapping copy must be byte-wise
+        for (int64_t i = 0; i < mlen; ++i) dst[op + i] = dst[op - off + i];
+        op += mlen;
+    }
+    return op;
+}
 
 }  // extern "C"

@@ -96,6 +96,36 @@ def _pos(off, device, rid=None) -> torch.Tensor:
         - starts.index_select(0, rid)
 
 
+def array_row_keys(v: Value, device) -> torch.Tensor:
+    """(n,) int64 keys of an ARRAY value's rows that order the arrays as
+    ClickHouse compares them (element by element, a prefix first) and are
+    equal exactly where the arrays are: GROUP BY, count(DISTINCT) and
+    ORDER BY over an array read them.  Each row becomes (present, element)
+    pairs padded to the longest array, and one ``torch.unique`` over rows
+    ranks them; floats compare through an order-keeping integer image
+    (-0.0 as +0.0), strings through the dictionary's sort ranks."""
+    off = v.offsets
+    lens = _lens(off, device)
+    n = int(lens.shape[0])
+    flat = v.data
+    if v.dictionary is not None:
+        ranks = to_tensor(np.append(v.dictionary.ranks(), -1)
+                          .astype(np.int64), device)
+        flat = ranks[torch.where(flat < 0, ranks.numel() - 1,
+                                 flat.to(torch.int64))]
+    elif flat.is_floating_point():
+        b = (flat.to(torch.float64) + 0.0).view(torch.int64)
+        flat = b ^ ((b >> 63) & 0x7FFFFFFFFFFFFFFF)
+    width = int(lens.max()) if n else 0
+    rows = torch.zeros((n, 2 * width), dtype=torch.int64, device=device)
+    if width:
+        rid = _rid(off, device)
+        pos = 2 * _pos(off, device, rid)
+        rows[rid, pos] = 1
+        rows[rid, pos + 1] = flat.to(torch.int64)
+    return torch.unique(rows, dim=0, return_inverse=True)[1]
+
+
 def _seg_sum(off, x: torch.Tensor, acc, device) -> torch.Tensor:
     """Per-row sum of flat elements in ``acc``: integers from one cumsum
     (exact, wrapping as the JAX package's int64 scatter-add does), floats

@@ -332,7 +332,13 @@ def _f_intdiv(args, env):
     if _is_bits(args[0]) and not b.is_floating_point():
         m = _positive_literal(args[1], "intDiv")
         return Value(_u64_div(a.to(torch.int64), m), valid, u64=True)
-    return Value(torch.floor_divide(a, b), valid)
+    return Value(_trunc_div(a, b), valid)
+
+def _trunc_div(a, b):
+    """intDiv: the quotient rounded toward zero, as ClickHouse gives it
+    (intDiv(-5, 3) = -1); the JAX package floors (ROADMAP section 3)."""
+    return torch.div(a, b, rounding_mode="trunc")
+
 
 @func("modulo")
 def _f_modulo(args, env):
@@ -340,7 +346,7 @@ def _f_modulo(args, env):
         return _arith("%", args[0], args[1], env)
     a = _numeric(args[0], env.n_rows)
     b = _numeric(args[1], env.n_rows)
-    return Value(torch.remainder(a, b), _both_valid(args[0], args[1]))
+    return Value(torch.fmod(a, b), _both_valid(args[0], args[1]))
 
 @func("plus")
 def _f_plus(args, env):
@@ -904,7 +910,7 @@ def _arith(op: str, a: Value, b: Value, env: Env) -> Value:
         # the JAX package, whose TPU has no f64 compute)
         d = _f32(x) / _f32(y)
     elif op == "%":
-        d = torch.remainder(x, y)
+        d = torch.fmod(x, y)          # truncated, as ClickHouse: -5 % 3 = -2
     else:
         raise EvalError(f"unknown arithmetic op {op}")
     if tag is not None and not d.is_floating_point():

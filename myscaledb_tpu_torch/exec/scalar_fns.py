@@ -44,7 +44,7 @@ from myscaledb_tpu_torch.exec.expr import (
     Value, Env, EvalError, _FUNCS, UNSIGNED_OF_MAX, func, _dict_map,
     _dict_transform, _dict_lut, _numeric, _scalar, _both_valid, _f32,
     _is_bits, _is_null_literal, _string_branch_ids, as_bool_mask,
-    host_rows)
+    host_rows, _trunc_div)
 from myscaledb_tpu_torch.ops.hash import _to_i64_bits, _shr64, popcount64
 
 
@@ -461,12 +461,12 @@ def _or_zero(args, env, op) -> Value:
 
 @func("intDivOrZero")
 def _f_intdivorzero(args, env):
-    return _or_zero(args, env, torch.floor_divide)
+    return _or_zero(args, env, _trunc_div)
 
 
 @func("moduloOrZero")
 def _f_moduloorzero(args, env):
-    return _or_zero(args, env, torch.remainder)
+    return _or_zero(args, env, torch.fmod)
 
 
 # ---------------------------------------------------------------------------
@@ -521,8 +521,15 @@ def _f_totypename(args, env):
         name = "DateTime"
     elif v.u64:
         name = "UInt64"
-    elif v.umax in UNSIGNED_OF_MAX:
-        name = UNSIGNED_OF_MAX[v.umax].value
+    elif v.umax is not None:
+        # a widened unsigned value (a column, or + and * over one, whose
+        # largest value _unsigned_arith tracks): the narrowest UInt that
+        # holds its largest value, UInt64 past UInt32 (ClickHouse types
+        # UInt32 + 1 and UInt32 * 2 UInt64)
+        name = next(t.value for t in (DataType.UINT8, DataType.UINT16,
+                                      DataType.UINT32)
+                    if v.umax <= np.iinfo(physical_dtype(t)).max) \
+            if v.umax <= 0xFFFFFFFF else "UInt64"
     else:
         d = v.data.dtype
         name = _TYPE_NAMES.get(d, str(d))

@@ -3,10 +3,10 @@ myscaledb_tpu/native.py, binding this package's copy of the source
 (``csrc/host/msdb_host.cpp``), which ``ops/kernels/build.py`` compiles at
 first use into ``_build/``.
 
-Dictionary encoding and corpus tokenization run in C++.  ``load()``
-builds the library or raises: there is no Python fallback.  The JAX
-module's partition hashing, LZ codec and CSV parsing come with the slice
-that ports storage and formats.
+Dictionary encoding, corpus tokenization and the LZ block codec of
+on-disk parts run in C++.  ``load()`` builds the library or raises: there
+is no Python fallback.  The JAX module's partition hashing and CSV parsing
+come with the slices that call them.
 """
 
 from __future__ import annotations
@@ -46,6 +46,12 @@ def load() -> ctypes.CDLL:
     lib.msdb_tok_vocab_bytes.restype = i64
     lib.msdb_tok_copy.argtypes = [voidp, i32p, i32p, c.c_char_p, i64p]
     lib.msdb_tok_free.argtypes = [voidp]
+    lib.msdb_lz_compress_bound.argtypes = [i64]
+    lib.msdb_lz_compress_bound.restype = i64
+    lib.msdb_lz_compress.argtypes = [charp, i64, charp]
+    lib.msdb_lz_compress.restype = i64
+    lib.msdb_lz_decompress.argtypes = [charp, i64, charp, i64]
+    lib.msdb_lz_decompress.restype = i64
     _lib = lib
     return lib
 
@@ -112,3 +118,23 @@ def tokenize_corpus(docs):
     finally:
         lib.msdb_tok_free(h)
 
+
+
+def lz_compress(data: bytes) -> bytes:
+    """One "msdb-lz" frame payload, byte for byte the JAX library's."""
+    lib = load()
+    out = ctypes.create_string_buffer(lib.msdb_lz_compress_bound(len(data)))
+    n = lib.msdb_lz_compress(data, len(data), out)
+    return out.raw[:n]
+
+
+def lz_decompress(data: bytes, raw_size: int) -> bytes:
+    """Inverse of ``lz_compress``; raises on a frame that does not decode
+    to exactly ``raw_size`` bytes."""
+    lib = load()
+    out = ctypes.create_string_buffer(max(raw_size, 1))
+    n = lib.msdb_lz_decompress(data, len(data), out, raw_size)
+    if n != raw_size:
+        raise ValueError(f"msdb-lz decompression error (got {n}, "
+                         f"want {raw_size})")
+    return out.raw[:raw_size]

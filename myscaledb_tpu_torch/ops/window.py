@@ -111,27 +111,41 @@ class WindowLayout:
 
     # -- aggregates ---------------------------------------------------------
 
-    def agg(self, fn: str, values: torch.Tensor):
+    def agg(self, fn: str, values: torch.Tensor, valid=None):
         """sum/count/avg/min/max over the default frame: the whole
-        partition without ORDER BY, else up to the row's last peer."""
-        if fn == "count":
-            v_s = torch.ones(self.n, dtype=torch.int64,
-                             device=self.perm.device)
-        else:
-            v_s = values[self.perm]
+        partition without ORDER BY, else up to the row's last peer.  NULL
+        rows (``valid`` False) are skipped, as ClickHouse skips them:
+        count counts the frame's values, avg divides by that count, and a
+        frame with no value gives NULL.  Returns (values, validity or
+        None)."""
         end = self.peer_end if self.has_order else self.part_end
-        if fn in ("sum", "count", "avg"):
-            cum = torch.cumsum(v_s.to(_sum_dtype(v_s)), 0)
+
+        def frame_sum(v_s):
+            cum = torch.cumsum(v_s, 0)
             base = torch.where(self.part_start > 0,
                                cum[(self.part_start - 1).clamp(min=0)], 0)
-            total = cum[end] - base
+            return cum[end] - base
+
+        have = valid[self.perm] if valid is not None else None
+        cnt = end - self.part_start + 1 if have is None else \
+            frame_sum(have.to(torch.int64))
+        if fn == "count":
+            return self.unsort(cnt), None
+        v_s = values[self.perm]
+        if fn in ("sum", "avg"):
+            if have is not None:
+                v_s = torch.where(have, v_s, torch.zeros_like(v_s))
+            total = frame_sum(v_s.to(_sum_dtype(v_s)))
             if fn == "avg":
-                cnt = (end - self.part_start + 1).to(torch.float32)
-                total = total.to(torch.float32) / cnt
-            return self.unsort(total)
-        if fn in ("min", "max"):
-            return self.unsort(_segmented_scan(v_s, self.part_first, fn)[end])
-        raise ValueError(fn)
+                total = total.to(torch.float32) / cnt.to(torch.float32)
+        elif fn in ("min", "max"):
+            if have is not None:
+                v_s = torch.where(have, v_s, _identity(v_s, fn))
+            total = _segmented_scan(v_s, self.part_first, fn)[end]
+        else:
+            raise ValueError(fn)
+        return self.unsort(total), \
+            None if have is None else self.unsort(cnt > 0)
 
     def first_value(self, values):
         return self.unsort(values[self.perm][self.part_start])
@@ -154,6 +168,20 @@ class WindowLayout:
         dv = torch.tensor(default, dtype=v_s.dtype, device=v_s.device)
         out_s = torch.where(same_part, v_s[safe], dv)
         return self.unsort(out_s), self.unsort(same_part)
+
+
+def _identity(v: torch.Tensor, fn: str) -> torch.Tensor:
+    """The value min (max) never picks: its dtype's largest (smallest)."""
+    if v.is_floating_point():
+        big = float("inf")
+    elif v.dtype == torch.bool:
+        big = True
+    else:
+        big = torch.iinfo(v.dtype).max
+    if fn == "max":
+        big = -big if v.is_floating_point() else (
+            False if v.dtype == torch.bool else torch.iinfo(v.dtype).min)
+    return torch.full_like(v, big)
 
 
 def _segmented_scan(v, seg_first, fn):

@@ -1,5 +1,6 @@
 """Virtual system.* tables: the port of ``system.one``,
-``system.numbers``, ``system.parts`` and ``system.vector_indices`` from
+``system.numbers``, ``system.parts``, ``system.vector_indices`` and
+``system.data_skipping_indices`` from
 myscaledb_tpu/runtime/system_tables.py (``build_system_table``), built on
 demand from the session's state and queried through the normal SQL path.
 Every other ``system.*`` name raises ``NotPortedError``.
@@ -13,7 +14,7 @@ from myscaledb_tpu_torch.core.table import Table
 from myscaledb_tpu_torch.errors import NotPortedError
 
 SYSTEM_TABLES = ("system.one", "system.parts", "system.vector_indices",
-                 "system.numbers")
+                 "system.numbers", "system.data_skipping_indices")
 
 
 def build_system_table(session, name: str) -> Table:
@@ -89,6 +90,22 @@ def build_system_table(session, name: str) -> Table:
             "latest_failed_part": ["" for _ in idxs],
             "latest_fail_reason": ["" for _ in idxs],
         }, device=dev)
+
+    if name == "system.data_skipping_indices":
+        # reference: src/Storages/System/StorageSystemDataSkippingIndices.cpp
+        tabs, names, cols, types, exprs, grans = [], [], [], [], [], []
+        for tname, defs in sorted(session._table_skip_indexes.items()):
+            for d in defs:
+                tabs.append(tname)
+                names.append(d.name)
+                cols.append(d.column)
+                types.append(d.kind)
+                exprs.append(f"{d.kind}({d.param:g})" if d.param else d.kind)
+                grans.append(d.granularity)
+        return Table.from_dict({
+            "table": tabs, "name": names, "column": cols, "type": types,
+            "type_full": exprs,
+            "granularity": np.asarray(grans, dtype=np.int64)}, device=dev)
 
     raise NotPortedError(f"system table {name}",
                          "storage, formats and runtime state")

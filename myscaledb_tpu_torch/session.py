@@ -7,9 +7,10 @@ device every tensor of the session lives on: ``connect()`` means the CUDA
 card, and a caller that wants the CPU says so with ``device="cpu"``.  The
 DDL statements (sql/ddl.py) keep their state here too: the logical part
 list of each table, detached tables, vector index definitions and their
-lifecycle events, constraints and order keys.  ``system.parts`` and
-``system.vector_indices`` resolve through runtime/system_tables.py; views
-are not ported yet.
+lifecycle events, constraints, order and partition keys, row TTLs and
+skip-index definitions.  ``system.parts``, ``system.vector_indices`` and
+``system.data_skipping_indices`` resolve through runtime/system_tables.py;
+views are not ported yet.
 
 Index builds may run on the background executor's thread: the index list
 is guarded by ``vi_lock``, the derived-state dict by ``sidecar_lock``.
@@ -51,6 +52,9 @@ class Session:
         self._table_parts: dict[str, list] = {}
         self._table_order_keys: dict[str, list] = {}
         self._table_constraints: dict[str, dict] = {}
+        self._table_partition_keys: dict[str, list] = {}
+        self._table_ttls: dict[str, object] = {}
+        self._table_skip_indexes: dict[str, list] = {}
         self._detached: dict[str, tuple] = {}
         self._merges_stopped: set = set()
         self._bg_merge_pending: set = set()
@@ -98,13 +102,14 @@ class Session:
         raise KeyError(f"unknown table {name!r}")
 
     def drop_table(self, name: str) -> None:
-        """Forget a table with its settings, parts, constraints, order keys
-        and vector index definitions."""
+        """Forget a table with its settings, parts, constraints, order and
+        partition keys, TTL, skip and vector index definitions."""
         self.tables.pop(name, None)
         self.table_settings.pop(name, None)
-        self._table_parts.pop(name, None)
-        self._table_constraints.pop(name, None)
-        self._table_order_keys.pop(name, None)
+        for state in (self._table_parts, self._table_constraints,
+                      self._table_order_keys, self._table_partition_keys,
+                      self._table_ttls, self._table_skip_indexes):
+            state.pop(name, None)
         # index definitions die with the table
         with self.vi_lock:
             self.vector_indices[:] = [i for i in self.vector_indices

@@ -83,6 +83,9 @@ def _valid_mask(m: torch.Tensor, vals) -> torch.Tensor:
 def _distinct_key(v, n: int) -> torch.Tensor:
     """Equality key of one argument: dictionary ids, f32 bit patterns for
     floats (the JAX package's float_bits_key), integers as they are."""
+    if v.is_array:
+        from myscaledb_tpu_torch.exec.arrays import array_row_keys
+        return array_row_keys(v, v.data.device)
     data = _full(v, n)
     if v.dictionary is not None:
         return data.to(torch.int32)

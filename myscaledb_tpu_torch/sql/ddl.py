@@ -1,29 +1,33 @@
 """DDL and DML statements: the port of the subset of
-myscaledb_tpu/sql/ddl.py that a user's vector workflow and the vector
-goldens run — create, load, index, query, delete, query.
+myscaledb_tpu/sql/ddl.py that a user's vector and storage workflows and the
+goldens run — create, load, index, partition, query, delete, query.
 
 Ported: ``DDLParser`` (``parse_statement``, ``parse_create`` with columns,
-``CONSTRAINT ... CHECK length(v) = d``, ENGINE, ORDER BY / PRIMARY KEY and
-SETTINGS; ``parse_type``; ``parse_insert`` / ``parse_insert_value`` for
+``CONSTRAINT ... CHECK length(v) = d``, ``INDEX ... TYPE ... GRANULARITY``,
+ENGINE, ORDER BY / PRIMARY KEY, PARTITION BY, TTL and SETTINGS, CREATE
+INDEX; ``parse_type``; ``parse_insert`` / ``parse_insert_value`` for
 VALUES and SELECT; ``parse_alter`` / ``_parse_alter_command`` for ADD/DROP
-VECTOR INDEX, ADD CONSTRAINT and DELETE WHERE; ``parse_drop``,
-``parse_set``, DELETE FROM, OPTIMIZE, TRUNCATE, DETACH/ATTACH, SYSTEM
-STOP/START MERGES); ``execute_statement`` for those statements (tables of
-the resident engines: the MergeTree family and every engine the JAX
-package keeps as a plain resident table); ``empty_table_from_defs``,
-``_default_column``, ``rows_to_table``, ``required_privilege`` and the
-background part merge.
+VECTOR INDEX, ADD/DROP INDEX, DROP PARTITION, ADD CONSTRAINT and DELETE
+WHERE; ``parse_drop`` with DROP INDEX, ``parse_set``, DELETE FROM,
+OPTIMIZE, TRUNCATE, DETACH/ATTACH, SYSTEM STOP/START MERGES, FLUSH LOGS
+and DROP QUERY CACHE); ``execute_statement`` for those statements (tables
+of the resident engines: the MergeTree family and every engine the JAX
+package keeps as a plain resident table); ``apply_table_ttl``,
+``empty_table_from_defs``, ``_default_column``, ``rows_to_table``,
+``required_privilege`` and the background part merge.
 
 Every other statement raises ``NotPortedError`` naming its slice:
 users, grants, views, dictionaries, column and setting changes go to
-"expression and function breadth"; file and stream engines, INFILE,
-INSERT ... FORMAT, PARTITION BY, TTL and skip indexes to "storage, formats
-and runtime state".
+"expression and function breadth"; file and stream engines, INFILE and
+INSERT ... FORMAT to "storage, formats and runtime state".
 
 Tables live on the session's device.  Each INSERT appends one logical part
 (``session._table_parts``, what system.parts lists) and concatenates the
 batch onto the table on the device; OPTIMIZE and the background merge
-collapse the part list.
+apply the row TTL and collapse the part list.  A partitioned table clusters
+each batch by its key on the device and takes its zone maps anew there.
+On-disk parts are storage/table_store.py's (``TableStore``,
+``open_table``).
 """
 
 from __future__ import annotations
@@ -73,6 +77,27 @@ class CreateTable:
     engine_args: list = field(default_factory=list)
     vector_indexes: list = field(default_factory=list)
                                 # inline (name, col, type, params)
+    partition_by: list = field(default_factory=list)
+    skip_indexes: list = field(default_factory=list)
+    ttl: object = None          # table-level row TTL expression (AST)
+
+
+@dataclass
+class AddSkipIndex:
+    table: str
+    index: object              # storage.skip_index.SkipIndexDef
+
+
+@dataclass
+class DropSkipIndex:
+    table: str
+    name: str
+
+
+@dataclass
+class DropPartition:
+    table: str
+    value: object
 
 
 @dataclass
@@ -101,8 +126,9 @@ class AlterDelete:
 
 @dataclass
 class OptimizeTable:
-    """OPTIMIZE TABLE t [FINAL]: force a merge, which collapses the
-    table's logical part list (reference: InterpreterOptimizeQuery)."""
+    """OPTIMIZE TABLE t [FINAL]: force a merge, which applies the table's
+    row TTL and collapses its logical part list (reference:
+    InterpreterOptimizeQuery)."""
     table: str
     final: bool = False
 
@@ -159,7 +185,8 @@ class SetStatement:
 
 @dataclass
 class SystemStatement:
-    action: str                 # "merges_stop" | "merges_start"
+    action: str                 # "merges_stop" | "merges_start" |
+                                # "flush_logs" | "drop_query_cache"
     target: Optional[str] = None
 
 
@@ -200,6 +227,13 @@ class DDLParser(Parser):
             self.next()
             if self.take_kw("RELOAD"):
                 raise NotPortedError("SYSTEM RELOAD DICTIONARY", BREADTH)
+            if self.take_kw("FLUSH"):
+                self.take_kw("LOGS")
+                return SystemStatement("flush_logs")
+            if self.take_kw("DROP"):
+                self.take_kw("QUERY")
+                self.expect_kw("CACHE")
+                return SystemStatement("drop_query_cache")
             if self.at_kw("STOP", "START"):
                 # STOP/START MERGES [table]: pauses or resumes the
                 # background part merge of one table (or of every table)
@@ -208,7 +242,7 @@ class DDLParser(Parser):
                 target = self.next().text if self.peek().kind != "eof" \
                     else None
                 return SystemStatement(action, target)
-            raise NotPortedError(f"SYSTEM {self.peek().upper}", STORAGE)
+            raise ParseError("unsupported SYSTEM statement")
         if up in ("GRANT", "REVOKE"):
             raise NotPortedError(f"{up} statements", BREADTH)
         if up == "SHOW":
@@ -258,7 +292,7 @@ class DDLParser(Parser):
                                  BREADTH)
         if self.take_kw("ADD"):
             if self.at_kw("INDEX"):
-                raise NotPortedError("skip indexes (ADD INDEX)", STORAGE)
+                return AddSkipIndex(table, self._parse_skip_index())
             if self.take_kw("CONSTRAINT"):
                 name = self.next().text
                 self.expect_kw("CHECK")
@@ -275,9 +309,20 @@ class DDLParser(Parser):
             return AddVectorIndex(table, name, column, itype,
                                   self._vector_index_params())
         if self.take_kw("DROP"):
-            if self.at_kw("PARTITION", "INDEX"):
-                raise NotPortedError(f"ALTER TABLE ... DROP "
-                                     f"{self.peek().upper}", STORAGE)
+            if self.take_kw("PARTITION"):
+                # the partition's key value: a literal, quoted or not
+                tok = self.next()
+                val = unquote_string(tok.text) if tok.kind == "string" \
+                    else tok.text
+                for conv in (int, float):
+                    try:
+                        val = conv(val)
+                        break
+                    except (TypeError, ValueError):
+                        pass
+                return DropPartition(table, val)
+            if self.take_kw("INDEX"):
+                return DropSkipIndex(table, self.next().text)
             if self.at_kw("COLUMN", "PROJECTION", "CONSTRAINT"):
                 raise NotPortedError(f"ALTER TABLE ... DROP "
                                      f"{self.peek().upper}", BREADTH)
@@ -300,8 +345,13 @@ class DDLParser(Parser):
             itype = self.next().text
             return AddVectorIndex(table, name, column, itype,
                                   self._vector_index_params(), ine)
-        if self.at_kw("INDEX"):
-            raise NotPortedError("skip indexes (CREATE INDEX)", STORAGE)
+        if self.take_kw("INDEX"):
+            # CREATE INDEX [IF NOT EXISTS] name ON table(col) TYPE kind ...
+            self._take_if_not_exists()
+            iname = self.next().text
+            self.expect_kw("ON")
+            table = self.parse_table_name()
+            return AddSkipIndex(table, self._skip_index_tail(iname))
         for kw, what in (("USER", "users"), ("ROLE", "roles"),
                          ("ROW", "row policies"), ("QUOTA", "quotas"),
                          ("DICTIONARY", "dictionaries"), ("VIEW", "views"),
@@ -314,11 +364,11 @@ class DDLParser(Parser):
         self.expect_punct("(")
         cols = []
         vec_defs = []
+        skip_defs = []
         while True:
             if self.at_kw("INDEX"):
-                raise NotPortedError("skip indexes (INDEX in CREATE TABLE)",
-                                     STORAGE)
-            if self.at_kw("VECTOR") and self.peek(1).upper == "INDEX":
+                skip_defs.append(self._parse_skip_index())
+            elif self.at_kw("VECTOR") and self.peek(1).upper == "INDEX":
                 # inline VECTOR INDEX name col TYPE X('params') — guarded on
                 # the second token: `vector` is also a popular column name
                 self.next()
@@ -351,9 +401,11 @@ class DDLParser(Parser):
                 break
         self.expect_punct(")")
         order_by = []
+        partition_by = []
         settings = {}
         engine = "MergeTree"
         engine_args = []
+        ttl = None
         # engine / order by / primary key / settings tail
         while self.peek().kind != "eof":
             if self.take_kw("ENGINE"):
@@ -385,9 +437,27 @@ class DDLParser(Parser):
                 else:
                     order_by.append(self.next().text)
             elif self.at_kw("PARTITION"):
-                raise NotPortedError("PARTITION BY", STORAGE)
-            elif self.at_kw("TTL"):
-                raise NotPortedError("table TTL", STORAGE)
+                # PARTITION BY col | (col, ...): each inserted batch is
+                # clustered by the key, so the zone maps prune whole
+                # partitions, and ALTER ... DROP PARTITION deletes by its
+                # first column.  As in the JAX package, the key is read as
+                # column names: an expression's first token is taken and
+                # the rest skipped, and a key that names no column does
+                # not cluster.
+                self.next()
+                self.expect_kw("BY")
+                if self.take_punct("("):
+                    partition_by.append(self.next().text)
+                    while self.take_punct(","):
+                        partition_by.append(self.next().text)
+                    self.expect_punct(")")
+                else:
+                    partition_by.append(self.next().text)
+            elif self.take_kw("TTL"):
+                # table-level row TTL: rows whose TTL time has passed are
+                # deleted at OPTIMIZE and merge time (TTLDeleteAlgorithm)
+                ttl = self.parse_expr()
+                self.take_kw("DELETE")
             elif self.take_kw("SETTINGS"):
                 while self.peek().kind != "eof":
                     sname = self.next().text
@@ -399,7 +469,48 @@ class DDLParser(Parser):
             else:
                 self.next()   # tolerate unknown clauses
         return CreateTable(name, cols, order_by, ine, settings, engine,
-                           engine_args, vec_defs)
+                           engine_args, vec_defs, partition_by, skip_defs,
+                           ttl)
+
+    def _parse_skip_index(self):
+        """INDEX name col TYPE set(N)|bloom_filter([fp])|ngrambf_v1(n, ...)|
+        tokenbf_v1(...) [GRANULARITY g] (reference grammar:
+        ParserCreateQuery.cpp index declarations)."""
+        self.expect_kw("INDEX")
+        return self._skip_index_tail(self.next().text)
+
+    def _skip_index_tail(self, iname: str):
+        """col TYPE kind[(params)] [GRANULARITY g] of a skip index (the
+        column bare, in parentheses, or after a space in parentheses).
+        Only the first parameter is kept: a set's size, a bloom's false
+        positive rate, an n-gram size; the filter geometry comes from the
+        data, as in the JAX package."""
+        from myscaledb_tpu_torch.storage.skip_index import SkipIndexDef
+        if self.take_punct("("):
+            col = self.next().text
+            self.expect_punct(")")
+        else:
+            col = self.next().text
+            if self.take_punct("("):
+                col = self.next().text
+                self.expect_punct(")")
+        self.expect_kw("TYPE")
+        kind = self.next().text.lower()
+        kind = {"ngrambf_v1": "ngrambf", "tokenbf_v1": "tokenbf"}.get(
+            kind, kind)
+        param = 0.0
+        if self.take_punct("("):
+            first = True
+            while not self.take_punct(")"):
+                tok = self.next().text
+                if first:
+                    param = float(tok)
+                    first = False
+                self.take_punct(",")
+        gran = 1
+        if self.take_kw("GRANULARITY"):
+            gran = int(self.next().text)
+        return SkipIndexDef(iname, col, kind, param, gran)
 
     def _apply_length_constraint(self, cols, chk):
         # recognize length(col) = N
@@ -554,8 +665,12 @@ class DDLParser(Parser):
             name = self.next().text
             self.expect_kw("ON")
             return DropVectorIndex(self.parse_table_name(), name)
-        if self.at_kw("INDEX"):
-            raise NotPortedError("skip indexes (DROP INDEX)", STORAGE)
+        if self.take_kw("INDEX"):
+            # DROP INDEX [IF EXISTS] name ON table (skip index)
+            self._take_if_exists()
+            name = self.next().text
+            self.expect_kw("ON")
+            return DropSkipIndex(self.parse_table_name(), name)
         for kw in ("USER", "ROLE", "QUOTA", "ROW", "DICTIONARY"):
             if self.at_kw(kw):
                 raise NotPortedError(f"DROP {kw}", BREADTH)
@@ -598,8 +713,10 @@ _SPECIAL_ENGINES = {"filelog": STORAGE, "kafka": STORAGE,
 def maybe_schedule_background_merge(session, name: str) -> None:
     """Schedule a background part merge once a table holds enough INSERT
     parts (reference: StorageMergeTree::scheduleDataProcessingJob).  The
-    merge collapses the logical part list; SYSTEM STOP MERGES holds it
-    off (the JAX package accepts STOP MERGES and merges all the same)."""
+    merge applies the table's row TTL (the reference runs
+    TTLDeleteAlgorithm inside any merge) and collapses the logical part
+    list; SYSTEM STOP MERGES holds it off (the JAX package accepts STOP
+    MERGES and merges all the same)."""
     parts = session._table_parts.get(name)
     if parts is None or len(parts) < MERGE_MIN_PARTS:
         return
@@ -614,6 +731,7 @@ def maybe_schedule_background_merge(session, name: str) -> None:
         try:
             if name not in session.tables:
                 return
+            apply_table_ttl(session, name)
             plist = session._table_parts.get(name)
             if plist is not None and len(plist) >= 2:
                 total = session.tables[name].n_rows
@@ -623,6 +741,76 @@ def maybe_schedule_background_merge(session, name: str) -> None:
 
     from myscaledb_tpu_torch.storage.background import default_executor
     default_executor().schedule(_merge)
+
+
+def apply_table_ttl(session, name: str) -> int:
+    """Delete the rows whose TTL time has passed (reference:
+    TTLDeleteAlgorithm, applied here at OPTIMIZE and merge time); returns
+    the number of rows removed.  A Date TTL compares in days.  A NULL TTL
+    keeps its row.  If another statement replaced the table while the
+    TTL was evaluated (a background merge runs beside statements), the
+    table is left alone: the next merge or OPTIMIZE applies it."""
+    from myscaledb_tpu_torch.exec.expr import Env, eval_expr
+    from myscaledb_tpu_torch.ops.filter import compact_table_host
+    ttl = session._table_ttls.get(name)
+    if ttl is None:
+        return 0
+    t = session.tables[name]
+    if t.n_rows == 0:
+        return 0
+    v = eval_expr(ttl, Env(t, device=session.device))
+    data = v.data.expand(t.n_rows) if v.is_scalar else v.data
+    now = time.time()
+    if v.dt is DataType.DATE:
+        now = now / 86400.0
+    expired = data.to(torch.float64) <= now
+    if v.valid is not None:
+        expired = expired & v.valid             # NULL TTL -> keep
+    n_exp = int(expired.sum())
+    if n_exp == 0:
+        return 0
+    kept, _ = compact_table_host(t, ~expired)
+    kept.name = name
+    if session.tables.get(name) is not t:
+        return 0
+    session.tables[name] = kept
+    session.bump_epoch()
+    return n_exp
+
+
+def _cluster_by_partition(new: Table, pkeys: list) -> Table:
+    """An INSERT batch ordered by its partition key, stably, so that each
+    zone-map block covers few partitions (PartitionPruner.h realized
+    through the zone maps): the order of the JAX package's ``np.lexsort``
+    over the keys' stored values (a String key's dictionary ids), from
+    stable sorts on the batch's device, the last key first.  A batch
+    already in order is kept as it is."""
+    dev = next(iter(new.columns.values())).data.device
+    perm = torch.arange(new.n_rows, device=dev)
+    for k in reversed(pkeys):
+        key = new[k].data
+        if isinstance(key, np.ndarray):
+            key = to_tensor(key, dev)
+        perm = perm[torch.sort(key[perm], stable=True).indices]
+    if bool((perm == torch.arange(new.n_rows, device=dev)).all()):
+        return new
+    return new.take(perm)
+
+
+def _rebuild_zone_maps(table: Table) -> None:
+    """Zone maps of every plain numeric or String column, taken after a
+    partitioned INSERT so that partition pruning sees the new rows (the
+    reference derives each part's partition minmax on write).  Per-block
+    minima and maxima are taken on the device; only they reach the host."""
+    from myscaledb_tpu_torch.core.table import ZoneMap
+    for c in table.columns.values():
+        if c.offsets is not None or c.data.ndim != 1 or not (
+                c.dtype.is_numeric or c.dictionary is not None):
+            continue
+        host_dtype = np.int32 if c.dictionary is not None \
+            else physical_dtype(c.dtype)
+        c.zonemap = ZoneMap.build(np.asarray(c.data, dtype=host_dtype)) \
+            if c.is_host else ZoneMap.build_device(c.data, host_dtype)
 
 
 def _table_settings(raw: dict) -> TableSettings:
@@ -805,7 +993,8 @@ def required_privilege(stmt):
     if isinstance(stmt, TruncateTable):
         return ("TRUNCATE", stmt.name)
     if isinstance(stmt, (AlterDelete, AddVectorIndex, DropVectorIndex,
-                         AlterMulti, AddConstraint)):
+                         AlterMulti, AddConstraint, DropPartition,
+                         AddSkipIndex, DropSkipIndex)):
         return ("ALTER", stmt.table)
     if isinstance(stmt, OptimizeTable):
         return ("OPTIMIZE", stmt.table)
@@ -928,9 +1117,29 @@ def execute_statement(session, stmt) -> Table:
         t = empty_table_from_defs(stmt.name, stmt.columns, dev)
         session.register(stmt.name, t, _table_settings(stmt.settings))
         session._table_order_keys[stmt.name] = stmt.order_by
+        session._table_partition_keys[stmt.name] = stmt.partition_by
+        if stmt.ttl is not None:
+            session._table_ttls[stmt.name] = stmt.ttl
+        if stmt.skip_indexes:
+            session._table_skip_indexes[stmt.name] = list(stmt.skip_indexes)
         for vname, vcol, vtype, vparams in stmt.vector_indexes:
             _add_vector_index(session, AddVectorIndex(
                 stmt.name, vname, vcol, vtype, vparams))
+        return empty
+
+    if isinstance(stmt, AddSkipIndex):
+        if stmt.table not in session.tables:
+            raise ValueError(f"unknown table {stmt.table!r}")
+        defs = [i for i in session._table_skip_indexes.get(stmt.table, ())
+                if i.name != stmt.index.name]
+        session._table_skip_indexes[stmt.table] = defs + [stmt.index]
+        return empty
+
+    if isinstance(stmt, DropSkipIndex):
+        if stmt.table in session._table_skip_indexes:
+            session._table_skip_indexes[stmt.table] = [
+                i for i in session._table_skip_indexes[stmt.table]
+                if i.name != stmt.name]
         return empty
 
     if isinstance(stmt, AlterMulti):
@@ -953,6 +1162,9 @@ def execute_statement(session, stmt) -> Table:
             new = _insert_select(session, stmt, existing)
         else:
             new = rows_to_table(existing, stmt.columns, stmt.rows, dev)
+        pkeys = session._table_partition_keys.get(stmt.table) or []
+        if pkeys and all(k in new for k in pkeys) and new.n_rows > 1:
+            new = _cluster_by_partition(new, pkeys)
         if existing.n_rows == 0 and set(new.column_names) == \
                 set(existing.column_names):
             # first insert fixes unknown vector dims
@@ -969,6 +1181,8 @@ def execute_statement(session, stmt) -> Table:
             merged = concat_tables([existing, new.select(
                 existing.column_names)])
         merged.name = stmt.table
+        if pkeys:
+            _rebuild_zone_maps(merged)
         session.tables[stmt.table] = merged
         # logical part accounting for system.parts (one part per INSERT
         # batch until a merge collapses them — MergeTreeData part model)
@@ -995,6 +1209,17 @@ def execute_statement(session, stmt) -> Table:
             session.table_settings[stmt.table] = ts
         return empty
 
+    if isinstance(stmt, DropPartition):
+        # DROP PARTITION value deletes every row whose first partition key
+        # column equals the value (MergeTreeData::dropPartition; the
+        # partition here is the clustered key value)
+        from myscaledb_tpu_torch.sql.ast import BinOp, Ident, Literal
+        pkeys = session._table_partition_keys.get(stmt.table) or []
+        if not pkeys:
+            raise ValueError(f"table {stmt.table!r} is not partitioned")
+        stmt = AlterDelete(stmt.table,
+                           BinOp("=", Ident(pkeys[0]), Literal(stmt.value)))
+
     if isinstance(stmt, AlterDelete):
         # lightweight-delete semantics: rows matching WHERE disappear
         # (reference: MutateTask + _row_exists mask; the table is rewritten)
@@ -1012,6 +1237,7 @@ def execute_statement(session, stmt) -> Table:
     if isinstance(stmt, OptimizeTable):
         if stmt.table not in session.tables:
             raise ValueError(f"unknown table {stmt.table!r}")
+        apply_table_ttl(session, stmt.table)
         parts = session._table_parts
         if stmt.table in parts:          # merge collapses the part set
             total = session.tables[stmt.table].n_rows
@@ -1068,6 +1294,9 @@ def execute_statement(session, stmt) -> Table:
             for name in ([stmt.target] if stmt.target
                          else list(session._table_parts)):
                 maybe_schedule_background_merge(session, name)
+        elif stmt.action == "drop_query_cache":
+            session._query_cache.clear()
+        # flush_logs: the logs are live tables here
         return empty
 
     raise ValueError(f"unsupported statement {stmt!r}")

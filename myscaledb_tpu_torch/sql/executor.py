@@ -84,7 +84,8 @@ from myscaledb_tpu_torch.sql.agg_fns import _column_range, _special_aggregate
 from myscaledb_tpu_torch.exec.expr import (DIST_FNS, UNSIGNED_OF_MAX, Env,
                                            Value, eval_expr, as_bool_mask,
                                            EvalError, _dict_map)
-from myscaledb_tpu_torch.exec.arrays import as_array
+from myscaledb_tpu_torch.exec.datetime_fns import parse_date_literal
+from myscaledb_tpu_torch.exec.arrays import array_row_keys, as_array
 from myscaledb_tpu_torch.ops.hash import float_bits_key
 from myscaledb_tpu_torch.ops.hashtable import build_group_ids, INT32_MAX
 from myscaledb_tpu_torch.ops.join import (hash_join_any, hash_join_all,
@@ -697,6 +698,9 @@ def _sort_key_from_value(v: Value, ascending: bool, nulls_last: bool, n: int,
     """A SortKey on ``device``, except that a host-resident column stays
     a host array (streaming_topn_permutation moves it in chunks;
     ``_key_on_device`` moves it whole for the other sorts)."""
+    if v.is_array:
+        return SortKey(array_row_keys(v, device), ascending=ascending,
+                       valid=v.valid, nulls_last=nulls_last)
     data = v.data
     if isinstance(data, np.ndarray) and not fits_device(data):
         # UInt64 past 2^63-1: the same order as int64 sort keys
@@ -823,11 +827,24 @@ def _limit_prunable(q) -> bool:
     return True
 
 
-def _zonemap_block_mask(table: Table, conjuncts) -> Optional[np.ndarray]:
-    """Per-block min/max pruning over the host zone maps.  Returns a boolean
-    possible-mask over 64k-row blocks, or None when no term is prunable.
-    (The JAX package also consults declared skip indexes, which come with
-    the DDL slice.)"""
+def _zonemap_block_mask(table: Table, conjuncts,
+                        session=None) -> Optional[np.ndarray]:
+    """Per-block min/max pruning over the host zone maps, and over the
+    table's declared skip indexes (``_skipindex_block_mask``).  Returns a
+    boolean possible-mask over 64k-row blocks, or None when no term is
+    prunable.  Beyond the JAX package's terms, ``x BETWEEN a AND b`` prunes
+    as ``x >= a AND x <= b``, and a string literal against a Date or
+    DateTime column as its day or second number, as ClickHouse's
+    KeyCondition does (the rows are the same; fewer blocks are read)."""
+    flat = []
+    for term in conjuncts:
+        if isinstance(term, Between) and not term.negated:
+            flat += [BinOp(">=", term.expr, term.low),
+                     BinOp("<=", term.expr, term.high)]
+        else:
+            flat.append(term)
+    conjuncts = flat
+
     def _col_of(e):
         if not isinstance(e, Ident):
             return None
@@ -845,6 +862,12 @@ def _zonemap_block_mask(table: Table, conjuncts) -> Optional[np.ndarray]:
         if isinstance(v, str) and col.dictionary is not None:
             did = col.dictionary.encode_one(v)
             return True, (None if did < 0 else did)
+        if isinstance(v, str) and col.dtype in (DataType.DATE,
+                                                DataType.DATETIME):
+            try:
+                return True, parse_date_literal(v, col.dtype)
+            except EvalError:
+                return False, None
         return False, None
 
     possible = None
@@ -907,6 +930,129 @@ def _zonemap_block_mask(table: Table, conjuncts) -> Optional[np.ndarray]:
             else:
                 ok = zm.maxs >= lit
         if ok is not None:
+            possible = ok if possible is None else (possible & ok)
+    sk = _skipindex_block_mask(table, conjuncts, session)
+    if sk is not None:
+        possible = sk if possible is None else (possible & sk)
+    return possible
+
+
+def _skipindex_block_mask(table: Table, conjuncts, session) -> \
+        Optional[np.ndarray]:
+    """Per-block set/bloom skip-index pruning (reference:
+    MergeTreeIndexSet.cpp / MergeTreeIndexBloomFilter.cpp /
+    MergeTreeIndexFullText.cpp consulted during range selection): the
+    port of the JAX package's function of the same name.  Sidecars come
+    from storage/skip_index.py, cached per mutation epoch; each index
+    consulted counts one ``SkipIndexChecks``."""
+    if session is None or not table.name:
+        return None
+    defs = session._table_skip_indexes.get(table.name)
+    if not defs:
+        return None
+    from myscaledb_tpu_torch.storage.skip_index import (
+        BloomSidecar, NgramBloomSidecar, _hash_grams, _to_u64_keys,
+        pattern_required_grams, set_blocks_possible, set_blocks_possible_in,
+        sidecar_for)
+    by_col = {}
+    for idx in defs:
+        by_col.setdefault(idx.column, []).append(idx)
+
+    def _name(e):
+        return e.qualified if e.table else e.name
+
+    def _term_parts(term):
+        """-> (col_name, op, [literal values]) or None."""
+        if isinstance(term, InList) and not term.negated:
+            if not isinstance(term.expr, Ident):
+                return None
+            if not all(isinstance(it, Literal) for it in term.items):
+                return None
+            return _name(term.expr), "in", [it.value for it in term.items]
+        if isinstance(term, BinOp) and term.op in ("=", "<", "<=", ">", ">="):
+            lhs, rhs, op = term.left, term.right, term.op
+            if isinstance(rhs, Ident) and isinstance(lhs, Literal):
+                lhs, rhs = rhs, lhs
+                op = {"<": ">", "<=": ">=", ">": "<", ">=": "<="}.get(op, op)
+            if not (isinstance(lhs, Ident) and isinstance(rhs, Literal)):
+                return None
+            return _name(lhs), op, [rhs.value]
+        return None
+
+    possible = None
+    for term in conjuncts:
+        # LIKE pruning through ngram/token blooms: blocks lacking any
+        # required gram of the pattern cannot match
+        if (isinstance(term, FuncCall) and term.name.lower() == "like"
+                and len(term.args) == 2 and isinstance(term.args[0], Ident)
+                and isinstance(term.args[1], Literal)
+                and isinstance(term.args[1].value, str)):
+            lname = _name(term.args[0])
+            if lname in by_col and lname in table:
+                for idx in by_col[lname]:
+                    if idx.kind not in ("ngrambf", "tokenbf"):
+                        continue
+                    sc = sidecar_for(session, table, lname, idx)
+                    if not isinstance(sc, NgramBloomSidecar):
+                        continue
+                    grams = pattern_required_grams(
+                        term.args[1].value, idx.kind, int(idx.param) or 3)
+                    if not grams:
+                        continue
+                    ok = sc.may_contain_all(_hash_grams(grams))
+                    M.increment("SkipIndexChecks")
+                    possible = ok if possible is None else (possible & ok)
+            continue
+        parts = _term_parts(term)
+        if parts is None:
+            continue
+        name, op, lits = parts
+        if name not in by_col or name not in table:
+            continue
+        col = table[name]
+        # literals in the column's stored key space
+        keys = []
+        provably_absent = False
+        for v in lits:
+            if isinstance(v, str) and col.dictionary is not None:
+                did = col.dictionary.encode_one(v)
+                if did < 0:
+                    provably_absent = True
+                else:
+                    keys.append(did)
+            elif isinstance(v, (int, float)) and not isinstance(v, bool) \
+                    and col.dictionary is None:
+                keys.append(v)
+            else:
+                keys = None
+                break
+        if keys is None:
+            continue
+        # dictionary ids are insertion-ordered: range ops are untranslatable
+        if col.dictionary is not None and op not in ("=", "in"):
+            continue
+        for idx in by_col[name]:
+            sc = sidecar_for(session, table, name, idx)
+            if sc is None or isinstance(sc, NgramBloomSidecar):
+                continue
+            if isinstance(sc, BloomSidecar):
+                if op not in ("=", "in"):
+                    continue
+                if not keys:
+                    ok = np.zeros(sc.bits.shape[0], dtype=bool)
+                else:
+                    dt = np.int32 if col.dictionary is not None else \
+                        physical_dtype(col.dtype)
+                    ok = sc.may_contain(_to_u64_keys(
+                        np.asarray(keys).astype(dt)))
+            else:                                   # set sidecar
+                if op == "in" or (op == "=" and provably_absent and not keys):
+                    ok = set_blocks_possible_in(sc, keys)
+                elif not keys:
+                    ok = np.zeros(len(sc), dtype=bool)
+                else:
+                    ok = set_blocks_possible(sc, op, keys[0])
+            M.increment("SkipIndexChecks")
             possible = ok if possible is None else (possible & ok)
     return possible
 
@@ -1567,8 +1713,12 @@ def run_aggregate(env: Env, q: SelectQuery, mask, session,
 
     m = _mask_or_true(mask, n, dev)
     if key_vals:
+        # an array key groups by its whole value (ClickHouse compares
+        # arrays); the JAX package fails here (ROADMAP section 3)
         gid, G, _strategy = _group_ids(
-            key_vals, n, m, session.settings.group_by_capacity_hint)
+            [Value(array_row_keys(kv, dev)) if kv.is_array else kv
+             for kv in key_vals], n, m,
+            session.settings.group_by_capacity_hint)
     else:
         gid, G = torch.zeros(n, dtype=torch.int32, device=dev), 1
 
@@ -1602,6 +1752,11 @@ def run_aggregate(env: Env, q: SelectQuery, mask, session,
     mapping = {}
     for ke, kv in zip(key_exprs, key_vals):
         name = render(ke)
+        if kv.is_array:
+            cols.append(_value_to_column(name, kv, n, dev)
+                        .take_ragged(rep_np))
+            mapping[name] = name
+            continue
         data = kv.data.index_select(0, rep_dev)
         valid = kv.valid.index_select(0, rep_dev) \
             if kv.valid is not None else None
@@ -2314,14 +2469,20 @@ def execute_select(session, q: SelectQuery) -> Table:
     post_terms = [c for c in conjuncts if refs_dist(c)]
     pre_expr = _conjoin([_expand_item_aliases(c, alias_exprs, table)
                          for c in pre_terms])
-    # zone-map pruning: if min/max stats prove the filter empty, short-cut
-    # the whole scan.  A text search keeps every row: its BM25 statistics
-    # and its index cover the whole table, and the filter becomes its mask
-    # (the JAX package prunes here and scores the kept blocks alone)
+    # zone-map and skip-index pruning: if the block statistics prove the
+    # filter empty, short-cut the whole scan.  A text search keeps every
+    # row: its BM25 statistics and its index cover the whole table, and the
+    # filter becomes its mask (the JAX package prunes here and scores the
+    # kept blocks alone).  A fused vector search keeps every row too, the
+    # pruned blocks deselected in its mask: the column's cached norms and
+    # SQ8 sidecar then serve it, and as a block (2^16 rows) is a whole
+    # number of K1's 128-row segments, its rows, distances and ties are
+    # those of a scan over the kept blocks alone
+    block_sel = None
     if pre_terms and ts is None:
         bmask = _zonemap_block_mask(
             table, [_expand_item_aliases(c, alias_exprs, table)
-                    for c in pre_terms])
+                    for c in pre_terms], session)
         if bmask is not None and not bmask.all():
             nblocks = int(bmask.sum())
             M.increment("ZonemapPrunedBlocks", len(bmask) - nblocks)
@@ -2332,18 +2493,29 @@ def execute_select(session, q: SelectQuery) -> Table:
                 pre_terms, post_terms = [], []
                 pre_expr = None
             else:
-                # gather only candidate blocks into the scan
                 nrows = table.n_rows
-                keep = [np.arange(b * BLOCK_ROWS,
-                                  min((b + 1) * BLOCK_ROWS, nrows))
-                        for b in np.flatnonzero(bmask)]
-                idx = np.concatenate(keep)
-                M.increment("ZonemapSkippedRows", nrows - len(idx))
-                table = table.take(torch.as_tensor(idx, device=dev))
-                env = _session_env(session, table, alias_prefixes)
+                tail = nrows - (len(bmask) - 1) * BLOCK_ROWS
+                kept = nblocks * BLOCK_ROWS - (BLOCK_ROWS - tail
+                                               if bmask[-1] else 0)
+                M.increment("ZonemapSkippedRows", nrows - kept)
+                if vs is not None and vs.fused:
+                    block_sel = torch.repeat_interleave(
+                        torch.as_tensor(bmask, device=dev), BLOCK_ROWS,
+                        output_size=len(bmask) * BLOCK_ROWS)[:nrows]
+                else:
+                    # gather only the candidate blocks into the scan: their
+                    # row ids made on the device from the kept block ids
+                    # (the last block, if kept, is cut to the table's end)
+                    kb = torch.as_tensor(np.flatnonzero(bmask), device=dev)
+                    rows = (kb[:, None] * BLOCK_ROWS + torch.arange(
+                        BLOCK_ROWS, device=dev)).reshape(-1)[:kept]
+                    table = table.take(rows)
+                    env = _session_env(session, table, alias_prefixes)
     mask = None
     if pre_expr is not None:
         mask = as_bool_mask(eval_expr(pre_expr, env), table.n_rows)
+    if block_sel is not None:
+        mask = block_sel if mask is None else mask & block_sel
 
     # 4a. fused vector top-k
     if vs is not None and vs.fused:
@@ -2578,6 +2750,7 @@ def execute_select(session, q: SelectQuery) -> Table:
                     if cn in t:
                         c = t[cn]
                         v = Value(c.data, c.valid, c.dictionary,
+                                  offsets=c.offsets,
                                   u64=c.dtype is DataType.UINT64)
                         break
                 if v is None and cn in env.extra:
@@ -2944,10 +3117,34 @@ def _compute_windows(items, env: Env, table: Table, alias_exprs, session):
         else:
             args = wc.func.args
             if fn == "count" and (not args or isinstance(args[0], Star)):
-                data = torch.ones(n, dtype=torch.int64, device=dev)
-            else:
-                data = _rows_tensor(arg(args[0]), n)
-            env.extra[r] = Value(layout.agg(fn, data))
+                out, _ = layout.agg(fn, torch.ones(n, dtype=torch.int64,
+                                                   device=dev))
+                env.extra[r] = Value(out)
+                continue
+            v = arg(args[0])
+            data = _rows_tensor(v, n)
+            valid = v.valid
+            if valid is not None and valid.dim() == 0:
+                valid = valid.expand(n)
+            if not v.is_string or fn == "count":
+                out, ok = layout.agg(fn, data, valid)
+                env.extra[r] = Value(out, ok)
+                continue
+            if fn in ("sum", "avg"):
+                raise ExecError(f"{fn} over a String column: illegal type "
+                                "String of argument")
+            # String min/max compare the dictionary's sort ranks and
+            # return the string of the winning rank, as _string_state does
+            ranks = to_tensor(v.dictionary.ranks(), dev)
+            by_rank = to_tensor(np.argsort(v.dictionary.ranks(),
+                                           kind="stable"), dev)
+            if ranks.numel() == 0:
+                env.extra[r] = Value(data, valid, v.dictionary)
+                continue
+            rk, ok = layout.agg(fn, ranks[data.to(torch.int64).clamp(min=0)],
+                                valid)
+            env.extra[r] = Value(by_rank[rk].to(torch.int32), ok,
+                                 v.dictionary)
 
 
 def _apply_with_fill(proj_table: Table, order_by) -> Table:

@@ -57,14 +57,37 @@ def tokenize(sql: str) -> list[Token]:
 _ESCAPES = {"n": "\n", "t": "\t", "r": "\r", "0": "\0", "b": "\b",
             "f": "\f", "a": "\a", "v": "\v", "'": "'", '"': '"',
             "\\": "\\"}
-_ESC_RE = re.compile(r"''|\\x([0-9A-Fa-f]{2})|\\(.)", re.DOTALL)
+_ESC_RE = re.compile(r"''|((?:\\x[0-9A-Fa-f]{2})+)|\\(.)", re.DOTALL)
+
+
+def _raw_bytes(run: str) -> str:
+    """A run of \\xHH escapes: raw bytes, as ClickHouse stores them.  A run
+    that is UTF-8 reads as the text it encodes ('\\xC3\\xA9' is the
+    literal 'é', the same bytes); any other byte is the engine's one-byte
+    character for it, chr(0xHH), as char() and unhex() make it."""
+    raw = bytes.fromhex(run.replace("\\x", ""))
+    out, i = [], 0
+    while i < len(raw):
+        for j in range(min(len(raw), i + 4), i, -1):
+            try:
+                ch = raw[i:j].decode("utf-8")
+            except UnicodeDecodeError:
+                continue
+            if len(ch) == 1:
+                out.append(ch)
+                i = j
+                break
+        else:
+            out.append(chr(raw[i]))
+            i += 1
+    return "".join(out)
 
 
 def _unescape_one(m) -> str:
     if m.group() == "''":
         return "'"
-    if m.group(1) is not None:               # \xHH byte escape
-        return chr(int(m.group(1), 16))
+    if m.group(1) is not None:               # \xHH byte escapes
+        return _raw_bytes(m.group(1))
     c = m.group(2)
     # unknown escapes KEEP the backslash (ClickHouse
     # parseComplexEscapeSequence) — '\%' must reach LIKE as backslash-%

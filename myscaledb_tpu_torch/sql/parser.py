@@ -631,10 +631,24 @@ class Parser:
             else:
                 return e
 
+    _INTERVAL_UNITS = ("SECOND", "MINUTE", "HOUR", "DAY", "WEEK", "MONTH",
+                       "QUARTER", "YEAR")
+
     def parse_additive(self) -> Expr:
         e = self.parse_multiplicative()
         while self.at_punct("+", "-"):
             op = self.next().text
+            if self.at_kw("INTERVAL") and \
+                    self.peek(2).upper.rstrip("S") in self._INTERVAL_UNITS:
+                # x +/- INTERVAL n UNIT -> addUnits/subtractUnits(x, n):
+                # calendar arithmetic, so a Date moves by days (the JAX
+                # package adds the interval's seconds to the day count)
+                self.next()
+                num = self.parse_unary()
+                unit = self.next().upper.rstrip("S").capitalize()
+                e = FuncCall(("add" if op == "+" else "subtract") + unit
+                             + "s", [e, num])
+                continue
             e = BinOp(op, e, self.parse_multiplicative())
         return e
 

@@ -21,7 +21,11 @@ def test_import_loads_no_jax():
             "myscaledb_tpu_torch.interop, myscaledb_tpu_torch.ops.join, "
             "myscaledb_tpu_torch.ops.binary_vector, "
             "myscaledb_tpu_torch.ops.kernels.merge_count, "
-            "myscaledb_tpu_torch.ops.kernels.binary_scan\n"
+            "myscaledb_tpu_torch.ops.kernels.binary_scan, "
+            "myscaledb_tpu_torch.storage.table_store, "
+            "myscaledb_tpu_torch.storage.skip_index, "
+            "myscaledb_tpu_torch.storage.codecs, "
+            "myscaledb_tpu_torch.runtime.faults\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'myscaledb_tpu' "
             "or m.startswith('myscaledb_tpu.')]\n"

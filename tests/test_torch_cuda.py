@@ -810,3 +810,108 @@ def test_sql_hybrid_search_launches_k2_on_card(cuda):
     assert [r[0] for r in got] == [r[0] for r in want]
     np.testing.assert_allclose([r[1] for r in got], [r[1] for r in want],
                                rtol=1e-5)
+
+
+def test_partition_clustering_and_zone_maps_on_card_equal_cpu(cuda):
+    """A partitioned INSERT clusters the batch and takes its zone maps on
+    the card: the rows, their order and every zone map equal the CPU
+    session's, and the pruned statement reads the same blocks."""
+    import myscaledb_tpu_torch as P
+    from myscaledb_tpu_torch.core.table import BLOCK_ROWS, ZoneMap
+    from myscaledb_tpu_torch.runtime import metrics as M
+    rng = np.random.default_rng(0)
+    n = 3 * BLOCK_ROWS + 77
+    data = {"d": rng.integers(0, 9, n).astype(np.uint8),
+            "u": rng.integers(0, 1 << 32, n).astype(np.uint32),
+            "f": rng.standard_normal(n).astype(np.float32),
+            "s": [f"w{i % 31}" for i in range(n)]}
+    out = []
+    for dev in ("cpu", "cuda"):
+        s = P.connect(device=dev)
+        s.create_table("src", data)
+        s.sql("CREATE TABLE p (d UInt8, u UInt32, f Float32, s String) "
+              "ENGINE = MergeTree PARTITION BY (d, s) ORDER BY u")
+        s.sql("INSERT INTO p SELECT * FROM src")
+        s.sql("INSERT INTO p SELECT * FROM src WHERE d < 4")
+        t = s.tables["p"]
+        M.reset()
+        rows = s.sql("SELECT count(), sum(u) FROM p WHERE d = 3").to_rows()
+        out.append((t.to_rows(), [(t[c].zonemap.mins, t[c].zonemap.maxs)
+                                  for c in ("d", "u", "f", "s")], rows,
+                    M.events_snapshot().get("ZonemapPrunedBlocks", 0)))
+    assert out[0][0] == out[1][0] and out[0][2:] == out[1][2:]
+    for (a0, a1), (b0, b1) in zip(out[0][1], out[1][1]):
+        assert a0.dtype == b0.dtype
+        np.testing.assert_array_equal(a0, b0)
+        np.testing.assert_array_equal(a1, b1)
+    x = torch.randn(n, device="cuda", generator=cuda)
+    zd = ZoneMap.build_device(x, np.float32)
+    zh = ZoneMap.build(x.cpu().numpy())
+    np.testing.assert_array_equal(zd.mins, zh.mins)
+    np.testing.assert_array_equal(zd.maxs, zh.maxs)
+
+
+@pytest.mark.parametrize("dtype", ["int64", "int32", "float32", "float64"])
+def test_skip_index_sidecars_on_card_bit_equal_cpu(cuda, dtype):
+    """The bloom words and set lists built on the card equal the CPU's,
+    bit for bit (the CPU's equal the JAX package's numpy builds:
+    tests/test_torch_skip_index.py)."""
+    from myscaledb_tpu_torch.core.table import BLOCK_ROWS
+    from myscaledb_tpu_torch.storage import skip_index as sk
+    rng = np.random.default_rng(1)
+    n = 5 * BLOCK_ROWS + 123
+    a = (rng.integers(-60, 60, n) / 4).astype(dtype)
+    a[BLOCK_ROWS:2 * BLOCK_ROWS] = rng.integers(-1 << 40, 1 << 40,
+                                                BLOCK_ROWS)
+    for fp in (0.025, 0.001):
+        got = sk.build_bloom_sidecar(torch.as_tensor(a, device="cuda"), fp)
+        want = sk.build_bloom_sidecar(torch.as_tensor(a), fp)
+        np.testing.assert_array_equal(got.bits, want.bits)
+    got = sk.build_set_sidecar(torch.as_tensor(a, device="cuda"), 100,
+                               a.dtype)
+    want = sk.build_set_sidecar(torch.as_tensor(a), 100, a.dtype)
+    assert [g is None for g in got] == [w is None for w in want]
+    for g, w in zip(got, want):
+        if w is not None:
+            np.testing.assert_array_equal(g + 0, w + 0)
+
+
+def test_pruned_vector_search_reaches_k1_with_one_sq8_build(cuda,
+                                                            monkeypatch):
+    """A partitioned config-1 table on the card: the pruned statements and
+    the unpruned ones launch K1 once each and share the table's one SQ8
+    sidecar; rows equal the CPU session's."""
+    import myscaledb_tpu_torch as P
+    from myscaledb_tpu_torch.sql import executor
+    builds = []
+    real = executor.build_sq8
+    monkeypatch.setattr(executor, "build_sq8",
+                        lambda x: builds.append(x.device.type) or real(x))
+    rng = np.random.default_rng(2)
+    n, d = 200_000, 128
+    data = {"id": np.arange(n, dtype=np.int64),
+            "price": rng.integers(0, 100, n).astype(np.int32),
+            "day": rng.integers(0, 10, n).astype(np.uint8),
+            "emb": rng.standard_normal((n, d), dtype=np.float32)}
+    qs = rng.standard_normal((4, d), dtype=np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        s = P.connect(device=dev)
+        s.create_table("src", data)
+        s.sql("CREATE TABLE t (id UInt32, price Int32, day UInt8, emb "
+              f"Array(Float32), CONSTRAINT c CHECK length(emb) = {d}) "
+              "ENGINE = MergeTree PARTITION BY day ORDER BY id")
+        s.sql("INSERT INTO t SELECT id, price, day, emb FROM src")
+        rows = []
+        K1.segmin_sq8.launches = 0
+        for where in ("day = 3 AND price < 50", "price < 50"):
+            for q in qs:
+                vec = "[" + ",".join(repr(float(v)) for v in q) + "]"
+                rows.append(s.sql(f"SELECT id, distance(emb, {vec}) AS d "
+                                  f"FROM t WHERE {where} ORDER BY d "
+                                  "LIMIT 10").to_rows())
+        out[dev] = (rows, K1.segmin_sq8.launches)
+    assert [[r[0] for r in x] for x in out["cuda"][0]] == \
+        [[r[0] for r in x] for x in out["cpu"][0]]
+    assert out["cuda"][1] == 8
+    assert builds == ["cpu", "cuda"]

@@ -210,15 +210,7 @@ def test_error_texts_equal_the_jax_package(sql):
      "storage, formats and runtime state"),
     ("INSERT INTO t FORMAT CSV 1,[1,2,3]",
      "storage, formats and runtime state"),
-    ("CREATE TABLE pt (id UInt32) ENGINE = MergeTree PARTITION BY id "
-     "ORDER BY id", "storage, formats and runtime state"),
-    ("CREATE TABLE tt (id UInt32, d DateTime) ENGINE = MergeTree ORDER BY "
-     "id TTL d + 1", "storage, formats and runtime state"),
-    ("ALTER TABLE t ADD INDEX ix id TYPE minmax",
-     "storage, formats and runtime state"),
-    ("ALTER TABLE t DROP PARTITION 1", "storage, formats and runtime state"),
     ("ALTER TABLE t DROP CONSTRAINT c", "expression and function breadth"),
-    ("SYSTEM FLUSH LOGS", "storage, formats and runtime state"),
     ("SELECT * FROM system.tables", "storage, formats and runtime state"),
 ])
 def test_statements_outside_the_subset_name_their_slice(sql, slice_name):
@@ -227,6 +219,34 @@ def test_statements_outside_the_subset_name_their_slice(sql, slice_name):
           "ORDER BY id")
     with pytest.raises(NotPortedError, match=slice_name):
         p.sql(sql)
+
+
+@pytest.mark.parametrize("sql", [
+    "CREATE TABLE pt (id UInt32) ENGINE = MergeTree PARTITION BY id "
+    "ORDER BY id",
+    "CREATE TABLE tt (id UInt32, d DateTime) ENGINE = MergeTree ORDER BY "
+    "id TTL d + 1",
+    "ALTER TABLE t ADD INDEX ix id TYPE minmax",
+    "ALTER TABLE t DROP PARTITION 1",
+    "SYSTEM FLUSH LOGS",
+])
+def test_storage_statements_run_since_the_storage_slice(sql):
+    """Statements that raised NotPortedError naming the storage slice
+    before it landed now do what the JAX package does: the same error
+    where it raises one (DROP PARTITION of an unpartitioned table), else
+    the same state afterwards."""
+    from myscaledb_tpu import connect as jconnect
+    out = []
+    for s in (jconnect(), myscaledb_tpu_torch.connect(device="cpu")):
+        s.sql("CREATE TABLE t (id UInt32, v Array(Float32)) ENGINE = "
+              "MergeTree ORDER BY id")
+        try:
+            s.sql(sql)
+            out.append(s.sql("SELECT name, type FROM "
+                             "system.data_skipping_indices").to_rows())
+        except ValueError as e:
+            out.append(str(e))
+    assert out[0] == out[1]
 
 
 def test_epoch_moves_with_data_and_not_with_detach(monkeypatch):

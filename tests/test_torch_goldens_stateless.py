@@ -16,7 +16,9 @@ ARRAY JOIN (``00008``, ``00207``, ``01305``), lambdas (``00156``,
 ``00277``), array functions (``00036``, ``01659``), IN/scalar/EXISTS
 subqueries (``00673``, ``02477_exists``), UNION/INTERSECT (``00592``,
 ``02316_const``), CTEs (``01495``, ``02212``) and JOIN on a subquery
-(``00099``, ``02691``): 157 of the 184 stateless goldens."""
+(``00099``, ``02691``); since the storage slice, PARTITION BY (``00679``,
+``01906``, ``02232``, ...) and skip indexes (``00974``, ``00979``,
+``01771``, ...): 179 of the 184 stateless goldens."""
 
 import os
 
@@ -61,17 +63,22 @@ CASES = [
     "00607_index_in_in", "00647_select_numbers_with_offset",
     "00648_replacing_empty_set_from_prewhere",
     "00649_quantile_tdigest_negative", "00653_monotonic_integer_cast",
-    "00673_subquery_prepared_set_performance", "00688_case_without_else",
-    "00702_where_with_quailified_names", "00712_prewhere_with_final",
-    "00717_default_join_type", "00727_concat", "00735_or_expr_optimize_bug",
-    "00745_compile_scalar_subquery", "00749_inner_join_of_unnamed_subqueries",
-    "00756_power_alias", "00800_low_cardinality_distributed_insert",
-    "00818_join_bug_4271", "00836_numbers_table_function_zero",
-    "00844_join_lightee2", "00856_no_column_issue_4242", "00874_issue_3495",
-    "00906_low_cardinality_cache",
+    "00673_subquery_prepared_set_performance", "00679_uuid_in_key",
+    "00688_case_without_else", "00702_where_with_quailified_names",
+    "00712_prewhere_with_final", "00717_default_join_type", "00727_concat",
+    "00735_or_expr_optimize_bug", "00745_compile_scalar_subquery",
+    "00749_inner_join_of_unnamed_subqueries", "00756_power_alias",
+    "00800_low_cardinality_distributed_insert", "00818_join_bug_4271",
+    "00836_numbers_table_function_zero", "00844_join_lightee2",
+    "00856_no_column_issue_4242", "00874_issue_3495",
+    "00906_low_cardinality_cache", "00914_join_bgranvea",
     "00931_low_cardinality_set_index_in_key_condition", "00933_reserved_word",
-    "00957_delta_diff_bug", "00964_os_thread_priority", "00967_ubsan_bit_test",
-    "01009_insert_select_data_loss", "01013_hex_float",
+    "00957_delta_diff_bug", "00963_startsWith_force_primary_key",
+    "00964_os_thread_priority", "00967_ubsan_bit_test",
+    "00974_adaptive_granularity_secondary_index", "00979_set_index_not",
+    "01000_bad_size_of_marks_skip_idx", "01009_insert_select_data_loss",
+    "01013_hex_float", "01016_null_part_minmax",
+    "01018_optimize_read_in_order_with_in_subquery",
     "01020_having_without_group_by", "01030_final_mark_empty_primary_key",
     "01051_same_name_alias_with_joins", "01063_create_column_set",
     "01072_select_constant_limit", "01083_cross_to_inner_with_in_bug",
@@ -80,9 +87,10 @@ CASES = [
     "01127_month_partitioning_consistency_select", "01234_to_string_monotonic",
     "01248_least_greatest_mixed_const", "01268_mergine_sorted_limit",
     "01280_opencl_bitonic_order_by", "01281_join_with_prewhere_fix",
-    "01305_array_join_prewhere_in_subquery", "01319_mv_constants_bug",
+    "01305_array_join_prewhere_in_subquery",
+    "01307_bloom_filter_index_string_multi_granulas", "01319_mv_constants_bug",
     "01322_monotonous_order_by_with_different_variables",
-    "01328_bad_peephole_optimization",
+    "01328_bad_peephole_optimization", "01349_mutation_datetime_key",
     "01362_year_of_ISO8601_week_modificators_for_formatDateTime",
     "01375_null_issue_3767", "01379_with_fill_several_columns",
     "01416_join_totals_header_bug",
@@ -90,20 +98,25 @@ CASES = [
     "01431_finish_sorting_with_consts", "01457_compile_expressions_fuzzer",
     "01457_order_by_limit", "01495_subqueries_in_with_statement_2",
     "01496_signedness_conversion_monotonicity",
+    "01503_fixed_string_primary_key",
     "01507_multiversion_storage_for_storagememory",
     "01561_aggregate_functions_of_key_with_join",
     "01600_min_max_compress_block_size", "01656_test_hex_mysql_dialect",
     "01659_array_aggregation_ubsan", "01670_test_repeat_mysql_dialect",
     "01704_transform_with_float_key", "01718_subtract_seconds_date",
-    "01747_transform_empty_arrays", "01820_unhex_case_insensitive",
+    "01747_transform_empty_arrays", "01771_bloom_filter_not_has",
+    "01820_unhex_case_insensitive", "01881_to_week_monotonic_fix",
+    "01891_not_like_partition_prune", "01906_partition_by_multiply_by_zero",
     "01907_multiple_aliases", "01908_with_unknown_column",
+    "01913_join_push_down_bug", "01938_joins_identifiers",
     "02015_order_by_with_fill_misoptimization",
     "02017_order_by_with_fill_redundant_functions",
     "02023_nullable_int_uint_where", "02096_join_unusual_identifier_begin",
-    "02100_limit_push_down_bug", "02131_remove_columns_in_subquery",
-    "02150_replace_regexp_all_empty_match", "02151_lc_prefetch",
-    "02179_key_condition_no_common_type", "02189_join_type_conversion",
-    "02212_cte_and_table_alias", "02247_fix_extract_parser",
+    "02100_limit_push_down_bug", "02112_skip_index_set_and_or",
+    "02131_remove_columns_in_subquery", "02150_replace_regexp_all_empty_match",
+    "02151_lc_prefetch", "02179_key_condition_no_common_type",
+    "02189_join_type_conversion", "02212_cte_and_table_alias",
+    "02232_partition_pruner_single_point", "02247_fix_extract_parser",
     "02304_grouping_set_order_by", "02316_const_string_intersact",
     "02316_literal_no_octal", "02420_key_condition_actions_dag_bug_40599",
     "02428_delete_with_settings", "02428_partial_sort_optimization_bug",
@@ -111,9 +124,11 @@ CASES = [
     "02477_analyzer_ast_key_condition_crash", "02477_exists_fuzz_43478",
     "02479_nullable_primary_key_second_column",
     "02482_if_with_nothing_argument", "02502_analyzer_insert_select_crash_fix",
-    "02513_analyzer_sort_msan", "02535_analyzer_limit_offset",
+    "02510_group_by_prewhere_null", "02513_analyzer_sort_msan",
+    "02521_cannot_find_column_in_projection", "02535_analyzer_limit_offset",
     "02541_multiple_ignore_with_nested_select",
     "02577_analyzer_array_join_calc_twice", "02584_range_ipv4",
+    "02675_replicated_merge_tree_insert_zookeeper_long",
     "02677_grace_hash_limit_race", "02680_lc_null_as_default",
     "02691_multiple_joins_backtick_identifiers",
     "02692_multiple_joins_unicode",

@@ -70,11 +70,26 @@ def _exact(rows):
     return [tuple(repr(x) for x in r) for r in rows]
 
 
+# The JAX package floors intDiv and %; the port truncates toward zero, as
+# ClickHouse does (ROADMAP section 3, "Faults of the reference").  For
+# these statements the JAX side runs the truncating form spelled out.
+JAX_FORM = {
+    "SELECT intExp2(u8 % 40), intExp10(u8 % 19), gcd(i, 12), lcm(i32 % 100,"
+    " 6), intDivOrZero(i, u8), moduloOrZero(i, u8), trunc(f64) FROM t":
+    "SELECT intExp2(u8 % 40), intExp10(u8 % 19), gcd(i, 12), "
+    "lcm(if(i32 < 0, -((-i32) % 100), i32 % 100), 6), "
+    "if(i < 0, -intDivOrZero(-i, u8), intDivOrZero(i, u8)), "
+    "if(i < 0, -moduloOrZero(-i, u8), moduloOrZero(i, u8)), trunc(f64) "
+    "FROM t",
+}
+
+
 def _same(j, p, sql, rtol=None):
-    want, got = j.sql(sql).to_rows(), p.sql(sql).to_rows()
+    jsql = JAX_FORM.get(sql, sql)
+    want, got = j.sql(jsql).to_rows(), p.sql(sql).to_rows()
     if rtol is None:
         assert _exact(got) == _exact(want)
-        assert p.sql_tsv(sql) == j.sql_tsv(sql)
+        assert p.sql_tsv(sql) == j.sql_tsv(jsql)
         return
     assert len(got) == len(want)
     for rg, rw in zip(got, want):

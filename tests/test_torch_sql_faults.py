@@ -276,3 +276,119 @@ def test_string_min_max_any_over_a_host_resident_table():
     assert p.sql("SELECT g, sum(v) FROM h GROUP BY g ORDER BY g").to_rows() \
         == [(k, w[-1]) for k, w in enumerate(want)]
     assert M.events_snapshot().get("StreamingAggregations", 0) == before + 1
+
+
+@pytest.fixture(scope="module")
+def fruit_nulls():
+    """ROADMAP section 3's table u of the five faults PR 11 repaired."""
+    out = []
+    for s in (myscaledb_tpu.connect(),
+              myscaledb_tpu_torch.connect(device="cpu")):
+        s.sql("CREATE TABLE u (id UInt32, g UInt32, s String, "
+              "n Nullable(Int32)) ENGINE = MergeTree ORDER BY id")
+        s.sql("INSERT INTO u VALUES (1, 0, 'pear', NULL), "
+              "(2, 1, 'apple', 3), (3, 0, 'zebra', 4), (4, 1, 'mango', NULL), "
+              "(5, 2, 'pear', 1)")
+        out.append(s)
+    return tuple(out)
+
+
+@pytest.mark.parametrize("sql,port,jax", [
+    ("SELECT id, count(n) OVER (PARTITION BY g) FROM u ORDER BY id",
+     [1, 1, 1, 1, 1], [2, 2, 2, 2, 1]),
+    ("SELECT id, avg(n) OVER () FROM u ORDER BY id",
+     [pytest.approx(8 / 3)] * 5, [pytest.approx(1.6)] * 5),
+    ("SELECT id, min(n) OVER (ORDER BY id) FROM u ORDER BY id",
+     [None, 3, 3, 3, 1], [0, 0, 0, 0, 0]),
+    ("SELECT id, max(s) OVER (ORDER BY id) FROM u ORDER BY id",
+     ["pear", "pear", "zebra", "zebra", "zebra"], [0, 1, 2, 3, 3]),
+    ("SELECT id, min(s) OVER (PARTITION BY g) FROM u ORDER BY id",
+     ["pear", "apple", "pear", "apple", "pear"], [0, 1, 0, 1, 0]),
+    ("SELECT id, sum(n) OVER (ORDER BY id) FROM u ORDER BY id",
+     [None, 3, 7, 7, 8], [0, 3, 7, 7, 8]),
+])
+def test_window_aggregates_skip_nulls_and_compare_strings(fruit_nulls, sql,
+                                                          port, jax):
+    """Window sum/count/avg/min/max skip NULLs, a frame with no value
+    gives NULL, and String min/max compare by the dictionary's sort rank
+    and return the string, as ClickHouse does; the JAX package reads the
+    raw data and the dictionary ids (ROADMAP section 3)."""
+    j, p = fruit_nulls
+    assert [r[1] for r in p.sql(sql).to_rows()] == port
+    assert [r[1] for r in j.sql(sql).to_rows()] == jax
+
+
+def test_window_sum_of_a_string_raises(fruit_nulls):
+    """sum/avg OVER a String column raise, as ClickHouse does; the JAX
+    package sums the dictionary ids (6 on every row)."""
+    j, p = fruit_nulls
+    assert j.sql("SELECT sum(s) OVER () FROM u").to_rows() == [(6,)] * 5
+    for fn in ("sum", "avg"):
+        with pytest.raises(Exception, match="String"):
+            p.sql(f"SELECT {fn}(s) OVER () FROM u")
+
+
+@pytest.mark.parametrize("sql,port,jax", [
+    ("SELECT -5 % 3, 5 % -3, intDiv(-5, 3), intDiv(5, -3)",
+     [(-2, 2, -1, -1)], [(1, -1, -2, -2)]),
+    ("SELECT (id - 10) % 4 FROM u ORDER BY id",
+     [(-1,), (0,), (-3,), (-2,), (-1,)], [(3,), (0,), (1,), (2,), (3,)]),
+    ("SELECT moduloOrZero(-7, 2), intDivOrZero(-7, 2), -5.5 % 3",
+     [(-1, -3, -2.5)], None),
+])
+def test_modulo_and_intdiv_truncate(fruit_nulls, sql, port, jax):
+    """% and intDiv round toward zero, as ClickHouse does; the JAX package
+    floors (and wraps (id - 10) over UInt32 first)."""
+    j, p = fruit_nulls
+    assert p.sql(sql).to_rows() == port
+    if jax is not None:
+        assert j.sql(sql).to_rows() == jax
+
+
+@pytest.mark.parametrize("sql,rows,jax", [
+    ("SELECT g, arrayFilter(x -> x > 1, [g, 2]) AS a FROM u "
+     "GROUP BY a, g ORDER BY g", [(0, [2]), (1, [2]), (2, [2, 2])], None),
+    ("SELECT a, count() FROM (SELECT arrayFilter(x -> x > 0, [g]) AS a "
+     "FROM u) GROUP BY a", [([], 2), ([1], 2), ([2], 1)], None),
+    ("SELECT a, count() FROM (SELECT [s] AS a FROM u) GROUP BY a "
+     "ORDER BY a DESC", [(["zebra"], 1), (["pear"], 2), (["mango"], 1),
+                         (["apple"], 1)],
+     [("zebra", 1), ("pear", 2), ("mango", 1), ("apple", 1)]),
+    ("SELECT countDistinct(a), uniqExact(a) FROM "
+     "(SELECT [g, 1] AS a FROM u)", [(3, 3)], None),
+])
+def test_group_by_and_distinct_over_arrays(fruit_nulls, sql, rows, jax):
+    """GROUP BY, ORDER BY and count(DISTINCT) over an array compare whole
+    arrays, as ClickHouse does; the JAX package fails on these (None
+    below: a shape error in its sort or broadcast) or, over one-element
+    String arrays, returns the element (ROADMAP section 3)."""
+    j, p = fruit_nulls
+    assert p.sql(sql).to_rows() == rows
+    if jax is None:
+        with pytest.raises((TypeError, ValueError), match="shapes"):
+            j.sql(sql)
+    else:
+        assert j.sql(sql).to_rows() == jax
+
+
+def test_type_name_of_widened_unsigned_arithmetic(fruit_nulls):
+    """UInt32 * 2 and UInt32 + 1 are UInt64 in ClickHouse, the type the
+    port's arithmetic follows; the JAX package, which wraps in the
+    operand's width, says UInt32."""
+    j, p = fruit_nulls
+    sql = "SELECT toTypeName(id * 2), toTypeName(id + 1), toTypeName(id) " \
+          "FROM u LIMIT 1"
+    assert p.sql(sql).to_rows() == [("UInt64", "UInt64", "UInt32")]
+    assert j.sql(sql).to_rows() == [("UInt32", "UInt32", "UInt32")]
+
+
+def test_hex_escapes_are_raw_bytes(fruit_nulls):
+    """'\\xHH' escapes are raw bytes: '\\xC3\\xA9' holds the bytes of 'é'
+    and reads as it, as in ClickHouse; a byte that is not UTF-8 stays the
+    engine's one-byte character (char(), unhex()).  The JAX package
+    decodes each escape to a code point ('\\xC3\\xA9' is 'Ã©')."""
+    j, p = fruit_nulls
+    sql = "SELECT '\\xC3\\xA9' = 'é', '\\xe4\\xbd\\xa0\\xe5\\xa5\\xbd', " \
+          "'\\xC3' = char(195), '\\xC3' = unhex('C3'), 'a\\x41\\x7a'"
+    assert p.sql(sql).to_rows() == [(True, "你好", True, True, "aAz")]
+    assert j.sql(sql).to_rows() == [(False, "ä½\xa0å¥½", True, True, "aAz")]

@@ -8,8 +8,8 @@ Usage (from the repo root, on the machine with the card):
 
 Each argument is ``checkout:phase,phase``; phases are ``groupby``
 (sql_groupby), ``binary`` (sql_binary), ``hits`` (sql_hits), ``arrays``
-(sql_arrays), ``subquery`` (sql_subquery) and ``text`` (sql_text), the
-ones a checkout's chip_smoke.py has.
+(sql_arrays), ``subquery`` (sql_subquery), ``text`` (sql_text) and
+``storage`` (sql_storage), the ones a checkout's chip_smoke.py has.
 Each argument runs in a process of its own with the checkout as the
 working directory (so it imports that checkout's package and builds its
 kernels), after that checkout's kernel build.  The full output of run i
@@ -33,7 +33,8 @@ if hasattr(build, 'host_library'):   # older checkouts have none
 torch.backends.cuda.matmul.allow_tf32 = False
 names = {'groupby': 'phase_groupby', 'binary': 'phase_sql_binary',
          'hits': 'phase_sql_hits', 'arrays': 'phase_sql_arrays',
-         'subquery': 'phase_sql_subquery', 'text': 'phase_sql_text'}
+         'subquery': 'phase_sql_subquery', 'text': 'phase_sql_text',
+         'storage': 'phase_sql_storage'}
 for ph in sys.argv[1].split(','):
     getattr(C, names[ph])(0)
 """
