@@ -2,7 +2,7 @@
 
 Usage:  python3 chip_smoke.py [--seed N]
 
-Twelve main paths, the SQL ones through the entry points a user calls
+Thirteen main paths, the SQL ones through the entry points a user calls
 (``connect()`` -> ``Session.create_table`` or SQL DDL -> ``Session.sql``):
 
   BASELINE config 1, the filtered exact vector top-k, over n = 1,000,000
@@ -96,8 +96,17 @@ Twelve main paths, the SQL ones through the entry points a user calls
   and a TTL copy OPTIMIZEd; config 1 partitioned by a day column; and
   that table written as ten on-disk parts and reopened;
 
-  and the stateless goldens the port replays
-  (tests/test_torch_goldens_stateless.py).
+  ClickHouse's documented aggregated materialized view (the
+  AggregatingMergeTree page's example) over the same 100M events:
+
+    CREATE MATERIALIZED VIEW ev_counters TO ev_agg AS SELECT CounterID,
+    EventDate, sumState(v) AS s, countState(v) AS c, maxState(v) AS m
+    FROM ev GROUP BY CounterID, EventDate
+
+  with a daily uniqState(UserID) view, -Merge reads, a view, joinGet,
+  dictGet, IN a Set table, ALTER mutations, EXPLAIN and a row policy;
+
+  and the 184 stateless goldens (tests/test_torch_goldens_stateless.py).
 
 Phases, one JSON line each; any failure raises and the script exits
 non-zero without printing a result:
@@ -224,6 +233,24 @@ non-zero without printing a result:
               direct-formula oracle, K1 once each, build_sq8 once for the
               phase; (c) ten parts written (emb in lz) and read back
               (MB/s, bytes on disk), (b)'s statements again, rows equal
+  sql_views   the ten batches into a table with no view (insert rows/s),
+              then ev with the two materialized views: the ten batches
+              through them timed (the last under the profiler: its
+              device time), rows of ev_agg and ev_users, K3 in every
+              batch; counter 62's -Merge by day, the top ten counters,
+              the daily uniqMerge and finalizeAggregation, each ten times
+              after a warm-up (median, p90, busy share, host syncs, peak
+              memory), sums (a Float64 sumState too), counts and maxima
+              equal to index_add_/bincount/scatter_reduce over the
+              source, uniqMerge within
+              5% of the exact (day, UserID) pairs; a view's GROUP BY g
+              (K3) equal to its inlined statement and to bincount,
+              joinGet and dictGet over a day grouped by name, IN a Set
+              over 100M rows, a day's float sumState per counter,
+              against gathers, torch.isin and sums; ALTER
+              UPDATE / ADD COLUMN / MATERIALIZE / DROP COLUMN over 100M
+              rows timed and exact, the views' states unchanged after
+              them; EXPLAIN PLAN/ESTIMATE and a row policy checked
   goldens_stateless  every case of tests/test_torch_goldens_stateless.py
               through run_golden_text(connect()), byte-identical
 
@@ -256,8 +283,8 @@ config-2 statements; the join build and count probes; the join statements
 up to the last timed one; the ten config-6 statements; on the DDL-built
 table the twenty distance statements, the ten batch statements at each
 nq, and the three identical-rows statements; config 3's statements; the
-window statements; each hits, array, subquery, text and storage
-statement's timed runs) and read just after it;
+window statements; each hits, array, subquery, text, storage and views
+statement's timed runs; the views' ten batches) and read just after it;
 each kernel must have launched in the run of its path, and the summary
 reports every kernel's count on every path.  Launches made to compare a
 kernel with its plain version, the profiler passes and the 10M-row
@@ -3483,6 +3510,345 @@ def phase_sql_storage(seed: int):
     return totals
 
 
+# sql_views: ClickHouse's documented aggregated materialized view (the
+# AggregatingMergeTree page, "Example of an Aggregated Materialized View":
+# sumState(Sign) AS Visits, uniqState(UserID) AS Users ... GROUP BY
+# CounterID, StartDate) over sql_storage's 100M hits_v1-shaped events
+VIEWS_EV = ("CREATE TABLE {name} (EventDate Date, CounterID UInt32, "
+            "UserID UInt64, g UInt16, v Int32) ENGINE = MergeTree "
+            "ORDER BY (CounterID, EventDate)")
+VIEWS_DDL = [
+    "CREATE TABLE ev_agg (CounterID UInt32, EventDate Date, "
+    "s AggregateFunction(sum, Int32), c AggregateFunction(count, Int32), "
+    "m AggregateFunction(max, Int32), h AggregateFunction(sum, Float64)) "
+    "ENGINE = AggregatingMergeTree ORDER BY (CounterID, EventDate)",
+    "CREATE MATERIALIZED VIEW ev_counters TO ev_agg AS SELECT CounterID, "
+    "EventDate, sumState(v) AS s, countState(v) AS c, maxState(v) AS m, "
+    "sumState(v * 0.5) AS h FROM ev GROUP BY CounterID, EventDate",
+    "CREATE TABLE ev_users (EventDate Date, u AggregateFunction(uniq, "
+    "UInt64), s AggregateFunction(sum, Int32)) ENGINE = "
+    "AggregatingMergeTree ORDER BY EventDate",
+    "CREATE MATERIALIZED VIEW ev_daily TO ev_users AS SELECT EventDate, "
+    "uniqState(UserID) AS u, sumState(v) AS s FROM ev GROUP BY EventDate"]
+# uniqMerge against the exact distinct count: PERF.md's uniq gate
+VIEWS_UNIQ_RTOL = 0.05
+
+
+def _views_insert(s, table: str, profile_last: bool = False):
+    """Ten 10M-row INSERT ... SELECT batches of src into ``table``, each
+    timed to a synchronize; the last one under the profiler when
+    ``profile_last`` (its device time against its wall time)."""
+    ms, prof = [], None
+    for i in range(NS_BATCHES):
+        stmt = (f"INSERT INTO {table} SELECT EventDate, CounterID, UserID, "
+                f"g, v FROM src WHERE b = {i}")
+        torch.cuda.synchronize()
+        if profile_last and i == NS_BATCHES - 1:
+            prof = profile_statements(s, [stmt], to_rows=False)
+            continue
+        t0 = time.perf_counter()
+        s.sql(stmt)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, prof
+
+
+def phase_sql_views(seed: int):
+    """Views through SQL on the card over sql_storage's 100M source
+    events: (a) ev with two materialized views into AggregatingMergeTree
+    tables (-State combinators; K3 for the 31 days' sums); (b) ten
+    10M-row INSERT ... SELECT batches through both views, against the same
+    batches into a table with no view; (c) -Merge reads, uniqMerge and
+    finalizeAggregation against torch oracles over the source; (d) a view
+    (K3) against its inlined statement, joinGet over a Join table,
+    dictGet over a HASHED dictionary and IN a Set table; (e) ALTER UPDATE,
+    ADD/MATERIALIZE/DROP COLUMN over 100M rows, exact, with the views'
+    states unchanged; (f) EXPLAIN PLAN/ESTIMATE and a row policy."""
+    import myscaledb_tpu_torch as P
+    from myscaledb_tpu_torch.core.table import BLOCK_ROWS, Table
+    smi = nvidia_smi_line()
+    s = P.connect()
+    s.settings.max_memory_bytes_per_query = 32 << 30
+    src, first_day, _dup = storage_source(seed)
+    s.register("src", src)
+    sday, sctr, suser, sg, sv = (src["EventDate"].data, src["CounterID"].data,
+                                 src["UserID"].data, src["g"].data,
+                                 src["v"].data)
+    out = {"nvidia_smi": smi, "rows": NS, "batches": NS_BATCHES,
+           "source": "ClickHouse docs, AggregatingMergeTree: Example of an "
+                     "Aggregated Materialized View (sumState(Sign), "
+                     "uniqState(UserID) GROUP BY CounterID, StartDate), "
+                     "over hits_v1",
+           "reduced": ["uniqState(UserID) grouped by EventDate, not by "
+                       "(CounterID, EventDate): each uniq state holds "
+                       "4096 HLL registers",
+                       "sumState(v) over Int32 v in place of Sign; five "
+                       "columns of hits_v1"]}
+    totals = {}
+
+    # (b0) the same batches into a table with no view, for the insert rate
+    s.sql(VIEWS_EV.format(name="ev_plain"))
+    plain_ms, _ = _views_insert(s, "ev_plain")
+    s.sql("DROP TABLE ev_plain")
+    torch.cuda.empty_cache()
+
+    # (a) the views, (b) the inserts through them
+    s.sql(VIEWS_EV.format(name="ev"))
+    for stmt in VIEWS_DDL:
+        s.sql(stmt)
+    zero_launches()
+    ins_ms, ins_prof = _views_insert(s, "ev", profile_last=True)
+    launches = read_launches()
+    if s.tables["ev"].n_rows != NS:
+        raise AssertionError(f"sql_views: {s.tables['ev'].n_rows} rows")
+    if launches["group_aggregate"] < NS_BATCHES - 1:
+        raise AssertionError(f"sql_views inserts: K3 launched {launches}")
+    for k, c in launches.items():
+        totals[k] = totals.get(k, 0) + c
+    nb = NS_BATCHES - 1
+    out["insert"] = {
+        "batch_ms": ins_ms, "rows_per_s": nb * (NS // NS_BATCHES)
+        / (sum(ins_ms) / 1e3),
+        "no_view_batch_ms": plain_ms[:nb],
+        "no_view_rows_per_s": nb * (NS // NS_BATCHES)
+        / (sum(plain_ms[:nb]) / 1e3),
+        "profiled_last_batch": ins_prof,
+        "ev_agg_rows": s.tables["ev_agg"].n_rows,
+        "ev_users_rows": s.tables["ev_users"].n_rows,
+        "launches": launches}
+
+    # (c) the reads, against oracles over the source
+    day0 = first_day
+    hit62 = sctr == 62
+
+    def per_day(mask):
+        d = (sday - day0).long()
+        cnt = torch.bincount(d[mask], minlength=NS_DAYS)
+        sm = torch.zeros(NS_DAYS, dtype=torch.int64, device="cuda") \
+            .index_add_(0, d[mask], sv[mask].long())
+        mx = torch.full((NS_DAYS,), -2 ** 31, dtype=torch.int64,
+                        device="cuda").scatter_reduce_(
+            0, d[mask], sv[mask].long(), "amax")
+        return [(day_str(day0 + i), int(sm[i]), int(cnt[i]), int(mx[i]),
+                 int(sm[i]) / 2) for i in range(NS_DAYS) if int(cnt[i])]
+    want62 = per_day(hit62)
+    ctr = sctr.long()
+    nctr = int(ctr.max()) + 1
+    csum = torch.zeros(nctr, dtype=torch.int64, device="cuda") \
+        .index_add_(0, ctr, sv.long())
+    ccnt = torch.bincount(ctr, minlength=nctr)
+    cmax = torch.full((nctr,), -2 ** 31, dtype=torch.int64,
+                      device="cuda").scatter_reduce_(0, ctr, sv.long(),
+                                                     "amax")
+    want_totals = torch.sort(csum, descending=True).values[:10].tolist()
+    per_ctr = torch.stack([csum, ccnt, cmax], 1).cpu().numpy()
+    pairs = torch.unique((sday - day0).long() * (1 << 41) + suser)
+    exact_users = torch.bincount(pairs >> 41, minlength=NS_DAYS)
+    del pairs
+    dsum = torch.zeros(NS_DAYS, dtype=torch.int64, device="cuda") \
+        .index_add_(0, (sday - day0).long(), sv.long())
+    want_fin = [(day_str(day0 + i), float(dsum[i])) for i in range(NS_DAYS)]
+
+    def check_top(rows):
+        if [r[1] for r in rows] != want_totals:
+            raise AssertionError(f"sql_views top10: {rows}")
+        for c, total, cnt, mx in rows:
+            if tuple(per_ctr[c]) != (total, cnt, mx):
+                raise AssertionError(f"sql_views top10 counter {c}: "
+                                     f"{(total, cnt, mx)} != oracle "
+                                     f"{tuple(per_ctr[c])}")
+
+    def check_users(rows):
+        if len(rows) != NS_DAYS:
+            raise AssertionError(f"sql_views users: {len(rows)} days")
+        for i, (d, est) in enumerate(rows):
+            exact = int(exact_users[i])
+            if str(d) != day_str(day0 + i) or \
+                    abs(est - exact) > VIEWS_UNIQ_RTOL * exact:
+                raise AssertionError(f"sql_views users {d}: uniqMerge "
+                                     f"{est} against exact {exact}")
+    reads = {
+        "merge_counter62": "SELECT EventDate, sumMerge(s), countMerge(c), "
+                           "maxMerge(m), sumMerge(h) FROM ev_agg WHERE "
+                           "CounterID = 62 GROUP BY EventDate ORDER BY "
+                           "EventDate",
+        "merge_top10": "SELECT CounterID, sumMerge(s) AS total, "
+                       "countMerge(c), maxMerge(m) FROM ev_agg GROUP BY "
+                       "CounterID ORDER BY total DESC LIMIT 10",
+        "uniq_merge_daily": "SELECT EventDate, uniqMerge(u) FROM ev_users "
+                            "GROUP BY EventDate ORDER BY EventDate",
+        "finalize_daily": "SELECT EventDate, sum(finalizeAggregation(s)) "
+                          "FROM ev_users GROUP BY EventDate ORDER BY "
+                          "EventDate"}
+    checks = {"merge_counter62": want62,
+              "merge_top10": check_top, "uniq_merge_daily": check_users,
+              "finalize_daily": want_fin}
+
+    def rows_of(rows):
+        return [tuple(str(x) if i == 0 and not isinstance(x, (int, float))
+                      else x for i, x in enumerate(r)) for r in rows]
+    stats, launches = run_statements_checked(
+        s, reads, {k: (v if callable(v) else (lambda rows, w=v, k=k:
+                                              _views_equal(k, rows_of(rows),
+                                                           w)))
+                   for k, v in checks.items()}, "sql_views")
+    for k, c in launches.items():
+        totals[k] = totals.get(k, 0) + c
+    out["reads"] = stats
+    out["uniq_merge_rel_err"] = [
+        abs(e - int(exact_users[i])) / int(exact_users[i]) for i, (_d, e)
+        in enumerate(s.sql(reads["uniq_merge_daily"]).to_rows())]
+
+    # (d) a view against its inlined statement, joinGet, dictGet, IN a Set
+    s.sql("CREATE VIEW ev_62 AS SELECT EventDate, g, v FROM ev WHERE "
+          "CounterID = 62")
+    ids = torch.unique(ctr)
+    names = {int(c): f"counter_{int(c)}" for c in ids.cpu().tolist()}
+    keys = np.asarray(sorted(names), dtype=np.int64)
+    cnames = {"CounterID": keys.astype(np.uint32),
+              "name": [names[int(k)] for k in keys]}
+    s.create_table("counters_src", cnames)
+    s.sql("CREATE TABLE counters (CounterID UInt32, name String) ENGINE = "
+          "Join(ANY, LEFT, CounterID)")
+    s.sql("INSERT INTO counters SELECT CounterID, name FROM counters_src")
+    s.sql("CREATE DICTIONARY counter_dict (CounterID UInt64, name String) "
+          "PRIMARY KEY CounterID SOURCE(TABLE 'counters_src') "
+          "LAYOUT(HASHED())")
+    s.sql("CREATE TABLE counters_set (CounterID UInt32) ENGINE = Set")
+    s.sql("INSERT INTO counters_set SELECT CounterID FROM counters_src "
+          "WHERE CounterID % 3 = 0")
+    cnt62, sums62 = groupby_oracle(sg, sv, hit62, G2)
+    dsel = sday == day0 + 6
+    day_counts = torch.bincount(ctr[dsel], minlength=nctr)
+    want_names = sorted((names[c], int(day_counts[c]))
+                        for c in torch.nonzero(day_counts).flatten()
+                        .cpu().tolist())
+    set_ids = torch.as_tensor(keys[keys % 3 == 0], device="cuda")
+    want_in = [(int(torch.isin(ctr, set_ids).sum()),)]
+    want_fstate = [(int(sv[dsel].long().sum()) / 2,
+                    int((day_counts > 0).sum()))]
+    view_sql = "SELECT g, sum(v), count() FROM ev_62 GROUP BY g ORDER BY g"
+    inline_sql = ("SELECT g, sum(v), count() FROM ev WHERE CounterID = 62 "
+                  "GROUP BY g ORDER BY g")
+
+    def check_g(rows):
+        check_groupby_rows([(g, sm, c, float(np.float64(sm) / np.float64(c)))
+                            for g, sm, c in rows], cnt62, sums62,
+                           "sql_views view")
+    lookups = {
+        "view_groupby": view_sql, "inline_groupby": inline_sql,
+        "joinget_day": "SELECT joinGet('counters', 'name', CounterID) AS n, "
+                       f"count() FROM ev WHERE EventDate = "
+                       f"'{day_str(day0 + 6)}' GROUP BY n ORDER BY n",
+        "dictget_day": "SELECT dictGet('counter_dict', 'name', CounterID) "
+                       f"AS n, count() FROM ev WHERE EventDate = "
+                       f"'{day_str(day0 + 6)}' GROUP BY n ORDER BY n",
+        "in_set": "SELECT count() FROM ev WHERE CounterID IN counters_set",
+        # float -State partials on the card: one day's ~3.2M rows into
+        # one sumState per counter
+        "float_state_day": "SELECT sum(finalizeAggregation(st)), count() "
+                           "FROM (SELECT CounterID, sumState(v * 0.5) AS st "
+                           f"FROM ev WHERE EventDate = '{day_str(day0 + 6)}' "
+                           "GROUP BY CounterID)"}
+    lstats, launches = run_statements_checked(
+        s, lookups, {"view_groupby": check_g, "inline_groupby": check_g,
+                     "joinget_day": want_names, "dictget_day": want_names,
+                     "in_set": want_in, "float_state_day": want_fstate},
+        "sql_views")
+    if lstats["view_groupby"]["launches_by_path"]["group_aggregate"] < 10:
+        raise AssertionError("sql_views: K3 not launched by the view's "
+                             f"GROUP BY: {lstats['view_groupby']}")
+    if s.sql(view_sql).to_rows() != s.sql(inline_sql).to_rows():
+        raise AssertionError("sql_views: the view's rows differ from the "
+                             "inlined statement's")
+    for k, c in launches.items():
+        totals[k] = totals.get(k, 0) + c
+    out["lookups"] = lstats
+    out["counters"] = len(keys)
+
+    # (e) mutations over the 100M rows, exact against the source
+    n62 = int(hit62.sum())
+    want_sum = int(sv.long().sum()) + n62
+    mut = {}
+
+    def timed(stmt):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.sql(stmt)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+    mut["update_ms"] = timed("ALTER TABLE ev UPDATE v = v + 1 WHERE "
+                             "CounterID = 62")
+    mut["update_rows"] = n62
+    got = s.sql("SELECT sum(v), count() FROM ev").to_rows()[0]
+    if got != (want_sum, NS):
+        raise AssertionError(f"sql_views UPDATE: {got} != {(want_sum, NS)}")
+    mut["add_column_ms"] = timed("ALTER TABLE ev ADD COLUMN v2 Int64 "
+                                 "DEFAULT v * 2")
+    mut["materialize_ms"] = timed("ALTER TABLE ev MATERIALIZE COLUMN v2")
+    mut["add_column_rows"] = NS
+    got = s.sql("SELECT sum(v2) FROM ev").to_rows()[0][0]
+    if got != 2 * want_sum:
+        raise AssertionError(f"sql_views ADD COLUMN: {got}")
+    mut["drop_column_ms"] = timed("ALTER TABLE ev DROP COLUMN v2")
+    if "v2" in s.tables["ev"].column_names:
+        raise AssertionError("sql_views: v2 still there")
+    # the views saw inserts only: their states keep the source's values
+    after = rows_of(s.sql(reads["merge_counter62"]).to_rows())
+    _views_equal("merge_counter62 after UPDATE", after, want62)
+    live = s.sql("SELECT EventDate, sum(v) FROM ev WHERE CounterID = 62 "
+                 "GROUP BY EventDate ORDER BY EventDate").to_rows()
+    if [(str(d), x) for d, x in live] != [(d, a + b) for d, a, b, _m, _h
+                                          in want62]:
+        raise AssertionError("sql_views: ev after UPDATE differs")
+    out["mutations"] = mut
+
+    # (f) EXPLAIN and a row policy, for correctness only
+    plan = [r[0] for r in s.sql(
+        "EXPLAIN PLAN SELECT CounterID, count() FROM ev WHERE CounterID = "
+        "62 GROUP BY CounterID").to_rows()]
+    if not any(ln.lstrip().startswith("Aggregate") for ln in plan) or \
+            not any("Scan (ev)" in ln for ln in plan):
+        raise AssertionError(f"sql_views EXPLAIN PLAN: {plan}")
+    est = s.sql("EXPLAIN ESTIMATE SELECT * FROM ev WHERE CounterID = 62"
+                ).to_rows()
+    if est[0][:3] != ("ev", NS, -(-NS // BLOCK_ROWS)):
+        raise AssertionError(f"sql_views EXPLAIN ESTIMATE: {est}")
+    s.sql("CREATE USER analyst")
+    s.sql("GRANT SELECT ON ev TO analyst")
+    s.sql("CREATE ROW POLICY p62 ON ev USING CounterID = 62 TO analyst")
+    s.current_user = "analyst"
+    got = s.sql("SELECT count(), sum(v) FROM ev").to_rows()[0]
+    s.current_user = "default"
+    s.sql("DROP ROW POLICY p62 ON ev")
+    want_pol = (n62, int(sv[hit62].long().sum()) + n62)
+    if got != want_pol:
+        raise AssertionError(f"sql_views row policy: {got} != {want_pol}")
+    out["explain_plan"] = plan
+    out["explain_estimate"] = est
+    for stmt in ("DROP TABLE ev_62", "DROP TABLE ev_counters",
+                 "DROP TABLE ev_daily", "DROP DICTIONARY counter_dict"):
+        s.sql(stmt)
+    s.tables.clear()
+    del src, sday, sctr, suser, sg, sv, ctr, hit62
+    torch.cuda.empty_cache()
+    emit({"phase": "sql_views", **out, "launches": totals,
+          "oracle": "per-day and per-counter int64 sums, counts and maxima "
+                    "by index_add_/bincount/scatter_reduce over the "
+                    "source; exact distinct (day, UserID) pairs by "
+                    "torch.unique, uniqMerge within 5%; view rows equal "
+                    "the inlined statement's and bincount; joinGet/dictGet "
+                    "counts by name from a gather of the counters; IN a "
+                    "Set equal to torch.isin; ALTER results exact"})
+    return totals
+
+
+def _views_equal(name, rows, want) -> None:
+    if rows != want:
+        raise AssertionError(f"sql_views {name}: {rows[:3]} != oracle "
+                             f"{want[:3]}")
+
+
 def physical_dtype_np(c):
     from myscaledb_tpu_torch.core.types import physical_dtype
     return np.dtype(np.int32) if c.dictionary is not None else \
@@ -3592,6 +3958,7 @@ def main() -> int:
     counts["sql_subquery"] = phase_sql_subquery(args.seed)
     counts["sql_text"] = phase_sql_text(args.seed)
     counts["sql_storage"] = phase_sql_storage(args.seed)
+    counts["sql_views"] = phase_sql_views(args.seed)
     phase_goldens_stateless()
 
     summary = []

@@ -23,7 +23,7 @@ NULL_ID = -1  # id reserved for NULL strings
 
 
 class StringDictionary:
-    __slots__ = ("values", "index", "_ranks")
+    __slots__ = ("values", "index", "_ranks", "__weakref__")
 
     def __init__(self, values: Optional[list[str]] = None):
         self.values: list[str] = list(values) if values else []
@@ -84,6 +84,14 @@ class StringDictionary:
             r[order] = np.arange(len(self.values), dtype=np.int32)
             self._ranks = r
         return self._ranks
+
+    def copy(self) -> "StringDictionary":
+        """An independent dictionary with the same ids (the list and the
+        index copied whole, not re-encoded value by value)."""
+        out = StringDictionary()
+        out.values = list(self.values)
+        out.index = dict(self.index)
+        return out
 
     def merge_from(self, other: "StringDictionary") -> np.ndarray:
         """Merge another dictionary into this one; returns an id-remap array

@@ -527,9 +527,13 @@ def concat_tables(tables: Sequence[Table], name: str = "") -> Table:
                                    None, np.concatenate(out_off)))
             continue
         if fld.dtype is DataType.STRING:
-            base = StringDictionary()
-            datas = []
-            for c in cols:
+            # the first part's ids stay (a copy of its dictionary) where its
+            # values are distinct; the other parts' are remapped into it
+            d0 = cols[0].dictionary
+            fast = len(d0.index) == len(d0.values)
+            base = d0.copy() if fast else StringDictionary()
+            datas = [cols[0].data.to(torch.int32)] if fast else []
+            for c in cols[1 if fast else 0:]:
                 remap = base.merge_from(c.dictionary)
                 # index -1 (NULL_ID) picks the appended NULL_ID
                 lut = to_tensor(np.append(remap, NULL_ID).astype(np.int32),

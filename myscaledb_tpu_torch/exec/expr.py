@@ -9,9 +9,9 @@ evaluated on the dictionary, ``coalesce``/``nullIf``, and ``IN
 by ``torch.isin`` on the device).  exec/arrays.py (array functions and,
 for a call with a lambda argument, the higher-order functions),
 exec/datetime_fns.py and exec/scalar_fns.py register the rest at the
-bottom of this module.  ``dictGet*`` (external dictionaries),
-``joinGet*`` (Join-engine tables) and ``finalizeAggregation`` raise
-``NotPortedError``.
+bottom of this module.  ``dictGet*`` probe runtime/dictionaries.py's
+sorted keys or direct table on the device; ``joinGet*`` probe a Join-engine
+table's keys, sorted once per mutation epoch.
 
 String semantics ride the dictionary: predicates on strings are evaluated
 once over the (small) dictionary on the host, then mapped to rows with one
@@ -43,13 +43,11 @@ import torch
 from myscaledb_tpu_torch.core.types import DataType, physical_dtype
 from myscaledb_tpu_torch.core.table import Table, to_tensor
 from myscaledb_tpu_torch.core.dictionary import StringDictionary, NULL_ID
-from myscaledb_tpu_torch.errors import NotPortedError
 from myscaledb_tpu_torch.sql.ast import (Expr, Literal, VectorLiteral, Ident,
                                          BinOp, UnOp, FuncCall, InList,
                                          Between, WindowCall, InSubquery,
                                          Lambda)
 
-EXPR_SLICE = "expression and function breadth"
 INT64_MAX = 2 ** 63 - 1
 # the largest value of each unsigned type stored widened to a signed tensor
 # (UInt64 up to 2^63-1, what the int64 store holds)
@@ -101,6 +99,8 @@ class Env:
     (subquery)`` may be evaluated."""
 
     subquery_runner = None
+    dictionaries = None        # name -> runtime.dictionaries.Dictionary
+    session = None             # the Session, for joinGet's Join tables
 
     def __init__(self, table: Table, aliases: Optional[dict] = None,
                  device=None):
@@ -201,17 +201,6 @@ def _scalar(x, device) -> torch.Tensor:
 # scalar function registry (ClickHouse-compatible names)
 
 _FUNCS: dict[str, Callable] = {}
-# the JAX package's functions this port does not have yet, by the slice
-# that brings them (ROADMAP queue 1): finalizeAggregation (the -State
-# combinators) and joinGet* (Join-engine tables) with the next breadth
-# slice, dictGet* with runtime/dictionaries.py
-DEFERRED_FNS = {
-    **{n: EXPR_SLICE for n in (
-        "finalizeaggregation", "joinget", "joingetordefault",
-        "joingetornull")},
-    **{n: "storage, formats and runtime state"
-       for n in ("dictget", "dictgetordefault", "dicthas")},
-}
 # the vector search functions resolve in the executor and nowhere here,
 # in the JAX package too: a reference the executor did not resolve fails
 # with the JAX package's error text
@@ -1121,6 +1110,202 @@ def _vector_literal(e: VectorLiteral) -> Value:
     return Value(np.asarray(e.values, dtype=dt), is_scalar=True, py=e.values)
 
 
+# -- external dictionaries (reference: FunctionsExternalDictionaries.h
+# dictGet / dictGetOrDefault / dictHas over runtime/dictionaries.py)
+
+def _get_dictionary(env: Env, name_val: Value):
+    if not env.dictionaries:
+        raise EvalError("no dictionaries defined in this session")
+    name = name_val.py
+    if not isinstance(name, str):
+        raise EvalError("dictGet: dictionary name must be a string literal")
+    d = env.dictionaries.get(name)
+    if d is None:
+        raise EvalError(f"unknown dictionary {name!r}")
+    return d
+
+
+def _dict_probe(d, key: Value, env: Env):
+    """(row (n,) int32, found (n,) bool, scalar) of a dictGet key."""
+    dev = env.device
+    if isinstance(key.py, str):
+        if not d.key_is_string:
+            raise EvalError("dictGet: string key for a numeric-key dictionary")
+        kid = d.key_dictionary.index.get(key.py, -2)
+        row, found = d.lookup(torch.tensor([kid], dtype=torch.int64,
+                                           device=dev),
+                              probe_dictionary=d.key_dictionary)
+        return row, found, True
+    data = key.data.reshape(1) if key.is_scalar else key.data
+    row, found = d.lookup(data, probe_dictionary=key.dictionary)
+    if key.valid is not None and not key.is_scalar:
+        found = found & key.valid
+    return row, found, key.is_scalar
+
+
+def _lookup_gather(col, row, found, scalar: bool, default,
+                   nullable_result: bool) -> Value:
+    """The attribute ``col`` at the probed rows: misses take the default
+    (a String's '' or the given string, a number's 0 or the given value)."""
+    dev = row.device
+    if len(col) == 0:
+        out = torch.zeros(row.shape, dtype=col.data.dtype, device=dev)
+        found = torch.zeros(row.shape, dtype=torch.bool, device=dev)
+    else:
+        out = col.data[row.long()]
+    if col.dtype is DataType.STRING:
+        miss = col.dictionary.encode_one(
+            default.py if default is not None and isinstance(default.py, str)
+            else "", grow=True)
+        out = torch.where(found, out, torch.full((), miss, dtype=out.dtype,
+                                                 device=dev))
+        return Value(out[0] if scalar else out, None, col.dictionary,
+                     is_scalar=scalar)
+    fill = torch.zeros((), dtype=out.dtype, device=dev) if default is None \
+        else default.data.to(out.dtype)
+    out = torch.where(found, out, fill)
+    valid = None
+    if nullable_result and col.valid is not None and not scalar:
+        valid = col.valid[row.long()] & found
+    return Value(out[0] if scalar else out, valid, is_scalar=scalar,
+                 dt=col.dtype if col.dtype in (DataType.DATE,
+                                               DataType.DATETIME) else None)
+
+
+@func("dictget")
+def _f_dictget(args, env):
+    d = _get_dictionary(env, args[0])
+    row, found, scalar = _dict_probe(d, args[2], env)
+    return _lookup_gather(d.attribute(args[1].py), row, found, scalar, None,
+                          True)
+
+
+@func("dictgetordefault")
+def _f_dictgetordefault(args, env):
+    d = _get_dictionary(env, args[0])
+    row, found, scalar = _dict_probe(d, args[2], env)
+    return _lookup_gather(d.attribute(args[1].py), row, found, scalar,
+                          args[3], True)
+
+
+@func("dicthas")
+def _f_dicthas(args, env):
+    d = _get_dictionary(env, args[0])
+    _row, found, scalar = _dict_probe(d, args[1], env)
+    return Value(found[0] if scalar else found, is_scalar=scalar)
+
+
+# -- Join-engine probes (reference: FunctionJoinGet.cpp over StorageJoin:
+# joinGet('t', 'attr', keys...) answers from the table body, the build side)
+
+def _get_join_table(env: Env, name_val: Value):
+    sess = env.session
+    if sess is None:
+        raise EvalError("joinGet not available in this context")
+    name = name_val.py
+    if not isinstance(name, str):
+        raise EvalError("joinGet: table name must be a string literal")
+    info = sess._table_engines.get(name)
+    if not info or info.get("engine") != "Join":
+        raise EvalError(f"joinGet: {name!r} is not a Join-engine table")
+    return name, sess.get_table(name), info
+
+
+def _join_key(bc, kv: Value, n: int, dev):
+    """(build keys, probe keys) of one joinGet key as comparable tensors:
+    a String key in the build column's dictionary ids (probe values
+    remapped on the host once per dictionary value), numbers in a common
+    type."""
+    if bc.dictionary is not None or kv.dictionary is not None or \
+            isinstance(kv.py, str):
+        if bc.dictionary is None:
+            raise EvalError("joinGet: string key for a numeric column")
+        if isinstance(kv.py, str):
+            pid = torch.full((n,), bc.dictionary.index.get(kv.py, -2),
+                             dtype=torch.int64, device=dev)
+        elif kv.dictionary is not None:
+            remap = np.array([bc.dictionary.index.get(s, -2)
+                              for s in kv.dictionary.values] or [-2],
+                             dtype=np.int64)
+            pid = to_tensor(remap, dev)[torch.clamp(kv.data.long(), 0,
+                                                    len(remap) - 1)]
+        else:
+            raise EvalError("joinGet: key type mismatch")
+        return bc.data.to(torch.int64), pid
+    data = kv.data.reshape(1) if kv.is_scalar else kv.data.expand(n)
+    dt = torch.promote_types(bc.data.dtype, data.dtype)
+    return bc.data.to(dt), data.to(dt)
+
+
+def _join_probe(name, t, info, key_args, env: Env):
+    """(build row, found, scalar) of joinGet's keys.  One key is looked up
+    by ``torch.searchsorted`` over the table's keys, sorted once per
+    mutation epoch (the session's derived-state cache); several keys go
+    through the sort-merge ANY join of ops/hashtable.py.  Of equal keys
+    the lowest row answers."""
+    from myscaledb_tpu_torch.ops.hashtable import merge_join_any
+    from myscaledb_tpu_torch.sql.executor import _derived
+    if len(key_args) != len(info["keys"]):
+        raise EvalError(f"joinGet: expected {len(info['keys'])} key(s)")
+    scalar = all(k.is_scalar for k in key_args)
+    n = 1 if scalar else env.n_rows
+    dev = env.device
+    builds, probes, pvalid = [], [], None
+    for kc_name, kv in zip(info["keys"], key_args):
+        if kc_name not in t:
+            raise EvalError(f"joinGet: no key column {kc_name!r}")
+        b, p = _join_key(t[kc_name], kv, n, dev)
+        builds.append(b)
+        probes.append(p)
+        if kv.valid is not None and not kv.is_scalar:
+            pvalid = kv.valid if pvalid is None else pvalid & kv.valid
+    if t.n_rows == 0:
+        return (torch.zeros(n, dtype=torch.int32, device=dev),
+                torch.zeros(n, dtype=torch.bool, device=dev), scalar)
+    if len(builds) == 1 and not builds[0].is_floating_point():
+        b, p = builds[0].to(torch.int64), probes[0].to(torch.int64)
+        srt, perm = _derived(
+            env.session, "join_keys", name, t, info["keys"][0],
+            lambda c: torch.sort(c.data.to(torch.int64), stable=True))
+        pos = torch.clamp(torch.searchsorted(srt, p), max=srt.shape[0] - 1)
+        found = srt[pos] == p
+        row = perm[pos]
+    else:
+        row, found = merge_join_any(tuple(builds), tuple(probes),
+                                    probe_valid=pvalid)
+    if pvalid is not None:
+        found = found & pvalid
+    return torch.where(found, row, 0).to(torch.int32), found, scalar
+
+
+def _join_get(args, env, default=None, or_null=False) -> Value:
+    name, t, info = _get_join_table(env, args[0])
+    attr = args[1].py
+    keys = args[2:-1] if default is not None else args[2:]
+    row, found, scalar = _join_probe(name, t, info, keys, env)
+    if attr not in t:
+        raise EvalError(f"joinGet: no column {attr!r}")
+    v = _lookup_gather(t[attr], row, found, scalar, default, False)
+    if or_null and not scalar:
+        return Value(v.data, found, v.dictionary, dt=v.dt)
+    return v
+
+
+@func("joinget")
+def _f_joinget(args, env):
+    return _join_get(args, env)
+
+
+@func("joingetordefault")
+def _f_joingetordefault(args, env):
+    return _join_get(args, env, default=args[-1])
+
+
+@func("joingetornull")
+def _f_joingetornull(args, env):
+    return _join_get(args, env, or_null=True)
+
+
 def eval_expr(e: Expr, env: Env) -> Value:
     if isinstance(e, Literal):
         if e.value is None:
@@ -1180,9 +1365,6 @@ def eval_expr(e: Expr, env: Env) -> Value:
         if any(isinstance(a, Lambda) for a in e.args):
             return _arrays.eval_hof(e, env)
         impl = _FUNCS.get(e.name.lower())
-        if impl is None and e.name.lower() in DEFERRED_FNS:
-            raise NotPortedError(f"function {e.name}()",
-                                 DEFERRED_FNS[e.name.lower()])
         if impl is None:
             raise EvalError(f"unknown function {e.name!r}")
         args = [eval_expr(a, env) for a in e.args]
@@ -1190,7 +1372,7 @@ def eval_expr(e: Expr, env: Env) -> Value:
     if isinstance(e, WindowCall):
         # computed windows are read by name; one inside an expression is not
         raise EvalError(f"cannot evaluate {e!r}")
-    raise NotPortedError(f"expression {type(e).__name__}", EXPR_SLICE)
+    raise EvalError(f"cannot evaluate {e!r}")
 
 
 def _in_subquery(e: InSubquery, env: Env) -> Value:

@@ -1678,3 +1678,39 @@ def _f_version(args, env):
 def _f_currentuser(args, env):
     user = getattr(env, "current_user", None) or "default"
     return Value(None, is_scalar=True, py=user)
+
+
+@func("finalizeAggregation")
+def _f_finalize_aggregation(args, env):
+    """An aggregate -State value finalized to its result (reference:
+    finalizeAggregation.cpp), as Float64: each distinct state string is
+    parsed once (sql/agg_fns.py, kept in the session's derived-state
+    cache) and the rows gather the results on the device."""
+    from myscaledb_tpu_torch.sql.agg_fns import (_parse_states,
+                                                 finalized_states,
+                                                 parsed_states)
+    v = args[0]
+    if v.is_scalar:
+        if not isinstance(v.py, str):
+            raise EvalError("finalizeAggregation expects a state string")
+        st = _json.loads(v.py)
+        x = finalized_states(_parse_states(
+            StringDictionary([v.py]), env.device))[0].item()
+        if st.get("f") not in ("avg", "uniq", "qtd"):
+            x = st.get("v")            # the state's own JSON number
+        elif st.get("f") == "uniq":
+            x = int(x)
+        from myscaledb_tpu_torch.exec.expr import _scalar
+        return Value(_scalar(0 if x is None else x, env.device),
+                     is_scalar=True, py=x)
+    if v.dictionary is None:
+        raise EvalError("finalizeAggregation expects a state column")
+    ps = parsed_states(env.session, v.dictionary, env.device) \
+        if env.session is not None else \
+        _parse_states(v.dictionary, env.device)
+    lut = finalized_states(ps)
+    ids = v.data.long()
+    out = torch.where((ids >= 0) & (ids < len(v.dictionary)),
+                      lut[torch.clamp(ids, 0, lut.shape[0] - 1)],
+                      float("nan"))
+    return Value(out, v.valid)

@@ -95,7 +95,7 @@ def _matmul_products(n: int, num_groups: int) -> int:
 
 def partial_aggregate_matmul(gid, mask, args, fns: tuple, num_groups: int,
                              arg_valids=None, arg_ranges=None,
-                             logical_dtypes=None):
+                             logical_dtypes=None, route_rows=None):
     """partial_aggregate with sum/count/avg routed through K3 for
     G <= 256 (``ops/kernels/group_agg.py``), falling back to the one-hot
     matmul histogram when ineligible (per-arg validity masks, G > 256)
@@ -104,7 +104,10 @@ def partial_aggregate_matmul(gid, mask, args, fns: tuple, num_groups: int,
     every route; float sums differ only in accumulation order.
     arg_ranges: per-arg zone-map bounds, passed to K3 (which ignores them).
     logical_dtypes: per-arg numpy dtype of the logical type, or None to
-    read it off the tensor."""
+    read it off the tensor.
+    route_rows: the row count the route is chosen for (the statement's,
+    where the caller gathered the kept rows first), so that gathering
+    never changes a result's route; None: gid's."""
     from myscaledb_tpu_torch.ops.aggregate_matmul import \
         matmul_group_aggregate
     from myscaledb_tpu_torch.ops.kernels.group_agg import (group_aggregate,
@@ -125,7 +128,9 @@ def partial_aggregate_matmul(gid, mask, args, fns: tuple, num_groups: int,
     states: list = [None] * len(fns)
     gc = None
     if mm_slots and num_groups > MAX_G and \
-            _matmul_products(gid.shape[0], num_groups) > MATMUL_MAX_PRODUCTS:
+            _matmul_products(gid.shape[0] if route_rows is None
+                             else route_rows, num_groups) > \
+            MATMUL_MAX_PRODUCTS:
         mm_slots = []                   # too many one-hot products: scatter
         scatter_idx = list(range(len(fns)))
     if mm_slots:

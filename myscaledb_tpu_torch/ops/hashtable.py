@@ -120,12 +120,14 @@ def _sorted_runs(key_cols, mask):
 def _group_ids_impl(key_cols, mask, cap: int):
     gid, num_groups, s_row, _s_keys, is_start, run_idx = _sorted_runs(
         key_cols, mask)
-    # representative (lowest) row per group: the run start's row id
-    tgt = torch.where(is_start, run_idx, cap)
-    slot_row = torch.full((cap + 1,), INT32_MAX, dtype=torch.int32,
+    # representative (lowest) row per group: the run start's row id (the
+    # sort is stable).  Only the starts are written: a scatter of every
+    # other row into one spare slot would queue them all on one address
+    starts = torch.nonzero(is_start).flatten()
+    slot_row = torch.full((cap,), INT32_MAX, dtype=torch.int32,
                           device=gid.device)
-    slot_row.scatter_reduce_(0, tgt, s_row.to(torch.int32), "amin")
-    return gid, slot_row[:cap], num_groups
+    slot_row[run_idx[starts]] = s_row[starts].to(torch.int32)
+    return gid, slot_row, num_groups
 
 
 def build_group_ids(key_cols, mask=None, num_groups_hint: Optional[int] = None,

@@ -1,6 +1,9 @@
 """Virtual system.* tables: the port of ``system.one``,
-``system.numbers``, ``system.parts``, ``system.vector_indices`` and
-``system.data_skipping_indices`` from
+``system.numbers``, ``system.parts``, ``system.vector_indices``,
+``system.data_skipping_indices``, ``system.tables``, ``system.views``,
+``system.dictionaries``, ``system.vector_index_event_log`` and the access
+tables (``system.users``, ``roles``, ``grants``, ``row_policies``,
+``quotas``) from
 myscaledb_tpu/runtime/system_tables.py (``build_system_table``), built on
 demand from the session's state and queried through the normal SQL path.
 Every other ``system.*`` name raises ``NotPortedError``.
@@ -8,13 +11,19 @@ Every other ``system.*`` name raises ``NotPortedError``.
 
 from __future__ import annotations
 
+import json
+
 import numpy as np
 
 from myscaledb_tpu_torch.core.table import Table
 from myscaledb_tpu_torch.errors import NotPortedError
 
 SYSTEM_TABLES = ("system.one", "system.parts", "system.vector_indices",
-                 "system.numbers", "system.data_skipping_indices")
+                 "system.numbers", "system.data_skipping_indices",
+                 "system.tables", "system.views", "system.dictionaries",
+                 "system.vector_index_event_log", "system.users",
+                 "system.roles", "system.grants", "system.row_policies",
+                 "system.quotas")
 
 
 def build_system_table(session, name: str) -> Table:
@@ -106,6 +115,89 @@ def build_system_table(session, name: str) -> Table:
             "table": tabs, "name": names, "column": cols, "type": types,
             "type_full": exprs,
             "granularity": np.asarray(grans, dtype=np.int64)}, device=dev)
+
+    if name == "system.tables":
+        names, rows, ncols = [], [], []
+        for tname, t in session.tables.items():
+            names.append(tname)
+            rows.append(t.n_rows)
+            ncols.append(len(t.column_names))
+        return Table.from_dict({
+            "database": ["default"] * len(names), "name": names,
+            "total_rows": np.asarray(rows, dtype=np.int64),
+            "total_columns": np.asarray(ncols, dtype=np.int64),
+            "is_distributed": np.zeros(len(names), dtype=np.uint8)},
+            device=dev)
+
+    if name == "system.views":
+        vs = [(n, sql, "View") for n, sql in session.views.items()] + \
+             [(n, mv["sql"], "MaterializedView")
+              for n, mv in session.materialized_views.items()]
+        return Table.from_dict({"name": [v[0] for v in vs],
+                                "as_select": [v[1] for v in vs],
+                                "engine": [v[2] for v in vs]}, device=dev)
+
+    if name == "system.dictionaries":
+        ds = sorted(session.dictionaries.values(), key=lambda d: d.name)
+        return Table.from_dict({
+            "name": [d.name for d in ds], "key": [d.key_name for d in ds],
+            "layout": [d.layout for d in ds],
+            "source": [d.source_desc for d in ds],
+            "element_count": np.asarray([d.n_rows for d in ds],
+                                        dtype=np.int64)}, device=dev)
+
+    if name == "system.vector_index_event_log":
+        evs = list(session.vi_events)
+        return Table.from_dict({
+            "event_time": np.asarray([e["event_time"] for e in evs],
+                                     dtype=np.float64),
+            "table": [e["table"] for e in evs],
+            "index_name": [e["index_name"] for e in evs],
+            "event_type": [e["event_type"] for e in evs]}, device=dev)
+
+    ac = session.access
+    if name == "system.users":
+        users = sorted(ac.users.values(), key=lambda u: u.name)
+        return Table.from_dict({
+            "name": [u.name for u in users],
+            "auth_type": ["sha256_password" if u.password_hash else
+                          "no_password" for u in users],
+            "default_roles": [",".join(sorted(u.roles)) for u in users]},
+            device=dev)
+
+    if name == "system.roles":
+        return Table.from_dict({"name": sorted(ac.roles.keys())}, device=dev)
+
+    if name == "system.grants":
+        rows = [(u.name, "user", p, t) for u in ac.users.values()
+                for p, t in sorted(u.grants)] + \
+               [(r.name, "role", p, t) for r in ac.roles.values()
+                for p, t in sorted(r.grants)]
+        return Table.from_dict({
+            "grantee": [r[0] for r in rows],
+            "grantee_type": [r[1] for r in rows],
+            "access_type": [r[2] for r in rows],
+            "table": [r[3] for r in rows]}, device=dev)
+
+    if name == "system.row_policies":
+        ps = ac.row_policies
+        return Table.from_dict({
+            "name": [p.name for p in ps], "table": [p.table for p in ps],
+            "select_filter": [p.using_sql for p in ps],
+            "apply_to": ["ALL" if p.to_users is None else
+                         ",".join(sorted(p.to_users)) for p in ps]},
+            device=dev)
+
+    if name == "system.quotas":
+        qs = sorted(ac.quotas.values(), key=lambda q: q.name)
+        return Table.from_dict({
+            "name": [q.name for q in qs],
+            "interval_seconds": np.asarray([q.interval_s for q in qs],
+                                           dtype=np.float64),
+            "limits": [json.dumps(q.limits) for q in qs],
+            "apply_to": ["ALL" if q.to_users is None else
+                         ",".join(sorted(q.to_users)) for q in qs]},
+            device=dev)
 
     raise NotPortedError(f"system table {name}",
                          "storage, formats and runtime state")

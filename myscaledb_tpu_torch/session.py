@@ -7,10 +7,11 @@ device every tensor of the session lives on: ``connect()`` means the CUDA
 card, and a caller that wants the CPU says so with ``device="cpu"``.  The
 DDL statements (sql/ddl.py) keep their state here too: the logical part
 list of each table, detached tables, vector index definitions and their
-lifecycle events, constraints, order and partition keys, row TTLs and
-skip-index definitions.  ``system.parts``, ``system.vector_indices`` and
-``system.data_skipping_indices`` resolve through runtime/system_tables.py;
-views are not ported yet.
+lifecycle events, constraints, order and partition keys, row TTLs,
+skip-index definitions, Join/Set engine keys and aggregate projections;
+views, materialized views and dictionaries.  ``get_table`` runs a view's
+SELECT where the view is read; ``system.*`` names resolve through
+runtime/system_tables.py.
 
 Index builds may run on the background executor's thread: the index list
 is guarded by ``vi_lock``, the derived-state dict by ``sidecar_lock``.
@@ -58,6 +59,13 @@ class Session:
         self._detached: dict[str, tuple] = {}
         self._merges_stopped: set = set()
         self._bg_merge_pending: set = set()
+        # views, materialized views ({source, sql, target}), dictionaries,
+        # Join/Set engine metadata and aggregate projections
+        self.views: dict[str, str] = {}
+        self.materialized_views: dict[str, dict] = {}
+        self.dictionaries: dict = {}
+        self._table_engines: dict[str, dict] = {}
+        self._projections: dict[str, dict] = {}
 
     def read_table_checked(self, name: str) -> Table:
         """get_table + SELECT-privilege check + row-policy filtering for the
@@ -65,6 +73,11 @@ class Session:
         t = self.get_table(name)
         if name.startswith("system."):
             return t
+        return self.checked_read(name, t)
+
+    def checked_read(self, name: str, t: Table) -> Table:
+        """``t`` as the current user may read table ``name``: the SELECT
+        privilege checked, the row policies on ``name`` applied."""
         self.access.check(self.current_user, "SELECT", name)
         has_pol, exprs = self.access.row_policy_exprs(self.current_user, name)
         if not has_pol:
@@ -99,16 +112,23 @@ class Session:
             t = build_system_table(self, name)
             t.name = name
             return t
+        if name in self.views:
+            # a plain view runs its SELECT where it is read (StorageView)
+            t = self.sql(self.views[name])
+            t.name = name
+            return t
         raise KeyError(f"unknown table {name!r}")
 
     def drop_table(self, name: str) -> None:
         """Forget a table with its settings, parts, constraints, order and
-        partition keys, TTL, skip and vector index definitions."""
+        partition keys, TTL, skip and vector index definitions, engine
+        keys and projections."""
         self.tables.pop(name, None)
         self.table_settings.pop(name, None)
         for state in (self._table_parts, self._table_constraints,
                       self._table_order_keys, self._table_partition_keys,
-                      self._table_ttls, self._table_skip_indexes):
+                      self._table_ttls, self._table_skip_indexes,
+                      self._table_engines, self._projections):
             state.pop(name, None)
         # index definitions die with the table
         with self.vi_lock:

@@ -1,6 +1,7 @@
 """Aggregation helpers: the port of myscaledb_tpu/sql/agg_fns.py
-(``_column_range`` and ``_special_aggregate``).  The -State/-Merge
-combinators (``_state_combinator``) come with the next breadth slice.
+(``_column_range``, ``_special_aggregate`` and the -State/-Merge
+combinators of ``_state_combinator``: ``state_column`` and
+``merge_column``).
 
 The special aggregates run on the device where the JAX package's do:
 
@@ -25,9 +26,13 @@ quantileTDigest assemble on the host per group, as in the JAX package.
 
 from __future__ import annotations
 
+import json
+import math
+
 import numpy as np
 import torch
 
+from myscaledb_tpu_torch.core.dictionary import StringDictionary
 from myscaledb_tpu_torch.core.table import Column, to_tensor
 from myscaledb_tpu_torch.core.types import Field, DataType
 from myscaledb_tpu_torch.sql.ast import Ident
@@ -380,3 +385,445 @@ def _special_aggregate(kind: str, vals, gid, m, G: int, present, n: int,
                            rows, "amin")
     w = winner[:G][pres]
     return _pick_rows(res_v, w, w != INT32_MAX, n)
+
+
+# ---------------------------------------------------------------------------
+# -State / -Merge combinators and their state strings
+
+STATE_BASES = {"sum", "count", "min", "max", "avg", "uniq",
+               "quantiletdigest"}
+
+
+def _json_number(x) -> str:
+    """x as ``json.dumps`` writes it: an int in decimal, a finite float by
+    its repr, NaN/Infinity spelled out, None as null."""
+    if x is None or isinstance(x, bool):
+        return json.dumps(x)
+    if isinstance(x, int) or math.isfinite(x):
+        return repr(x)
+    return json.dumps(x)
+
+
+def _encode_states(keys: list, payload: list, fmt) -> tuple:
+    """(ids (P,) int32, StringDictionary) of P groups' state strings, in the
+    order the JAX package's ``StringDictionary.encode`` gives them: first
+    appearance.  Groups whose int64 key rows are equal (keys after the
+    first are non-negative) share one string, so each distinct state is
+    formatted once on the host: ``fmt(*values)`` over the payload tensors
+    at the first group holding it."""
+    P = keys[0].shape[0]
+    dev = keys[0].device
+    if P == 0:
+        return torch.zeros(0, dtype=torch.int32, device=dev), \
+            StringDictionary()
+    # one dense id per distinct key row: the first key's, then each next
+    # (non-negative, small: a count or a flag) folded in
+    _u, inv = torch.unique(keys[0], return_inverse=True)
+    for k in keys[1:]:
+        _u, inv = torch.unique(inv * (int(k.max()) + 1) + k,
+                               return_inverse=True)
+    U = _u.shape[0]
+    pos = torch.arange(P, dtype=torch.int64, device=dev)
+    first = torch.full((U,), P, dtype=torch.int64, device=dev) \
+        .scatter_reduce_(0, inv, pos, "amin")
+    order = torch.argsort(first)
+    new_id = torch.empty_like(order)
+    new_id[order] = torch.arange(U, dtype=torch.int64, device=dev)
+    rep = first[order]
+    cols = [p[rep].tolist() for p in payload]
+    strings = [fmt(*vals) for vals in zip(*cols)]
+    return new_id[inv].to(torch.int32), StringDictionary(strings)
+
+
+def _f64_bits(x: torch.Tensor) -> torch.Tensor:
+    """x's f64 bit patterns, every NaN as one (all print as NaN)."""
+    x = x.to(torch.float64)
+    return torch.where(torch.isnan(x), float("nan"), x).view(torch.int64)
+
+
+def _group_order(data: torch.Tensor, gid, vm, G: int):
+    """The vm rows' values on the device in (group, row) order, and each
+    group's row count: the layout a per-group reduction in row order
+    reads."""
+    rows = torch.nonzero(vm).flatten()
+    g = gid.to(torch.int64)[rows]
+    order = torch.sort(g, stable=True).indices
+    return data[rows[order]], torch.bincount(g, minlength=G)[:G]
+
+
+def _host_group_slices(data: torch.Tensor, gid, vm, G: int):
+    """_group_order's values on the host, and each group's [start, end)
+    in them: a per-group numpy reduction over its slice reads the rows
+    the JAX package's ``data_np[gid_np == g]`` does, with no pass over
+    all rows per group."""
+    vals, count = _group_order(data, gid, vm, G)
+    end = torch.cumsum(count, 0)
+    return vals.cpu().numpy(), (end - count).cpu().numpy(), end.cpu().numpy()
+
+
+_NP_BUFSIZE = 8192     # numpy's ufunc buffer: add.reduce sums these in turn
+_NP_BLOCK = 128        # pairwise_sum's block: eight lanes below it
+
+
+def _np_leaf_sums(vals: torch.Tensor, off, m) -> torch.Tensor:
+    """pairwise_sum over slices of at most 128 values, as numpy's C loop
+    takes them: under 8 values added in turn to 0.0; else eight lanes
+    over the whole blocks of 8, the lanes added as a tree, the rest in
+    turn."""
+    if off.shape[0] == 0:
+        return torch.zeros(0, dtype=vals.dtype, device=vals.device)
+    cols = torch.arange(_NP_BLOCK, device=vals.device)
+    x = vals[torch.clamp(off[:, None] + cols, max=vals.shape[0] - 1)]
+    nb = m // 8
+    r = x[:, :8]
+    for b in range(1, _NP_BLOCK // 8):
+        r = torch.where((b < nb)[:, None], r + x[:, 8 * b:8 * b + 8], r)
+    tree = ((r[:, 0] + r[:, 1]) + (r[:, 2] + r[:, 3])) + \
+        ((r[:, 4] + r[:, 5]) + (r[:, 6] + r[:, 7]))
+    lanes = m >= 8
+    out = torch.where(lanes, tree, 0.0)
+    tail = torch.where(lanes, nb * 8, 0)
+    for t in range(7):
+        p = tail + t
+        out = torch.where(p < m, out + x.gather(
+            1, torch.clamp(p, max=_NP_BLOCK - 1)[:, None])[:, 0], out)
+    return out
+
+
+def numpy_order_sums(vals: torch.Tensor, count: torch.Tensor
+                     ) -> torch.Tensor:
+    """(G,) f64: group g's values ``vals[start_g:start_g + count_g]``
+    (groups laid out in turn) summed in the order numpy's ``add.reduce``
+    takes them, so the result is numpy's ``slice.sum()`` bit for bit:
+    8192-value buffers added in turn to 0.0, each buffer by pairwise_sum
+    (halves, the first rounded down to a multiple of 8, down to 128
+    values; eight lanes within).  The halving tree depends on the counts
+    only: it is laid out on the host from one copy of them, and every
+    sum runs on the device, all leaves at once, then level by level."""
+    dev = vals.device
+    vals = vals.to(torch.float64)
+    cnt = count.cpu().numpy().astype(np.int64)
+    G = cnt.shape[0]
+    nch = (cnt + _NP_BUFSIZE - 1) // _NP_BUFSIZE
+    first = np.cumsum(nch) - nch
+    cg = np.repeat(np.arange(G), nch)
+    k = np.arange(cg.shape[0]) - first[cg]
+    off = (np.cumsum(cnt) - cnt)[cg] + k * _NP_BUFSIZE
+    m = np.minimum(cnt[cg] - k * _NP_BUFSIZE, _NP_BUFSIZE)
+    levels = []            # (nodes, which nodes are leaves), root level first
+    leaf_off, leaf_m = [], []
+    while off.shape[0]:
+        split = m > _NP_BLOCK
+        levels.append((off.shape[0], ~split))
+        leaf_off.append(off[~split])
+        leaf_m.append(m[~split])
+        so, sm = off[split], m[split]
+        n2 = sm // 2
+        n2 -= n2 % 8
+        off = np.stack([so, so + n2], 1).ravel()
+        m = np.stack([n2, sm - n2], 1).ravel()
+    # every index the device reads, in one upload (a copy from pageable
+    # memory waits for the stream)
+    parts = [np.concatenate(leaf_off or [k]), np.concatenate(leaf_m or [k])]
+    for _size, is_leaf in reversed(levels):
+        parts += [np.flatnonzero(is_leaf), np.flatnonzero(~is_leaf)]
+    for j in range(int(nch.max()) if G else 0):
+        g = np.flatnonzero(nch > j)
+        parts += [g, first[g] + j]
+    bounds = np.cumsum([0] + [x.shape[0] for x in parts])
+    flat = to_tensor(np.concatenate(parts).astype(np.int64), dev)
+    idx = [flat[bounds[i]:bounds[i + 1]] for i in range(len(parts))]
+    leaves = _np_leaf_sums(vals, idx[0], idx[1])
+    end = leaves.shape[0]
+    below, i = None, 2
+    for size, is_leaf in reversed(levels):
+        nl = int(is_leaf.sum())
+        val = torch.empty(size, dtype=torch.float64, device=dev)
+        val[idx[i]] = leaves[end - nl:end]
+        end -= nl
+        if below is not None:
+            val[idx[i + 1]] = below[0::2] + below[1::2]
+        below, i = val, i + 2
+    out = torch.zeros(G, dtype=torch.float64, device=dev)
+    for gi, ci in zip(idx[i::2], idx[i + 1::2]):
+        out[gi] = out[gi] + below[ci]
+    return out
+
+
+def _uniq_keys(v, data: torch.Tensor) -> torch.Tensor:
+    """The 64-bit values uniqState hashes: a String's 8-byte blake2b of
+    its value (states of other dictionaries must merge), else the data."""
+    if v.dictionary is None:
+        return data
+    import hashlib
+    dv = np.asarray(
+        [int.from_bytes(hashlib.blake2b(
+            ("" if s is None else s).encode("latin-1", "replace"),
+            digest_size=8).digest(), "little")
+         for s in v.dictionary.values] or [0], dtype=np.uint64)
+    lut = to_tensor(dv.view(np.int64), data.device)
+    return lut[torch.clamp(data.long(), 0, len(dv) - 1)]
+
+
+def _strings_column(strings: list, dev) -> Column:
+    """A String column of one state string per group."""
+    sd = StringDictionary()
+    return Column(Field("x", DataType.STRING),
+                  to_tensor(sd.encode(strings), dev), None, sd)
+
+
+def state_column(base: str, v, gid, m, G: int, present, n: int) -> Column:
+    """``<base>State(v)`` per present group: a String column of the
+    engine's JSON state strings, byte-identical to the JAX package's
+    (``{"f": "sum", "v": ...}``; for uniq the base64 of the 4096 HLL
+    registers).  The partials come from one pass over the rows on the
+    device — K3 for sum/count up to 256 groups, the grouping's segment
+    reductions beyond — and only the distinct states are formatted on the
+    host.  Float sums run on the device in numpy's summation order
+    (``numpy_order_sums``); only quantileTDigest's digests are built from
+    each group's host slice."""
+    from myscaledb_tpu_torch.ops.aggregate import partial_aggregate_matmul
+    data = _full(v, n)
+    vm = _valid_mask(m, [v])
+    dev = gid.device
+    pres = torch.as_tensor(present, dtype=torch.int64, device=dev)
+    is_float = data.is_floating_point()
+    if base == "uniq":
+        import base64
+        from myscaledb_tpu_torch.ops.hll import (hash_key_columns,
+                                                 hll_registers)
+        # registers of the present groups only: (P, 4096), not (G, 4096)
+        rank = torch.full((G + 1,), -1, dtype=torch.int64, device=dev)
+        rank[pres] = torch.arange(len(present), device=dev)
+        slot = rank[torch.clamp(gid.to(torch.int64), 0, G)]
+        regs = hll_registers(hash_key_columns((_uniq_keys(v, data),)),
+                             torch.clamp_min(slot, 0), vm & (slot >= 0),
+                             len(present))
+        return _strings_column(
+            [json.dumps({"f": "uniq", "r": base64.b64encode(r.tobytes())
+                         .decode()})
+             for r in regs.to(torch.uint8).cpu().numpy()], dev)
+    if v.dictionary is not None:
+        raise _exec().ExecError(f"{base}State over string columns is not "
+                                f"supported")
+    if base == "quantiletdigest":
+        # t-digests are built on the host from each group's slice
+        from myscaledb_tpu_torch.ops.tdigest import (build_digest,
+                                                     serialize_digest)
+        vals, start, end = _host_group_slices(data.to(torch.float64), gid,
+                                              vm, G)
+        return _strings_column(
+            [json.dumps({"f": "qtd", "d": serialize_digest(
+                *build_digest(vals[start[g]:end[g]]))}) for g in present],
+            dev)
+    if is_float and base in ("sum", "avg"):
+        # summed on the device in numpy's order: the JAX package's
+        # float(slice.sum()) bit for bit
+        vals, cnt = _group_order(data.to(torch.float64), gid, vm, G)
+        s = numpy_order_sums(vals, cnt)[pres]
+        cnt = cnt[pres]
+        if base == "sum":
+            ids, sd = _encode_states([_f64_bits(s)], [s], lambda x:
+                                     '{"f": "sum", "v": %s}' %
+                                     _json_number(x))
+        else:
+            ids, sd = _encode_states(
+                [_f64_bits(s), cnt], [s, cnt], lambda x, c:
+                '{"f": "avg", "s": %s, "c": %d}' % (_json_number(x), c))
+        return Column(Field("x", DataType.STRING), ids, None, sd)
+    fn = {"avg": "sum"}.get(base, base)
+    states, cnt = partial_aggregate_matmul(
+        gid, vm, (None if fn == "count" else data,), (fn,), G, None, None,
+        (None,))
+    cnt = cnt[pres]
+    # the strings json.dumps writes for these dicts, formatted directly
+    if fn == "count":
+        ids, sd = _encode_states([cnt], [cnt], lambda c:
+                                 '{"f": "count", "v": %d}' % c)
+    elif base == "sum":
+        s = states[0][pres]
+        ids, sd = _encode_states([s], [s], lambda x:
+                                 '{"f": "sum", "v": %d}' % x)
+    elif base == "avg":
+        s = states[0][pres]
+        ids, sd = _encode_states([s, cnt], [s.to(torch.float64), cnt],
+                                 lambda x, c: '{"f": "avg", "s": %s, '
+                                 '"c": %d}' % (_json_number(x), c))
+    else:   # min / max; None over a group with no value
+        x = states[0][pres]
+        x64 = x.to(torch.float64) if is_float else x.to(torch.int64)
+        key = _f64_bits(x64) if is_float else x64
+        empty = cnt == 0
+        ids, sd = _encode_states(
+            [torch.where(empty, 0, key), empty.to(torch.int64)],
+            [x64, empty], lambda val, e: '{"f": "%s", "v": %s}' % (
+                base, _json_number(None if e else val)))
+    return Column(Field("x", DataType.STRING), ids, None, sd)
+
+
+def _parse_states(d, device) -> dict:
+    """Each distinct state string of a dictionary parsed once: per
+    dictionary id its number (as int64 and f64), whether it was a JSON
+    float or null, avg's sum and count, uniq's registers (on the device)
+    and the t-digests (host)."""
+    import base64
+    D = max(len(d), 1)       # one spare slot: an empty dictionary indexes 0
+    vint = np.zeros(D, dtype=np.int64)
+    vf = np.zeros(D, dtype=np.float64)
+    isf = np.zeros(D, dtype=bool)
+    isnull = np.zeros(D, dtype=bool)
+    cnt = np.zeros(D, dtype=np.int64)
+    kind = np.zeros(D, dtype=np.int8)         # _PLAIN, _AVG, _UNIQ, _QTD
+    regs = None
+    digests = [None] * D
+    for i, s in enumerate(d.values):
+        st = json.loads(s)
+        f = st.get("f")
+        if f == "uniq":
+            if regs is None:
+                regs = np.zeros((D, 4096), dtype=np.uint8)
+            regs[i] = np.frombuffer(base64.b64decode(st["r"]),
+                                    dtype=np.uint8)
+            kind[i] = _UNIQ
+            continue
+        if f == "qtd":
+            digests[i] = st["d"]
+            kind[i] = _QTD
+            continue
+        if f == "avg":
+            kind[i] = _AVG
+        x = st["s"] if f == "avg" else st.get("v")
+        if f == "avg":
+            cnt[i] = st["c"]
+        if x is None:
+            isnull[i] = True
+        elif isinstance(x, float):
+            isf[i] = True
+            vf[i] = x
+        else:
+            vint[i] = x
+            vf[i] = float(x)
+    return {"vint": to_tensor(vint, device), "vf": to_tensor(vf, device),
+            "isf": to_tensor(isf, device), "isnull": to_tensor(isnull,
+                                                             device),
+            "cnt": to_tensor(cnt, device), "kind": kind,
+            "regs": None if regs is None else to_tensor(regs, device),
+            "digests": digests}
+
+
+_PLAIN, _AVG, _UNIQ, _QTD = range(4)
+
+
+def finalized_states(ps: dict) -> torch.Tensor:
+    """(D,) f64: each parsed state finalized (reference:
+    finalizeAggregation.cpp) as the JAX package's ``fin`` does it: a
+    plain state its value (NaN for null), avg its sum over its count,
+    uniq its HLL estimate, a t-digest its median as Float32."""
+    from myscaledb_tpu_torch.ops.hll import hll_estimate
+    kind = to_tensor(ps["kind"], ps["vf"].device)
+    out = torch.where(ps["isnull"], float("nan"), ps["vf"])
+    out = torch.where(kind == _AVG, torch.where(
+        ps["cnt"] > 0, ps["vf"] / ps["cnt"].to(torch.float64),
+        float("nan")), out)
+    if ps["regs"] is not None:
+        est = hll_estimate(ps["regs"].to(torch.int32)).to(torch.float64)
+        out = torch.where(kind == _UNIQ, est, out)
+    if (ps["kind"] == _QTD).any():
+        from myscaledb_tpu_torch.ops.tdigest import (deserialize_digest,
+                                                     digest_quantile)
+        q = np.array([float(np.float32(digest_quantile(
+            *deserialize_digest(s), 0.5))) if s is not None else np.nan
+            for s in ps["digests"]])
+        out = torch.where(kind == _QTD, to_tensor(q, out.device), out)
+    return out
+
+
+def parsed_states(session, d, device) -> dict:
+    """_parse_states of dictionary ``d``, kept in the session's
+    derived-state cache for the current mutation epoch: a -Merge parses
+    each distinct state once, not once a row or a query."""
+    from myscaledb_tpu_torch.sql.executor import derived_state
+    return derived_state(session, ("aggstate", None, (id(d), len(d))), d,
+                         lambda: _parse_states(d, device))
+
+
+def merge_column(base: str, v, gid, m, G: int, present, n: int, level,
+                 session) -> Column:
+    """``<base>Merge(states)`` per present group, as the JAX package
+    merges the parsed states of each group: sums and counts added (Float64
+    where any state was a float), min/max over the non-null states (Float64
+    with NaN where a group has none), avg's sums over its counts, uniq's
+    registers by maximum, t-digests merged.  Every row only gathers its
+    state's parsed numbers on the device, and the groups reduce them in one
+    segment pass."""
+    if v.dictionary is None:
+        raise _exec().ExecError(f"{base}Merge expects a state column")
+    dev = gid.device
+    pres = torch.as_tensor(present, dtype=torch.int64, device=dev)
+    ps = parsed_states(session, v.dictionary, dev)
+    D = len(v.dictionary)
+    ids = _full(v, n).to(torch.int64)
+    sel = _valid_mask(m, [v]) & (ids >= 0) & (ids < D)
+    # the rows that read a state, compacted once: the reductions below
+    # spill no dropped row into a shared slot
+    rows = torch.nonzero(sel).flatten()
+    idx = ids[rows]
+    g = gid.to(torch.int64)[rows]
+
+    def seg(x, reduce="sum", tgt=g):
+        if reduce == "sum":
+            out = torch.zeros(G + 1, dtype=x.dtype, device=dev)
+            return out.index_add_(0, tgt, x)[:G][pres]
+        ident = (torch.finfo if x.is_floating_point() else torch.iinfo)(
+            x.dtype)
+        init = ident.max if reduce == "amin" else ident.min
+        out = torch.full((G + 1,), init, dtype=x.dtype, device=dev)
+        return out.scatter_reduce_(0, tgt, x, reduce)[:G][pres]
+
+    if base == "uniq":
+        from myscaledb_tpu_torch.ops.hll import hll_estimate
+        P = len(present)
+        regs = torch.zeros((P, 4096), dtype=torch.int32, device=dev)
+        if ps["regs"] is not None:
+            rank = torch.full((G,), -1, dtype=torch.int64, device=dev)
+            rank[pres] = torch.arange(P, device=dev)
+            # each (group, state) pair once: its registers join the max
+            pair = torch.unique(rank[g] * max(D, 1) + idx)
+            cell = (pair // max(D, 1))[:, None] * 4096 + torch.arange(
+                4096, device=dev)
+            regs.view(-1).scatter_reduce_(
+                0, cell.flatten(),
+                ps["regs"][pair % max(D, 1)].to(torch.int32).flatten(),
+                "amax")
+        return _result(hll_estimate(regs))
+    if base == "quantiletdigest":
+        from myscaledb_tpu_torch.ops.tdigest import (deserialize_digest,
+                                                     merge_digests,
+                                                     digest_quantile)
+        held, start, end = _host_group_slices(
+            torch.clamp(ids, 0, max(D - 1, 0)), gid, sel, G)
+        out = np.empty(len(present), dtype=np.float32)
+        for i, gr in enumerate(present):
+            dig = merge_digests([deserialize_digest(ps["digests"][j])
+                                 for j in held[start[gr]:end[gr]]])
+            out[i] = np.float32(digest_quantile(
+                *dig, level if level is not None else 0.5))
+        return _result(to_tensor(out, dev))
+    any_float = bool(ps["isf"][idx].any())
+    if base == "avg":
+        tot = seg(ps["vf"][idx])
+        c = seg(ps["cnt"][idx])
+        return _result(torch.where(c > 0, tot / c.to(torch.float64),
+                                   float("nan")))
+    x = ps["vf"][idx] if any_float else ps["vint"][idx]
+    if base in ("sum", "count"):
+        return _result(seg(x))
+    # min / max over the non-null states
+    has = ~ps["isnull"][idx]
+    tgt = torch.where(has, g, G)
+    out = seg(x, "amin" if base == "min" else "amax", tgt)
+    nvals = seg(has.to(torch.int64), "sum", tgt)
+    if bool((nvals == 0).any()):
+        return _result(torch.where(nvals > 0, out.to(torch.float64),
+                                   float("nan")))
+    return _result(out)

@@ -1,25 +1,31 @@
-"""DDL and DML statements: the port of the subset of
-myscaledb_tpu/sql/ddl.py that a user's vector and storage workflows and the
+"""DDL and DML statements: the port of myscaledb_tpu/sql/ddl.py's
+statements a user's vector, storage and dashboard workflows and the
 goldens run — create, load, index, partition, query, delete, query.
 
 Ported: ``DDLParser`` (``parse_statement``, ``parse_create`` with columns,
 ``CONSTRAINT ... CHECK length(v) = d``, ``INDEX ... TYPE ... GRANULARITY``,
 ENGINE, ORDER BY / PRIMARY KEY, PARTITION BY, TTL and SETTINGS, CREATE
 INDEX; ``parse_type``; ``parse_insert`` / ``parse_insert_value`` for
-VALUES and SELECT; ``parse_alter`` / ``_parse_alter_command`` for ADD/DROP
-VECTOR INDEX, ADD/DROP INDEX, DROP PARTITION, ADD CONSTRAINT and DELETE
-WHERE; ``parse_drop`` with DROP INDEX, ``parse_set``, DELETE FROM,
-OPTIMIZE, TRUNCATE, DETACH/ATTACH, SYSTEM STOP/START MERGES, FLUSH LOGS
-and DROP QUERY CACHE); ``execute_statement`` for those statements (tables
-of the resident engines: the MergeTree family and every engine the JAX
-package keeps as a plain resident table); ``apply_table_ttl``,
-``empty_table_from_defs``, ``_default_column``, ``rows_to_table``,
-``required_privilege`` and the background part merge.
+VALUES and SELECT; ``parse_alter`` / ``_parse_alter_command``;
+``parse_drop``, ``parse_set``, ``parse_grant``,
+``parse_create_dictionary``, DELETE FROM, OPTIMIZE, TRUNCATE,
+DETACH/ATTACH, SYSTEM, SHOW and DESCRIBE); ``execute_statement`` for those
+statements (tables of the resident engines: the MergeTree family, Join,
+Set and every engine the JAX package keeps as a plain resident table);
+``apply_table_ttl``, ``empty_table_from_defs``, ``_default_column``,
+``rows_to_table``, ``required_privilege``, ``run_materialized_views``,
+``_build_dictionary`` and the background part merge.
 
-Every other statement raises ``NotPortedError`` naming its slice:
-users, grants, views, dictionaries, column and setting changes go to
-"expression and function breadth"; file and stream engines, INFILE and
-INSERT ... FORMAT to "storage, formats and runtime state".
+Since the breadth slice also: views and materialized views
+(``run_materialized_views``, once per INSERT statement, over the inserted
+rows), ALTER UPDATE / ADD / DROP / MODIFY / MATERIALIZE COLUMN, MODIFY
+SETTING, ADD/DROP PROJECTION, DROP CONSTRAINT, Join and Set engines,
+CREATE/DROP DICTIONARY over a table and SYSTEM RELOAD DICTIONARY, users,
+roles, grants, row policies and quotas, SHOW and DESCRIBE.
+
+File and stream engines, file-sourced dictionaries, INFILE and INSERT ...
+FORMAT raise ``NotPortedError`` naming "storage, formats and runtime
+state".
 
 Tables live on the session's device.  Each INSERT appends one logical part
 (``session._table_parts``, what system.parts lists) and concatenates the
@@ -49,7 +55,6 @@ from myscaledb_tpu_torch.errors import NotPortedError
 from myscaledb_tpu_torch.sql.lexer import unquote_string
 from myscaledb_tpu_torch.sql.parser import Parser, ParseError
 
-BREADTH = "expression and function breadth"
 STORAGE = "storage, formats and runtime state"
 
 # index builds over at least this many rows run on the background executor
@@ -186,8 +191,194 @@ class SetStatement:
 @dataclass
 class SystemStatement:
     action: str                 # "merges_stop" | "merges_start" |
-                                # "flush_logs" | "drop_query_cache"
+                                # "flush_logs" | "drop_query_cache" |
+                                # "reload_dictionary"
     target: Optional[str] = None
+
+
+@dataclass
+class AlterUpdate:
+    table: str
+    assignments: list           # [(col, expr)]
+    where: object
+
+
+@dataclass
+class ModifyTableSetting:
+    """ALTER TABLE t MODIFY SETTING name = value."""
+    table: str
+    name: str
+    value: object
+
+
+@dataclass
+class ModifyColumn:
+    """ALTER TABLE t MODIFY COLUMN name Type: the column's values cast to
+    the new type (the JAX package's grammar has no MODIFY COLUMN)."""
+    table: str
+    name: str
+    type_tokens: object         # (dtype, nullable, vdim, elem)
+
+
+@dataclass
+class DropConstraint:
+    table: str
+    name: str
+
+
+@dataclass
+class AddColumn:
+    table: str
+    name: str
+    type_tokens: object         # (dtype, nullable, vdim, elem)
+    default: object = None      # AST expr or None
+    if_not_exists: bool = False
+
+
+@dataclass
+class DropColumn:
+    table: str
+    name: str
+
+
+@dataclass
+class MaterializeColumn:
+    """MATERIALIZE COLUMN / INDEX / PROJECTION: ADD COLUMN materializes its
+    DEFAULT at once and derived state is rebuilt per epoch, so nothing is
+    left to do but move the epoch."""
+    table: str
+    name: str
+
+
+@dataclass
+class AddProjection:
+    """ALTER TABLE t ADD PROJECTION p (SELECT ... GROUP BY ...): an
+    aggregate projection (sql/optimizer.py), built on first matching query
+    per mutation epoch."""
+    table: str
+    name: str
+    select_sql: str
+
+
+@dataclass
+class DropProjection:
+    table: str
+    name: str
+
+
+@dataclass
+class ShowTables:
+    pass
+
+
+@dataclass
+class CreateUser:
+    name: str
+    password: Optional[str] = None
+    if_not_exists: bool = False
+
+
+@dataclass
+class CreateRole:
+    name: str
+    if_not_exists: bool = False
+
+
+@dataclass
+class DropPrincipal:
+    kind: str                   # "user" | "role" | "quota"
+    name: str
+    if_exists: bool = False
+
+
+@dataclass
+class GrantStmt:
+    privs: list                 # privilege names, or role names if is_role
+    target: Optional[str]       # table name or '*' (None for role grants)
+    grantees: list
+    is_role: bool = False
+
+
+@dataclass
+class RevokeStmt:
+    privs: list
+    target: Optional[str]
+    grantees: list
+    is_role: bool = False
+
+
+@dataclass
+class CreateRowPolicy:
+    name: str
+    table: str
+    using_expr: object
+    using_sql: str
+    to_users: Optional[list]    # None = TO ALL
+
+
+@dataclass
+class DropRowPolicy:
+    name: str
+    table: str
+
+
+@dataclass
+class CreateQuota:
+    name: str
+    interval_s: float
+    limits: dict
+    to_users: Optional[list]
+
+
+@dataclass
+class CreateView:
+    name: str
+    select_sql: str
+    materialized: bool = False
+    to_table: Optional[str] = None
+    populate: bool = False
+    if_not_exists: bool = False
+
+
+@dataclass
+class CreateDictionary:
+    name: str
+    columns: list               # ColumnDef list
+    primary_key: str
+    source_kind: str            # "table" | "file"
+    source_arg: str             # table name or file path
+    source_format: Optional[str]
+    layout: str
+    if_not_exists: bool = False
+
+
+@dataclass
+class DropDictionary:
+    name: str
+    if_exists: bool = False
+
+
+@dataclass
+class ShowGrants:
+    user: Optional[str] = None
+
+
+@dataclass
+class ShowAccess:
+    what: str                   # users | roles | quotas | row_policies |
+                                # dictionaries
+
+
+@dataclass
+class DescribeTable:
+    name: str
+
+
+# statements that read the catalog and change nothing
+READ_ONLY_STATEMENTS = (ShowTables, DescribeTable, ShowGrants, ShowAccess)
+# statements that change who may read what, and no data
+ACCESS_STATEMENTS = (CreateUser, CreateRole, DropPrincipal, GrantStmt,
+                     RevokeStmt, CreateRowPolicy, DropRowPolicy, CreateQuota)
 
 
 class DDLParser(Parser):
@@ -226,7 +417,10 @@ class DDLParser(Parser):
         if up == "SYSTEM":
             self.next()
             if self.take_kw("RELOAD"):
-                raise NotPortedError("SYSTEM RELOAD DICTIONARY", BREADTH)
+                self.take_kw("DICTIONARY") or self.take_kw("DICTIONARIES")
+                target = self.next().text if self.peek().kind != "eof" \
+                    else None
+                return SystemStatement("reload_dictionary", target)
             if self.take_kw("FLUSH"):
                 self.take_kw("LOGS")
                 return SystemStatement("flush_logs")
@@ -244,11 +438,26 @@ class DDLParser(Parser):
                 return SystemStatement(action, target)
             raise ParseError("unsupported SYSTEM statement")
         if up in ("GRANT", "REVOKE"):
-            raise NotPortedError(f"{up} statements", BREADTH)
+            return self.parse_grant(revoke=up == "REVOKE")
         if up == "SHOW":
-            raise NotPortedError("SHOW statements", BREADTH)
+            self.next()
+            if self.take_kw("GRANTS"):
+                return ShowGrants(self.next().text if self.take_kw("FOR")
+                                  else None)
+            for kw, what in (("USERS", "users"), ("ROLES", "roles"),
+                             ("QUOTAS", "quotas"),
+                             ("DICTIONARIES", "dictionaries")):
+                if self.take_kw(kw):
+                    return ShowAccess(what)
+            if self.take_kw("ROW"):
+                self.expect_kw("POLICIES")
+                return ShowAccess("row_policies")
+            self.expect_kw("TABLES")
+            return ShowTables()
         if up in ("DESCRIBE", "DESC"):
-            raise NotPortedError("DESCRIBE TABLE", BREADTH)
+            self.next()
+            self.take_kw("TABLE")
+            return DescribeTable(self.parse_table_name())
         if up == "DELETE":
             # standalone lightweight delete: DELETE FROM t WHERE expr (the
             # rewrite semantics are shared with ALTER TABLE ... DELETE)
@@ -287,9 +496,47 @@ class DDLParser(Parser):
         if self.take_kw("DELETE"):
             self.expect_kw("WHERE")
             return AlterDelete(table, self.parse_expr())
-        if self.at_kw("UPDATE", "MATERIALIZE", "MODIFY"):
-            raise NotPortedError(f"ALTER TABLE ... {self.peek().upper}",
-                                 BREADTH)
+        if self.take_kw("UPDATE"):
+            assignments = []
+            while True:
+                col = self.next().text
+                self.expect_punct("=")
+                assignments.append((col, self.parse_expr()))
+                if not self.take_punct(","):
+                    break
+            self.expect_kw("WHERE")
+            return AlterUpdate(table, assignments, self.parse_expr())
+        if self.take_kw("MATERIALIZE"):
+            if not (self.take_kw("INDEX") or self.take_kw("PROJECTION")):
+                self.expect_kw("COLUMN")
+            return MaterializeColumn(table, self.next().text)
+        if self.take_kw("MODIFY"):
+            if self.take_kw("COLUMN"):
+                self._take_if_exists()
+                name = self.next().text.strip("`")
+                return ModifyColumn(table, name, self.parse_type())
+            # MODIFY SETTING a = 1[, b = 2 ...]
+            self.expect_kw("SETTING")
+
+            def one():
+                name = self.next().text
+                self.expect_punct("=")
+                tok = self.next()
+                val = unquote_string(tok.text) if tok.kind == "string" \
+                    else tok.text
+                try:
+                    val = int(val)
+                except (TypeError, ValueError):
+                    pass
+                return ModifyTableSetting(table, name, val)
+
+            cmds = [one()]
+            # a following "name =" continues the SETTING list; anything
+            # else is the next ALTER command
+            while self.at_punct(",") and self.peek(2).text == "=":
+                self.next()
+                cmds.append(one())
+            return cmds[0] if len(cmds) == 1 else AlterMulti(table, cmds)
         if self.take_kw("ADD"):
             if self.at_kw("INDEX"):
                 return AddSkipIndex(table, self._parse_skip_index())
@@ -297,9 +544,26 @@ class DDLParser(Parser):
                 name = self.next().text
                 self.expect_kw("CHECK")
                 return AddConstraint(table, name, self.parse_expr())
-            if self.at_kw("COLUMN", "PROJECTION"):
-                raise NotPortedError(f"ALTER TABLE ... ADD "
-                                     f"{self.peek().upper}", BREADTH)
+            if self.take_kw("COLUMN"):
+                ine = self._take_if_not_exists()
+                name = self.next().text.strip("`")
+                tt = self.parse_type()
+                default = None
+                if self.take_kw("DEFAULT") or self.take_kw("MATERIALIZED"):
+                    default = self.parse_expr()
+                return AddColumn(table, name, tt, default, ine)
+            if self.take_kw("PROJECTION"):
+                name = self.next().text
+                self.expect_punct("(")
+                start = self.peek().pos
+                depth, end = 1, len(self.sql)
+                while depth and self.peek().kind != "eof":
+                    tok = self.next()
+                    depth += (tok.text == "(") - (tok.text == ")")
+                    if depth == 0:
+                        end = tok.pos
+                return AddProjection(table, name,
+                                     self.sql[start:end].strip())
             self.expect_kw("VECTOR")
             self.expect_kw("INDEX")
             name = self.next().text
@@ -323,9 +587,13 @@ class DDLParser(Parser):
                 return DropPartition(table, val)
             if self.take_kw("INDEX"):
                 return DropSkipIndex(table, self.next().text)
-            if self.at_kw("COLUMN", "PROJECTION", "CONSTRAINT"):
-                raise NotPortedError(f"ALTER TABLE ... DROP "
-                                     f"{self.peek().upper}", BREADTH)
+            if self.take_kw("PROJECTION"):
+                return DropProjection(table, self.next().text)
+            if self.take_kw("CONSTRAINT"):
+                return DropConstraint(table, self.next().text)
+            if self.take_kw("COLUMN"):
+                self._take_if_exists()
+                return DropColumn(table, self.next().text.strip("`"))
             self.expect_kw("VECTOR")
             self.expect_kw("INDEX")
             return DropVectorIndex(table, self.next().text)
@@ -352,12 +620,79 @@ class DDLParser(Parser):
             self.expect_kw("ON")
             table = self.parse_table_name()
             return AddSkipIndex(table, self._skip_index_tail(iname))
-        for kw, what in (("USER", "users"), ("ROLE", "roles"),
-                         ("ROW", "row policies"), ("QUOTA", "quotas"),
-                         ("DICTIONARY", "dictionaries"), ("VIEW", "views"),
-                         ("MATERIALIZED", "materialized views")):
-            if self.at_kw(kw):
-                raise NotPortedError(f"CREATE {kw} ({what})", BREADTH)
+        if self.take_kw("USER"):
+            ine = self._take_if_not_exists()
+            name = self.next().text
+            password = None
+            if self.take_kw("IDENTIFIED"):
+                self.take_kw("WITH") and self.next()   # auth type, ignored
+                self.expect_kw("BY")
+                password = unquote_string(self.next().text)
+            return CreateUser(name, password, ine)
+        if self.take_kw("ROLE"):
+            ine = self._take_if_not_exists()
+            return CreateRole(self.next().text, ine)
+        if self.take_kw("ROW"):
+            self.expect_kw("POLICY")
+            self._take_if_not_exists()
+            name = self.next().text
+            self.expect_kw("ON")
+            table = self.parse_table_name()
+            if self.take_kw("FOR"):
+                self.expect_kw("SELECT")
+            self.expect_kw("USING")
+            start = self.peek().pos
+            expr = self.parse_expr()
+            end = self.peek().pos if self.peek().kind != "eof" else \
+                len(self.sql)
+            return CreateRowPolicy(name, table, expr,
+                                   self.sql[start:end].strip(),
+                                   self._parse_to_users())
+        if self.take_kw("DICTIONARY"):
+            return self.parse_create_dictionary()
+        if self.take_kw("VIEW"):
+            ine = self._take_if_not_exists()
+            name = self.parse_table_name()
+            self.expect_kw("AS")
+            return CreateView(name, self.sql[self.peek().pos:], False,
+                              if_not_exists=ine)
+        if self.take_kw("MATERIALIZED"):
+            self.expect_kw("VIEW")
+            ine = self._take_if_not_exists()
+            name = self.parse_table_name()
+            to_table = None
+            if self.take_kw("TO"):
+                to_table = self.parse_table_name()
+            populate = False
+            # ENGINE = ... ORDER BY ... of the inner table: the view's rows
+            # live in a resident table whatever the engine (the JAX
+            # grammar takes no ENGINE clause here)
+            while not self.at_kw("AS") and self.peek().kind != "eof":
+                populate |= self.next().upper == "POPULATE"
+            self.expect_kw("AS")
+            return CreateView(name, self.sql[self.peek().pos:], True,
+                              to_table, populate, ine)
+        if self.take_kw("QUOTA"):
+            self._take_if_not_exists()
+            name = self.next().text
+            interval_s = 3600.0
+            if self.take_kw("FOR"):
+                self.expect_kw("INTERVAL")
+                n = float(self.next().text)
+                unit = self.next().upper
+                interval_s = n * {"SECOND": 1, "MINUTE": 60, "HOUR": 3600,
+                                  "DAY": 86400, "WEEK": 604800,
+                                  "MONTH": 2629800}.get(unit, 1)
+            limits = {}
+            if self.take_kw("MAX"):
+                while True:
+                    key = self.next().text.lower()
+                    self.expect_punct("=")
+                    limits[key] = float(self.next().text)
+                    if not self.take_punct(","):
+                        break
+            return CreateQuota(name, interval_s, limits,
+                               self._parse_to_users())
         self.expect_kw("TABLE")
         ine = self._take_if_not_exists()
         name = self.parse_table_name()
@@ -553,6 +888,19 @@ class DDLParser(Parser):
             return DataType.STRING, False, fixed_n, None
         if low == "uuid":
             return DataType.STRING, False, 0, None
+        if low == "aggregatefunction":
+            # AggregateFunction(f, T): the -State combinators' state
+            # strings (the JAX grammar has no such type)
+            self._paren_blob()
+            return DataType.STRING, False, 0, None
+        if low == "simpleaggregatefunction":
+            # SimpleAggregateFunction(f, T) stores plain T values
+            self.expect_punct("(")
+            self.next()
+            self.expect_punct(",")
+            out = self.parse_type()
+            self.expect_punct(")")
+            return out
         if low in ("enum8", "enum16", "enum"):
             self._paren_blob()
             return DataType.STRING, False, 0, None
@@ -596,6 +944,106 @@ class DDLParser(Parser):
             if depth:
                 toks.append(t)
         return toks
+
+    def parse_create_dictionary(self):
+        """CREATE DICTIONARY name (col Type, ...) PRIMARY KEY k
+        SOURCE(TABLE 'src' | CLICKHOUSE(TABLE 'src') | FILE(PATH 'p'
+        FORMAT 'CSV')) LAYOUT(FLAT()|HASHED()|COMPLEX_KEY_HASHED())
+        LIFETIME(...)."""
+        ine = self._take_if_not_exists()
+        name = self.parse_table_name()
+        self.expect_punct("(")
+        cols = []
+        while True:
+            cname = self.next().text
+            ctype, nullable, vdim, elem = self.parse_type()
+            if self.take_kw("DEFAULT"):
+                self.parse_expr()
+            cols.append(ColumnDef(cname, ctype, nullable, vdim, elem))
+            if not self.take_punct(","):
+                break
+        self.expect_punct(")")
+        primary_key = None
+        source_kind = source_arg = source_format = None
+        layout = "hashed"
+        while self.peek().kind != "eof":
+            kw = self.next().upper
+            if kw == "PRIMARY":
+                self.expect_kw("KEY")
+                primary_key = self.next().text
+            elif kw == "SOURCE":
+                toks = self._paren_blob()
+                strings = [unquote_string(t.text) for t in toks
+                           if t.kind == "string"]
+                words = [t.upper for t in toks if t.kind != "string"]
+                source_kind = "file" if "FILE" in words else "table"
+                source_arg = strings[0] if strings else ""
+                if source_kind == "file" and len(strings) > 1:
+                    source_format = strings[1]
+            elif kw == "LAYOUT":
+                toks = self._paren_blob()
+                if toks:
+                    layout = toks[0].text.lower()
+            elif kw == "LIFETIME":
+                self._paren_blob()   # accepted; snapshot semantics
+            else:
+                raise ParseError(f"unexpected {kw} in CREATE DICTIONARY")
+        if primary_key is None:
+            raise ParseError("CREATE DICTIONARY requires PRIMARY KEY")
+        if source_kind is None:
+            raise ParseError("CREATE DICTIONARY requires SOURCE(...)")
+        return CreateDictionary(name, cols, primary_key, source_kind,
+                                source_arg, source_format, layout, ine)
+
+    def _parse_to_users(self):
+        """TO ALL | TO name [, name...]; None means ALL."""
+        if not self.take_kw("TO") or self.take_kw("ALL"):
+            return None
+        users = [self.next().text]
+        while self.take_punct(","):
+            users.append(self.next().text)
+        return users
+
+    def _parse_priv_list(self) -> list:
+        """Privilege names up to ON/TO/FROM; multi-word privileges
+        ('ACCESS MANAGEMENT', 'CREATE TABLE') joined with spaces."""
+        privs, words = [], []
+        while True:
+            t = self.peek()
+            if t.kind == "eof" or t.upper in ("ON", "TO", "FROM"):
+                break
+            if self.take_punct(","):
+                privs.append(" ".join(words))
+                words = []
+                continue
+            words.append(self.next().text)
+        if words:
+            privs.append(" ".join(words))
+        return privs
+
+    def _parse_grant_target(self) -> str:
+        """* | *.* | db.* | table"""
+        if self.take_punct("*"):
+            if self.take_punct("."):
+                self.expect_punct("*")
+            return "*"
+        name = self.parse_table_name()
+        if self.take_punct("."):
+            self.expect_punct("*")
+            return "*"          # one implicit database: db.* == *
+        return name
+
+    def parse_grant(self, revoke: bool):
+        self.expect_kw("REVOKE" if revoke else "GRANT")
+        privs = self._parse_priv_list()
+        cls = RevokeStmt if revoke else GrantStmt
+        target = self._parse_grant_target() if self.take_kw("ON") else None
+        self.expect_kw("FROM" if revoke else "TO")
+        grantees = [self.next().text]
+        while self.take_punct(","):
+            grantees.append(self.next().text)
+        # without ON it grants roles: GRANT r TO u / REVOKE r FROM u
+        return cls(privs, target, grantees, is_role=target is None)
 
     def parse_insert(self):
         self.expect_kw("INSERT")
@@ -671,9 +1119,19 @@ class DDLParser(Parser):
             name = self.next().text
             self.expect_kw("ON")
             return DropSkipIndex(self.parse_table_name(), name)
-        for kw in ("USER", "ROLE", "QUOTA", "ROW", "DICTIONARY"):
-            if self.at_kw(kw):
-                raise NotPortedError(f"DROP {kw}", BREADTH)
+        for kw in ("USER", "ROLE", "QUOTA"):
+            if self.take_kw(kw):
+                ie = self._take_if_exists()
+                return DropPrincipal(kw.lower(), self.next().text, ie)
+        if self.take_kw("ROW"):
+            self.expect_kw("POLICY")
+            self._take_if_exists()
+            name = self.next().text
+            self.expect_kw("ON")
+            return DropRowPolicy(name, self.parse_table_name())
+        if self.take_kw("DICTIONARY"):
+            ie = self._take_if_exists()
+            return DropDictionary(self.parse_table_name(), ie)
         self.expect_kw("TABLE")
         ie = self._take_if_exists()
         name = self.parse_table_name()
@@ -701,13 +1159,12 @@ class DDLParser(Parser):
 
 MERGE_MIN_PARTS = 8
 
-# engines whose tables the JAX package keeps as plain resident tables (the
-# MergeTree branch of its CREATE); the others read or write outside the
-# table and belong to later slices
+# engines that read or write outside the table (a later slice); every other
+# engine keeps a plain resident table, Join and Set tables with the keys
+# joinGet() and ``x IN set_table`` probe
 _SPECIAL_ENGINES = {"filelog": STORAGE, "kafka": STORAGE,
                     "rabbitmq": STORAGE, "nats": STORAGE, "s3": STORAGE,
-                    "file": STORAGE, "url": STORAGE, "join": BREADTH,
-                    "set": BREADTH}
+                    "file": STORAGE, "url": STORAGE}
 
 
 def maybe_schedule_background_merge(session, name: str) -> None:
@@ -981,20 +1438,220 @@ def _vector_from_array(tgt: Column, src: Column) -> Optional[Column]:
                   dense, torch.as_tensor(ok, device=dev))
 
 
+MV_BLOCK = "system.__mv_block"
+
+
+def _view_on_block(session, mv: dict, block: Table) -> Table:
+    """One materialized view's SELECT over an inserted block: the block
+    stands in for the FROM table under a hidden name, read with the
+    current user's SELECT privilege and row policies on the source and
+    with the source's table settings.  The source table stays registered
+    as it is (the JAX package swaps it for the block), so a background
+    merge or the source's derived state never sees the block."""
+    from dataclasses import replace
+    from myscaledb_tpu_torch.runtime.memory import query_scope
+    from myscaledb_tpu_torch.sql.executor import execute_any
+    from myscaledb_tpu_torch.sql.parser import parse_sql
+    q = parse_sql(mv["sql"])
+    q = replace(q, table=MV_BLOCK, table_alias=q.table_alias or q.table)
+    # a Table of its own: checked_read hands back the caller's table when
+    # no row policy applies, and that table must keep its name
+    blk = Table(list(session.checked_read(mv["source"], block)
+                     .columns.values()), name=MV_BLOCK)
+    saved = session.tables.get(MV_BLOCK)
+    session.tables[MV_BLOCK] = blk
+    # the source's settings (its vector metric) hold for its block
+    ts = session.table_settings.get(mv["source"])
+    if ts is not None:
+        session.table_settings[MV_BLOCK] = ts
+    try:
+        with query_scope(session.settings.max_memory_bytes_per_query):
+            return execute_any(session, q)
+    finally:
+        session.table_settings.pop(MV_BLOCK, None)
+        if saved is None:
+            session.tables.pop(MV_BLOCK, None)
+        else:
+            session.tables[MV_BLOCK] = saved
+
+
+def run_materialized_views(session, table_name: str, block: Table,
+                           only: Optional[dict] = None) -> None:
+    """Feed an inserted block through every materialized view on the
+    source table and append the rows it gives to the view's table
+    (reference: buildPushingToViewsChain — views see the inserted block
+    only, never re-read the source).  A TO table whose column names the
+    view's do not cover takes the view's columns by position.  As in the
+    JAX package the rows are appended as they are: no part is counted and
+    no view on the target runs."""
+    mvs = [only] if only is not None else \
+        list(session.materialized_views.values())
+    for mv in mvs:
+        if mv["source"] != table_name or block.n_rows == 0:
+            continue
+        delta = _view_on_block(session, mv, block)
+        tgt = session.tables.get(mv["target"])
+        if tgt is not None and not set(tgt.column_names) <= \
+                set(delta.column_names):
+            delta = Table([Column(Field(tf.name, sc.dtype,
+                                        sc.field.nullable,
+                                        sc.field.vector_dim, sc.field.elem),
+                                  sc.data, sc.valid, sc.dictionary, None,
+                                  sc.offsets)
+                           for tf, sc in zip(tgt.columns.values(),
+                                             delta.columns.values())])
+        if tgt is None or tgt.n_rows == 0:
+            merged = delta if tgt is None else delta.select(tgt.column_names)
+        else:
+            merged = concat_tables([tgt, delta.select(tgt.column_names)])
+        merged.name = mv["target"]
+        session.tables[mv["target"]] = merged
+
+
+def _create_view(session, stmt: CreateView) -> None:
+    if not stmt.materialized:
+        if stmt.name in session.views and stmt.if_not_exists:
+            return
+        session.views[stmt.name] = stmt.select_sql
+        return
+    # StorageMaterializedView: the SELECT runs over each inserted block of
+    # its source; its rows go to the TO table or to a table of its own
+    from myscaledb_tpu_torch.sql.parser import parse_sql
+    if stmt.name in session.materialized_views and stmt.if_not_exists:
+        return
+    src = getattr(parse_sql(stmt.select_sql), "table", None)
+    if src is None or src not in session.tables:
+        raise ValueError("MATERIALIZED VIEW requires FROM <registered "
+                         "table>")
+    target = stmt.to_table or stmt.name
+    mv = {"source": src, "sql": stmt.select_sql, "target": target}
+    if stmt.to_table is None:
+        # the view's own table: its schema from the SELECT over no rows,
+        # then POPULATE's rows
+        src_t = session.tables[src]
+        t0 = _view_on_block(session, mv, src_t if stmt.populate
+                            else src_t.head(0))
+        t0.name = target
+        session.tables[target] = t0
+    elif stmt.populate:
+        run_materialized_views(session, src, session.tables[src], only=mv)
+    session.materialized_views[stmt.name] = mv
+
+
+def _build_dictionary(session, stmt: CreateDictionary):
+    """Snapshot a table into a Dictionary on the session's device
+    (reference: ExternalDictionariesLoader; LIFETIME is a snapshot)."""
+    from myscaledb_tpu_torch.runtime.dictionaries import Dictionary
+    if stmt.source_kind == "file":
+        raise NotPortedError("CREATE DICTIONARY ... SOURCE(FILE(...))",
+                             STORAGE)
+    src = session.get_table(stmt.source_arg).select(
+        [d.name for d in stmt.columns])
+    d = Dictionary(stmt.name, src, stmt.primary_key, stmt.layout,
+                   f"{stmt.source_kind}:{stmt.source_arg}")
+    d.spec = stmt
+    return d
+
+
+def _rebuild_zone_map(col: Column, old: Column) -> Column:
+    """``col``, the new values of ``old``, with a zone map taken anew where
+    ``old`` had one (a mutation moved its values)."""
+    from myscaledb_tpu_torch.core.table import ZoneMap
+    if old.zonemap is not None and not col.is_host:
+        host_dtype = np.int32 if col.dictionary is not None \
+            else physical_dtype(col.dtype)
+        col.zonemap = ZoneMap.build_device(col.data, host_dtype)
+    return col
+
+
+def _alter_update(session, stmt: AlterUpdate) -> int:
+    """ALTER TABLE t UPDATE c = expr, ... WHERE cond: every assignment is
+    evaluated over the table as it was and written where cond holds,
+    with one where() per column on the device; the updated columns' zone
+    maps are taken anew.  A String value is encoded into the column's
+    dictionary.  Returns the rows changed."""
+    from myscaledb_tpu_torch.exec.expr import Env, eval_expr, as_bool_mask
+    t = session.tables[stmt.table]
+    env = Env(t, device=session.device)
+    cond = as_bool_mask(eval_expr(stmt.where, env), t.n_rows)
+    cols = dict(t.columns)
+    for name, expr in stmt.assignments:
+        old = t[name]
+        v = eval_expr(expr, env)
+        if old.dictionary is not None:
+            if v.is_scalar:
+                new = torch.full((), old.dictionary.encode_one(
+                    "" if v.py is None else str(v.py), grow=True),
+                    dtype=old.data.dtype, device=old.data.device)
+            else:
+                if v.dictionary is None:
+                    raise ValueError(f"cannot assign a number to String "
+                                     f"column {name!r}")
+                lut = to_tensor(np.append(old.dictionary.merge_from(
+                    v.dictionary), -1).astype(np.int64), old.data.device)
+                new = lut[v.data.long()].to(old.data.dtype)
+        else:
+            new = v.data.to(old.data.dtype)
+        data = torch.where(cond, new, old.data)
+        cols[name] = _rebuild_zone_map(Column(old.field, data, old.valid,
+                                              old.dictionary), old)
+    nt = Table(list(cols.values()), name=stmt.table)
+    session.tables[stmt.table] = nt
+    return int(cond.sum())
+
+
+def _new_column(t: Table, name: str, type_tokens, default, device) -> Column:
+    """ADD COLUMN's values: the DEFAULT expression over every row, cast to
+    the declared type (ClickHouse's; the JAX package keeps the
+    expression's type), or the type's default value."""
+    from myscaledb_tpu_torch.exec.expr import Env, eval_expr
+    from myscaledb_tpu_torch.sql.executor import _value_to_column
+    dtype, nullable, vdim, elem = type_tokens
+    tmpl = empty_table_from_defs("", [ColumnDef(name, dtype, nullable, vdim,
+                                                elem)], device)[name]
+    if default is None:
+        return _default_column(tmpl, t.n_rows, device)
+    col = _value_to_column(name, eval_expr(default, Env(t, device=device)),
+                           t.n_rows, device)
+    return _cast_column(col, tmpl)
+
+
+def _cast_column(col: Column, tmpl: Column) -> Column:
+    """col's values as tmpl's type: numbers and dates cast on the device,
+    Strings kept with their dictionary (a number into a String and a
+    String into a number are refused)."""
+    if (col.dictionary is None) != (tmpl.dictionary is None) or \
+            col.offsets is not None or tmpl.offsets is not None or \
+            col.data.dim() != 1:
+        if col.dtype is tmpl.dtype:
+            return col
+        raise ValueError(f"cannot convert column {col.name!r} from "
+                         f"{col.dtype.name} to {tmpl.dtype.name}")
+    data = col.data if col.dictionary is not None else \
+        col.data.to(tmpl.data.dtype)
+    valid = col.valid if tmpl.field.nullable else None
+    return Column(tmpl.field, data, valid, col.dictionary)
+
+
 def required_privilege(stmt):
     """(privilege, target) the current user must hold to run stmt, or None
     (reference: InterpreterFactory + ContextAccess::checkAccess)."""
+    if isinstance(stmt, ACCESS_STATEMENTS):
+        return ("ACCESS MANAGEMENT", "*")
     if isinstance(stmt, InsertValues):
         return ("INSERT", stmt.table)
-    if isinstance(stmt, CreateTable):
+    if isinstance(stmt, (CreateTable, CreateDictionary, CreateView)):
         return ("CREATE TABLE", stmt.name)
-    if isinstance(stmt, DropTable):
+    if isinstance(stmt, (DropTable, DropDictionary)):
         return ("DROP", stmt.name)
     if isinstance(stmt, TruncateTable):
         return ("TRUNCATE", stmt.name)
-    if isinstance(stmt, (AlterDelete, AddVectorIndex, DropVectorIndex,
-                         AlterMulti, AddConstraint, DropPartition,
-                         AddSkipIndex, DropSkipIndex)):
+    if isinstance(stmt, (AlterDelete, AlterUpdate, AddVectorIndex,
+                         DropVectorIndex, DropPartition, AddSkipIndex,
+                         DropSkipIndex, ModifyTableSetting, ModifyColumn,
+                         AddProjection, DropProjection, AlterMulti,
+                         AddConstraint, DropConstraint, AddColumn,
+                         DropColumn, MaterializeColumn)):
         return ("ALTER", stmt.table)
     if isinstance(stmt, OptimizeTable):
         return ("OPTIMIZE", stmt.table)
@@ -1122,6 +1779,21 @@ def execute_statement(session, stmt) -> Table:
             session._table_ttls[stmt.name] = stmt.ttl
         if stmt.skip_indexes:
             session._table_skip_indexes[stmt.name] = list(stmt.skip_indexes)
+        eng = stmt.engine.lower()
+        if eng == "join":
+            # StorageJoin: the table body is the build side joinGet()
+            # probes; it still joins and scans as an ordinary table
+            if len(stmt.engine_args) < 3:
+                raise ValueError(
+                    "ENGINE = Join needs (strictness, kind, keys...)")
+            session._table_engines[stmt.name] = {
+                "engine": "Join",
+                "strictness": stmt.engine_args[0].upper(),
+                "kind": stmt.engine_args[1].upper(),
+                "keys": [a.strip() for a in stmt.engine_args[2:]]}
+        elif eng == "set":
+            # StorageSet: ``x IN set_table`` reads its rows
+            session._table_engines[stmt.name] = {"engine": "Set"}
         for vname, vcol, vtype, vparams in stmt.vector_indexes:
             _add_vector_index(session, AddVectorIndex(
                 stmt.name, vname, vcol, vtype, vparams))
@@ -1152,6 +1824,75 @@ def execute_statement(session, stmt) -> Table:
             raise ValueError(f"unknown table {stmt.table!r}")
         session._table_constraints.setdefault(stmt.table, {})[stmt.name] = \
             stmt.expr
+        return empty
+
+    if isinstance(stmt, DropConstraint):
+        session._table_constraints.get(stmt.table, {}).pop(stmt.name, None)
+        return empty
+
+    if isinstance(stmt, (MaterializeColumn, AlterUpdate, AddColumn,
+                         DropColumn, ModifyColumn, ModifyTableSetting,
+                         AddProjection)) and \
+            stmt.table not in session.tables:
+        raise ValueError(f"unknown table {stmt.table!r}")
+
+    if isinstance(stmt, MaterializeColumn):
+        return empty        # ADD COLUMN materialized the values already
+
+    if isinstance(stmt, AlterUpdate):
+        _alter_update(session, stmt)
+        return empty
+
+    if isinstance(stmt, AddColumn):
+        t = session.tables[stmt.table]
+        if stmt.name in t.column_names:
+            if stmt.if_not_exists:
+                return empty
+            raise ValueError(f"column {stmt.name!r} already exists")
+        col = _new_column(t, stmt.name, stmt.type_tokens, stmt.default, dev)
+        session.tables[stmt.table] = Table(list(t.columns.values()) + [col],
+                                           name=stmt.table)
+        return empty
+
+    if isinstance(stmt, DropColumn):
+        t = session.tables[stmt.table]
+        if stmt.name not in t.column_names:
+            raise ValueError(f"unknown column {stmt.name!r}")
+        session.tables[stmt.table] = t.select(
+            [c for c in t.column_names if c != stmt.name])
+        return empty
+
+    if isinstance(stmt, ModifyColumn):
+        t = session.tables[stmt.table]
+        if stmt.name not in t.column_names:
+            raise ValueError(f"unknown column {stmt.name!r}")
+        tmpl = empty_table_from_defs("", [ColumnDef(stmt.name,
+                                                    *stmt.type_tokens)],
+                                     dev)[stmt.name]
+        cols = [_rebuild_zone_map(_cast_column(c, tmpl), c)
+                if c.name == stmt.name else c for c in t.columns.values()]
+        session.tables[stmt.table] = Table(cols, name=stmt.table)
+        return empty
+
+    if isinstance(stmt, ModifyTableSetting):
+        ts = session.table_settings.setdefault(stmt.table, TableSettings())
+        val = stmt.value
+        if isinstance(val, str) and \
+                stmt.name == "binary_vector_search_metric_type":
+            val = val.capitalize()          # HAMMING/Jaccard spellings
+        # unknown settings are recorded, like the reference's free-form
+        # MergeTreeSettings
+        setattr(ts, stmt.name, val)
+        return empty
+
+    if isinstance(stmt, AddProjection):
+        from myscaledb_tpu_torch.sql.optimizer import parse_projection
+        session._projections.setdefault(stmt.table, {})[stmt.name] = \
+            parse_projection(stmt.name, stmt.select_sql)
+        return empty
+
+    if isinstance(stmt, DropProjection):
+        session._projections.get(stmt.table, {}).pop(stmt.name, None)
         return empty
 
     if isinstance(stmt, InsertValues):
@@ -1188,6 +1929,8 @@ def execute_statement(session, stmt) -> Table:
         # batch until a merge collapses them — MergeTreeData part model)
         session._table_parts.setdefault(stmt.table, []).append(new.n_rows)
         maybe_schedule_background_merge(session, stmt.table)
+        # once per statement, over the rows as the table took them
+        run_materialized_views(session, stmt.table, new)
         return empty
 
     if isinstance(stmt, DetachTable):
@@ -1257,6 +2000,14 @@ def execute_statement(session, stmt) -> Table:
         return empty
 
     if isinstance(stmt, DropTable):
+        if stmt.name in session.views:
+            del session.views[stmt.name]
+            return empty
+        mv = session.materialized_views.pop(stmt.name, None)
+        if mv is not None:
+            if mv["target"] == stmt.name:   # the view's own table
+                session.drop_table(stmt.name)
+            return empty
         if stmt.name not in session.tables and not stmt.if_exists:
             raise ValueError(f"unknown table {stmt.name!r}")
         session.drop_table(stmt.name)
@@ -1296,7 +2047,88 @@ def execute_statement(session, stmt) -> Table:
                 maybe_schedule_background_merge(session, name)
         elif stmt.action == "drop_query_cache":
             session._query_cache.clear()
+        elif stmt.action == "reload_dictionary":
+            names = [stmt.target] if stmt.target else \
+                list(session.dictionaries)
+            for n in names:
+                d = session.dictionaries.get(n)
+                if d is None:
+                    raise ValueError(f"unknown dictionary {n!r}")
+                session.dictionaries[n] = _build_dictionary(session, d.spec)
         # flush_logs: the logs are live tables here
         return empty
 
+    if isinstance(stmt, CreateView):
+        _create_view(session, stmt)
+        return empty
+
+    if isinstance(stmt, CreateDictionary):
+        if stmt.name in session.dictionaries and stmt.if_not_exists:
+            return empty
+        session.dictionaries[stmt.name] = _build_dictionary(session, stmt)
+        return empty
+
+    if isinstance(stmt, DropDictionary):
+        if stmt.name not in session.dictionaries and not stmt.if_exists:
+            raise ValueError(f"unknown dictionary {stmt.name!r}")
+        session.dictionaries.pop(stmt.name, None)
+        return empty
+
+    if isinstance(stmt, ACCESS_STATEMENTS):
+        _access_statement(session.access, stmt)
+        return empty
+
+    if isinstance(stmt, ShowGrants):
+        user = stmt.user or session.current_user
+        return Table.from_dict({"grants": [
+            f"GRANT {p} ON {t if t != '*' else '*.*'} TO {user}"
+            for p, t in sorted(session.access.effective_grants(user))]},
+            device=dev)
+
+    if isinstance(stmt, ShowAccess):
+        return session.sql(
+            f"SELECT name FROM system.{stmt.what} ORDER BY name")
+
+    if isinstance(stmt, ShowTables):
+        return session.sql("SELECT name FROM system.tables ORDER BY name")
+
+    if isinstance(stmt, DescribeTable):
+        t = session.get_table(stmt.name)
+        flds = [f for f in t.schema() if not f.name.startswith("__")]
+        return Table.from_dict({"name": [f.name for f in flds],
+                                "type": [str(f).split(" ", 1)[1]
+                                         for f in flds]}, device=dev)
+
     raise ValueError(f"unsupported statement {stmt!r}")
+
+
+def _access_statement(access, stmt) -> None:
+    """Users, roles, grants, row policies and quotas, kept by
+    runtime/access.py."""
+    from myscaledb_tpu_torch.runtime.access import Quota, RowPolicy
+    if isinstance(stmt, CreateUser):
+        access.create_user(stmt.name, stmt.password, stmt.if_not_exists)
+    elif isinstance(stmt, CreateRole):
+        access.create_role(stmt.name, stmt.if_not_exists)
+    elif isinstance(stmt, DropPrincipal):
+        getattr(access, f"drop_{stmt.kind}")(stmt.name, stmt.if_exists)
+    elif isinstance(stmt, GrantStmt):
+        if stmt.is_role:
+            access.grant_role(stmt.privs, stmt.grantees)
+        else:
+            access.grant(stmt.privs, stmt.target, stmt.grantees)
+    elif isinstance(stmt, RevokeStmt):
+        if stmt.is_role:
+            access.revoke_role(stmt.privs, stmt.grantees)
+        else:
+            access.revoke(stmt.privs, stmt.target, stmt.grantees)
+    elif isinstance(stmt, CreateRowPolicy):
+        access.add_row_policy(RowPolicy(
+            stmt.name, stmt.table, stmt.using_expr, stmt.using_sql,
+            set(stmt.to_users) if stmt.to_users is not None else None))
+    elif isinstance(stmt, DropRowPolicy):
+        access.drop_row_policy(stmt.name, stmt.table)
+    else:
+        access.add_quota(Quota(
+            stmt.name, stmt.interval_s, stmt.limits,
+            set(stmt.to_users) if stmt.to_users is not None else None))

@@ -1,17 +1,17 @@
 """Query driver: the port of myscaledb_tpu/sql/driver.py (``execute_query``
-for SELECT, EXPLAIN AST and the DDL/DML subset of sql/ddl.py, ``_ast_lines``),
-with its plumbing: a root trace span per query, counters, the query log,
-the per-query memory scope, the result cache, the result-size / time
-limits, the readonly and privilege checks of DDL.  The other EXPLAIN kinds,
-INTO OUTFILE and the statements sql/ddl.py does not port raise
-``NotPortedError``.
+for SELECT, EXPLAIN PLAN/PIPELINE/ESTIMATE/AST/SYNTAX and the statements
+of sql/ddl.py, ``_ast_lines``), with its plumbing: a root trace span per
+query, counters, the query log, the per-query memory scope, the result
+cache, the result-size / time limits, the readonly and privilege checks of
+DDL.  INTO OUTFILE raises ``NotPortedError``.
 
 A data or definition change moves the mutation epoch after it runs (the
-cached results and scan sidecars of the old epoch die with it).  Three
-kinds do not: ALTER ... ADD VECTOR INDEX moves it itself before it builds,
-so its build serves the next query; DETACH/ATTACH change no data, so an
-attached table keeps its sidecar; SET and SYSTEM only clear the result
-cache.
+cached results and scan sidecars of the old epoch die with it).  These do
+not: ALTER ... ADD VECTOR INDEX moves it itself before it builds, so its
+build serves the next query; DETACH/ATTACH change no data, so an attached
+table keeps its sidecar; SET, SYSTEM, a plain CREATE VIEW and the access
+statements (users, roles, grants, row policies, quotas) only clear the
+result cache; SHOW and DESCRIBE change nothing.
 """
 
 from __future__ import annotations
@@ -19,12 +19,16 @@ from __future__ import annotations
 import re
 import time
 
+import numpy as np
+
 from myscaledb_tpu_torch.sql.parser import parse_sql
-from myscaledb_tpu_torch.sql.executor import execute_any
+from myscaledb_tpu_torch.sql.executor import execute_any, explain_select
 from myscaledb_tpu_torch.sql.ddl import (DDLParser, execute_statement,
                                          required_privilege, SetStatement,
                                          SystemStatement, AddVectorIndex,
-                                         DetachTable, AttachTable)
+                                         DetachTable, AttachTable,
+                                         CreateView, READ_ONLY_STATEMENTS,
+                                         ACCESS_STATEMENTS)
 from myscaledb_tpu_torch.core.table import Table
 from myscaledb_tpu_torch.errors import NotPortedError
 from myscaledb_tpu_torch.runtime import metrics as M
@@ -76,8 +80,122 @@ def _ast_lines(q, depth: int = 0) -> list:
     return out
 
 
+# EXPLAIN PIPELINE's processor per stage: what the port runs there (the
+# JAX package names its TPU programs: "HBM-resident", "MXU matmul",
+# "PallasVPUGroupAccumulate", ...; ROADMAP section 3)
+_PIPELINE_KERNELS = {
+    "ReadFromTable": "DeviceColumnScan (card-resident, zone-map pruned)",
+    "Filter": "TorchMaskEval (elementwise predicate, mask not compacted)",
+    "VectorTopK": "SegminTopK (segmin_sq8.cu K1 int8 wgmma, segmin_f32.cu "
+                  "K2 3xTF32, exact rescore)",
+    "Aggregating": "GroupAggregate (group_agg.cu K3, G <= 256) / "
+                   "OneHotMatmulHistogram / ScatterReduce",
+    "Sorting": "StableRadixSort (torch.sort)",
+    "TopN": "SegmentPrefilterTopK",
+    "Join": "SortMergeJoin / merge_count.cu K4",
+}
+
+
+def _pipeline_annotate(line: str) -> str:
+    for step, kernel in _PIPELINE_KERNELS.items():
+        if line.lstrip().startswith(step):
+            return line + "  [" + kernel + "]"
+    return line
+
+
+def _syntax_lines(q) -> list:
+    """EXPLAIN SYNTAX: each SELECT's clauses rendered back, one a line."""
+    from myscaledb_tpu_torch.sql.ast import UnionQuery
+    from myscaledb_tpu_torch.sql.render import render
+    lines = []
+    for s in (q.selects if isinstance(q, UnionQuery) else [q]):
+        lines.append("SELECT " + ", ".join(
+            render(it.expr) + (f" AS {it.alias}" if it.alias else "")
+            for it in s.items))
+        if s.table:
+            lines.append(f"FROM {s.table}")
+        if s.where is not None:
+            lines.append("WHERE " + render(s.where))
+        if s.group_by:
+            lines.append("GROUP BY " + ", ".join(render(k)
+                                                 for k in s.group_by))
+        if s.order_by:
+            lines.append("ORDER BY " + ", ".join(
+                render(o.expr) + ("" if o.ascending else " DESC")
+                for o in s.order_by))
+        if s.limit is not None:
+            lines.append(f"LIMIT {s.limit}")
+    return lines
+
+
+def _estimate(session, q) -> Table:
+    """EXPLAIN ESTIMATE: per table read, its rows, its zone-map blocks and
+    the blocks the WHERE provably skips (reference: (database, table,
+    parts, rows, marks))."""
+    from myscaledb_tpu_torch.core.table import BLOCK_ROWS
+    from myscaledb_tpu_torch.sql.ast import UnionQuery
+    from myscaledb_tpu_torch.sql.executor import (_zonemap_block_mask,
+                                                  _split_conjuncts)
+    names, rows, blocks, pruned = [], [], [], []
+    for s in (q.selects if isinstance(q, UnionQuery) else [q]):
+        if s.table is None:
+            continue
+        t = session.get_table(s.table)
+        names.append(s.table)
+        rows.append(t.n_rows)
+        blocks.append(-(-t.n_rows // BLOCK_ROWS))
+        conj = _split_conjuncts(s.prewhere) + _split_conjuncts(s.where)
+        bm = _zonemap_block_mask(t, conj, session) if conj else None
+        pruned.append(0 if bm is None else int((~bm).sum()))
+    return Table.from_dict({
+        "table": names, "rows": np.asarray(rows, dtype=np.int64),
+        "blocks": np.asarray(blocks, dtype=np.int64),
+        "blocks_pruned": np.asarray(pruned, dtype=np.int64)},
+        device=session.device)
+
+
+def _explain(session, rest: str) -> Table:
+    """EXPLAIN [PLAN | PIPELINE | ESTIMATE | AST | SYNTAX] statement: PLAN
+    renders sql/plan.py's DAG (the stage lines where it cannot be built),
+    PIPELINE the stage lines with the processor each runs."""
+    from myscaledb_tpu_torch.sql.ast import UnionQuery
+    from myscaledb_tpu_torch.sql.plan import build_plan, render_plan
+    kind = "PLAN"
+    for kw in ("PLAN", "PIPELINE", "ESTIMATE", "AST", "SYNTAX"):
+        if rest.upper().startswith(kw):
+            kind = kw
+            rest = rest[len(kw):].lstrip()
+            break
+    q = parse_sql(rest)
+    if kind == "ESTIMATE":
+        return _estimate(session, q)
+    if kind == "AST":
+        lines = _ast_lines(q)
+    elif kind == "SYNTAX":
+        lines = _syntax_lines(q)
+    else:
+        def plan_lines(s):
+            if kind == "PLAN":
+                try:
+                    return render_plan(build_plan(session, s))
+                except Exception:       # noqa: BLE001 (the JAX fallback)
+                    pass
+            return explain_select(session, s)
+        if isinstance(q, UnionQuery):
+            lines = []
+            for i, s in enumerate(q.selects):
+                lines.append(f"Union branch {i}")
+                lines.extend("  " + ln for ln in plan_lines(s))
+        else:
+            lines = plan_lines(q)
+        if kind == "PIPELINE":
+            lines = [_pipeline_annotate(ln) for ln in lines]
+    return Table.from_dict({"explain": lines}, device=session.device)
+
+
 def _execute_ddl(session, sql: str, stmt) -> Table:
-    if session.settings.readonly and not isinstance(stmt, SetStatement):
+    if session.settings.readonly and not isinstance(
+            stmt, (SetStatement,) + READ_ONLY_STATEMENTS):
         raise PermissionError("Cannot execute query in readonly mode")
     priv = required_privilege(stmt)
     if priv is not None:
@@ -90,8 +208,11 @@ def _execute_ddl(session, sql: str, stmt) -> Table:
         with span("ddl", query=sql[:200]):
             result = execute_statement(session, stmt)
         entry["status"] = "QueryFinish"
-        if isinstance(stmt, (SetStatement, SystemStatement, DetachTable,
-                             AttachTable)):
+        if isinstance(stmt, READ_ONLY_STATEMENTS):
+            pass
+        elif isinstance(stmt, (SetStatement, SystemStatement, DetachTable,
+                               AttachTable) + ACCESS_STATEMENTS) or (
+                isinstance(stmt, CreateView) and not stmt.materialized):
             # no data moved: the sidecars stay, cached results go
             session._query_cache.clear()
         elif not isinstance(stmt, AddVectorIndex):
@@ -121,18 +242,7 @@ def execute_query(session, sql: str, params=None) -> Table:
         if stmt is not None:
             return _execute_ddl(session, sql, stmt)
     if upper.startswith("EXPLAIN"):
-        rest = stripped[len("EXPLAIN"):].lstrip()
-        kind = "PLAN"
-        for kw in ("PLAN", "PIPELINE", "ESTIMATE", "AST", "SYNTAX"):
-            if rest.upper().startswith(kw):
-                kind = kw
-                rest = rest[len(kw):].lstrip()
-                break
-        if kind != "AST":
-            raise NotPortedError(f"EXPLAIN {kind}",
-                                 "expression and function breadth")
-        return Table.from_dict({"explain": _ast_lines(parse_sql(rest))},
-                               device=session.device)
+        return _explain(session, stripped[len("EXPLAIN"):].lstrip())
 
     M.increment(M.QUERY)
     M.increment(M.SELECT_QUERY)

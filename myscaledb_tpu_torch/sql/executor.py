@@ -14,7 +14,8 @@ binary-vector and DDL slices of myscaledb_tpu/sql/executor.py (``VSInfo``,
 ``_apply_with_fill``, ``map_expr``, ``_resolve_subqueries``,
 ``_rewrite_arrayjoin_calls``, ``apply_array_join``, ``_align_to``,
 ``execute_any``, ``execute_select``, ``TSInfo``, ``_parse_search_params``,
-``analyze_text_search``, ``_get_text_index``, ``_ftsindex_table``).
+``analyze_text_search``, ``_get_text_index``, ``_ftsindex_table``,
+``explain_select``, ``_zonemap_possible_blocks``).
 
 Stage order (SQL semantics): CTEs (materialized into session tables for
 the statement) -> scalar/EXISTS subqueries folded to constants -> source
@@ -37,13 +38,15 @@ combinators, HAVING, DISTINCT, ROLLUP/CUBE/GROUPING SETS and WITH TOTALS
 run; sum/count/avg go through K3 (ops/kernels/group_agg.py) for up to 256
 groups.  The special aggregates (uniqExact, count(DISTINCT), the uniq
 sketches, quantiles, argMin, ...) run in sql/agg_fns.py
-(``_special_call``, ``_special_aggregate``).  UNION [ALL|DISTINCT],
+(``_special_call``, ``_special_aggregate``), the -State/-Merge
+combinators there too (``_state_call``, ``state_column``,
+``merge_column``).  A GROUP BY a declared aggregate projection reads its
+grouped table instead (sql/optimizer.py).  UNION [ALL|DISTINCT],
 INTERSECT and EXCEPT [DISTINCT] run in ``execute_any``; the multiset
 match of INTERSECT/EXCEPT is a device sort over keys encoded column by
-column (``_set_op_keep``).  Everything else the JAX executor does —
-joinGet and Join engines, distributed joins, the -State/-Merge
-combinators and the table functions other than numbers() and ftsIndex()
-— raises ``NotPortedError`` naming the slice that brings it.
+column (``_set_op_keep``).  Distributed joins, SAMPLE and the table
+functions other than numbers() and ftsIndex() raise ``NotPortedError``
+naming the slice that brings them.
 ``TextSearch`` (BM25, text/bm25.py) and ``HybridSearch`` (RSF/RRF over a
 vector and a text candidate list, text/fusion.py) fuse with ORDER BY
 <score> DESC LIMIT k; TextSearch outside that is a score column.  Their
@@ -77,10 +80,14 @@ from myscaledb_tpu_torch.sql.ast import (Expr, Literal, VectorLiteral, Ident,
                                          SelectQuery, UnionQuery, OrderItem,
                                          SelectItem, walk)
 from myscaledb_tpu_torch.sql.render import render, substitute
-from myscaledb_tpu_torch.sql.optimizer import remove_redundant_sorting
+from myscaledb_tpu_torch.sql.optimizer import (remove_redundant_sorting,
+                                               match_projection,
+                                               apply_projection)
 from myscaledb_tpu_torch.sql.agg_kinds import (AGG_NAMES, SPECIAL_AGGS,
                                                IF_COMBINATORS, UNIQ_KINDS)
-from myscaledb_tpu_torch.sql.agg_fns import _column_range, _special_aggregate
+from myscaledb_tpu_torch.sql.agg_fns import (_column_range,
+                                             _special_aggregate, STATE_BASES,
+                                             state_column, merge_column)
 from myscaledb_tpu_torch.exec.expr import (DIST_FNS, UNSIGNED_OF_MAX, Env,
                                            Value, eval_expr, as_bool_mask,
                                            EvalError, _dict_map)
@@ -729,17 +736,25 @@ def _key_on_device(sk: SortKey, device) -> SortKey:
     return SortKey(values, sk.ascending, valid, sk.nulls_last)
 
 
-def _derived(session, kind: str, table_name, table, col, build,
-             epoch=None):
+def _derived(session, kind, table_name, table, col, build, epoch=None):
     """State derived from one column and kept in the session: squared
     norms (``sqnorm``), the SQ8 sidecar (``sq8``), packed binary words
-    (``binary``) and the BM25 index (``bm25``).  One cache, keyed by
-    (kind, table, column, mutation epoch), with one rule: storing an
-    entry drops every entry of an earlier epoch, and an entry whose column
-    is no longer the one it was built from (another table under the same
-    name in the same epoch, a CTE of an earlier statement) is built anew.
-    ``build(column)`` runs under the session's sidecar lock, so of two
-    threads that want the same entry one builds and the other waits.
+    (``binary``), the BM25 index (``bm25``), skip-index sidecars and
+    joinGet's sorted keys: ``derived_state`` keyed (kind, table, column)
+    and alive while the column's data is."""
+    return derived_state(session, (kind, table_name, col), table[col].data,
+                         lambda: build(table[col]), epoch)
+
+
+def derived_state(session, key: tuple, live, build, epoch=None):
+    """One cache for everything derived from session data, keyed by
+    ``key`` and the mutation epoch, with one rule: storing an entry drops
+    every entry of an earlier epoch, and an entry whose ``live`` object is
+    no longer the one it was built from (another table under the same
+    name in the same epoch, a CTE of an earlier statement, another
+    dictionary at a reused address) is built anew.  ``build()`` runs
+    under the session's sidecar lock, so of two threads that want the
+    same entry one builds and the other waits.
 
     An index build may run this on the background executor's thread: on
     the card a CUDA event recorded after the build orders the reader's
@@ -747,19 +762,18 @@ def _derived(session, kind: str, table_name, table, col, build,
     with session.sidecar_lock:
         if epoch is None:
             epoch = session._mutation_epoch
-        key = (kind, table_name, col, epoch)
+        key = (*key, epoch)
         hit = session._derived.get(key)
-        data = table[col].data
-        if hit is not None and hit[2]() is not data:
+        if hit is not None and hit[2]() is not live:
             hit = None
         if hit is None:
-            out = build(table[col])
+            out = build()
             done = None
             if session.device.type == "cuda":
                 done = torch.cuda.Event()
                 done.record(torch.cuda.current_stream(session.device))
-            hit = (out, done, weakref.ref(data))
-            for k in [k for k in session._derived if k[3] != epoch]:
+            hit = (out, done, weakref.ref(live))
+            for k in [k for k in session._derived if k[-1] != epoch]:
                 del session._derived[k]
             session._derived[key] = hit
     out, done, _ = hit
@@ -1642,6 +1656,10 @@ def run_aggregate(env: Env, q: SelectQuery, mask, session,
             # reference: count_distinct_implementation setting)
             name = {"count": "uniqexact", "sum": "sumdistinct",
                     "avg": "avgdistinct"}.get(name, name)
+        state = _state_call(name, call, env, alias_exprs, table)
+        if state is not None:
+            special[r] = state
+            continue
         if name in SPECIAL_AGGS:
             special[r] = _special_call(name, call, env, alias_exprs, table)
             continue
@@ -1730,9 +1748,15 @@ def run_aggregate(env: Env, q: SelectQuery, mask, session,
         arg_valids.append(valid)
         arg_ranges.append(None)
         logical.append(None)
-    states, gc = partial_aggregate_matmul(gid, m, tuple(args), tuple(fns), G,
-                                          tuple(arg_valids),
-                                          tuple(arg_ranges), tuple(logical))
+    # the route is chosen for all n rows: gathering the kept ones sends no
+    # statement from the scatter to the one-hot matmul
+    agg_gid, agg_m, args, arg_valids = _kept_rows_only(
+        mask, gid, m, G, args, arg_valids)
+    states, gc = partial_aggregate_matmul(agg_gid, agg_m, tuple(args),
+                                          tuple(fns), G, tuple(arg_valids),
+                                          tuple(arg_ranges), tuple(logical),
+                                          route_rows=n)
+    del agg_gid, agg_m
     outs = finalize(states, gc, tuple(fns), tuple(logical))
     gc_np = gc.cpu().numpy()
     present = np.flatnonzero(gc_np > 0)
@@ -1775,14 +1799,44 @@ def run_aggregate(env: Env, q: SelectQuery, mask, session,
                                           dev))
         mapping[r] = r
     for r, (kind, vals, sparams) in special.items():
-        col = _special_aggregate(kind, vals, gid_kept, m, G, present, n,
-                                 sparams, session.settings)
+        if kind == "aggstate":
+            col = state_column(sparams[0], vals[0], gid_kept, m, G, present,
+                               n)
+        elif kind == "aggmerge":
+            col = merge_column(sparams[0], vals[0], gid_kept, m, G, present,
+                               n, sparams[1], session)
+        else:
+            col = _special_aggregate(kind, vals, gid_kept, m, G, present, n,
+                                     sparams, session.settings)
         cols.append(Column(Field(r, col.dtype, col.field.nullable,
                                  col.field.vector_dim, col.field.elem),
                            col.data, col.valid, col.dictionary, None,
                            col.offsets))
         mapping[r] = r
     return Table(cols, name=table.name), mapping
+
+
+# from this many rows, a WHERE that keeps under half of them has the
+# grouped aggregation read the kept rows only
+COMPACT_MIN_ROWS = 1 << 16
+
+
+def _kept_rows_only(mask, gid, m, G: int, args: list, valids: list):
+    """(gid, mask, args, validities) for a grouped aggregation's
+    partials: over the rows a WHERE keeps, gathered first when it keeps
+    under half of many rows (a count and the gather: two host syncs), so
+    no dropped row passes through K3, the matmul histogram or a scatter's
+    spare slot, whichever route the aggregation takes; else as they are.
+    Rows keep their order."""
+    n = gid.shape[0]
+    if mask is None or G <= 1 or n < COMPACT_MIN_ROWS:
+        return gid, m, args, valids
+    if int(m.sum()) >= n // 2:
+        return gid, m, args, valids
+    rows = torch.nonzero(m).flatten()
+    return (gid[rows], torch.ones_like(rows, dtype=torch.bool),
+            [None if a is None else a[rows] for a in args],
+            [None if v is None else v[rows] for v in valids])
 
 
 _TWO_ARG_AGGS = {"argmin", "argmax", "covarpop", "covarsamp", "corr"}
@@ -1811,6 +1865,29 @@ def _first_rows(gid, m, G: int, dev) -> torch.Tensor:
                      device=dev)
     rep.scatter_reduce_(0, tgt, rows, "amin")
     return rep.view(chunks, G + 1).amin(0)[:G]
+
+
+def _state_call(name: str, call: FuncCall, env: Env, alias_exprs: dict,
+                table: Table) -> Optional[tuple]:
+    """("aggstate" | "aggmerge", argument Values, (base, level)) of a
+    -State/-Merge combinator call (quantileTDigestMerge(0.5)(st) carries
+    its level), or None for another aggregate."""
+    for suffix, ckind in (("state", "aggstate"), ("merge", "aggmerge")):
+        base = name[:-len(suffix)]
+        if not name.endswith(suffix) or base not in STATE_BASES:
+            continue
+        cargs = list(call.args)
+        level = None
+        if base == "quantiletdigest" and len(cargs) == 2 and \
+                isinstance(cargs[0], Literal):
+            level = float(cargs[0].value)
+            cargs = cargs[1:]
+        if len(cargs) != 1:
+            raise ExecError(f"{call.name} expects one argument")
+        v = eval_expr(_expand_item_aliases(cargs[0], alias_exprs, table),
+                      env)
+        return ckind, [v], (base, level)
+    return None
 
 
 def _special_call(name: str, call: FuncCall, env: Env, alias_exprs: dict,
@@ -1945,6 +2022,8 @@ def _session_env(session, table: Table, aliases=None) -> Env:
     the first Env of a statement: ROADMAP section 3)."""
     env = Env(table, aliases, device=session.device)
     env.subquery_runner = lambda sub: execute_any(session, sub)
+    env.dictionaries = session.dictionaries
+    env.session = session                 # joinGet's Join-engine tables
     return env
 
 
@@ -2268,11 +2347,6 @@ def _valid_rows(c: Column, dev) -> torch.Tensor:
     return v.expand(n) if v.dim() == 0 else v
 
 
-# the -State/-Merge combinator spellings (sql/agg_fns.py
-# ``_state_combinator`` in the JAX package)
-_UNPORTED_AGGS = {n for n in AGG_NAMES if n.endswith(("state", "merge"))}
-
-
 def _reject_unported(q: SelectQuery) -> None:
     """Raise NotPortedError for every clause the JAX executor runs and this
     one does not yet."""
@@ -2282,23 +2356,6 @@ def _reject_unported(q: SelectQuery) -> None:
                              "storage, formats and runtime state")
     if q.sample is not None:
         raise NotPortedError("SAMPLE", "storage, formats and runtime state")
-    slots = [it.expr for it in q.items] + [o.expr for o in q.order_by] + \
-        [e for e in (q.where, q.prewhere, q.having) if e is not None] + \
-        list(q.group_by) + [e for _n, e in q.with_aliases]
-    for e in slots:
-        # the function of an OVER(...) call is a window function, checked
-        # against WINDOW_FNS where the windows are computed
-        window_fns = {id(w.func) for w in walk(e) if isinstance(w, WindowCall)}
-        for node in walk(e):
-            if isinstance(node, FuncCall):
-                fn = node.name.lower()
-                if fn.startswith("joinget"):
-                    raise NotPortedError(f"{node.name}() and Join-engine "
-                                         "tables",
-                                         "expression and function breadth")
-                if id(node) not in window_fns and fn in _UNPORTED_AGGS:
-                    raise NotPortedError(f"aggregate function {node.name}()",
-                                         "expression and function breadth")
 
 
 def execute_any(session, q) -> Table:
@@ -2382,6 +2439,28 @@ def execute_select(session, q: SelectQuery) -> Table:
                                 o.fill) for o in q.order_by],
             with_aliases=[(n, res(e)) for n, e in q.with_aliases])
     _reject_unported(q)
+    # an aggregate projection answers a matching GROUP BY from its cached
+    # grouped table (optimizeUseAggregateProjection); the rewrite skips the
+    # base table's read, so its SELECT privilege is checked here, and a
+    # user under row policies reads the real rows
+    pm = match_projection(session, q)
+    if pm is not None:
+        session.access.check(session.current_user, "SELECT", q.table)
+        if session.access.row_policy_exprs(session.current_user,
+                                           q.table)[0]:
+            pm = None
+    if pm is not None:
+        sidecar, new_q, hidden = apply_projection(session, q, pm)
+        saved_tbl = session.tables.get(hidden)
+        try:
+            sidecar.name = hidden
+            session.tables[hidden] = sidecar
+            return execute_select(session, new_q)
+        finally:
+            if saved_tbl is None:
+                session.tables.pop(hidden, None)
+            else:
+                session.tables[hidden] = saved_tbl
     dev = session.device
     # arrayJoin() calls become ARRAY JOIN items before the LIMIT pushdown
     # looks at the query, so LIMIT counts the expanded rows (the JAX
@@ -3008,6 +3087,77 @@ def _distinct_rows(table: Table) -> Table:
 
 # ---------------------------------------------------------------------------
 # window functions and WITH FILL
+
+def explain_select(session, q: SelectQuery, depth: int = 0) -> list:
+    """Textual logical plan (EXPLAIN PIPELINE's stage lines; reference:
+    InterpreterExplainQuery), the JAX package's: execute_select's stage
+    dispatch, without executing.  No table of the port is distributed, so
+    the JAX package's distributed notes never appear."""
+    pad = "  " * depth
+    steps: list = []
+
+    def add(s_):
+        steps.append(pad + s_)
+
+    inner = explain_select(session, q.subquery, depth + 1) \
+        if q.subquery is not None else None
+    add("Projection [" + ", ".join(
+        (it.alias or render(it.expr)) for it in q.items) + "]")
+    if q.limit is not None or q.offset:
+        add(f"Limit (limit={q.limit}, offset={q.offset})")
+    if q.limit_by is not None:
+        add(f"LimitBy (n={q.limit_by[0]}, keys=["
+            + ", ".join(render(e) for e in q.limit_by[1]) + "])")
+    if q.order_by:
+        keys = ", ".join(render(o.expr) + ("" if o.ascending else " DESC")
+                         for o in q.order_by)
+        if q.limit is not None:
+            add(f"TopN (k={q.limit + q.offset}, keys=[{keys}])")
+        else:
+            add(f"Sorting (keys=[{keys}])")
+    if q.having is not None:
+        add(f"Having ({render(q.having)})")
+    table = vs = None
+    if q.table is not None:
+        try:
+            table = session.get_table(q.table)
+            alias_exprs = {it.alias: it.expr for it in q.items if it.alias}
+            vs = analyze_vector_search(q, session, table, alias_exprs)
+        except (ExecError, KeyError):
+            pass
+    aggs = [render(node) for it in q.items for node in walk(it.expr)
+            if isinstance(node, FuncCall) and node.name.lower() in AGG_NAMES]
+    if q.group_by or aggs:
+        add("Aggregating (keys=[" + ", ".join(render(k) for k in q.group_by)
+            + "], aggregates=[" + ", ".join(aggs) + "])")
+    if vs is not None and vs.fused:
+        add(f"VectorTopK (metric={vs.metric}, k={vs.k}, "
+            f"queries={vs.qvec.shape[0]}, two-stage exact scan)")
+    elif vs is not None:
+        add(f"DistanceMaterialize (metric={vs.metric})")
+    if q.where is not None or q.prewhere is not None:
+        conds = [render(c) for c in
+                 _split_conjuncts(q.prewhere) + _split_conjuncts(q.where)]
+        add("Filter (" + " AND ".join(conds) + ")")
+    for jc in q.joins:
+        add(f"HashJoin ({jc.how} {jc.strictness}, table={jc.table}, "
+            f"strategy=hash)")
+    if inner is not None:
+        add("ReadFromSubquery")
+        steps.extend(inner)
+    elif q.table is not None:
+        add(f"ReadFromTable {q.table}" + (f" ({table.n_rows} rows)"
+                                          if table is not None else ""))
+    return steps
+
+
+def _zonemap_possible_blocks(table: Table, conjuncts,
+                             session=None) -> Optional[int]:
+    """Blocks that can hold rows satisfying the ANDed terms, or None when
+    no term prunes; zero means the scan is provably empty."""
+    mask = _zonemap_block_mask(table, conjuncts, session)
+    return None if mask is None else int(mask.sum())
+
 
 WINDOW_FNS = {"row_number", "rank", "dense_rank", "sum", "count", "avg",
               "min", "max", "lag", "lead", "first_value", "last_value",

@@ -25,7 +25,9 @@ def test_import_loads_no_jax():
             "myscaledb_tpu_torch.storage.table_store, "
             "myscaledb_tpu_torch.storage.skip_index, "
             "myscaledb_tpu_torch.storage.codecs, "
-            "myscaledb_tpu_torch.runtime.faults\n"
+            "myscaledb_tpu_torch.runtime.faults, "
+            "myscaledb_tpu_torch.runtime.dictionaries, "
+            "myscaledb_tpu_torch.sql.plan\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'myscaledb_tpu' "
             "or m.startswith('myscaledb_tpu.')]\n"

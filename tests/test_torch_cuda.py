@@ -915,3 +915,79 @@ def test_pruned_vector_search_reaches_k1_with_one_sq8_build(cuda,
         [[r[0] for r in x] for x in out["cpu"][0]]
     assert out["cuda"][1] == 8
     assert builds == ["cpu", "cuda"]
+
+
+def _views_data(rng, n):
+    return {"k": rng.integers(0, 40, n).astype(np.uint32),
+            "big": rng.integers(0, 5000, n).astype(np.int64),
+            "v": rng.integers(-1000, 1000, n).astype(np.int32),
+            "u": rng.integers(0, 1 << 40, n).astype(np.uint64),
+            "f": rng.standard_normal(n).astype(np.float32),
+            "s": np.array(["a", "bb", "ccc", "dd"])[rng.integers(0, 4, n)]}
+
+
+@pytest.mark.parametrize("sql", [
+    # K3 partials: 40 groups
+    "SELECT k, sumState(v), countState(v), avgState(v), maxState(v), "
+    "uniqState(u), uniqState(s) FROM t GROUP BY k ORDER BY k",
+    # beyond 256 groups: the grouping's scatter partials
+    "SELECT big, sumState(v), countState(v), minState(f), avgState(f) "
+    "FROM t GROUP BY big ORDER BY big",
+    # float sums in numpy's order on the device, groups of ~1250 rows
+    "SELECT k, sumState(f), avgState(f) FROM t GROUP BY k ORDER BY k",
+    "SELECT k, sumMerge(st), countMerge(ct), maxMerge(mt), uniqMerge(ut) "
+    "FROM (SELECT k, big, sumState(v) AS st, countState(v) AS ct, "
+    "maxState(v) AS mt, uniqState(u) AS ut FROM t GROUP BY k, big) "
+    "GROUP BY k ORDER BY k",
+    "SELECT k, finalizeAggregation(st) FROM (SELECT k, avgState(v) AS st "
+    "FROM t GROUP BY k) ORDER BY k",
+])
+def test_state_combinators_on_card_equal_cpu(cuda, sql):
+    """-State strings (from K3 up to 256 groups, from the scatter partials
+    beyond) and their -Merge / finalizeAggregation are the same on the card
+    as on the CPU (the CPU tests hold the CPU to the JAX package's
+    strings); K3 launches where the groups allow it."""
+    import myscaledb_tpu_torch as P
+    data = _views_data(np.random.default_rng(12), 50_021)
+    rows = []
+    K3.group_aggregate.launches = 0
+    for dev in ("cuda", "cpu"):
+        s = P.connect(device=dev)
+        s.create_table("t", data)
+        rows.append(s.sql(sql).to_rows())
+    assert repr(rows[0]) == repr(rows[1])
+    if sql.startswith("SELECT k, sumState(v)"):
+        assert K3.group_aggregate.launches >= 1
+
+
+def test_lookups_and_alter_update_on_card_equal_cpu(cuda):
+    """joinGet's sorted probe, dictGet's HASHED and FLAT lookups, IN a Set
+    table and ALTER UPDATE give the same rows on the card as on the CPU."""
+    import myscaledb_tpu_torch as P
+    data = _views_data(np.random.default_rng(13), 30_011)
+    stmts = [
+        "SELECT joinGet('j', 'name', big) AS n, count() FROM t GROUP BY n "
+        "ORDER BY n",
+        "SELECT sum(dictGetOrDefault('dh', 'w', big, -1)), "
+        "sum(dictGet('df', 'w', big)), countIf(dictHas('dh', big)) FROM t",
+        "SELECT count() FROM t WHERE big IN st",
+        "ALTER TABLE t UPDATE v = v * 3, s = 'zz' WHERE k < 7",
+        "SELECT k, sum(v), count(), min(s) FROM t GROUP BY k ORDER BY k"]
+    keys = np.arange(0, 5000, 3, dtype=np.int64)
+    rows = []
+    for dev in ("cuda", "cpu"):
+        s = P.connect(device=dev)
+        s.create_table("t", data)
+        s.create_table("dsrc", {"big": keys, "w": keys * 7,
+                                "name": [f"n{k % 97}" for k in keys]})
+        s.sql("CREATE TABLE j (big Int64, name String) ENGINE = "
+              "Join(ANY, LEFT, big)")
+        s.sql("INSERT INTO j SELECT big, name FROM dsrc")
+        s.sql("CREATE TABLE st (big Int64) ENGINE = Set")
+        s.sql("INSERT INTO st SELECT big FROM dsrc WHERE big % 2 = 0")
+        s.sql("CREATE DICTIONARY dh (big Int64, w Int64) PRIMARY KEY big "
+              "SOURCE(TABLE 'dsrc') LAYOUT(HASHED())")
+        s.sql("CREATE DICTIONARY df (big Int64, w Int64) PRIMARY KEY big "
+              "SOURCE(TABLE 'dsrc') LAYOUT(FLAT())")
+        rows.append([s.sql(q).to_rows() for q in stmts])
+    assert repr(rows[0]) == repr(rows[1])

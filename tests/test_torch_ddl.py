@@ -1,8 +1,8 @@
 """DDL and DML parity on the CPU: the same statement sequences through
 ``myscaledb_tpu.connect()`` and ``myscaledb_tpu_torch.connect(device="cpu")``,
 every SELECT's rows and TSV lines compared; error texts compared; the
-statements outside the port's subset raise ``NotPortedError`` naming the
-slice that brings them."""
+statements outside the port's subset (file and stream engines and
+formats) raise ``NotPortedError`` naming the slice that brings them."""
 
 import threading
 
@@ -181,27 +181,6 @@ def test_error_texts_equal_the_jax_package(sql):
 
 
 @pytest.mark.parametrize("sql,slice_name", [
-    ("CREATE VIEW w AS SELECT id FROM t", "expression and function breadth"),
-    ("CREATE MATERIALIZED VIEW w ENGINE = MergeTree ORDER BY id AS "
-     "SELECT id FROM t", "expression and function breadth"),
-    ("CREATE USER u IDENTIFIED BY 'x'", "expression and function breadth"),
-    ("CREATE ROLE r", "expression and function breadth"),
-    ("GRANT SELECT ON t TO u", "expression and function breadth"),
-    ("REVOKE SELECT ON t FROM u", "expression and function breadth"),
-    ("SHOW TABLES", "expression and function breadth"),
-    ("DESCRIBE TABLE t", "expression and function breadth"),
-    ("CREATE DICTIONARY d (id UInt64, v String) PRIMARY KEY id "
-     "SOURCE(CLICKHOUSE(TABLE 't')) LAYOUT(HASHED()) LIFETIME(0)",
-     "expression and function breadth"),
-    ("DROP DICTIONARY d", "expression and function breadth"),
-    ("SYSTEM RELOAD DICTIONARY d", "expression and function breadth"),
-    ("ALTER TABLE t UPDATE id = 1 WHERE id = 2",
-     "expression and function breadth"),
-    ("ALTER TABLE t ADD COLUMN z Int32", "expression and function breadth"),
-    ("ALTER TABLE t MODIFY SETTING index_granularity = 8",
-     "expression and function breadth"),
-    ("CREATE TABLE j (k UInt32, v UInt32) ENGINE = Join(ANY, LEFT, k)",
-     "expression and function breadth"),
     ("CREATE TABLE f (id UInt32) ENGINE = File(CSV, 'f.csv')",
      "storage, formats and runtime state"),
     ("CREATE TABLE k (id UInt32) ENGINE = Kafka",
@@ -210,8 +189,10 @@ def test_error_texts_equal_the_jax_package(sql):
      "storage, formats and runtime state"),
     ("INSERT INTO t FORMAT CSV 1,[1,2,3]",
      "storage, formats and runtime state"),
-    ("ALTER TABLE t DROP CONSTRAINT c", "expression and function breadth"),
-    ("SELECT * FROM system.tables", "storage, formats and runtime state"),
+    ("CREATE DICTIONARY fd (id UInt64) PRIMARY KEY id "
+     "SOURCE(FILE(PATH 'ids.csv' FORMAT 'CSV'))",
+     "storage, formats and runtime state"),
+    ("SELECT * FROM system.formats", "storage, formats and runtime state"),
 ])
 def test_statements_outside_the_subset_name_their_slice(sql, slice_name):
     p = myscaledb_tpu_torch.connect(device="cpu")
@@ -219,6 +200,51 @@ def test_statements_outside_the_subset_name_their_slice(sql, slice_name):
           "ORDER BY id")
     with pytest.raises(NotPortedError, match=slice_name):
         p.sql(sql)
+
+
+# statements the breadth slice ported, each followed by a statement that
+# reads what it left
+BREADTH_STATEMENTS = [
+    ("CREATE VIEW w AS SELECT id FROM t", "SELECT count() FROM w"),
+    ("CREATE MATERIALIZED VIEW w AS SELECT id FROM t",
+     "SELECT name, engine FROM system.views"),
+    ("CREATE USER u IDENTIFIED BY 'x'", "SHOW USERS"),
+    ("CREATE ROLE r", "SHOW ROLES"),
+    ("GRANT SELECT ON t TO default", "SHOW GRANTS"),
+    ("REVOKE SELECT ON t FROM default", "SHOW GRANTS"),
+    ("SHOW TABLES", "SELECT name FROM system.tables"),
+    ("DESCRIBE TABLE t", "SELECT count() FROM t"),
+    ("CREATE DICTIONARY d (id UInt64, v String) PRIMARY KEY id "
+     "SOURCE(CLICKHOUSE(TABLE 'w0')) LAYOUT(HASHED()) LIFETIME(0)",
+     "SELECT dictGet('d', 'v', 2)"),
+    ("DROP DICTIONARY IF EXISTS d", "SHOW DICTIONARIES"),
+    ("SYSTEM RELOAD DICTIONARY", "SHOW DICTIONARIES"),
+    ("ALTER TABLE t UPDATE id = 1 WHERE id = 2",
+     "SELECT id, count() FROM t GROUP BY id ORDER BY id"),
+    ("ALTER TABLE t ADD COLUMN z Int32", "SELECT sum(z), count() FROM t"),
+    ("ALTER TABLE t MODIFY SETTING index_granularity = 8",
+     "SELECT count() FROM t"),
+    ("CREATE TABLE j (k UInt32, v UInt32) ENGINE = Join(ANY, LEFT, k)",
+     "SELECT joinGet('j', 'v', toUInt32(1))"),
+    ("ALTER TABLE t DROP CONSTRAINT c", "SELECT count() FROM t"),
+    ("SELECT * FROM system.tables", "SELECT count() FROM t"),
+]
+
+
+@pytest.mark.parametrize("sql,check", BREADTH_STATEMENTS)
+def test_breadth_statements_run_since_the_breadth_slice(sql, check):
+    """Statements that raised NotPortedError naming the breadth slice
+    before it landed now give what the JAX package gives, and leave the
+    state it leaves."""
+    out = []
+    for s in _pair():
+        s.sql("CREATE TABLE t (id UInt32, v Array(Float32)) ENGINE = "
+              "MergeTree ORDER BY id")
+        s.sql("INSERT INTO t VALUES (1, [1.0]), (2, [2.0]), (3, [3.0])")
+        s.sql("CREATE TABLE w0 (id UInt64, v String) ENGINE = Memory")
+        s.sql("INSERT INTO w0 VALUES (1, 'a'), (2, 'b')")
+        out.append((s.sql_tsv(sql), s.sql_tsv(check)))
+    assert out[0] == out[1]
 
 
 @pytest.mark.parametrize("sql", [

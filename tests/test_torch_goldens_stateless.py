@@ -2,9 +2,7 @@
 ``tests/goldens/stateless`` case runs through
 ``myscaledb_tpu_torch.testing.run_golden_text`` on a CPU session and must
 come out byte-identical to its ``.reference``, the files the JAX package
-passes in tests/test_goldens.py.  The other stateless cases stop at a
-``NotPortedError`` naming the slice that brings them (ROADMAP queue 1);
-a case joins this list when its slice lands.  ``00688_case_without_else``
+passes in tests/test_goldens.py.  Every stateless case is listed.  ``00688_case_without_else``
 holds the NULL branch of CASE without ELSE; ``02015`` and ``02017`` hold
 WITH FILL, ``02513`` a window function, and the cases reading
 ``system.numbers`` or ``system.one`` (``00027``, ``00136``, ``00269``, ...)
@@ -18,7 +16,10 @@ subqueries (``00673``, ``02477_exists``), UNION/INTERSECT (``00592``,
 ``02316_const``), CTEs (``01495``, ``02212``) and JOIN on a subquery
 (``00099``, ``02691``); since the storage slice, PARTITION BY (``00679``,
 ``01906``, ``02232``, ...) and skip indexes (``00974``, ``00979``,
-``01771``, ...): 179 of the 184 stateless goldens."""
+``01771``, ...); since the breadth slice, views (``00472``),
+materialized views (``00982``), ADD/DROP COLUMN (``00121``), MODIFY
+SETTING (``01712``) and the Join engine (``00950``): 184 of the 184
+stateless goldens."""
 
 import os
 
@@ -43,6 +44,7 @@ CASES = [
     "00064_negate_bug", "00068_empty_tiny_log",
     "00073_merge_sorting_empty_array_joined",
     "00099_join_many_blocks_segfault", "00114_float_type_result_of_division",
+    "00121_drop_column_zookeeper",
     "00122_join_with_subquery_with_subquery", "00136_duplicate_order_by_elems",
     "00138_table_aliases", "00156_array_map_to_constant",
     "00157_aliases_and_lambda_formal_parameters",
@@ -56,6 +58,7 @@ CASES = [
     "00338_replicate_array_of_strings", "00345_index_accurate_comparison",
     "00356_analyze_aggregations_and_union_all", "00369_int_div_of_float",
     "00464_sort_all_constant_columns", "00470_identifiers_in_double_quotes",
+    "00472_create_view_if_not_exists",
     "00479_date_and_datetime_to_number", "00516_modulo",
     "00543_null_and_prewhere", "00553_invalid_nested_name",
     "00575_merge_and_index_with_function_in_in",
@@ -73,9 +76,11 @@ CASES = [
     "00856_no_column_issue_4242", "00874_issue_3495",
     "00906_low_cardinality_cache", "00914_join_bgranvea",
     "00931_low_cardinality_set_index_in_key_condition", "00933_reserved_word",
+    "00950_bad_alloc_when_truncate_join_storage",
     "00957_delta_diff_bug", "00963_startsWith_force_primary_key",
     "00964_os_thread_priority", "00967_ubsan_bit_test",
     "00974_adaptive_granularity_secondary_index", "00979_set_index_not",
+    "00982_low_cardinality_setting_in_mv",
     "01000_bad_size_of_marks_skip_idx", "01009_insert_select_data_loss",
     "01013_hex_float", "01016_null_part_minmax",
     "01018_optimize_read_in_order_with_in_subquery",
@@ -103,7 +108,9 @@ CASES = [
     "01561_aggregate_functions_of_key_with_join",
     "01600_min_max_compress_block_size", "01656_test_hex_mysql_dialect",
     "01659_array_aggregation_ubsan", "01670_test_repeat_mysql_dialect",
-    "01704_transform_with_float_key", "01718_subtract_seconds_date",
+    "01704_transform_with_float_key",
+    "01712_no_adaptive_granularity_vertical_merge",
+    "01718_subtract_seconds_date",
     "01747_transform_empty_arrays", "01771_bloom_filter_not_has",
     "01820_unhex_case_insensitive", "01881_to_week_monotonic_fix",
     "01891_not_like_partition_prune", "01906_partition_by_multiply_by_zero",

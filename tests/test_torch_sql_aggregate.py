@@ -178,18 +178,21 @@ def test_host_resident_table_streams(sessions):
 
 
 def test_not_ported_aggregates_name_their_slice(sessions):
-    _, p = sessions
+    """The -State/-Merge combinators, once held for the breadth slice, give
+    the JAX package's state strings and merged values."""
+    j, p = sessions
     for sql in ("SELECT uniqState(v) FROM t",
-                "SELECT g, sumMerge(v) FROM t GROUP BY g",
+                "SELECT g, sumMerge(st) FROM (SELECT g, sumState(v) AS st "
+                "FROM t GROUP BY g) GROUP BY g ORDER BY g",
                 "SELECT quantileTDigestState(0.5)(v) FROM t",
                 "SELECT sumState(v) FROM t"):
-        with pytest.raises(myscaledb_tpu_torch.NotPortedError) as e:
-            p.sql(sql)
-        assert "'expression and function breadth' slice" in str(e.value)
-    with pytest.raises(myscaledb_tpu_torch.NotPortedError,
-                       match=r"^aggregate function uniqState\(\) is not "
-                             r"ported"):
-        p.sql("SELECT uniqState(v) FROM t")
+        assert p.sql_tsv(sql) == j.sql_tsv(sql), sql
+    with pytest.raises(Exception) as want:
+        j.sql("SELECT g, sumMerge(v) FROM t GROUP BY g")
+    with pytest.raises(myscaledb_tpu_torch.ExecError,
+                       match=r"^sumMerge expects a state column$") as got:
+        p.sql("SELECT g, sumMerge(v) FROM t GROUP BY g")
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("sql", [
@@ -203,3 +206,42 @@ def test_error_texts_match(sessions, sql):
     with pytest.raises(Exception) as pe:
         p.sql(sql)
     assert str(pe.value) == str(je.value)
+
+
+@pytest.mark.parametrize("where,compacts", [
+    ("v < -800", True), ("v > -800", False), ("", False)])
+def test_selective_where_reduces_the_kept_rows_only(where, compacts):
+    """From 2^16 rows a WHERE that keeps under half of them has the
+    grouped aggregation read the kept rows only, on every route (K3 with
+    17 groups, the matmul histogram and the scatter with 4096); the rows
+    equal the JAX package's whether it compacts or not."""
+    from myscaledb_tpu_torch.sql import executor
+    rng = np.random.default_rng(4)
+    n = executor.COMPACT_MIN_ROWS + 7
+    data = {"g": rng.integers(0, 17, n).astype(np.int32),
+            "h": rng.integers(0, 4096, n).astype(np.int32),
+            "v": rng.integers(-1000, 1000, n).astype(np.int64)}
+    w = f" WHERE {where}" if where else ""
+    stmts = [f"SELECT g, sum(v), count(), avg(v) FROM t{w} GROUP BY g "
+             "ORDER BY g",
+             f"SELECT h, sum(v), count(), min(v), max(v) FROM t{w} "
+             "GROUP BY h ORDER BY h"]
+    j = myscaledb_tpu.connect()
+    p = myscaledb_tpu_torch.connect(device="cpu")
+    for s in (j, p):
+        s.create_table("t", data)
+    seen = []
+    real = executor._kept_rows_only
+
+    def spy(mask, gid, *a):
+        out = real(mask, gid, *a)
+        seen.append(out[0].shape[0] < gid.shape[0])
+        return out
+    executor._kept_rows_only = spy
+    try:
+        got = [p.sql(q).to_rows() for q in stmts]
+    finally:
+        executor._kept_rows_only = real
+    assert _exact(sum(got, [])) == _exact(sum((j.sql(q).to_rows()
+                                                for q in stmts), []))
+    assert seen == [compacts, compacts]

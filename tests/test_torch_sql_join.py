@@ -5,8 +5,7 @@ compared on column names and to_rows() — values, NULLs and row order.
 After tests/test_joins_full.py: INNER/LEFT/RIGHT/FULL x ANY/ALL, SEMI and
 ANTI, CROSS, USING, ASOF, string and float keys, multi-column keys, table
 aliases, chained joins, a join feeding an aggregate, the grace-hash
-algorithm, NULL-padded sides and the error texts.  A JOIN on a subquery
-and joinGet raise ``NotPortedError`` in the port."""
+algorithm, NULL-padded sides and the error texts."""
 
 import numpy as np
 import pytest
@@ -191,9 +190,11 @@ def test_error_texts_match(sessions, sql):
 
 
 @pytest.mark.parametrize("sql,slice_name", [
-    ("EXPLAIN PLAN SELECT * FROM l INNER JOIN r ON l.k = r.k",
-     "expression and function breadth"),
-    ("SELECT joinGet('j', 'v', k) FROM l", "expression and function breadth"),
+    # EXPLAIN PLAN and joinGet came with the breadth slice
+    ("SELECT * FROM l SAMPLE 0.5 INNER JOIN r ON l.k = r.k",
+     "storage, formats and runtime state"),
+    ("SELECT l.k FROM l INNER JOIN r ON l.k = r.k INTO OUTFILE 'j.csv'",
+     "storage, formats and runtime state"),
 ])
 def test_outside_the_slice_raises_not_ported(sessions, sql, slice_name):
     _j, p = sessions

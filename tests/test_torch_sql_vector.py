@@ -135,13 +135,17 @@ def test_error_texts_match(sessions, sql):
 
 
 @pytest.mark.parametrize("sql", [
-    "EXPLAIN PLAN SELECT id FROM t",
-    "SELECT finalizeAggregation(price) FROM t",
-    "SELECT joinGet('j', 'v', id) FROM t",
-    "CREATE VIEW u AS SELECT id FROM t",
-    "SELECT sumState(price) FROM t",
+    # the breadth slice ported EXPLAIN PLAN, finalizeAggregation, joinGet,
+    # views and the -State combinators; what stays outside is the storage,
+    # formats and runtime state slice's
+    "SELECT id FROM t INTO OUTFILE 't.csv'",
+    "SELECT * FROM url('http://localhost/t.csv', 'CSV', 'id Int64')",
+    "INSERT INTO t FORMAT CSV 1",
+    "CREATE TABLE f (id UInt32) ENGINE = File(CSV, 'f.csv')",
+    "SELECT * FROM system.formats",
     "SELECT * FROM file('t.csv', 'CSV', 'id Int64')",
-    "CREATE MATERIALIZED VIEW mv ENGINE = Memory AS SELECT id FROM t",
+    "CREATE DICTIONARY fd (id UInt64, price Int32) PRIMARY KEY id "
+    "SOURCE(FILE(PATH 'f.csv' FORMAT 'CSV'))",
     "SELECT id FROM t SAMPLE 0.5",
 ])
 def test_outside_the_slice_raises_not_ported(sessions, sql):

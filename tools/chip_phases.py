@@ -8,8 +8,9 @@ Usage (from the repo root, on the machine with the card):
 
 Each argument is ``checkout:phase,phase``; phases are ``groupby``
 (sql_groupby), ``binary`` (sql_binary), ``hits`` (sql_hits), ``arrays``
-(sql_arrays), ``subquery`` (sql_subquery), ``text`` (sql_text) and
-``storage`` (sql_storage), the ones a checkout's chip_smoke.py has.
+(sql_arrays), ``subquery`` (sql_subquery), ``text`` (sql_text),
+``storage`` (sql_storage) and ``views`` (sql_views), the ones a
+checkout's chip_smoke.py has.
 Each argument runs in a process of its own with the checkout as the
 working directory (so it imports that checkout's package and builds its
 kernels), after that checkout's kernel build.  The full output of run i
@@ -34,7 +35,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 names = {'groupby': 'phase_groupby', 'binary': 'phase_sql_binary',
          'hits': 'phase_sql_hits', 'arrays': 'phase_sql_arrays',
          'subquery': 'phase_sql_subquery', 'text': 'phase_sql_text',
-         'storage': 'phase_sql_storage'}
+         'storage': 'phase_sql_storage', 'views': 'phase_sql_views'}
 for ph in sys.argv[1].split(','):
     getattr(C, names[ph])(0)
 """
@@ -52,7 +53,15 @@ def summarize(stdout: str) -> None:
         if d.get("phase") == "sql_binary":
             print(f"  sql_binary load_s {d['load_s']:.3f} median "
                   f"{d['median_query_ms']:.3f}")
-        for name, st in d.get("per_statement", {}).items():
+        if d.get("phase") == "sql_views":
+            ins = d["insert"]
+            print(f"  sql_views insert {ins['rows_per_s']:.0f} rows/s "
+                  f"(no view {ins['no_view_rows_per_s']:.0f}), last batch "
+                  f"device {ins['profiled_last_batch']['device_ms_per_query']:.3f}"
+                  f" of {ins['profiled_last_batch']['wall_ms_per_query']:.3f} ms")
+        stmts = {**d.get("per_statement", {}), **d.get("reads", {}),
+                 **d.get("lookups", {})}
+        for name, st in stmts.items():
             print(f"  {d['phase']} {name} median {st['median_ms']:.3f} "
                   f"device {st['device_ms_per_query']:.3f} "
                   f"busy {st['device_busy_share']:.3f}")
