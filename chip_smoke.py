@@ -2,7 +2,7 @@
 
 Usage:  python3 chip_smoke.py [--seed N]
 
-Thirteen main paths, the SQL ones through the entry points a user calls
+Fourteen main paths, the SQL ones through the entry points a user calls
 (``connect()`` -> ``Session.create_table`` or SQL DDL -> ``Session.sql``):
 
   BASELINE config 1, the filtered exact vector top-k, over n = 1,000,000
@@ -105,6 +105,17 @@ Thirteen main paths, the SQL ones through the entry points a user calls
 
   with a daily uniqState(UserID) view, -Merge reads, a view, joinGet,
   dictGet, IN a Set table, ALTER mutations, EXPLAIN and a row policy;
+
+  ClickBench's load and export paths over the hits table of sql_hits:
+  all 100M rows out and back in as Native, 10M of them through each of
+  ClickBench's load formats (TSV, CSV, JSONEachRow, RowBinary) and
+  Session.import_file, its Q8 over the copies and with SAMPLE 0.1,
+
+    SELECT AdvEngineID, count() FROM hits SAMPLE 0.1 WHERE AdvEngineID
+    <> 0 GROUP BY AdvEngineID ORDER BY count() DESC
+
+  backup and restore of hits and of config 1 (a top-k after), and a
+  FILE-sourced dictionary beside a join on file();
 
   and the 184 stateless goldens (tests/test_torch_goldens_stateless.py).
 
@@ -251,6 +262,25 @@ non-zero without printing a result:
               UPDATE / ADD COLUMN / MATERIALIZE / DROP COLUMN over 100M
               rows timed and exact, the views' states unchanged after
               them; EXPLAIN PLAN/ESTIMATE and a row policy checked
+  sql_formats (a) SELECT * FROM hits INTO OUTFILE ... FORMAT Native and
+              INSERT INTO hits_n FROM INFILE, (b) the same at 10M rows
+              for TSV, CSV, JSONEachRow and RowBinary, with
+              Session.import_file of the TSV, each copy torch.equal to
+              the source column by column (strings through their
+              dictionaries); every file step once under the profiler
+              (seconds, rows/s, MB/s, file bytes, device against host
+              seconds, host syncs, peak memory); (c) Q8 over hits, the
+              Native copy, the TSV copy and with SAMPLE 0.1, ten times
+              after a warm-up each (median, p90, busy share, host syncs,
+              peak memory), against bincounts on the card (SAMPLE's
+              through hash32 of the row ids under the same threshold), K3
+              in each; (d) backup and restore of hits and of config 1 with
+              a vector index, the restored tables equal, the restored
+              top-k's rows equal the ones before the backup, K1 in it;
+              (e) a FILE dictionary over the ~7,000 CounterIDs and the
+              same lookup through a join on file(), a day's rows grouped
+              by name against a bincount gather; the files in a temporary
+              directory removed at the end
   goldens_stateless  every case of tests/test_torch_goldens_stateless.py
               through run_golden_text(connect()), byte-identical
 
@@ -284,7 +314,8 @@ up to the last timed one; the ten config-6 statements; on the DDL-built
 table the twenty distance statements, the ten batch statements at each
 nq, and the three identical-rows statements; config 3's statements; the
 window statements; each hits, array, subquery, text, storage and views
-statement's timed runs; the views' ten batches) and read just after it;
+statement's timed runs; the views' ten batches; each sql_formats
+statement's timed runs and the restored top-k) and read just after it;
 each kernel must have launched in the run of its path, and the summary
 reports every kernel's count on every path.  Launches made to compare a
 kernel with its plain version, the profiler passes and the 10M-row
@@ -973,6 +1004,27 @@ def oracle(x, price, q, k):
     return order.cpu().numpy(), dist[order].cpu().numpy()
 
 
+def device_profiler():
+    """torch.profiler over the CPU and the card.  It records the card's
+    work that pool threads issue too (``worker_copy_probe``), but now and
+    then loses a whole window's device events (``timed_step`` checks)."""
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+def _dev_us(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def device_events(prof) -> list:
+    """The profile's device-side rows (kernels, copies): the CPU-side op
+    rows repeat the device time of the kernels they launch."""
+    return [e for e in prof.key_averages() if _dev_us(e) > 0 and (
+        getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+        or e.self_cpu_time_total == 0)]
+
+
 def profile_statements(s, statements, to_rows: bool = True):
     """Where a query's time goes: torch.profiler over a few main-path
     statements (each result read back with to_rows() unless ``to_rows`` is
@@ -980,9 +1032,7 @@ def profile_statements(s, statements, to_rows: bool = True):
     wall time, summed device kernel time (their ratio is the device's busy
     share, with the profiler's own host overhead in the wall time) and the
     kernels that take the most device time."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_profiler() as prof:
         t0 = time.perf_counter()
         for stmt in statements:
             res = s.sql(stmt)
@@ -990,16 +1040,8 @@ def profile_statements(s, statements, to_rows: bool = True):
                 res.to_rows()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / len(statements)
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    # device-side rows only (kernels, copies): the CPU-side op rows repeat
-    # the device time of the kernels they launch
-    kernels = [e for e in prof.key_averages() if dev_us(e) > 0 and (
-        getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-        or e.self_cpu_time_total == 0)]
+    dev_us = _dev_us
+    kernels = device_events(prof)
     device_ms = sum(dev_us(e) for e in kernels) / 1e3 / len(statements)
     # kernels whose names share their first 60 characters (two template
     # instances) are summed under that prefix
@@ -3843,6 +3885,369 @@ def phase_sql_views(seed: int):
     return totals
 
 
+# ClickBench's load and export paths over the hits table of sql_hits: the
+# file formats, INTO OUTFILE / FROM INFILE, SAMPLE, backup and restore and
+# a FILE-sourced dictionary (ROADMAP item 10.3)
+NF_TEXT = 10_000_000             # rows of (b)'s text and row formats
+TEXT_FORMATS = ("TSV", "CSV", "JSONEachRow", "RowBinary")
+HITS_COLUMNS = ("UserID Int64, EventTime DateTime, EventDate Date, "
+                "CounterID Int32, RegionID Int32, AdvEngineID Int16, "
+                "ResolutionWidth Int16, IsRefresh Int16, DontCountHits Int16, "
+                "URL String, SearchPhrase String")
+Q8_SQL = ("SELECT AdvEngineID, count() FROM {t} {sample}WHERE AdvEngineID "
+          "<> 0 GROUP BY AdvEngineID ORDER BY count() DESC")
+SAMPLE_FRACTION = 0.1
+DICT_DAY = "2013-07-15"
+
+
+# the least time a step's copies between the host and the card can take:
+# H100's host link, PCIe Gen5 x16, 64 GB/s each way (NVIDIA's data sheet
+# gives 128 GB/s for both ways together)
+HOST_LINK_BYTES_PER_S = 64e9
+
+
+def table_bytes(t, rows=None) -> int:
+    """The bytes of a table's columns (data and validity), or of its
+    first ``rows`` rows: what a file step moves across the host link."""
+    n = sum(c.data.nbytes + (0 if c.valid is None else c.valid.nbytes)
+            for c in t.columns.values())
+    return n if rows is None else n * rows // t.n_rows
+
+
+def worker_copy_probe(mib: int = 256) -> dict:
+    """Whether ``device_profiler`` sees the card's work that pool threads
+    issue (the file readers and writers work on thread pools): one
+    pageable upload of ``mib`` MiB from a worker thread under the
+    profiler, timed there with CUDA events too.  Reported beside the
+    steps; a profile that lost its window reads 0 here too."""
+    from concurrent.futures import ThreadPoolExecutor
+    host = np.ones(mib << 18, dtype=np.float32)
+
+    def upload():
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        out = torch.from_numpy(host).to("cuda")
+        t1.record()
+        t1.synchronize()
+        return out, t0.elapsed_time(t1)
+    upload()                                    # warm the staging path
+    with device_profiler() as prof:
+        with ThreadPoolExecutor(1) as pool:
+            _, event_ms = pool.submit(upload).result()
+        torch.cuda.synchronize()
+    prof_ms = sum(_dev_us(e) for e in device_events(prof)) / 1e3
+    return {"bytes": host.nbytes, "event_ms": event_ms,
+            "profiler_ms": prof_ms,
+            "profiler_sees_worker_threads": prof_ms >= 0.5 * event_ms}
+
+
+def timed_step(fn, rows: int, moved_bytes: int, path=None):
+    """One run of a file step under the profiler with PyTorch's sync debug
+    mode on: its seconds and rows/s, the host synchronisations, the peak
+    device memory and, where it has a file, the file's bytes and MB/s.
+    The device time (copies and kernels) against the host's is given only
+    where the profile's copies take at least the time ``moved_bytes``
+    take over the host link (a profile that lost its window reads less);
+    else null, with the profile's reading beside it.  One run: each step
+    moves up to 100M rows through the host."""
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with device_profiler() as prof:
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    events = device_events(prof)
+    prof_s = sum(_dev_us(e) for e in events) / 1e6
+    copy_s = sum(_dev_us(e) for e in events if "Memcpy" in e.key) / 1e6
+    floor_s = moved_bytes / HOST_LINK_BYTES_PER_S
+    dev_s = prof_s if copy_s >= floor_s else None
+    st = {"runs": 1, "seconds": wall, "median_s": wall, "p90_s": wall,
+          "rows": rows, "rows_per_s": rows / wall, "device_s": dev_s,
+          "host_s": None if dev_s is None else wall - dev_s,
+          "device_busy_share": None if dev_s is None else dev_s / wall,
+          "profile_device_s": prof_s, "profile_copy_s": copy_s,
+          "copy_floor_s": floor_s, "moved_bytes": moved_bytes,
+          "host_syncs": sum(1 for w in caught
+                            if "synchroniz" in str(w.message)),
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    if path is not None:
+        size = sum(os.path.getsize(os.path.join(r, f))
+                   for r, _, fs in os.walk(path) for f in fs) \
+            if os.path.isdir(path) else os.path.getsize(path)
+        st.update(file_bytes=size, mb_per_s=size / 1e6 / wall)
+    return out, st
+
+
+def same_table(tag, got, want, n=None):
+    """``got`` equals the first ``n`` rows of ``want`` column by column on
+    the card: the data by torch.equal, a String column by its strings
+    (each dictionary value of ``got`` looked up in ``want``'s)."""
+    for name, wc in want.columns.items():
+        gc = got[name]
+        wd = wc.data if n is None else wc.data[:n]
+        if wc.dictionary is None:
+            if not torch.equal(gc.data, wd):
+                raise AssertionError(f"sql_formats {tag}: column {name} "
+                                     "differs")
+            continue
+        lut = torch.tensor([wc.dictionary.index[v]
+                            for v in gc.dictionary.values],
+                           dtype=torch.int64, device=wd.device)
+        if not torch.equal(lut[gc.data.long()], wd.long()):
+            raise AssertionError(f"sql_formats {tag}: column {name}'s "
+                                 "strings differ")
+
+
+def q8_oracle(adv: torch.Tensor):
+    """Q8's rows from a bincount of AdvEngineID on the card, as a set, with
+    the counts the statement's order must not increase along."""
+    cnt = torch.bincount(adv.long(), minlength=64)
+    ids = torch.nonzero(cnt).flatten().tolist()
+    return sorted((a, int(cnt[a])) for a in ids if a != 0)
+
+
+def check_q8(tag, rows, want):
+    counts = [c for _, c in rows]
+    if sorted(rows) != want or counts != sorted(counts, reverse=True):
+        raise AssertionError(f"sql_formats {tag}: {rows[:3]} != oracle "
+                             f"{want[:3]}")
+
+
+def phase_sql_formats(seed: int):
+    """ClickBench's load and export paths over the 100M-row hits table:
+    (a) a Native round trip of all of it through INTO OUTFILE and FROM
+    INFILE; (b) its load formats (TSV, CSV, JSONEachRow, RowBinary) on
+    10M rows, out and back, and Session.import_file of the TSV; (c)
+    ClickBench's Q8 over the source, the Native copy and the TSV copy,
+    and with SAMPLE 0.1 (K3); (d) backup and restore of hits and of
+    config 1's vector table, then a fused top-k over the restored one
+    (K1); (e) a FILE-sourced dictionary and the same lookup through a
+    join on file().  Every copy equals its source on the card; files go
+    to a temporary directory removed at the end."""
+    import shutil
+    import tempfile
+    import myscaledb_tpu_torch as P
+    from myscaledb_tpu_torch.ops.hash import hash32
+    smi = nvidia_smi_line()
+    t0 = time.perf_counter()
+    table, _urls = hits_table(seed)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    s = P.connect()
+    s.settings.max_memory_bytes_per_query = 32 << 30
+    s.register("hits", table)
+    probe = worker_copy_probe()
+    hits_b, text_b = table_bytes(table), table_bytes(table, NF_TEXT)
+    tmp = tempfile.mkdtemp(prefix="sql_formats_")
+    steps, totals = {}, {}
+    try:
+        # (a) Native at 100M rows
+        path = os.path.join(tmp, "hits.native")
+        _, steps["native_write"] = timed_step(lambda: s.sql(
+            f"SELECT * FROM hits INTO OUTFILE '{path}' FORMAT Native"),
+            NH, hits_b, path)
+        s.sql(f"CREATE TABLE hits_n ({HITS_COLUMNS}) ENGINE = MergeTree "
+              "ORDER BY (CounterID, EventDate)")
+        _, steps["native_read"] = timed_step(lambda: s.sql(
+            f"INSERT INTO hits_n FROM INFILE '{path}' FORMAT Native"),
+            NH, hits_b, path)
+        same_table("native", s.tables["hits_n"], table)
+        for c in ("URL", "SearchPhrase"):
+            if s.tables["hits_n"][c].dictionary.values != \
+                    table[c].dictionary.values:
+                raise AssertionError(f"sql_formats native: {c}'s "
+                                     "dictionary differs")
+        os.unlink(path)
+
+        # (b) ClickBench's load formats at 10M rows
+        for fmt in TEXT_FORMATS:
+            path = os.path.join(tmp, f"hits.{fmt.lower()}")
+            _, steps[f"{fmt}_write"] = timed_step(lambda: s.sql(
+                f"SELECT * FROM hits LIMIT {NF_TEXT} INTO OUTFILE "
+                f"'{path}' FORMAT {fmt}"), NF_TEXT, text_b, path)
+            name = f"hits_{fmt.lower()}"
+            s.sql(f"CREATE TABLE {name} ({HITS_COLUMNS}) ENGINE = Memory")
+            _, steps[f"{fmt}_read"] = timed_step(lambda: s.sql(
+                f"INSERT INTO {name} FROM INFILE '{path}' FORMAT {fmt}"),
+                NF_TEXT, text_b, path)
+            same_table(fmt, s.tables[name], table, NF_TEXT)
+            if fmt == "TSV":
+                s.sql(f"CREATE TABLE hits_imp ({HITS_COLUMNS}) "
+                      "ENGINE = Memory")
+                _, steps["TSV_import_file"] = timed_step(
+                    lambda: s.import_file("hits_imp", path, "TSV"),
+                    NF_TEXT, text_b, path)
+                same_table("import_file", s.tables["hits_imp"], table,
+                           NF_TEXT)
+                s.drop_table("hits_imp")
+            else:
+                s.drop_table(name)
+            os.unlink(path)
+
+        # (c) Q8 over the source, the copies and a 10% SAMPLE (K3)
+        adv = table["AdvEngineID"].data
+        keep = hash32(torch.arange(NH, dtype=torch.int64, device="cuda")) \
+            < int(SAMPLE_FRACTION * 0xFFFFFFFF)
+        want_full = q8_oracle(adv)
+        statements = {
+            "q8_hits": Q8_SQL.format(t="hits", sample=""),
+            "q8_native_copy": Q8_SQL.format(t="hits_n", sample=""),
+            "q8_tsv_copy": Q8_SQL.format(t="hits_tsv", sample=""),
+            "q8_sample": Q8_SQL.format(
+                t="hits", sample=f"SAMPLE {SAMPLE_FRACTION} ")}
+        wants = {"q8_hits": want_full, "q8_native_copy": want_full,
+                 "q8_tsv_copy": q8_oracle(adv[:NF_TEXT]),
+                 "q8_sample": q8_oracle(adv[keep])}
+        del keep
+        checks = {k: (lambda rows, k=k: check_q8(k, rows, wants[k]))
+                  for k in statements}
+        stats, totals = run_statements_checked(s, statements, checks,
+                                               "sql_formats")
+        for k, st in stats.items():
+            st["rows_per_s"] = (NF_TEXT if k == "q8_tsv_copy" else NH) / \
+                (st["median_ms"] / 1e3)
+            if st["launches_by_path"]["group_aggregate"] < 1:
+                raise AssertionError(f"sql_formats {k}: group_aggregate "
+                                     "did not launch")
+        s.drop_table("hits_n")
+        s.drop_table("hits_tsv")
+
+        # (d) backup and restore: hits, then config 1 with a top-k (K1)
+        bdir = os.path.join(tmp, "backup_hits")
+        _, steps["backup_hits"] = timed_step(
+            lambda: s.backup(bdir, ["hits"]), NH, hits_b, bdir)
+        s2 = P.connect()
+        _, steps["restore_hits"] = timed_step(lambda: s2.restore(bdir),
+                                              NH, hits_b, bdir)
+        same_table("restore", s2.tables["hits"], table)
+        del s2
+        shutil.rmtree(bdir)
+        torch.cuda.empty_cache()
+        rng = np.random.default_rng(seed + 13)
+        s.create_table("t", {"id": np.arange(N, dtype=np.int64),
+                             "price": rng.integers(0, 100, N)
+                             .astype(np.int32),
+                             "emb": rng.standard_normal((N, D),
+                                                        dtype=np.float32)})
+        s.sql("ALTER TABLE t ADD VECTOR INDEX vi emb TYPE MSTG")
+        q = rng.standard_normal(D, dtype=np.float32)
+        topk = (f"SELECT id, distance(emb, {vec_sql(q)}) AS d FROM t "
+                "WHERE price < 50 ORDER BY d LIMIT 10")
+        before = s.sql(topk).to_rows()
+        bdir = os.path.join(tmp, "backup_config1")
+        t_b = table_bytes(s.tables["t"])
+        _, steps["backup_config1"] = timed_step(
+            lambda: s.backup(bdir, ["t"]), N, t_b, bdir)
+        s3 = P.connect()
+        _, steps["restore_config1"] = timed_step(lambda: s3.restore(bdir),
+                                                 N, t_b, bdir)
+        same_table("restore config 1", s3.tables["t"], s.tables["t"])
+        if s3.sql("SELECT name, status FROM system.vector_indices")\
+                .to_rows() != [("vi", "Built")]:
+            raise AssertionError("sql_formats: the index registration was "
+                                 "not restored")
+        s3.sql(topk).to_rows()          # builds the restored sidecar
+        zero_launches()
+        after = s3.sql(topk).to_rows()
+        topk_launches = read_launches()
+        if after != before:
+            raise AssertionError(f"sql_formats: top-k after restore {after[:3]}"
+                                 f" != before {before[:3]}")
+        if topk_launches["segmin_sq8"] < 1:
+            raise AssertionError("sql_formats: the restored top-k did not "
+                                 "launch segmin_sq8")
+        for k, c in topk_launches.items():
+            totals[k] = totals.get(k, 0) + c
+        del s3
+        s.drop_table("t")
+        shutil.rmtree(bdir)
+        torch.cuda.empty_cache()
+
+        # (e) a FILE-sourced dictionary and file() over the CounterIDs
+        counters = torch.unique(table["CounterID"].data).cpu().numpy()
+        s.create_table("cnames", {"CounterID": counters.astype(np.int32),
+                                  "name": [f"counter {c}" for c in
+                                           counters]})
+        cpath = os.path.join(tmp, "counters.csv")
+        s.sql(f"SELECT * FROM cnames INTO OUTFILE '{cpath}' FORMAT CSV")
+        s.sql(f"CREATE DICTIONARY counters (CounterID Int32, name String) "
+              f"PRIMARY KEY CounterID SOURCE(FILE(path '{cpath}' format "
+              f"'CSV')) LAYOUT(HASHED())")
+        import datetime as _dt
+        day = (_dt.date.fromisoformat(DICT_DAY) - _dt.date(1970, 1, 1)).days
+        sel = table["EventDate"].data == day
+        per = torch.bincount(table["CounterID"].data[sel].long(),
+                             minlength=int(counters.max()) + 1)
+        want = sorted((f"counter {c}", int(per[c]))
+                      for c in torch.nonzero(per).flatten().tolist())
+        lookups = {
+            "dictget_by_name": (
+                f"SELECT dictGet('counters', 'name', CounterID) AS name, "
+                f"count() FROM hits WHERE EventDate = '{DICT_DAY}' "
+                f"GROUP BY name"),
+            # as a user writes it: the executor joins before the WHERE,
+            # so all 100M rows go through the join's host row pairs
+            "file_join_where": (
+                f"SELECT f.name, count() FROM hits AS h INNER JOIN (SELECT "
+                f"* FROM file('{cpath}', 'CSV', 'CounterID Int32, name "
+                f"String')) AS f ON h.CounterID = f.CounterID WHERE "
+                f"h.EventDate = '{DICT_DAY}' GROUP BY f.name"),
+            # the day's rows first, in a subquery
+            "file_join_by_name": (
+                f"SELECT f.name, count() FROM (SELECT CounterID FROM hits "
+                f"WHERE EventDate = '{DICT_DAY}') AS h INNER JOIN (SELECT * "
+                f"FROM file('{cpath}', 'CSV', 'CounterID Int32, name "
+                f"String')) AS f ON h.CounterID = f.CounterID "
+                f"GROUP BY f.name")}
+
+        def check_names(rows, k):
+            if sorted(rows) != want:
+                raise AssertionError(f"sql_formats {k}: {sorted(rows)[:3]} "
+                                     f"!= oracle {want[:3]}")
+        lstats, ltotals = run_statements_checked(
+            s, lookups, {k: (lambda rows, k=k: check_names(rows, k))
+                         for k in lookups}, "sql_formats")
+        for k, c in ltotals.items():
+            totals[k] = totals.get(k, 0) + c
+        stats.update(lstats)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    text_read = min(steps[f"{f}_read"]["rows_per_s"] for f in TEXT_FORMATS)
+    emit({"phase": "sql_formats", "rows": NH, "text_rows": NF_TEXT,
+          "table_gen_s": gen_s,
+          "source": "ClickBench hits (clickhouse/create.sql; the load is "
+                    "INSERT INTO hits FORMAT TSV), queries.sql Q8; "
+                    "ClickHouse's SAMPLE clause documentation (SAMPLE 0.1)",
+          "reduced": [f"(b) TSV, CSV, JSONEachRow and RowBinary at "
+                      f"{NF_TEXT} of the {NH} rows: the slowest read ran "
+                      f"{text_read:.0f} rows/s, {NH / text_read:.1f} s for "
+                      "all of them, per format and direction",
+                      "URL and SearchPhrase have 2^17 distinct values (as "
+                      "sql_hits)", "only sql_hits' eleven columns"],
+          "steps": steps, "per_statement": stats,
+          "restored_topk_launches": topk_launches, "launches": totals,
+          "device_split_probe": probe,
+          "nvidia_smi": smi,
+          "oracle": "copies torch.equal to the source column by column "
+                    "(strings through their dictionaries); Q8 against a "
+                    "bincount, SAMPLE against hash32 of the row ids under "
+                    "the same threshold; the restored top-k equal to the "
+                    "one before the backup; lookups against a bincount "
+                    "gather"})
+    s.tables.clear()
+    del table
+    torch.cuda.empty_cache()
+    return totals
+
+
 def _views_equal(name, rows, want) -> None:
     if rows != want:
         raise AssertionError(f"sql_views {name}: {rows[:3]} != oracle "
@@ -3959,6 +4364,7 @@ def main() -> int:
     counts["sql_text"] = phase_sql_text(args.seed)
     counts["sql_storage"] = phase_sql_storage(args.seed)
     counts["sql_views"] = phase_sql_views(args.seed)
+    counts["sql_formats"] = phase_sql_formats(args.seed)
     phase_goldens_stateless()
 
     summary = []

@@ -1,12 +1,8 @@
-"""Virtual system.* tables: the port of ``system.one``,
-``system.numbers``, ``system.parts``, ``system.vector_indices``,
-``system.data_skipping_indices``, ``system.tables``, ``system.views``,
-``system.dictionaries``, ``system.vector_index_event_log`` and the access
-tables (``system.users``, ``roles``, ``grants``, ``row_policies``,
-``quotas``) from
-myscaledb_tpu/runtime/system_tables.py (``build_system_table``), built on
-demand from the session's state and queried through the normal SQL path.
-Every other ``system.*`` name raises ``NotPortedError``.
+"""Virtual system.* tables: the port of
+myscaledb_tpu/runtime/system_tables.py (``build_system_table``), every
+table it serves, built on demand from the session's state and the
+runtime's counters, spans and query log, and queried through the normal
+SQL path.
 """
 
 from __future__ import annotations
@@ -16,14 +12,19 @@ import json
 import numpy as np
 
 from myscaledb_tpu_torch.core.table import Table
-from myscaledb_tpu_torch.errors import NotPortedError
+from myscaledb_tpu_torch.runtime import metrics as M
+from myscaledb_tpu_torch.runtime import tracing
 
-SYSTEM_TABLES = ("system.one", "system.parts", "system.vector_indices",
-                 "system.numbers", "system.data_skipping_indices",
-                 "system.tables", "system.views", "system.dictionaries",
-                 "system.vector_index_event_log", "system.users",
-                 "system.roles", "system.grants", "system.row_policies",
-                 "system.quotas")
+SYSTEM_TABLES = ("system.one", "system.tables", "system.columns",
+                 "system.parts",
+                 "system.settings", "system.events", "system.metrics",
+                 "system.timings", "system.query_log", "system.span_log",
+                 "system.vector_indices", "system.numbers",
+                 "system.functions", "system.users", "system.roles",
+                 "system.grants", "system.row_policies", "system.quotas",
+                 "system.formats", "system.dictionaries",
+                 "system.vector_index_event_log",
+                 "system.vector_index_segments", "system.views")
 
 
 def build_system_table(session, name: str) -> Table:
@@ -199,5 +200,125 @@ def build_system_table(session, name: str) -> Table:
                          ",".join(sorted(q.to_users)) for q in qs]},
             device=dev)
 
-    raise NotPortedError(f"system table {name}",
-                         "storage, formats and runtime state")
+    if name == "system.columns":
+        tabs, cols, types = [], [], []
+        for tname, t in session.tables.items():
+            for f in t.schema():
+                if f.name.startswith("__"):
+                    continue
+                tabs.append(tname)
+                cols.append(f.name)
+                types.append(str(f))
+        return Table.from_dict({"table": tabs, "name": cols, "type": types},
+                               device=dev)
+
+    if name == "system.settings":
+        items = sorted(vars(session.settings).items())
+        return Table.from_dict({
+            "name": [k for k, _ in items],
+            "value": [json.dumps(v) if not isinstance(v, str) else v
+                      for _, v in items]}, device=dev)
+
+    if name in ("system.events", "system.metrics"):
+        ev = sorted((M.events_snapshot() if name == "system.events"
+                     else M.metrics_snapshot()).items())
+        return Table.from_dict({
+            name.split(".")[1][:-1]: [k for k, _ in ev],
+            "value": np.asarray([v for _, v in ev], dtype=np.int64)},
+            device=dev)
+
+    if name == "system.timings":
+        ev = sorted(M.timings_snapshot().items())
+        return Table.from_dict({
+            "name": [k for k, _ in ev],
+            "seconds": np.asarray([v for _, v in ev], dtype=np.float64)},
+            device=dev)
+
+    if name == "system.vector_index_segments":
+        # one row per (index, part segment), column set of
+        # src/VectorIndex/Storages/StorageSystemVIsWithPart.cpp:43-57
+        with session.vi_lock:
+            idxs = [dict(i) for i in session.vector_indices]
+        rows = []
+        for i in idxs:
+            t = session.tables.get(i["table"])
+            nrows_tab = t.n_rows if t is not None else 0
+            plist = session._table_parts.get(i["table"]) or (
+                [nrows_tab] if nrows_tab else [])
+            dim = 0
+            if t is not None and i["column"] in t:
+                dim = t[i["column"]].field.vector_dim or 0
+            for pi, prows in enumerate(plist):
+                pname = f"all_{pi + 1}_{pi + 1}_0"
+                rows.append((i["table"], pname, pname, i["name"],
+                             i["type"], dim, i["status"], prows))
+        return Table.from_dict({
+            "database": ["default"] * len(rows),
+            "table": [r[0] for r in rows],
+            "part": [r[1] for r in rows],
+            "owner_part": [r[2] for r in rows],
+            "owner_part_id": np.asarray([0] * len(rows), dtype=np.int32),
+            "name": [r[3] for r in rows],
+            "index_name": [r[3] for r in rows],   # back-compat alias
+            "type": [r[4] for r in rows],
+            "dimension": np.asarray([r[5] for r in rows], dtype=np.int32),
+            "status": [r[6] for r in rows],
+            "total_vectors": np.asarray([r[7] for r in rows],
+                                        dtype=np.int64),
+            "error": ["" for _ in rows]}, device=dev)
+
+    if name == "system.functions":
+        from myscaledb_tpu_torch.exec.expr import _FUNCS
+        aggs = ["count", "sum", "min", "max", "avg", "any", "uniqExact",
+                "argMin", "argMax", "countIf", "sumIf", "minIf", "maxIf",
+                "avgIf", "quantile", "median"]
+        wins = ["row_number", "rank", "dense_rank", "lag", "lead"]
+        search = ["distance", "batch_distance", "L2Distance",
+                  "cosineDistance", "dotProduct", "TextSearch",
+                  "HybridSearch"]
+        names = ([(f, "scalar") for f in sorted(_FUNCS.keys())] +
+                 [(f, "aggregate") for f in aggs] +
+                 [(f, "window") for f in wins] +
+                 [(f, "search") for f in search])
+        return Table.from_dict({"name": [n_ for n_, _ in names],
+                                "kind": [k_ for _, k_ in names]},
+                               device=dev)
+
+    if name == "system.formats":
+        from myscaledb_tpu_torch.runtime.formats import (INPUT_FORMATS,
+                                                         OUTPUT_FORMATS)
+        names_ = sorted(set(INPUT_FORMATS) | set(OUTPUT_FORMATS))
+        return Table.from_dict({
+            "name": names_,
+            "is_input": np.asarray([n in INPUT_FORMATS for n in names_],
+                                   dtype=np.uint8),
+            "is_output": np.asarray([n in OUTPUT_FORMATS for n in names_],
+                                    dtype=np.uint8)}, device=dev)
+
+    if name == "system.query_log":
+        entries = list(session.query_log)
+        return Table.from_dict({
+            "query": [e["query"] for e in entries],
+            "event_time": np.asarray([e["event_time"] for e in entries],
+                                     dtype=np.float64),
+            "duration_ms": np.asarray([e["duration_ms"] for e in entries],
+                                      dtype=np.float64),
+            "result_rows": np.asarray([e["result_rows"] for e in entries],
+                                      dtype=np.int64),
+            "status": [e["status"] for e in entries],
+            "error": [e["error"] for e in entries]}, device=dev)
+
+    if name == "system.span_log":
+        spans = tracing.span_log_snapshot()
+        return Table.from_dict({
+            "name": [s.name for s in spans],
+            "trace_id": [s.trace_id for s in spans],
+            "span_id": [s.span_id for s in spans],
+            "parent_span_id": [s.parent_span_id or "" for s in spans],
+            "start": np.asarray([s.start for s in spans], dtype=np.float64),
+            "duration_us": np.asarray([s.duration_us for s in spans],
+                                      dtype=np.int64),
+            "attributes": [json.dumps(s.attributes) for s in spans]},
+            device=dev)
+
+    raise KeyError(f"unknown system table {name!r}")

@@ -10,8 +10,11 @@ list of each table, detached tables, vector index definitions and their
 lifecycle events, constraints, order and partition keys, row TTLs,
 skip-index definitions, Join/Set engine keys and aggregate projections;
 views, materialized views and dictionaries.  ``get_table`` runs a view's
-SELECT where the view is read; ``system.*`` names resolve through
-runtime/system_tables.py.
+SELECT where the view is read and refreshes a File/URL/S3/FileLog table
+from its source; ``system.*`` names resolve through
+runtime/system_tables.py.  ``import_file`` / ``export_file`` move rows
+through the file formats (runtime/formats.py), ``backup`` / ``restore``
+through on-disk parts (runtime/backup.py).
 
 Index builds may run on the background executor's thread: the index list
 is guarded by ``vi_lock``, the derived-state dict by ``sidecar_lock``.
@@ -105,6 +108,10 @@ class Session:
         """Resolve a table name: registered tables first, then the virtual
         system.* tables built from live state."""
         if name in self.tables:
+            if name in self._table_engines:
+                from myscaledb_tpu_torch.sql.ddl import \
+                    refresh_external_table
+                refresh_external_table(self, name)
             return self.tables[name]
         if name.startswith("system."):
             from myscaledb_tpu_torch.runtime.system_tables import \
@@ -152,6 +159,46 @@ class Session:
         if settings is not None:
             self.table_settings[name] = settings
         self.bump_epoch()
+
+    def import_file(self, table_name: str, path: str, format: str = "CSV",
+                    **kw) -> int:
+        """Load a file into an existing table (schema from the table
+        definition) through the INSERT path every INSERT takes
+        (``ddl.insert_block``: partition clustering, zone maps, one part,
+        the materialized views); returns rows inserted.  CSV/TSV take
+        ``delimiter``/``has_header`` keywords."""
+        from myscaledb_tpu_torch.runtime import formats
+        from myscaledb_tpu_torch.sql.ddl import insert_block
+        t = self.tables[table_name]
+        schema = [f for f in t.schema() if not f.name.startswith("__")]
+        if format.upper() in ("CSV", "TSV") and kw:
+            new = formats.read_csv(path, schema,
+                                   delimiter="\t" if format.upper() == "TSV"
+                                   else ",", **kw, device=self.device)
+        else:
+            new = formats.read_file(path, format, schema,
+                                    settings=self.settings,
+                                    device=self.device)
+        n = insert_block(self, table_name, new.select(
+            [c for c in t.column_names if c in new.column_names]))
+        self.bump_epoch()
+        return n
+
+    def export_file(self, query: str, path: str, format: str = "CSV") -> int:
+        """Run ``query`` and write its rows to ``path``; returns rows."""
+        from myscaledb_tpu_torch.runtime import formats
+        return formats.write_file(self.sql(query), path, format)
+
+    def backup(self, path: str, tables=None) -> dict:
+        """Write tables (all, or the given names) with their settings and
+        vector-index registrations to the directory ``path``."""
+        from myscaledb_tpu_torch.runtime.backup import backup_session
+        return backup_session(self, path, tables)
+
+    def restore(self, path: str) -> list:
+        """Register the tables of a backup; returns their names."""
+        from myscaledb_tpu_torch.runtime.backup import restore_session
+        return restore_session(self, path)
 
     def create_table(self, name: str, data: dict, dtypes=None,
                      settings=None) -> Table:

@@ -23,9 +23,14 @@ SETTING, ADD/DROP PROJECTION, DROP CONSTRAINT, Join and Set engines,
 CREATE/DROP DICTIONARY over a table and SYSTEM RELOAD DICTIONARY, users,
 roles, grants, row policies and quotas, SHOW and DESCRIBE.
 
-File and stream engines, file-sourced dictionaries, INFILE and INSERT ...
-FORMAT raise ``NotPortedError`` naming "storage, formats and runtime
-state".
+Since the formats slice also: INSERT ... FROM INFILE and INSERT ...
+FORMAT fmt <inline rows> (``_split_inline_insert_data``), through the same
+insert path as INSERT VALUES (``insert_block``); the File, URL, S3 and
+FileLog engines (``refresh_external_table``, ``poll_filelog``,
+``file_engine_writethrough``) and the broker engines' gate (Kafka,
+RabbitMQ, NATS register and fail on use, as in the JAX package);
+dictionaries with ``SOURCE(FILE(...))``; ``parse_schema_string`` for the
+file()/url()/s3() table functions.
 
 Tables live on the session's device.  Each INSERT appends one logical part
 (``session._table_parts``, what system.parts lists) and concatenates the
@@ -51,11 +56,8 @@ from myscaledb_tpu_torch.core.types import (DataType, Field, type_from_name,
                                             physical_dtype, torch_dtype)
 from myscaledb_tpu_torch.core.table import (Table, Column, concat_tables,
                                             to_tensor)
-from myscaledb_tpu_torch.errors import NotPortedError
 from myscaledb_tpu_torch.sql.lexer import unquote_string
 from myscaledb_tpu_torch.sql.parser import Parser, ParseError
-
-STORAGE = "storage, formats and runtime state"
 
 # index builds over at least this many rows run on the background executor
 # (smaller ones finish inline, so a follow-up query sees them Built)
@@ -111,6 +113,15 @@ class InsertValues:
     columns: Optional[list]
     rows: list                    # list of tuples of python literals
     select_sql: Optional[str] = None
+    format_name: Optional[str] = None    # INSERT ... FORMAT fmt <raw data>
+    format_text: Optional[str] = None
+
+
+@dataclass
+class InsertInfile:
+    table: str
+    path: str
+    format: Optional[str] = None   # None = infer from extension
 
 
 @dataclass
@@ -381,7 +392,67 @@ ACCESS_STATEMENTS = (CreateUser, CreateRole, DropPrincipal, GrantStmt,
                      RevokeStmt, CreateRowPolicy, DropRowPolicy, CreateQuota)
 
 
+def _split_inline_insert_data(sql: str):
+    """INSERT ... FORMAT fmt <raw data>: split BEFORE tokenizing (the data
+    is not SQL — '{' in JSONEachRow rows would fail the lexer).  Returns
+    (head_sql, fmt, data) or None.  Quote-aware scan; only INSERT heads
+    without a top-level SELECT qualify (INSERT..SELECT has no data tail)."""
+    s = sql.lstrip()
+    if not s[:6].upper() == "INSERT":
+        return None
+    i, n = 0, len(sql)
+    seen_select = False
+    while i < n:
+        ch = sql[i]
+        if ch in "'\"`":
+            q = ch
+            i += 1
+            while i < n:
+                if sql[i] == "\\":
+                    i += 2
+                    continue
+                if sql[i] == q:
+                    i += 1
+                    break
+                i += 1
+            continue
+        if (sql[i:i + 6].upper() == "SELECT" or
+                sql[i:i + 6].upper() == "INFILE") and \
+                (i == 0 or not (sql[i - 1].isalnum() or sql[i - 1] == "_")):
+            seen_select = True       # INSERT..SELECT / FROM INFILE: the
+                                     # FORMAT clause is SQL, not a data tail
+        if sql[i:i + 6].upper() == "FORMAT" and not seen_select and \
+                i > 0 and sql[i - 1] in " \t\r\n" and \
+                (i + 6 == n or not (sql[i + 6].isalnum() or
+                                    sql[i + 6] == "_")):
+            j = i + 6
+            while j < n and sql[j] in " \t":
+                j += 1
+            k = j
+            while k < n and (sql[k].isalnum() or sql[k] == "_"):
+                k += 1
+            fmt = sql[j:k]
+            if not fmt or fmt.upper() == "VALUES":
+                return None              # VALUES parses as SQL tokens
+            data = sql[k:]
+            if data.startswith("\r\n"):
+                data = data[2:]
+            elif data.startswith(("\n", " ", "\t")):
+                data = data[1:]
+            return sql[:i], fmt, data
+        i += 1
+    return None
+
+
 class DDLParser(Parser):
+    def __init__(self, sql: str):
+        split = _split_inline_insert_data(sql)
+        self._inline_insert = None
+        if split is not None:
+            head, fmt, data = split
+            self._inline_insert = (fmt, data)
+            sql = head
+        super().__init__(sql)
 
     def parse_statement(self):
         t = self.peek()
@@ -1058,12 +1129,25 @@ class DDLParser(Parser):
         if self.at_kw("SELECT"):
             rest = self.sql[self.peek().pos:]
             return InsertValues(name, columns, [], select_sql=rest)
-        if self.at_kw("FROM"):
-            raise NotPortedError("INSERT ... FROM INFILE", STORAGE)
-        if self.take_kw("FORMAT") and not self.at_kw("VALUES"):
-            raise NotPortedError("INSERT ... FORMAT with inline data",
-                                 STORAGE)
-        self.expect_kw("VALUES")
+        if self.take_kw("FROM"):
+            # INSERT INTO t FROM INFILE 'file' [FORMAT fmt]
+            self.expect_kw("INFILE")
+            path = unquote_string(self.next().text)
+            fmt = None
+            if self.take_kw("FORMAT"):
+                fmt = self.next().text
+            return InsertInfile(name, path, fmt)
+        if self._inline_insert is not None and self.peek().kind == "eof":
+            # INSERT INTO t [(cols)] FORMAT fmt <inline rows>: the raw tail
+            # was split off before tokenizing (it is not SQL)
+            fmt, raw = self._inline_insert
+            return InsertValues(name, columns, [], format_name=fmt,
+                                format_text=raw)
+        if self.take_kw("FORMAT"):
+            # FORMAT Values: the rows tokenize as plain SQL literals
+            self.expect_kw("VALUES")
+        else:
+            self.expect_kw("VALUES")
         rows = []
         while self.take_punct("("):
             row = [self.parse_insert_value()]
@@ -1162,9 +1246,6 @@ MERGE_MIN_PARTS = 8
 # engines that read or write outside the table (a later slice); every other
 # engine keeps a plain resident table, Join and Set tables with the keys
 # joinGet() and ``x IN set_table`` probe
-_SPECIAL_ENGINES = {"filelog": STORAGE, "kafka": STORAGE,
-                    "rabbitmq": STORAGE, "nats": STORAGE, "s3": STORAGE,
-                    "file": STORAGE, "url": STORAGE}
 
 
 def maybe_schedule_background_merge(session, name: str) -> None:
@@ -1538,15 +1619,269 @@ def _create_view(session, stmt: CreateView) -> None:
     session.materialized_views[stmt.name] = mv
 
 
+def insert_block(session, name: str, new: Table) -> int:
+    """Append a block of rows to table ``name`` as every INSERT does
+    (VALUES, SELECT, FORMAT, FROM INFILE, ``Session.import_file``, a
+    FileLog poll): a partitioned table's batch clustered by its key and
+    its zone maps taken anew, absent columns at their type's default, one
+    logical part, the background merge, the materialized views once over
+    the block, and a File-engine table's file written through.  Returns
+    the rows inserted."""
+    dev = session.device
+    existing = session.tables[name]
+    pkeys = session._table_partition_keys.get(name) or []
+    if pkeys and all(k in new for k in pkeys) and new.n_rows > 1:
+        new = _cluster_by_partition(new, pkeys)
+    if existing.n_rows == 0 and set(new.column_names) == \
+            set(existing.column_names):
+        # first insert fixes unknown vector dims
+        merged = new.select(existing.column_names)
+    else:
+        missing = [n for n in existing.column_names
+                   if n not in new.column_names]
+        if missing and new.n_rows:
+            # column-subset INSERT: absent columns take their type default
+            # (reference: AddingDefaultsTransform)
+            new = Table(list(new.columns.values()) +
+                        [_default_column(existing[n], new.n_rows, dev)
+                         for n in missing])
+        merged = concat_tables([existing, new.select(
+            existing.column_names)])
+    merged.name = name
+    if pkeys:
+        _rebuild_zone_maps(merged)
+    session.tables[name] = merged
+    # logical part accounting for system.parts (one part per INSERT batch
+    # until a merge collapses them — MergeTreeData part model)
+    session._table_parts.setdefault(name, []).append(new.n_rows)
+    maybe_schedule_background_merge(session, name)
+    # once per statement, over the rows as the table took them
+    run_materialized_views(session, name, new)
+    file_engine_writethrough(session, name)
+    return new.n_rows
+
+
+def _fetch(info: dict) -> bytes:
+    """The bytes of a URL or S3 engine's source."""
+    import urllib.request
+    if info["engine"] == "S3":
+        from myscaledb_tpu_torch.runtime.object_storage import s3_get
+        return s3_get(info["url"], info.get("key", ""),
+                      info.get("secret", ""))
+    with urllib.request.urlopen(info["url"], timeout=30) as resp:
+        return resp.read()
+
+
+def read_fetched(session, payload: bytes, url: str, fmt: str,
+                 schema: list) -> Table:
+    """Bytes that are not a file (an HTTP or S3 body, inline INSERT data,
+    a FileLog's new records) through the file readers: a temporary file
+    with the extension of ``url``'s last part."""
+    import os
+    import tempfile
+    from myscaledb_tpu_torch.runtime import formats
+    base = url.rsplit("/", 1)[-1]
+    suffix = "." + base.rsplit(".", 1)[-1] if "." in base else ""
+    with tempfile.NamedTemporaryFile(suffix=suffix, delete=False) as tf:
+        tf.write(payload)
+    try:
+        return formats.read_file(tf.name, fmt, schema,
+                                 settings=session.settings,
+                                 device=session.device)
+    finally:
+        os.unlink(tf.name)
+
+
+def poll_filelog(session, name: str) -> int:
+    """Consume newly appended records from a FileLog engine's file: parse
+    the byte range [offset, EOF) through the declared format and insert
+    the rows (firing the table's materialized views).  The reference's
+    SELECT is consume-once; here, as in the JAX package, the table keeps
+    the ingested rows.  Returns rows ingested."""
+    import os
+    info = session._table_engines[name]
+    path = info["path"]
+    if not os.path.exists(path):
+        return 0
+    size = os.path.getsize(path)
+    off = info.get("offset", 0)
+    if size <= off:
+        return 0
+    with open(path, "rb") as fh:
+        fh.seek(off)
+        chunk = fh.read(size - off)
+    # only whole records: leave a trailing partial line for the next poll
+    last_nl = chunk.rfind(b"\n")
+    if last_nl < 0:
+        return 0
+    info["offset"] = off + last_nl + 1
+    payload = chunk[:last_nl + 1]
+    if not payload.strip():
+        return 0
+    t = session.tables[name]
+    schema = [f for f in t.schema() if not f.name.startswith("__")]
+    new = read_fetched(session, payload, "records.dat", info["format"],
+                       schema)
+    if new.n_rows == 0:
+        return 0
+    insert_block(session, name, new.select(
+        [c for c in t.column_names if c in new.column_names]))
+    session.bump_epoch()
+    return new.n_rows
+
+
+def refresh_external_table(session, name: str) -> None:
+    """Re-read a File/URL/S3-engine table from its source when stale
+    (StorageFile/StorageURL read the source at query time; a File table
+    is re-read when its mtime moves, so an unchanged file costs one stat
+    per query), and poll a FileLog table.  A re-read moves the mutation
+    epoch, so no derived state (sidecars, zone maps) of the old rows is
+    served."""
+    import os
+    info = session._table_engines.get(name)
+    if not info:
+        return
+    if info.get("unavailable"):
+        raise ValueError(info["unavailable"])
+    if info["engine"] == "FileLog":
+        poll_filelog(session, name)
+        return
+    if info["engine"] not in ("File", "URL", "S3"):
+        return          # Join/Set engines are body-resident, nothing to do
+    from myscaledb_tpu_torch.runtime import formats
+    tmpl = session.tables[name]
+    schema = [f for f in tmpl.schema() if not f.name.startswith("__")]
+    if info["engine"] == "File":
+        path = info["path"]
+        if not os.path.exists(path):
+            return
+        mtime = os.stat(path).st_mtime_ns
+        if info.get("mtime") == mtime:
+            return
+        t = formats.read_file(path, info["format"], schema,
+                              device=session.device)
+        info["mtime"] = mtime
+    else:
+        url = info["url"]
+        fmt = info["format"] or formats.format_from_extension(url)
+        t = read_fetched(session, _fetch(info), url, fmt, schema)
+    t.name = name
+    session.tables[name] = t
+    session.bump_epoch()
+
+
+def file_engine_writethrough(session, name: str) -> None:
+    """After an INSERT into a File-engine table, persist the table back to
+    its file (StorageFile appends; a full rewrite keeps one code path)."""
+    import os
+    info = session._table_engines.get(name)
+    if not info or info["engine"] != "File":
+        return
+    from myscaledb_tpu_torch.runtime import formats
+    t = session.tables[name]
+    formats.write_file(t.select([c for c in t.column_names
+                                 if not c.startswith("__")]),
+                       info["path"], info["format"])
+    info["mtime"] = os.stat(info["path"]).st_mtime_ns
+
+
+def parse_schema_string(schema: str) -> list[ColumnDef]:
+    """'a Int64, b String' -> ColumnDefs (the structure clause of the
+    file()/url()/s3() table functions, TableFunctionFile.cpp)."""
+    p = DDLParser(schema)
+    defs = []
+    while p.peek().kind != "eof":
+        cname = p.next().text
+        ctype, nullable, vdim, elem = p.parse_type()
+        defs.append(ColumnDef(cname, ctype, nullable, vdim, elem))
+        if not p.take_punct(","):
+            break
+    return defs
+
+
+def fields_from_defs(defs: list[ColumnDef]) -> list:
+    # STRING defs carry FixedString's byte width in the vdim slot
+    return [Field(d.name, d.dtype, d.nullable,
+                  0 if d.dtype is DataType.STRING else d.vector_dim, d.elem,
+                  fixed_len=d.vector_dim if d.dtype is DataType.STRING else 0)
+            for d in defs]
+
+
+def _create_engine(session, stmt) -> None:
+    """The external and streaming engines of CREATE TABLE: File and URL
+    (reads refresh from the source; File INSERTs write through), S3 (the
+    SigV4 client of runtime/object_storage.py), FileLog (tails a local
+    file into the table and its materialized views) and the broker
+    engines, which register and fail on use: no broker client ships."""
+    from myscaledb_tpu_torch.sql.executor import check_external_source
+    engines = session._table_engines
+    eng = stmt.engine.lower()
+    if eng in ("kafka", "rabbitmq", "nats"):
+        engines[stmt.name] = {"engine": stmt.engine.capitalize(),
+                              "unavailable":
+                              f"{stmt.engine} engine needs a broker client "
+                              f"(not in this image); use ENGINE = FileLog "
+                              f"for local streaming ingest"}
+    elif eng == "filelog":
+        if not stmt.engine_args:
+            raise ValueError("ENGINE = FileLog needs (path[, format])")
+        path = check_external_source(session, "file", stmt.engine_args[0])
+        fmt = stmt.engine_args[1] if len(stmt.engine_args) > 1 else "TSV"
+        engines[stmt.name] = {"engine": "FileLog", "path": path,
+                              "format": fmt, "offset": 0}
+    elif eng == "s3":
+        check_external_source(session, "url")
+        if not stmt.engine_args:
+            raise ValueError("ENGINE = S3 needs (url[, key, secret]"
+                             "[, format])")
+        from myscaledb_tpu_torch.runtime.formats import is_input_format
+        a = [x.strip("'") for x in stmt.engine_args]
+        url, rest = a[0], a[1:]
+        key = secret = ""
+        if len(rest) >= 2 and not is_input_format(rest[0]):
+            key, secret, rest = rest[0], rest[1], rest[2:]
+        engines[stmt.name] = {"engine": "S3", "url": url, "key": key,
+                              "secret": secret,
+                              "format": rest[0] if rest else None}
+        refresh_external_table(session, stmt.name)
+    elif eng == "file":
+        fmt = stmt.engine_args[0] if stmt.engine_args else "CSV"
+        path = (stmt.engine_args[1].strip("'")
+                if len(stmt.engine_args) > 1
+                else f"{stmt.name}.{fmt.lower()}")
+        path = check_external_source(session, "file", path)
+        engines[stmt.name] = {"engine": "File", "format": fmt,
+                              "path": path, "mtime": None}
+        refresh_external_table(session, stmt.name)
+    elif eng == "url":
+        if not stmt.engine_args:
+            raise ValueError("ENGINE = URL needs (url[, format])")
+        check_external_source(session, "url")
+        engines[stmt.name] = {"engine": "URL",
+                              "url": stmt.engine_args[0].strip("'"),
+                              "format": stmt.engine_args[1]
+                              if len(stmt.engine_args) > 1 else None}
+        refresh_external_table(session, stmt.name)
+
+
 def _build_dictionary(session, stmt: CreateDictionary):
-    """Snapshot a table into a Dictionary on the session's device
-    (reference: ExternalDictionariesLoader; LIFETIME is a snapshot)."""
+    """Snapshot the source, a table or a file, into a Dictionary on the
+    session's device (reference: ExternalDictionariesLoader; LIFETIME is a
+    snapshot)."""
     from myscaledb_tpu_torch.runtime.dictionaries import Dictionary
+    names = [d.name for d in stmt.columns]
     if stmt.source_kind == "file":
-        raise NotPortedError("CREATE DICTIONARY ... SOURCE(FILE(...))",
-                             STORAGE)
-    src = session.get_table(stmt.source_arg).select(
-        [d.name for d in stmt.columns])
+        from myscaledb_tpu_torch.runtime import formats
+        from myscaledb_tpu_torch.sql.executor import check_external_source
+        path = check_external_source(session, "file", stmt.source_arg)
+        fmt = stmt.source_format or \
+            formats.format_from_extension(stmt.source_arg)
+        src = formats.read_file(path, fmt,
+                                [(d.name, d.dtype) for d in stmt.columns],
+                                device=session.device)
+        src = src.select([n for n in names if n in src.column_names])
+    else:
+        src = session.get_table(stmt.source_arg).select(names)
     d = Dictionary(stmt.name, src, stmt.primary_key, stmt.layout,
                    f"{stmt.source_kind}:{stmt.source_arg}")
     d.spec = stmt
@@ -1638,7 +1973,7 @@ def required_privilege(stmt):
     (reference: InterpreterFactory + ContextAccess::checkAccess)."""
     if isinstance(stmt, ACCESS_STATEMENTS):
         return ("ACCESS MANAGEMENT", "*")
-    if isinstance(stmt, InsertValues):
+    if isinstance(stmt, (InsertValues, InsertInfile)):
         return ("INSERT", stmt.table)
     if isinstance(stmt, (CreateTable, CreateDictionary, CreateView)):
         return ("CREATE TABLE", stmt.name)
@@ -1768,9 +2103,6 @@ def execute_statement(session, stmt) -> Table:
             if stmt.if_not_exists:
                 return empty
             raise ValueError(f"table {stmt.name!r} already exists")
-        slice_name = _SPECIAL_ENGINES.get(stmt.engine.lower())
-        if slice_name is not None:
-            raise NotPortedError(f"ENGINE = {stmt.engine}", slice_name)
         t = empty_table_from_defs(stmt.name, stmt.columns, dev)
         session.register(stmt.name, t, _table_settings(stmt.settings))
         session._table_order_keys[stmt.name] = stmt.order_by
@@ -1794,6 +2126,8 @@ def execute_statement(session, stmt) -> Table:
         elif eng == "set":
             # StorageSet: ``x IN set_table`` reads its rows
             session._table_engines[stmt.name] = {"engine": "Set"}
+        else:
+            _create_engine(session, stmt)
         for vname, vcol, vtype, vparams in stmt.vector_indexes:
             _add_vector_index(session, AddVectorIndex(
                 stmt.name, vname, vcol, vtype, vparams))
@@ -1901,36 +2235,26 @@ def execute_statement(session, stmt) -> Table:
         existing = session.tables[stmt.table]
         if stmt.select_sql is not None:
             new = _insert_select(session, stmt, existing)
+        elif stmt.format_name is not None and \
+                (stmt.format_text or "").strip():
+            # INSERT ... FORMAT fmt <rows>: the raw text through the file
+            # readers (runtime/formats.read_file)
+            names = stmt.columns or existing.column_names
+            new = read_fetched(session, stmt.format_text.encode(),
+                               "rows.dat", stmt.format_name,
+                               [(n, existing[n].dtype) for n in names])
         else:
             new = rows_to_table(existing, stmt.columns, stmt.rows, dev)
-        pkeys = session._table_partition_keys.get(stmt.table) or []
-        if pkeys and all(k in new for k in pkeys) and new.n_rows > 1:
-            new = _cluster_by_partition(new, pkeys)
-        if existing.n_rows == 0 and set(new.column_names) == \
-                set(existing.column_names):
-            # first insert fixes unknown vector dims
-            merged = new.select(existing.column_names)
-        else:
-            missing = [n for n in existing.column_names
-                       if n not in new.column_names]
-            if missing and new.n_rows:
-                # column-subset INSERT: absent columns take their type
-                # default (reference: AddingDefaultsTransform)
-                new = Table(list(new.columns.values()) +
-                            [_default_column(existing[n], new.n_rows, dev)
-                             for n in missing])
-            merged = concat_tables([existing, new.select(
-                existing.column_names)])
-        merged.name = stmt.table
-        if pkeys:
-            _rebuild_zone_maps(merged)
-        session.tables[stmt.table] = merged
-        # logical part accounting for system.parts (one part per INSERT
-        # batch until a merge collapses them — MergeTreeData part model)
-        session._table_parts.setdefault(stmt.table, []).append(new.n_rows)
-        maybe_schedule_background_merge(session, stmt.table)
-        # once per statement, over the rows as the table took them
-        run_materialized_views(session, stmt.table, new)
+        insert_block(session, stmt.table, new)
+        return empty
+
+    if isinstance(stmt, InsertInfile):
+        from myscaledb_tpu_torch.sql.executor import check_external_source
+        from myscaledb_tpu_torch.runtime.formats import \
+            format_from_extension
+        path = check_external_source(session, "file", stmt.path)
+        fmt = stmt.format or format_from_extension(stmt.path)
+        session.import_file(stmt.table, path, fmt)
         return empty
 
     if isinstance(stmt, DetachTable):

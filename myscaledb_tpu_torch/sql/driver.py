@@ -3,7 +3,8 @@ for SELECT, EXPLAIN PLAN/PIPELINE/ESTIMATE/AST/SYNTAX and the statements
 of sql/ddl.py, ``_ast_lines``), with its plumbing: a root trace span per
 query, counters, the query log, the per-query memory scope, the result
 cache, the result-size / time limits, the readonly and privilege checks of
-DDL.  INTO OUTFILE raises ``NotPortedError``.
+DDL; ``SELECT ... INTO OUTFILE 'f' [FORMAT fmt]`` writes the result
+through runtime/formats.py.
 
 A data or definition change moves the mutation epoch after it runs (the
 cached results and scan sidecars of the old epoch die with it).  These do
@@ -30,7 +31,6 @@ from myscaledb_tpu_torch.sql.ddl import (DDLParser, execute_statement,
                                          CreateView, READ_ONLY_STATEMENTS,
                                          ACCESS_STATEMENTS)
 from myscaledb_tpu_torch.core.table import Table
-from myscaledb_tpu_torch.errors import NotPortedError
 from myscaledb_tpu_torch.runtime import metrics as M
 from myscaledb_tpu_torch.runtime.memory import query_scope
 from myscaledb_tpu_torch.runtime.tracing import span
@@ -232,9 +232,19 @@ def _execute_ddl(session, sql: str, stmt) -> Table:
 
 def execute_query(session, sql: str, params=None) -> Table:
     stripped = sql.lstrip().rstrip().rstrip(";")
-    if _OUTFILE_RE.search(stripped):
-        raise NotPortedError("SELECT ... INTO OUTFILE",
-                             "storage, formats and runtime state")
+    m = _OUTFILE_RE.search(stripped)
+    if m and stripped.upper().lstrip().startswith("SELECT"):
+        # SELECT ... INTO OUTFILE 'f' [FORMAT fmt] (reference:
+        # src/Client/ClientBase.cpp out-file handling; server-side here)
+        # the path is confined and the FILE grant checked as for INFILE
+        from myscaledb_tpu_torch.runtime import formats
+        from myscaledb_tpu_torch.sql.executor import check_external_source
+        path, fmt = m.group(1), m.group(2)
+        fmt = fmt or formats.format_from_extension(path)
+        path = check_external_source(session, "file", path)
+        result = execute_query(session, stripped[:m.start()], params)
+        formats.write_file(result, path, fmt, settings=session.settings)
+        return result
     sql = stripped
     upper = stripped.upper()
     if any(upper.startswith(kw) for kw in DDL_KEYWORDS):

@@ -44,9 +44,13 @@ combinators there too (``_state_call``, ``state_column``,
 grouped table instead (sql/optimizer.py).  UNION [ALL|DISTINCT],
 INTERSECT and EXCEPT [DISTINCT] run in ``execute_any``; the multiset
 match of INTERSECT/EXCEPT is a device sort over keys encoded column by
-column (``_set_op_keep``).  Distributed joins, SAMPLE and the table
-functions other than numbers() and ftsIndex() raise ``NotPortedError``
-naming the slice that brings them.
+column (``_set_op_keep``).  The file(), url() and s3() table functions
+read an external source through runtime/formats.py, behind
+``check_external_source`` (the FILE/URL grants and ``user_files_path``);
+SAMPLE keeps the rows whose row-id hash falls under the fraction, hashed
+and compacted on the device (``sample_mask``).  No table of the port is
+distributed, so the JAX package's distributed joins have no counterpart
+here yet.
 ``TextSearch`` (BM25, text/bm25.py) and ``HybridSearch`` (RSF/RRF over a
 vector and a text candidate list, text/fusion.py) fuse with ORDER BY
 <score> DESC LIMIT k; TextSearch outside that is a score column.  Their
@@ -2347,15 +2351,92 @@ def _valid_rows(c: Column, dev) -> torch.Tensor:
     return v.expand(n) if v.dim() == 0 else v
 
 
-def _reject_unported(q: SelectQuery) -> None:
-    """Raise NotPortedError for every clause the JAX executor runs and this
-    one does not yet."""
-    tf = getattr(q, "table_function", None)
-    if tf is not None and tf[0] not in ("numbers", "ftsindex"):
-        raise NotPortedError(f"table function {tf[0]}()",
-                             "storage, formats and runtime state")
-    if q.sample is not None:
-        raise NotPortedError("SAMPLE", "storage, formats and runtime state")
+def check_external_source(session, kind: str, path: str | None = None) -> str:
+    """Gate + confine external-source access (file()/url()/s3() table
+    functions, File/URL/S3/FileLog engines, INFILE, INTO OUTFILE and FILE
+    dictionary sources).  Reference:
+    StorageFile::checkCreationIsAllowed (src/Storages/StorageFile.cpp)
+    restricts paths to user_files_path, and ContextAccess checks the
+    FILE/URL source privileges (src/Access/Common/AccessType.h).  Returns
+    the resolved path.
+
+    * privilege: the current user needs FILE (or URL) — the implicit
+      'default' user holds ALL, so embedded/library sessions are unaffected;
+      servers can create restricted users that cannot touch the filesystem.
+    * confinement: when ``settings.user_files_path`` is set (servers set it
+      at startup), relative paths resolve under it and absolute paths must
+      stay inside it."""
+    import os
+    session.access.check(session.current_user,
+                         "URL" if kind == "url" else "FILE", "*")
+    if path is None or kind == "url":
+        return path
+    root = session.settings.user_files_path
+    if not root:
+        return path
+    root = os.path.realpath(root)
+    resolved = os.path.realpath(
+        path if os.path.isabs(path) else os.path.join(root, path))
+    if resolved != root and not resolved.startswith(root + os.sep):
+        raise ExecError(
+            f"path {path!r} is outside the user_files directory {root!r} "
+            f"(reference: StorageFile::checkCreationIsAllowed)")
+    return resolved
+
+
+def _file_url_table(session, kind: str, src: str, fmt, schema) -> Table:
+    """file('path', fmt, 'a Int64, ...') / url('http://...', fmt, schema)
+    table functions (reference: src/TableFunctions/TableFunctionFile.cpp,
+    TableFunctionURL.cpp — reads an external source as a one-shot table).
+    Self-describing formats (Parquet/Arrow/ORC/Native) may omit the
+    structure clause."""
+    src = check_external_source(session, kind, src) or src
+    from myscaledb_tpu_torch.runtime import formats
+    from myscaledb_tpu_torch.sql.ddl import (fields_from_defs,
+                                             parse_schema_string,
+                                             read_fetched, _fetch)
+    fields = fields_from_defs(parse_schema_string(schema)) if schema else []
+    fmt = fmt or formats.format_from_extension(src, default="CSV")
+    if not fields and not formats.is_self_describing(fmt):
+        raise ExecError(f"{kind}() needs a structure argument for "
+                        f"format {fmt!r} (e.g. 'a Int64, b String')")
+    if kind == "url":
+        return read_fetched(session, _fetch({"engine": "URL", "url": src}),
+                            src, fmt, fields)
+    return formats.read_file(src, fmt, fields, settings=session.settings,
+                             device=session.device)
+
+
+def _s3_table(session, src: str, fmt, schema, access_key: str,
+              secret_key: str) -> Table:
+    """s3('url'[, key, secret][, fmt[, structure]]) table function
+    (reference: src/TableFunctions/TableFunctionS3.cpp over StorageS3) —
+    signed GET via the SigV4 client (runtime/object_storage.py)."""
+    check_external_source(session, "url")
+    from myscaledb_tpu_torch.runtime import formats
+    from myscaledb_tpu_torch.sql.ddl import (fields_from_defs,
+                                             parse_schema_string,
+                                             read_fetched, _fetch)
+    fields = fields_from_defs(parse_schema_string(schema)) if schema else []
+    fmt = fmt or formats.format_from_extension(src, default="CSV")
+    if not fields and not formats.is_self_describing(fmt):
+        raise ExecError("s3() needs a structure argument for format "
+                        f"{fmt!r} (e.g. 'a Int64, b String')")
+    payload = _fetch({"engine": "S3", "url": src, "key": access_key,
+                      "secret": secret_key})
+    return read_fetched(session, payload, src, fmt, fields)
+
+
+def sample_mask(n: int, fraction: float, device) -> torch.Tensor:
+    """SAMPLE f: the rows whose row-id hash (``hash32`` of the int64 row
+    id) lies below f x (2^32 - 1), as the JAX package keeps them (the
+    reference samples by ranges of the sampling-key hash,
+    MergeTreeDataSelectExecutor); f > 1 asks for about f rows.  Hashed and
+    compared on ``device``, in int64 lanes, so no value wraps."""
+    from myscaledb_tpu_torch.ops.hash import hash32
+    frac = fraction if fraction <= 1.0 else min(1.0, fraction / n)
+    h = hash32(torch.arange(n, dtype=torch.int64, device=device))
+    return h < int(frac * 0xFFFFFFFF)
 
 
 def execute_any(session, q) -> Table:
@@ -2438,7 +2519,6 @@ def execute_select(session, q: SelectQuery) -> Table:
             order_by=[OrderItem(res(o.expr), o.ascending, o.nulls_last,
                                 o.fill) for o in q.order_by],
             with_aliases=[(n, res(e)) for n, e in q.with_aliases])
-    _reject_unported(q)
     # an aggregate projection answers a matching GROUP BY from its cached
     # grouped table (optimizeUseAggregateProjection); the rewrite skips the
     # base table's read, so its SELECT privilege is checked here, and a
@@ -2472,6 +2552,10 @@ def execute_select(session, q: SelectQuery) -> Table:
         kind, params = q.table_function
         if kind == "ftsindex":
             base = _ftsindex_table(session, *params)
+        elif kind in ("file", "url"):
+            base = _file_url_table(session, kind, *params)
+        elif kind == "s3":
+            base = _s3_table(session, *params)
         else:
             # numbers(n) / numbers(a, n): UInt64 0..n-1 / a..a+n-1
             a, b = params
@@ -2489,6 +2573,9 @@ def execute_select(session, q: SelectQuery) -> Table:
     else:
         base = Table([Column.from_numpy("dummy", np.zeros(1, dtype=np.int64),
                                         build_zonemap=False, device=dev)])
+    if q.sample is not None and base.n_rows:
+        base, _ = compact_table_host(base, sample_mask(base.n_rows,
+                                                       q.sample, dev))
     if q.limit is not None and base.n_rows and _limit_prunable(q):
         # LIMIT pushdown into the scan: only limit+offset base rows are
         # evaluated when no clause looks past them

@@ -230,15 +230,10 @@ class Parser:
                     # s3(url[, key, secret][, fmt[, structure]]) — creds
                     # present iff the first extra arg is NOT a known format
                     # (TableFunctionS3 disambiguates the same way)
-                    def _is_fmt(a):
-                        # the format registry (runtime/formats.py) is not
-                        # ported yet
-                        from myscaledb_tpu_torch.errors import \
-                            NotPortedError
-                        raise NotPortedError("s3() table function",
-                                             "storage, formats")
+                    from myscaledb_tpu_torch.runtime.formats import \
+                        is_input_format
                     key = secret = ""
-                    if len(args) >= 2 and not _is_fmt(args[0]):
+                    if len(args) >= 2 and not is_input_format(args[0]):
                         key, secret, args = args[0], args[1], args[2:]
                     fmt = args[0] if args else None
                     schema = args[1] if len(args) > 1 else None

@@ -27,7 +27,9 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 import uuid
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -46,6 +48,33 @@ GRANULE_ROWS = BLOCK_ROWS
 
 class PartError(RuntimeError):
     pass
+
+
+_POOL = None
+_POOL_LOCK = threading.Lock()
+_IN_POOL = threading.local()
+
+
+def _mark_pool_thread() -> None:
+    _IN_POOL.worker = True
+
+
+def parallel_map(fn, items: list) -> list:
+    """fn over items on one shared thread pool, the results in order, so
+    the bytes are the serial loop's: zlib, zstd, the native codec, the
+    parsers and the row assembler release the interpreter lock, so a
+    part's granules and a file's columns or row chunks work in parallel.
+    A call from one of the pool's own threads runs serially: waiting on
+    the pool from inside it could leave no thread to do the work."""
+    global _POOL
+    if len(items) < 2 or getattr(_IN_POOL, "worker", False):
+        return [fn(x) for x in items]
+    with _POOL_LOCK:
+        if _POOL is None:
+            _POOL = ThreadPoolExecutor(os.cpu_count() or 1,
+                                       thread_name_prefix="msdb-parallel",
+                                       initializer=_mark_pool_thread)
+    return list(_POOL.map(fn, items))
 
 
 def _host_array(c: Column) -> np.ndarray:
@@ -82,12 +111,14 @@ def write_part(dir_path: str, table: Table, sort_key: list[str] | None = None,
             # granule-framed column file: one compressed frame per
             # GRANULE_ROWS rows + a marks table of (byte offset, rows) so a
             # range read decompresses only the covering granules
-            marks, frames, off = [], [], 0
-            for g0 in range(0, max(arr.shape[0], 1), GRANULE_ROWS):
-                chunk = arr[g0:g0 + GRANULE_ROWS]
-                fbuf = codecs.encode(np.ascontiguousarray(chunk), codec)
-                marks.append([off, int(chunk.shape[0])])
-                frames.append(fbuf)
+            starts = list(range(0, max(arr.shape[0], 1), GRANULE_ROWS))
+            frames = parallel_map(
+                lambda g0, a=arr, k=codec: codecs.encode(
+                    np.ascontiguousarray(a[g0:g0 + GRANULE_ROWS]), k),
+                starts)
+            marks, off = [], 0
+            for g0, fbuf in zip(starts, frames):
+                marks.append([off, int(arr[g0:g0 + GRANULE_ROWS].shape[0])])
                 off += len(fbuf)
             buf = b"".join(frames)
             with open(os.path.join(tmp, f"{c.name}.bin"), "wb") as f:
@@ -133,15 +164,21 @@ def _read_frames(path: str, cm: dict, g0: int, g1: int) -> np.ndarray:
     marks = cm["marks"]
     tail = cm["shape"][1:]
     row_elems = int(np.prod(tail)) if tail else 1
-    pieces = []
+    if g1 <= g0:
+        return np.zeros([0] + tail, dtype=np.dtype(cm["dtype"]))
+    base = marks[g0][0]
+    stop = marks[g1][0] if g1 < len(marks) else cm["bytes"]
     with open(path, "rb") as f:
-        for g in range(g0, g1):
-            off, nrows = marks[g]
-            end = marks[g + 1][0] if g + 1 < len(marks) else cm["bytes"]
-            f.seek(off)
-            pieces.append(codecs.decode(f.read(end - off), cm["dtype"],
-                                        nrows * row_elems)
-                          .reshape([nrows] + tail))
+        f.seek(base)
+        raw = memoryview(f.read(stop - base))
+
+    def granule(g):
+        off, nrows = marks[g]
+        end = marks[g + 1][0] if g + 1 < len(marks) else cm["bytes"]
+        return codecs.decode(bytes(raw[off - base:end - base]), cm["dtype"],
+                             nrows * row_elems).reshape([nrows] + tail)
+
+    pieces = parallel_map(granule, list(range(g0, g1)))
     if not pieces:
         return np.zeros([0] + tail, dtype=np.dtype(cm["dtype"]))
     return np.concatenate(pieces) if len(pieces) > 1 else pieces[0]

@@ -991,3 +991,41 @@ def test_lookups_and_alter_update_on_card_equal_cpu(cuda):
               "SOURCE(TABLE 'dsrc') LAYOUT(FLAT())")
         rows.append([s.sql(q).to_rows() for q in stmts])
     assert repr(rows[0]) == repr(rows[1])
+
+
+def test_formats_and_sample_on_card_equal_cpu(cuda, tmp_path):
+    """A card table written as Native and TSV and read back into a card
+    table is the source, column by column; the files' bytes are the CPU's;
+    SAMPLE keeps the CPU's rows (the row-id hash compared on the card)."""
+    import myscaledb_tpu_torch as P
+    rng = np.random.default_rng(14)
+    n = 70_001
+    data = {"id": np.arange(n, dtype=np.int64),
+            "u": rng.integers(0, 2 ** 32 - 1, n).astype(np.uint32),
+            "x": rng.standard_normal(n),
+            "s": [f"w{i % 977}\t\"{i % 13}" for i in range(n)],
+            "d": (np.datetime64("2013-07-01") +
+                  rng.integers(0, 31, n).astype("timedelta64[D]"))}
+    files, rows = [], []
+    for dev in ("cuda", "cpu"):
+        s = P.connect(device=dev)
+        s.create_table("t", data)
+        got = []
+        for fmt in ("Native", "TSV"):
+            path = tmp_path / f"{dev}.{fmt}"
+            s.sql(f"SELECT * FROM t INTO OUTFILE '{path}' FORMAT {fmt}")
+            files.append(path.read_bytes())
+            s.sql(f"CREATE TABLE r_{fmt} (id Int64, u UInt32, x Float64, "
+                  f"s String, d Date) ENGINE = Memory")
+            s.sql(f"INSERT INTO r_{fmt} FROM INFILE '{path}' FORMAT {fmt}")
+            back = s.tables[f"r_{fmt}"]
+            for c in ("id", "u", "x", "d"):
+                assert torch.equal(back[c].data, s.tables["t"][c].data), c
+            assert back["s"].dictionary.values == \
+                s.tables["t"]["s"].dictionary.values
+            got.append(back["x"].data.device.type)
+        assert got == [dev, dev]
+        rows.append(s.sql("SELECT id, s FROM t SAMPLE 0.1 WHERE id % 2 = 0 "
+                          "ORDER BY id").to_rows())
+    assert files[0] == files[2] and files[1] == files[3]
+    assert rows[0] == rows[1] and len(rows[0]) > 0

@@ -113,10 +113,10 @@ def test_lookup_errors_match(sessions, sql):
     assert str(got.value) == str(want.value)
 
 
-def test_reload_truncate_and_drop():
+def test_reload_truncate_and_drop(tmp_path, monkeypatch):
     """A dictionary is a snapshot until SYSTEM RELOAD; TRUNCATE empties a
-    Join table; DROP DICTIONARY forgets it; a file source waits for the
-    formats slice."""
+    Join table; DROP DICTIONARY forgets it; a file source (since the
+    formats slice) snapshots the file as the JAX package does."""
     out = []
     stmts = ["INSERT INTO countries VALUES (8, 'Italy', 59.0)",
              "SELECT dictGet('country_dict', 'name', 8)",
@@ -136,11 +136,17 @@ def test_reload_truncate_and_drop():
         with pytest.raises(Exception):
             s.sql("SELECT dictGet('country_dict', 'name', 1)")
     assert out[0] == out[1]
-    p = myscaledb_tpu_torch.connect(device="cpu")
-    with pytest.raises(myscaledb_tpu_torch.NotPortedError,
-                       match="storage, formats and runtime state"):
-        p.sql("CREATE DICTIONARY fd (k UInt64, v String) PRIMARY KEY k "
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "ref.csv").write_text("3,gamma\n1,alpha\n2,beta\n")
+    files = []
+    for s in (myscaledb_tpu.connect(),
+              myscaledb_tpu_torch.connect(device="cpu")):
+        s.sql("CREATE DICTIONARY fd (k UInt64, v String) PRIMARY KEY k "
               "SOURCE(FILE(PATH 'ref.csv' FORMAT 'CSV'))")
+        files.append([s.sql_tsv(q) for q in (
+            "SELECT dictGet('fd', 'v', 2)",
+            "SELECT name, source, element_count FROM system.dictionaries")])
+    assert files[0] == files[1]
 
 
 def test_join_keys_are_sorted_once_per_epoch(monkeypatch):

@@ -2,6 +2,11 @@
 myscaledb_tpu.connect() and myscaledb_tpu_torch.connect(device="cpu"), the
 same SQL through both, compared on to_rows() and sql_tsv()."""
 
+import contextlib
+import functools
+import http.server
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -134,10 +139,25 @@ def test_error_texts_match(sessions, sql):
     assert str(pe.value) == str(je.value)
 
 
+@contextlib.contextmanager
+def _serve(directory):
+    """Serve ``directory`` on an ephemeral 127.0.0.1 port; yields the base
+    URL."""
+    handler = functools.partial(http.server.SimpleHTTPRequestHandler,
+                                directory=str(directory))
+    handler.func.log_message = lambda *a, **k: None
+    httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        yield f"http://127.0.0.1:{httpd.server_address[1]}"
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+
+
 @pytest.mark.parametrize("sql", [
     # the breadth slice ported EXPLAIN PLAN, finalizeAggregation, joinGet,
-    # views and the -State combinators; what stays outside is the storage,
-    # formats and runtime state slice's
+    # views and the -State combinators; the formats slice the rest
     "SELECT id FROM t INTO OUTFILE 't.csv'",
     "SELECT * FROM url('http://localhost/t.csv', 'CSV', 'id Int64')",
     "INSERT INTO t FORMAT CSV 1",
@@ -148,10 +168,30 @@ def test_error_texts_match(sessions, sql):
     "SOURCE(FILE(PATH 'f.csv' FORMAT 'CSV'))",
     "SELECT id FROM t SAMPLE 0.5",
 ])
-def test_outside_the_slice_raises_not_ported(sessions, sql):
-    _, p, _ = sessions
-    with pytest.raises(myscaledb_tpu_torch.NotPortedError):
-        p.sql(sql)
+def test_outside_the_slice_raises_not_ported(sql, tmp_path, monkeypatch):
+    """Statements that raised NotPortedError before the formats slice
+    landed give the JAX package's rows, files, state or error now (the
+    url() statement reads a file served on 127.0.0.1)."""
+    monkeypatch.chdir(tmp_path)
+    out = []
+    with _serve(tmp_path) as base:
+        sql = sql.replace("http://localhost", base)
+        for s in (myscaledb_tpu.connect(),
+                  myscaledb_tpu_torch.connect(device="cpu")):
+            (tmp_path / "t.csv").write_text("4\n1\n9\n")
+            (tmp_path / "f.csv").write_text("1,10\n2,20\n")
+            s.sql("CREATE TABLE t (id Int64, price Int32) ENGINE = Memory")
+            s.sql("INSERT INTO t VALUES (1, 5), (2, 7), (3, 9), (4, 1)")
+            try:
+                rows = s.sql(sql).to_rows()
+            except Exception as e:
+                rows = (type(e).__name__, str(e))
+            out.append((rows, (tmp_path / "t.csv").read_bytes(),
+                        s.sql_tsv("SELECT name, total_rows FROM "
+                                  "system.tables ORDER BY name"),
+                        s.sql_tsv("SELECT name, element_count FROM "
+                                  "system.dictionaries")))
+    assert out[0] == out[1]
 
 
 def test_explain_ast_matches(sessions):

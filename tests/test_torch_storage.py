@@ -23,8 +23,8 @@ from myscaledb_tpu.storage.table_store import TableStore as JStore
 from myscaledb_tpu_torch.core.table import BLOCK_ROWS, Table
 from myscaledb_tpu_torch.storage import codecs
 from myscaledb_tpu_torch.storage.background import BackgroundExecutor
-from myscaledb_tpu_torch.storage.part import (PartError, read_part,
-                                              write_part)
+from myscaledb_tpu_torch.storage.part import (PartError, parallel_map,
+                                              read_part, write_part)
 from myscaledb_tpu_torch.storage.table_store import TableStore, open_table
 
 torch.set_num_threads(1)
@@ -70,6 +70,16 @@ def test_codec_frames_are_identical(codec, dtype):
     assert buf == jcodecs.encode(arr, codec)
     np.testing.assert_array_equal(codecs.decode(buf, dtype, len(arr)), arr)
     np.testing.assert_array_equal(jcodecs.decode(buf, dtype, len(arr)), arr)
+
+
+def test_parallel_map_keeps_order_and_nests():
+    """The shared pool gives results in order, and a call made from one
+    of its own threads (a file column that reads a part) runs serially
+    in place of waiting on the pool it occupies."""
+    items = list(range(4 * (os.cpu_count() or 1) + 3))
+    inner = lambda i: parallel_map(lambda j: i * 1000 + j, list(range(5)))
+    assert parallel_map(inner, items) == [
+        [i * 1000 + j for j in range(5)] for i in items]
 
 
 def test_codec_roundtrip_vectors_and_corruption():
