@@ -2,8 +2,9 @@
 
 Usage:  python3 chip_smoke.py [--seed N]
 
-Fourteen main paths, the SQL ones through the entry points a user calls
-(``connect()`` -> ``Session.create_table`` or SQL DDL -> ``Session.sql``):
+Fifteen main paths, the SQL ones through the entry points a user calls
+(``connect()`` -> ``Session.create_table`` or SQL DDL -> ``Session.sql``,
+and the wire servers in front of them):
 
   BASELINE config 1, the filtered exact vector top-k, over n = 1,000,000
   rows of 128-dim f32 embeddings and a uniform Int32 price column:
@@ -116,6 +117,13 @@ Fourteen main paths, the SQL ones through the entry points a user calls
 
   backup and restore of hits and of config 1 (a top-k after), and a
   FILE-sourced dictionary beside a join on file();
+
+  the wire servers over config 1 and the 100M-row hits table: HTTP,
+  native TCP, MySQL, PostgreSQL and gRPC in threads of this process over
+  one session, each answering config 1's statement and ClickBench's Q8;
+  two users under row policies at once; benchmark.run_http /
+  run_local load; and ``python -m myscaledb_tpu_torch server`` started
+  as a user starts it, with the client and benchmark tools against it;
 
   and the 184 stateless goldens (tests/test_torch_goldens_stateless.py).
 
@@ -281,6 +289,24 @@ non-zero without printing a result:
               same lookup through a join on file(), a day's rows grouped
               by name against a bincount gather; the files in a temporary
               directory removed at the end
+  sql_server  (a) the five protocol servers on ephemeral ports over one
+              session: config 1's statement for ten query vectors (ids
+              against the oracle, K1) and Q8 (K3) through each, every
+              answer equal to the in-process result (HTTP also as JSON,
+              JSONEachRow, Native, RowBinary); (b) two users under
+              complementary row policies on hits counting at once over
+              HTTP, MySQL and PostgreSQL, 50 rounds each, every count
+              exact; (c) run_http at concurrency 1 and 4 over sql_sq8's
+              twenty statements, Q8 at 4, run_local over the twenty, 10 s
+              each with no error (QPS, p50/p90/p99, a profiled window's
+              busy share, host syncs per statement, the served median less
+              the in-process one), and the TCP block's bytes and time for
+              a String column (its whole dictionary) beside an Int32 one;
+              (d) config 1 written as parts, ``python -m
+              myscaledb_tpu_torch server --data-dir`` started as a
+              subprocess and timed to its first /ping and first answer,
+              the client and benchmark tools run against it; a server
+              thread's exception fails the phase
   goldens_stateless  every case of tests/test_torch_goldens_stateless.py
               through run_golden_text(connect()), byte-identical
 
@@ -315,7 +341,8 @@ table the twenty distance statements, the ten batch statements at each
 nq, and the three identical-rows statements; config 3's statements; the
 window statements; each hits, array, subquery, text, storage and views
 statement's timed runs; the views' ten batches; each sql_formats
-statement's timed runs and the restored top-k) and read just after it;
+statement's timed runs and the restored top-k; each protocol's run of
+sql_server (a), summed) and read just after it;
 each kernel must have launched in the run of its path, and the summary
 reports every kernel's count on every path.  Launches made to compare a
 kernel with its plain version, the profiler passes and the 10M-row
@@ -4248,6 +4275,498 @@ def phase_sql_formats(seed: int):
     return totals
 
 
+SERVE_S = 10.0                   # each load run of sql_server (c)
+PROFILE_S = 2.0                  # its profiled window
+POLICY_ROUNDS = 50               # each user's rounds per protocol in (b)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def start_servers(s, failures: list) -> dict:
+    """The HTTP, native TCP, MySQL, PostgreSQL and gRPC servers over one
+    session, each on an ephemeral port in a thread of this process (so the
+    statements they run count the launches here).  A handler's exception
+    is appended to ``failures``, which fails the phase."""
+    import threading
+    import traceback
+    from myscaledb_tpu_torch.runtime.grpc_server import serve_grpc
+    from myscaledb_tpu_torch.runtime.mysql_server import serve_mysql
+    from myscaledb_tpu_torch.runtime.pg_server import serve_pg
+    from myscaledb_tpu_torch.runtime.server import make_server
+    from myscaledb_tpu_torch.runtime.tcp_server import serve_tcp
+    http = make_server(s, "127.0.0.1", 0)
+    threading.Thread(target=http.serve_forever, daemon=True).start()
+    servers = {"http": http, "tcp": serve_tcp(s, port=0),
+               "mysql": serve_mysql(s, "127.0.0.1", 0),
+               "pg": serve_pg(s, "127.0.0.1", 0),
+               "grpc": serve_grpc(s, port=0)}
+    for name, srv in servers.items():
+        srv.handle_error = (lambda req, addr, name=name: failures.append(
+            f"{name} server: {traceback.format_exc()}"))
+    return servers
+
+
+def http_body(port: int, sql: str, fmt: str = "TSV") -> bytes:
+    import urllib.request
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/",
+                                 data=sql.encode(), headers={"X-Format": fmt})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return r.read()
+
+
+def wire_check(proto: str, servers: dict, sql: str, ref, tag: str) -> None:
+    """The statement's answer through ``proto`` equals the in-process
+    result ``ref``: HTTP's TSV bytes, the TCP block's columns, the MySQL
+    and PostgreSQL cells (ch_cells), gRPC's Result output."""
+    from myscaledb_tpu_torch.runtime.formats import ch_cells
+    from myscaledb_tpu_torch.runtime.server import render
+    from myscaledb_tpu_torch.runtime.tcp_server import TcpClient
+    from myscaledb_tpu_torch.runtime.grpc_server import parse_message
+    from tools import wire_clients as W
+    port = servers[proto].server_address[1]
+    if proto == "http":
+        ok = http_body(port, sql) == render(ref, "TSV")[0]
+    elif proto == "tcp":
+        c = TcpClient(port=port, timeout=60)
+        try:
+            n, cols = c.query(sql)
+        finally:
+            c.close()
+        ok = n == ref.n_rows and list(cols) == ref.column_names and all(
+            (cols[k][0] == ref[k].dictionary.decode(ref[k].to_numpy())
+             if ref[k].dictionary is not None
+             else np.array_equal(cols[k][0], ref[k].to_numpy()))
+            for k in cols)
+    elif proto in ("mysql", "pg"):
+        cls = W.MySQLClient if proto == "mysql" else W.PGClient
+        c = cls("127.0.0.1", port, timeout=60)
+        try:
+            _names, rows = c.query(sql)
+        finally:
+            c.close()
+        ok = rows == ch_cells(ref)
+    else:
+        (r,), _h, trailers = W.grpc_call(port, [W.query_info(sql)],
+                                         timeout=60)
+        out = parse_message(r)
+        ok = 7 not in out and trailers["grpc-status"] == "0" and \
+            out.get(1, [b""])[-1] == render(ref, "TSV")[0]
+    if not ok:
+        raise AssertionError(f"sql_server {proto} {tag}: the served answer "
+                             "differs from the in-process result")
+
+
+# the one kernel each launch of a served path's wrapper runs on the card
+SERVED_KERNELS = {"segmin_sq8": ("segmin_sq8_wgmma", "segmin_sq8_dp4a"),
+                  "group_aggregate": ("group_agg_partial",)}
+
+
+def served_window(fn):
+    """One profiled window of served traffic: wall seconds and the card's
+    busy share (device time of every thread's work over wall time).  The
+    share is given only where the profile holds every K1 and K3 run that
+    the launch counters saw in the window (a profile that lost its window,
+    or part of it, holds fewer); else null, with the profile's reading
+    beside it."""
+    zero_launches()
+    with device_profiler() as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launched = read_launches()
+    events = device_events(prof)
+    prof_s = sum(_dev_us(e) for e in events) / 1e6
+    seen = {k: sum(e.count for e in events if any(p in e.key for p in pats))
+            for k, pats in SERVED_KERNELS.items()}
+    want = {k: launched[k] for k in SERVED_KERNELS}
+    whole = seen == want and any(want.values())
+    return out, {"wall_s": wall, "profile_device_s": prof_s,
+                 "kernel_runs_profiled": seen, "kernel_launches": want,
+                 "device_s": prof_s if whole else None,
+                 "device_busy_share": prof_s / wall if whole else None}
+
+
+def phase_sql_server(seed: int):
+    """The wire servers and the CLI over config 1 (1M x 128 with its SQ8
+    sidecar) and the 100M-row hits table on the card: (a) the HTTP, TCP,
+    MySQL, PostgreSQL and gRPC servers in threads of this process over one
+    session, each answering config 1's statement for ten query vectors
+    (K1; ids equal to the oracle) and ClickBench's Q8 (K3), every answer
+    equal to the in-process result, HTTP also in JSON, JSONEachRow, Native
+    and RowBinary; (b) two users under complementary row policies on hits
+    querying at once over HTTP, MySQL and PostgreSQL, every count exact;
+    (c) benchmark.run_http at concurrency 1 and 4 over the twenty
+    statements of sql_sq8, Q8 at concurrency 4, run_local over the twenty,
+    each for 10 s with no error (QPS, p50/p90/p99, a profiled window's
+    busy share, host syncs per statement, the served median less the
+    in-process one); the TCP block's cost of a String column's whole
+    dictionary; (d) ``python -m myscaledb_tpu_torch server`` over config 1
+    written as parts, timed to its first /ping and first answer, then the
+    client and benchmark tools against it."""
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+    import myscaledb_tpu_torch as P
+    from myscaledb_tpu_torch.runtime import benchmark
+    from myscaledb_tpu_torch.runtime.server import render, result_to_json
+    from myscaledb_tpu_torch.runtime.tcp_server import TcpClient, \
+        encode_block
+    from myscaledb_tpu_torch.storage.table_store import TableStore
+    from tools import wire_clients as W
+    smi = nvidia_smi_line()
+    t0 = time.perf_counter()
+    # config 1 as sql_sq8 makes it (the same generator order, so the same
+    # twenty statements)
+    rng = np.random.default_rng(seed)
+    data = {"id": np.arange(N, dtype=np.int64),
+            "price": rng.integers(0, 100, N).astype(np.int32),
+            "emb": rng.standard_normal((N, D), dtype=np.float32)}
+    queries = rng.standard_normal((21, D), dtype=np.float32)
+    s = P.connect()
+    s.settings.max_memory_bytes_per_query = 32 << 30
+    s.create_table("t", data)
+    del data
+    hits, _urls = hits_table(seed)
+    s.register("hits", hits)
+    x, price = s.tables["t"]["emb"].data, s.tables["t"]["price"].data
+    stmt = ("SELECT id, distance(emb, {q}) AS d FROM t WHERE price < 50 "
+            "ORDER BY d LIMIT 10")
+    stmts = [stmt.format(q=vec_sql(queries[i])) for i in range(1, 21)]
+    q8 = Q8_SQL.format(t="hits", sample="")
+    want_ids = [oracle(x, price, torch.as_tensor(queries[i], device="cuda"),
+                       K)[0] for i in range(1, 21)]
+    want_q8 = q8_oracle(hits["AdvEngineID"].data)
+    refs = {}
+    for i, sql in enumerate(stmts[:10]):
+        refs[sql] = s.sql(sql)
+        got = np.array([r[0] for r in refs[sql].to_rows()])
+        if not np.array_equal(got, want_ids[i]):
+            raise AssertionError(f"sql_server in-process {i}: ids {got} "
+                                 f"!= oracle {want_ids[i]}")
+    refs[q8] = s.sql(q8)
+    rows = refs[q8].to_rows()
+    counts = [c for _, c in rows]
+    if sorted(rows) != want_q8 or counts != sorted(counts, reverse=True):
+        raise AssertionError(f"sql_server in-process q8: {rows[:3]}")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    failures: list = []
+    servers = start_servers(s, failures)
+    tmp = tempfile.mkdtemp(prefix="sql_server_")
+    proc = logs = None
+    out = {"phase": "sql_server", "rows": N, "dim": D, "hits_rows": NH,
+           "setup_s": setup_s, "nvidia_smi": smi}
+    try:
+        # (a) every protocol: ten config-1 statements and Q8, counted
+        launches, totals, wire_s = {}, {}, {}
+        for proto in servers:
+            zero_launches()
+            t1 = time.perf_counter()
+            for i, sql in enumerate(list(refs)):
+                wire_check(proto, servers, sql, refs[sql],
+                           "q8" if sql == q8 else f"config1 {i}")
+            wire_s[proto] = time.perf_counter() - t1
+            launches[proto] = read_launches()
+            if launches[proto]["segmin_sq8"] < 10 or \
+                    launches[proto]["group_aggregate"] < 1:
+                raise AssertionError(f"sql_server {proto}: launches "
+                                     f"{launches[proto]}")
+            for k, c in launches[proto].items():
+                totals[k] = totals.get(k, 0) + c
+        port = servers["http"].server_address[1]
+        for sql in (stmts[0], q8):
+            for fmt in ("JSON", "JSONEachRow", "Native", "RowBinary"):
+                want = result_to_json(refs[sql]).encode() if fmt == "JSON" \
+                    else render(refs[sql], fmt.upper())[0]
+                if http_body(port, sql, fmt) != want:
+                    raise AssertionError(f"sql_server http {fmt}: bytes "
+                                         "differ from the in-process "
+                                         "result's")
+        out["wire"] = {"statements_per_protocol": len(refs),
+                       "seconds": wire_s, "launches": launches,
+                       "http_formats": ["TSV", "JSON", "JSONEachRow",
+                                        "Native", "RowBinary"],
+                       "checks": "ids equal the oracle; every protocol's "
+                                 "answer equals the in-process result"}
+
+        # (b) two users, complementary row policies, at once
+        cid = hits["CounterID"].data
+        want_user = {"u62": int((cid == 62).sum()),
+                     "urest": int((cid != 62).sum())}
+        for user, cond in (("u62", "CounterID = 62"),
+                           ("urest", "CounterID != 62")):
+            s.sql(f"CREATE USER {user}")
+            s.sql(f"GRANT SELECT ON hits TO {user}")
+            s.sql(f"CREATE ROW POLICY p_{user} ON hits USING {cond} "
+                  f"TO {user}")
+        count_sql = "SELECT count() FROM hits"
+        wrong, errors = [], []
+
+        def rounds(proto, user):
+            try:
+                if proto == "http":
+                    for _ in range(POLICY_ROUNDS):
+                        req = urllib.request.Request(
+                            f"http://127.0.0.1:{port}/",
+                            data=count_sql.encode(),
+                            headers={"X-ClickHouse-User": user})
+                        with urllib.request.urlopen(req, timeout=60) as r:
+                            n = int(r.read())
+                        if n != want_user[user]:
+                            wrong.append((proto, user, n))
+                    return
+                cls = W.MySQLClient if proto == "mysql" else W.PGClient
+                c = cls("127.0.0.1", servers[proto].server_address[1],
+                        user=user, timeout=60)
+                try:
+                    for _ in range(POLICY_ROUNDS):
+                        n = int(c.query(count_sql)[1][0][0])
+                        if n != want_user[user]:
+                            wrong.append((proto, user, n))
+                finally:
+                    c.close()
+            except Exception as e:                        # noqa: BLE001
+                errors.append(f"{proto} {user}: {type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=rounds, args=(p, u))
+                   for p in ("http", "mysql", "pg") for u in want_user]
+        t1 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600)
+        policy_s = time.perf_counter() - t1
+        if errors or wrong or any(th.is_alive() for th in threads):
+            raise AssertionError(f"sql_server row policies: errors "
+                                 f"{errors[:3]}, wrong counts {wrong[:3]}")
+        for user in want_user:
+            s.sql(f"DROP ROW POLICY p_{user} ON hits")
+        n_stmts = 6 * POLICY_ROUNDS
+        out["row_policies"] = {"statements": n_stmts, "seconds": policy_s,
+                               "statements_per_s": n_stmts / policy_s,
+                               "counts": want_user, "wrong": 0}
+
+        # (c) served traffic
+        url = f"http://127.0.0.1:{port}/"
+        inproc = {}
+        for name, batch in (("config1", stmts), ("q8", [q8])):
+            lat = []
+            for sql in batch * (1 if name == "config1" else 10):
+                t1 = time.perf_counter()
+                s.sql(sql).to_rows()
+                lat.append((time.perf_counter() - t1) * 1e3)
+            inproc[name] = float(np.median(lat))
+        runs = {}
+        for name, fn, base in (
+                ("http_c1", lambda d: benchmark.run_http(stmts, d, url, 1),
+                 "config1"),
+                ("http_c4", lambda d: benchmark.run_http(stmts, d, url, 4),
+                 "config1"),
+                ("http_q8_c4", lambda d: benchmark.run_http([q8], d, url, 4),
+                 "q8"),
+                ("local", lambda d: benchmark.run_local(stmts, d, session=s),
+                 "config1")):
+            res = fn(SERVE_S)
+            prof_res, window = served_window(lambda: fn(PROFILE_S))
+            if res["errors"] or prof_res["errors"] or not res["queries"]:
+                raise AssertionError(f"sql_server {name}: {res['errors']} "
+                                     f"errors in {res['queries']} queries")
+            one = (lambda sql: http_body(port, sql)) if name != "local" \
+                else (lambda sql: s.sql(sql))
+            batch = [q8] * 5 if base == "q8" else stmts[:5]
+            syncs, _sites = count_host_syncs(lambda: [one(q) for q in batch])
+            own, _sites = count_host_syncs(
+                lambda: [s.sql(q).to_rows() for q in batch])
+            lat = res["latency_ms"]
+            runs[name] = {"seconds": SERVE_S, "queries": res["queries"],
+                          "errors": res["errors"], "qps": res["qps"],
+                          "p50_ms": lat["p50"], "p90_ms": lat["p90"],
+                          "p99_ms": lat["p99"], "mean_ms": lat["mean"],
+                          "in_process_median_ms": inproc[base],
+                          "served_minus_in_process_ms":
+                              lat["p50"] - inproc[base],
+                          "profiled_window": window,
+                          "host_syncs_per_statement": syncs / len(batch),
+                          "in_process_host_syncs_per_statement":
+                              own / len(batch)}
+        # the same load from a client in a process of its own (the
+        # runs above share this interpreter with the server's threads)
+        for conc in (1, 4):
+            r = subprocess.run(
+                [sys.executable, "-m", "myscaledb_tpu_torch", "benchmark",
+                 "--url", url, "-c", str(conc), "-d", "5"]
+                + [a for q in stmts for a in ("-q", q)],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                capture_output=True, text=True, timeout=300)
+            if r.returncode:
+                raise AssertionError(f"sql_server external client: rc "
+                                     f"{r.returncode}\n{r.stderr[-3000:]}")
+            res = json.loads(r.stdout)
+            if res["errors"] or not res["queries"]:
+                raise AssertionError(f"sql_server external client: {res}")
+            lat = res["latency_ms"]
+            runs[f"http_c{conc}_external_client"] = {
+                "seconds": 5.0, "queries": res["queries"],
+                "errors": res["errors"], "qps": res["qps"],
+                "p50_ms": lat["p50"], "p90_ms": lat["p90"],
+                "p99_ms": lat["p99"], "mean_ms": lat["mean"],
+                "in_process_median_ms": inproc["config1"],
+                "served_minus_in_process_ms": lat["p50"] - inproc["config1"]}
+        out["served"] = runs
+        # the front end's parts at concurrency 1: the HTTP round trip of a
+        # statement with no table against its in-process time, and TSV
+        # rendering against to_rows() over config 1's twenty statements
+        split = {}
+        for name, fn in (
+                ("select1_http", lambda: http_body(port, "SELECT 1")),
+                ("select1_in_process", lambda: s.sql("SELECT 1").to_rows()),
+                ("config1_render_tsv",
+                 lambda: [render(s.sql(q), "TSV") for q in stmts]),
+                ("config1_to_rows",
+                 lambda: [s.sql(q).to_rows() for q in stmts])):
+            lat = []
+            for _ in range(5 if name.startswith("config1") else 50):
+                t1 = time.perf_counter()
+                fn()
+                lat.append((time.perf_counter() - t1) * 1e3 /
+                           (len(stmts) if name.startswith("config1") else 1))
+            split[f"{name}_ms"] = float(np.median(lat))
+        out["front_end_split"] = split
+
+        # the TCP block carries a String column's whole dictionary
+        tcp = {}
+        for name, sql in (("int_column", "SELECT CounterID FROM hits "
+                                         "LIMIT 10"),
+                          ("string_column", "SELECT URL FROM hits LIMIT 10")):
+            ref = s.sql(sql)
+            block = encode_block(ref)
+            c = TcpClient(port=servers["tcp"].server_address[1], timeout=60)
+            try:
+                lat = []
+                for _ in range(5):
+                    t1 = time.perf_counter()
+                    c.query(sql)
+                    lat.append((time.perf_counter() - t1) * 1e3)
+            finally:
+                c.close()
+            tcp[name] = {"block_bytes": len(block),
+                         "dictionary_values": len(
+                             ref[ref.column_names[0]].dictionary.values)
+                         if ref[ref.column_names[0]].dictionary is not None
+                         else 0,
+                         "median_ms": float(np.median(lat))}
+        out["tcp_dictionary_cost"] = tcp
+
+        # (d) the server as users start it, over config 1 written as parts
+        t1 = time.perf_counter()
+        TableStore(os.path.join(tmp, "data", "t"), device="cuda").insert(
+            s.tables["t"], codec_overrides={"emb": "lz"})
+        write_s = time.perf_counter() - t1
+        repo = os.path.dirname(os.path.abspath(__file__))
+        hport, tport = free_port(), free_port()
+        logs = [open(os.path.join(tmp, f"server.{k}"), "w")
+                for k in ("out", "err")]
+        t1 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "myscaledb_tpu_torch", "server",
+             "--data-dir", os.path.join(tmp, "data"), "--port", str(hport),
+             "--tcp-port", str(tport),
+             "--user-files", os.path.join(tmp, "user_files")],
+            cwd=repo, stdout=logs[0], stderr=logs[1])
+
+        def server_log():
+            return open(os.path.join(tmp, "server.err")).read()[-4000:]
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"sql_server: the server exited "
+                                     f"{proc.returncode}:\n{server_log()}")
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{hport}/ping", timeout=5) as r:
+                    if r.read() == b"Ok.\n":
+                        break
+            except OSError:
+                pass
+            if time.perf_counter() - t1 > 300:
+                raise AssertionError(f"sql_server: no /ping in 300 s:\n"
+                                     f"{server_log()}")
+            time.sleep(0.05)
+        ping_s = time.perf_counter() - t1
+        body = http_body(hport, stmts[0]).decode()
+        first_s = time.perf_counter() - t1
+        ids = np.array([int(ln.split("\t")[0]) for ln in body.splitlines()])
+        if not np.array_equal(ids, want_ids[0]):
+            raise AssertionError(f"sql_server subprocess: ids {ids} != "
+                                 f"oracle {want_ids[0]}")
+        tools = {}
+        for name, argv in (
+                ("client", ["client", "--port", str(hport), "-q", stmts[1]]),
+                ("benchmark", ["benchmark", "--url",
+                               f"http://127.0.0.1:{hport}/", "-d", "5",
+                               "-q", stmts[2], "-q", stmts[3]])):
+            t2 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", "myscaledb_tpu_torch"]
+                               + argv, cwd=repo, capture_output=True,
+                               text=True, timeout=300)
+            tools[name] = {"rc": r.returncode,
+                           "seconds": time.perf_counter() - t2}
+            if r.returncode:
+                raise AssertionError(f"sql_server {name}: rc {r.returncode}"
+                                     f"\n{r.stderr[-3000:]}\n{server_log()}")
+            if name == "client":
+                ids = np.array([int(ln.split("\t")[0])
+                                for ln in r.stdout.splitlines()])
+                if not np.array_equal(ids, want_ids[1]):
+                    raise AssertionError(f"sql_server client: ids {ids}")
+            else:
+                summ = json.loads(r.stdout)
+                if summ["errors"] or not summ["queries"]:
+                    raise AssertionError(f"sql_server benchmark: {summ}")
+                tools[name].update(qps=summ["qps"],
+                                   p50_ms=summ["latency_ms"]["p50"],
+                                   p99_ms=summ["latency_ms"]["p99"],
+                                   queries=summ["queries"])
+        c = TcpClient(port=tport, timeout=60)
+        try:
+            n, cols = c.query("SELECT count() FROM t")
+        finally:
+            c.close()
+        if int(cols["count()"][0][0]) != N:
+            raise AssertionError(f"sql_server subprocess tcp: {cols}")
+        out["subprocess"] = {"parts_write_s": write_s,
+                             "seconds_to_ping": ping_s,
+                             "seconds_to_first_answer": first_s,
+                             "tools": tools, "tcp_count": N}
+    finally:
+        for srv in servers.values():
+            srv.shutdown()
+            srv.server_close()
+        if proc is not None:
+            proc.terminate()
+            try:
+                proc.wait(30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(30)
+        for f in logs or ():
+            f.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if failures:
+        raise AssertionError("sql_server: a server thread failed:\n"
+                             + "\n".join(failures)[-4000:])
+    out["launches"] = totals
+    emit(out)
+    return totals
+
+
 def _views_equal(name, rows, want) -> None:
     if rows != want:
         raise AssertionError(f"sql_views {name}: {rows[:3]} != oracle "
@@ -4365,6 +4884,7 @@ def main() -> int:
     counts["sql_storage"] = phase_sql_storage(args.seed)
     counts["sql_views"] = phase_sql_views(args.seed)
     counts["sql_formats"] = phase_sql_formats(args.seed)
+    counts["sql_server"] = phase_sql_server(args.seed)
     phase_goldens_stateless()
 
     summary = []

@@ -24,3 +24,8 @@ class NotPortedError(ExecError):
         super().__init__(
             f"{what} is not ported to myscaledb_tpu_torch yet: it comes with "
             f"the '{slice_name}' slice (ROADMAP.md, queue 1)")
+
+
+class NoDeviceError(RuntimeError):
+    """``connect()`` found no CUDA device and the caller named none: the
+    package does not fall back to the CPU on its own."""

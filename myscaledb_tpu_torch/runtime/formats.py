@@ -1220,42 +1220,46 @@ _INPUT_NORMS = frozenset(normalize_format(f) for f in INPUT_FORMATS)
 
 
 # ---------------------------------------------------------------------------
-# ClickHouse's TSV value style for result tables (the golden harness's
-# writer, testing.run_golden_text)
+# ClickHouse's value style for result cells: the golden harness's TSV
+# (testing.run_golden_text) and the MySQL / PostgreSQL wire servers
 
-def _tsv_cell(v, f32=False) -> str:
-    """One value in ClickHouse's TSV value style: shortest-roundtrip
-    floats, arrays as [1,2,3] / ['a','b'], NULL as \\N, dates ISO."""
+def ch_cells(table: Table, escape: bool = False) -> list:
+    """Render result rows as per-cell strings in ClickHouse's value style:
+    shortest-roundtrip floats with integral values printed as integers,
+    arrays as [1,2,3] / ['a','b'], dates ISO.
+
+    escape=False (wire protocols with length framing, the MySQL text
+    resultset and PostgreSQL DataRow): top-level strings stay raw and NULL
+    is ``None``.  escape=True (ClickHouse's TabSeparated output, the
+    format of the golden ``.reference`` files): tabs, newlines,
+    backslashes and quotes escaped in top-level strings, NULL as ``\\N``.
+    Array elements are escaped in both modes: they are part of the array
+    literal."""
     import datetime as _dtm
-    if v is None:
-        return "\\N"
-    if isinstance(v, (list, tuple, np.ndarray)):
-        return "[" + ",".join(
-            ("'" + str(e) + "'") if isinstance(e, str) else _tsv_cell(e, f32)
-            for e in v) + "]"
-    if isinstance(v, bool) or isinstance(v, np.bool_):
-        return "true" if v else "false"
-    if isinstance(v, (_dtm.datetime,)):
-        return v.isoformat(sep=" ")
-    if isinstance(v, _dtm.date):
-        return v.isoformat()
-    if isinstance(v, (float, np.floating)):
-        return format_f32(v) if (f32 or isinstance(v, np.float32)) \
-            else format_f64(float(v))
-    if isinstance(v, str):
-        return (v.replace("\\", "\\\\").replace("\t", "\\t")
-                .replace("\n", "\\n").replace("'", "\\'"))
-    return str(v)
 
+    def fmt(v, f32=False, top=False):
+        if v is None:
+            return None if (top and not escape) else "\\N"
+        if isinstance(v, (list, tuple, np.ndarray)):
+            return "[" + ",".join(
+                ("'" + str(e) + "'") if isinstance(e, str) else fmt(e, f32)
+                for e in v) + "]"
+        if isinstance(v, bool) or isinstance(v, np.bool_):
+            return "true" if v else "false"
+        if isinstance(v, (_dtm.datetime,)):
+            return v.isoformat(sep=" ")
+        if isinstance(v, _dtm.date):
+            return v.isoformat()
+        if isinstance(v, (float, np.floating)):
+            return format_f32(v) if (f32 or isinstance(v, np.float32)) \
+                else format_f64(float(v))
+        if isinstance(v, str):
+            if top and not escape:
+                return v
+            return (v.replace("\\", "\\\\").replace("\t", "\\t")
+                    .replace("\n", "\\n").replace("'", "\\'"))
+        return str(v)
 
-def ch_tsv_lines(table: Table) -> list:
-    """Render result rows in ClickHouse's default TSV value style (the
-    format of the golden `.reference` files): shortest-roundtrip floats
-    with integral values printed as integers, arrays as [1,2,3] /
-    ['a','b'], NULL as \\N, dates ISO.  The golden ``.reference`` files
-    escape tabs, newlines, backslashes and quotes in strings and quote the
-    strings inside arrays, as ClickHouse's TabSeparated output does
-    (``sql/format.format_tsv`` prints strings raw)."""
     names = _names(table)
     plan = tuple_cell_plan(table, names)
     cols = {}
@@ -1270,9 +1274,16 @@ def ch_tsv_lines(table: Table) -> list:
         for kind, ref in plan:
             if kind == "col":
                 vals, f32 = cols[ref]
-                row.append(_tsv_cell(vals[i], f32))
+                row.append(fmt(vals[i], f32, top=True))
             else:
                 row.append("(" + ",".join(
-                    _tsv_cell(cols[m][0][i], cols[m][1]) for m in ref) + ")")
-        out.append("\t".join(row))
+                    fmt(cols[m][0][i], cols[m][1]) for m in ref) + ")")
+        out.append(row)
     return out
+
+
+def ch_tsv_lines(table: Table) -> list:
+    """Result rows as the golden ``.reference`` files hold them: the
+    escaped cells of ``ch_cells`` joined by tabs (``sql/format.format_tsv``
+    prints strings raw)."""
+    return ["\t".join(row) for row in ch_cells(table, escape=True)]

@@ -18,6 +18,9 @@ through on-disk parts (runtime/backup.py).
 
 Index builds may run on the background executor's thread: the index list
 is guarded by ``vi_lock``, the derived-state dict by ``sidecar_lock``.
+The wire servers (runtime/server.py and its siblings) share one session
+and run every statement through ``sql_as``, under ``exec_lock``: one
+statement at a time, as the user its connection authenticated.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ class Session:
         self.sidecar_lock = threading.Lock()
         self.access = AccessControl()
         self.current_user = "default"
+        self.exec_lock = threading.RLock()
         # DDL state (sql/ddl.py)
         self.vector_indices: list[dict] = []
         self.vi_events = deque(maxlen=10_000)
@@ -213,6 +217,19 @@ class Session:
         from myscaledb_tpu_torch.sql.driver import execute_query
         return execute_query(self, query, params)
 
+    def sql_as(self, user: Optional[str], query: str) -> Table:
+        """Run ``query`` as ``user`` (None: the session's own user) under
+        ``exec_lock``, and restore the session's user after it."""
+        with self.exec_lock:
+            if user is None:
+                return self.sql(query)
+            prev = self.current_user
+            self.current_user = user
+            try:
+                return self.sql(query)
+            finally:
+                self.current_user = prev
+
     def sql_tsv(self, query: str) -> str:
         """Execute and format as ClickHouse-style TSV."""
         from myscaledb_tpu_torch.sql.format import format_tsv
@@ -225,7 +242,8 @@ def connect(settings: Optional[Settings] = None, device=None) -> Session:
     than run on the CPU."""
     if device is None:
         if not torch.cuda.is_available():
-            raise RuntimeError(
+            from myscaledb_tpu_torch.errors import NoDeviceError
+            raise NoDeviceError(
                 "myscaledb_tpu_torch.connect(): no CUDA device is available; "
                 "pass device=\"cpu\" to run on the CPU")
         device = "cuda"

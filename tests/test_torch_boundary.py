@@ -62,6 +62,14 @@ def test_chip_smoke_imports_no_jax():
     assert not any(m.split(".")[0] in ("jax", "myscaledb_tpu") for m in mods)
 
 
+@pytest.mark.parametrize("path", sorted((ROOT / "tools").glob("*.py")),
+                         ids=lambda p: p.name)
+def test_chip_tools_import_no_jax(path):
+    """The helpers beside chip_smoke.py run on the card's machine too."""
+    mods = set(_imported_modules(path))
+    assert not any(m.split(".")[0] in ("jax", "myscaledb_tpu") for m in mods)
+
+
 def test_connect_defaults_to_cuda(monkeypatch):
     import myscaledb_tpu_torch as P
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -1029,3 +1029,48 @@ def test_formats_and_sample_on_card_equal_cpu(cuda, tmp_path):
                           "ORDER BY id").to_rows())
     assert files[0] == files[2] and files[1] == files[3]
     assert rows[0] == rows[1] and len(rows[0]) > 0
+
+
+def test_http_server_on_card_equals_cpu(cuda):
+    """An HTTP server over a card session answers a config-1-shaped top-k
+    (K1) and a GROUP BY (K3) with the CPU session's server's rows: the
+    same ids and groups, distances within the SQL tolerance, the GROUP BY
+    bytes equal."""
+    import threading
+    import myscaledb_tpu_torch as P
+    from myscaledb_tpu_torch.runtime.client import http_query
+    from myscaledb_tpu_torch.runtime.server import make_server
+    rng = np.random.default_rng(23)
+    n, d = 1 << 18, 128
+    data = {"id": np.arange(n, dtype=np.int64),
+            "price": rng.integers(0, 100, n).astype(np.int32),
+            "emb": rng.standard_normal((n, d), dtype=np.float32),
+            "g": rng.integers(0, 256, n).astype(np.int32)}
+    q = "[" + ",".join(repr(float(v)) for v in
+                       rng.standard_normal(d, dtype=np.float32)) + "]"
+    stmts = [f"SELECT id, distance(emb, {q}) AS d FROM t WHERE price < 50 "
+             "ORDER BY d LIMIT 10",
+             "SELECT g, sum(price), count(), avg(price) FROM t "
+             "WHERE price > 10 GROUP BY g ORDER BY g"]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s = P.connect(device=dev)
+        s.create_table("t", data)
+        srv = make_server(s, "127.0.0.1", 0)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        before = (K1.segmin_sq8.launches, K3.group_aggregate.launches)
+        try:
+            out[dev] = [http_query(*srv.server_address, sql, timeout=60)
+                        for sql in stmts]
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        if dev == "cuda":
+            assert K1.segmin_sq8.launches > before[0]
+            assert K3.group_aggregate.launches == before[1] + 1
+    top = [[ln.split("\t") for ln in out[dev][0].splitlines()]
+           for dev in ("cuda", "cpu")]
+    assert [r[0] for r in top[0]] == [r[0] for r in top[1]]
+    np.testing.assert_allclose([float(r[1]) for r in top[0]],
+                               [float(r[1]) for r in top[1]], rtol=2e-5)
+    assert out["cuda"][1] == out["cpu"][1] and out["cuda"][1].count("\n") > 200

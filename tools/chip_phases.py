@@ -9,8 +9,9 @@ Usage (from the repo root, on the machine with the card):
 Each argument is ``checkout:phase,phase``; phases are ``groupby``
 (sql_groupby), ``binary`` (sql_binary), ``hits`` (sql_hits), ``arrays``
 (sql_arrays), ``subquery`` (sql_subquery), ``text`` (sql_text),
-``storage`` (sql_storage), ``views`` (sql_views) and ``formats``
-(sql_formats), the ones a checkout's chip_smoke.py has.
+``storage`` (sql_storage), ``views`` (sql_views), ``formats``
+(sql_formats) and ``server`` (sql_server), the ones a checkout's
+chip_smoke.py has.
 Each argument runs in a process of its own with the checkout as the
 working directory (so it imports that checkout's package and builds its
 kernels), after that checkout's kernel build.  The full output of run i
@@ -36,7 +37,7 @@ names = {'groupby': 'phase_groupby', 'binary': 'phase_sql_binary',
          'hits': 'phase_sql_hits', 'arrays': 'phase_sql_arrays',
          'subquery': 'phase_sql_subquery', 'text': 'phase_sql_text',
          'storage': 'phase_sql_storage', 'views': 'phase_sql_views',
-         'formats': 'phase_sql_formats'}
+         'formats': 'phase_sql_formats', 'server': 'phase_sql_server'}
 for ph in sys.argv[1].split(','):
     getattr(C, names[ph])(0)
 """
@@ -60,6 +61,10 @@ def summarize(stdout: str) -> None:
                   f"(no view {ins['no_view_rows_per_s']:.0f}), last batch "
                   f"device {ins['profiled_last_batch']['device_ms_per_query']:.3f}"
                   f" of {ins['profiled_last_batch']['wall_ms_per_query']:.3f} ms")
+        for name, st in d.get("served", {}).items():
+            print(f"  sql_server {name} qps {st['qps']:.1f} p50 "
+                  f"{st['p50_ms']:.3f} p99 {st['p99_ms']:.3f} ms, served - "
+                  f"in-process {st['served_minus_in_process_ms']:.3f} ms")
         for name, st in d.get("steps", {}).items():
             dev = f"{st['device_s']:.3f} s" if st["device_s"] is not None \
                 else f"not measured (profile {st['profile_device_s']:.3f} s)"
