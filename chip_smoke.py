@@ -108,15 +108,15 @@ and the wire servers in front of them):
   dictGet, IN a Set table, ALTER mutations, EXPLAIN and a row policy;
 
   ClickBench's load and export paths over the hits table of sql_hits:
-  all 100M rows out and back in as Native, 10M of them through each of
+  10M of its rows out and back in as Native and through each of
   ClickBench's load formats (TSV, CSV, JSONEachRow, RowBinary) and
   Session.import_file, its Q8 over the copies and with SAMPLE 0.1,
 
     SELECT AdvEngineID, count() FROM hits SAMPLE 0.1 WHERE AdvEngineID
     <> 0 GROUP BY AdvEngineID ORDER BY count() DESC
 
-  backup and restore of hits and of config 1 (a top-k after), and a
-  FILE-sourced dictionary beside a join on file();
+  backup and restore of 10M rows of hits and of config 1 (a top-k
+  after), and a FILE-sourced dictionary beside a join on file();
 
   the wire servers over config 1 and the 100M-row hits table: HTTP,
   native TCP, MySQL, PostgreSQL and gRPC in threads of this process over
@@ -270,8 +270,8 @@ non-zero without printing a result:
               UPDATE / ADD COLUMN / MATERIALIZE / DROP COLUMN over 100M
               rows timed and exact, the views' states unchanged after
               them; EXPLAIN PLAN/ESTIMATE and a row policy checked
-  sql_formats (a) SELECT * FROM hits INTO OUTFILE ... FORMAT Native and
-              INSERT INTO hits_n FROM INFILE, (b) the same at 10M rows
+  sql_formats (a) SELECT * FROM hits LIMIT 10M INTO OUTFILE ... FORMAT
+              Native and INSERT INTO hits_n FROM INFILE, (b) the same
               for TSV, CSV, JSONEachRow and RowBinary, with
               Session.import_file of the TSV, each copy torch.equal to
               the source column by column (strings through their
@@ -282,8 +282,8 @@ non-zero without printing a result:
               after a warm-up each (median, p90, busy share, host syncs,
               peak memory), against bincounts on the card (SAMPLE's
               through hash32 of the row ids under the same threshold), K3
-              in each; (d) backup and restore of hits and of config 1 with
-              a vector index, the restored tables equal, the restored
+              in each; (d) backup and restore of 10M rows of hits and of
+              config 1 with a vector index, the restored tables equal, the restored
               top-k's rows equal the ones before the backup, K1 in it;
               (e) a FILE dictionary over the ~7,000 CounterIDs and the
               same lookup through a join on file(), a day's rows grouped
@@ -1059,23 +1059,29 @@ def profile_statements(s, statements, to_rows: bool = True):
     wall time, summed device kernel time (their ratio is the device's busy
     share, with the profiler's own host overhead in the wall time) and the
     kernels that take the most device time."""
-    with device_profiler() as prof:
-        t0 = time.perf_counter()
+    def run():
         for stmt in statements:
             res = s.sql(stmt)
             if to_rows:
                 res.to_rows()
+    return profile_calls(run, len(statements))
+
+
+def profile_calls(fn, n: int = 1):
+    """profile_statements' reading of ``fn()``, which makes ``n`` calls:
+    wall and device ms a call, busy share, the top kernels."""
+    with device_profiler() as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / len(statements)
-    dev_us = _dev_us
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
     kernels = device_events(prof)
-    device_ms = sum(dev_us(e) for e in kernels) / 1e3 / len(statements)
+    device_ms = sum(_dev_us(e) for e in kernels) / 1e3 / n
     # kernels whose names share their first 60 characters (two template
     # instances) are summed under that prefix
     by_name = {}
     for e in kernels:
-        by_name[e.key[:60]] = by_name.get(e.key[:60], 0.0) \
-            + dev_us(e) / len(statements)
+        by_name[e.key[:60]] = by_name.get(e.key[:60], 0.0) + _dev_us(e) / n
     top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:8]
     return {"wall_ms_per_query": wall_ms,
             "device_ms_per_query": device_ms,
@@ -2854,8 +2860,9 @@ TEXT_RTOL = 1e-5
 FUSION_ATOL = {"RSF": 1e-4, "RRF": 1e-7}
 
 
-def text_corpus(seed: int):
-    """The passage table's data, made on the card from ``seed``: 2^20
+def text_corpus(seed: int, n: int = NT):
+    """The passage table's data (``n`` passages), made on the card from
+    ``seed``: 2^20
     distinct lowercase words of 3-12 letters (a word's letters are the
     base-26 digits of a distinct code, so no two words are equal), Zipf
     (s = 1.0) word draws, lognormal passage lengths of mean 56 clipped to
@@ -2879,18 +2886,18 @@ def text_corpus(seed: int):
     cdf /= cdf[-1].clone()
     mu = np.log(NT_MEAN_WORDS) - NT_SIGMA ** 2 / 2
     lens = torch.exp(mu + NT_SIGMA * torch.randn(
-        NT, generator=g, device=dev, dtype=torch.float64))
+        n, generator=g, device=dev, dtype=torch.float64))
     lens = lens.round().clamp(1, NT_MAX_WORDS).to(torch.int64)
     total = int(lens.sum())
     u = torch.rand(total, generator=g, device=dev, dtype=torch.float64)
     word = torch.searchsorted(cdf, u).clamp(max=NT_WORDS - 1)
     del u
-    doc = torch.repeat_interleave(torch.arange(NT, device=dev), lens,
+    doc = torch.repeat_interleave(torch.arange(n, device=dev), lens,
                                   output_size=total)
     # each token's letters and one space: (tokens, 13) masked to the row
     tw = wlen[word]
     flat = table[word][pos[None, :] <= tw[:, None]].cpu().numpy()
-    nbytes = torch.zeros(NT, dtype=torch.int64, device=dev).index_add_(
+    nbytes = torch.zeros(n, dtype=torch.int64, device=dev).index_add_(
         0, doc, tw + 1)
     ends = torch.cumsum(nbytes, 0).cpu().numpy()
     text = flat.tobytes().decode("ascii")
@@ -3916,6 +3923,7 @@ def phase_sql_views(seed: int):
 # file formats, INTO OUTFILE / FROM INFILE, SAMPLE, backup and restore and
 # a FILE-sourced dictionary (ROADMAP item 10.3)
 NF_TEXT = 10_000_000             # rows of (b)'s text and row formats
+NF_NATIVE = 10_000_000           # rows of (a)'s Native trip and (d)'s backup
 TEXT_FORMATS = ("TSV", "CSV", "JSONEachRow", "RowBinary")
 HITS_COLUMNS = ("UserID Int64, EventTime DateTime, EventDate Date, "
                 "CounterID Int32, RegionID Int32, AdvEngineID Int16, "
@@ -4050,15 +4058,15 @@ def check_q8(tag, rows, want):
 
 def phase_sql_formats(seed: int):
     """ClickBench's load and export paths over the 100M-row hits table:
-    (a) a Native round trip of all of it through INTO OUTFILE and FROM
-    INFILE; (b) its load formats (TSV, CSV, JSONEachRow, RowBinary) on
-    10M rows, out and back, and Session.import_file of the TSV; (c)
-    ClickBench's Q8 over the source, the Native copy and the TSV copy,
-    and with SAMPLE 0.1 (K3); (d) backup and restore of hits and of
-    config 1's vector table, then a fused top-k over the restored one
-    (K1); (e) a FILE-sourced dictionary and the same lookup through a
-    join on file().  Every copy equals its source on the card; files go
-    to a temporary directory removed at the end."""
+    (a) a Native round trip of its first 10M rows through INTO OUTFILE
+    and FROM INFILE; (b) its load formats (TSV, CSV, JSONEachRow,
+    RowBinary) on 10M rows, out and back, and Session.import_file of the
+    TSV; (c) ClickBench's Q8 over the source, the Native copy and the TSV
+    copy, and with SAMPLE 0.1 (K3); (d) backup and restore of a 10M-row
+    copy of hits and of config 1's vector table, then a fused top-k over
+    the restored one (K1); (e) a FILE-sourced dictionary and the same
+    lookup through a join on file().  Every copy equals its source on the
+    card; files go to a temporary directory removed at the end."""
     import shutil
     import tempfile
     import myscaledb_tpu_torch as P
@@ -4072,21 +4080,22 @@ def phase_sql_formats(seed: int):
     s.settings.max_memory_bytes_per_query = 32 << 30
     s.register("hits", table)
     probe = worker_copy_probe()
-    hits_b, text_b = table_bytes(table), table_bytes(table, NF_TEXT)
+    text_b = table_bytes(table, NF_TEXT)
+    native_b = table_bytes(table, NF_NATIVE)
     tmp = tempfile.mkdtemp(prefix="sql_formats_")
     steps, totals = {}, {}
     try:
-        # (a) Native at 100M rows
+        # (a) Native at 10M rows
         path = os.path.join(tmp, "hits.native")
         _, steps["native_write"] = timed_step(lambda: s.sql(
-            f"SELECT * FROM hits INTO OUTFILE '{path}' FORMAT Native"),
-            NH, hits_b, path)
+            f"SELECT * FROM hits LIMIT {NF_NATIVE} INTO OUTFILE '{path}' "
+            "FORMAT Native"), NF_NATIVE, native_b, path)
         s.sql(f"CREATE TABLE hits_n ({HITS_COLUMNS}) ENGINE = MergeTree "
               "ORDER BY (CounterID, EventDate)")
         _, steps["native_read"] = timed_step(lambda: s.sql(
             f"INSERT INTO hits_n FROM INFILE '{path}' FORMAT Native"),
-            NH, hits_b, path)
-        same_table("native", s.tables["hits_n"], table)
+            NF_NATIVE, native_b, path)
+        same_table("native", s.tables["hits_n"], table, NF_NATIVE)
         for c in ("URL", "SearchPhrase"):
             if s.tables["hits_n"][c].dictionary.values != \
                     table[c].dictionary.values:
@@ -4130,7 +4139,8 @@ def phase_sql_formats(seed: int):
             "q8_tsv_copy": Q8_SQL.format(t="hits_tsv", sample=""),
             "q8_sample": Q8_SQL.format(
                 t="hits", sample=f"SAMPLE {SAMPLE_FRACTION} ")}
-        wants = {"q8_hits": want_full, "q8_native_copy": want_full,
+        wants = {"q8_hits": want_full,
+                 "q8_native_copy": q8_oracle(adv[:NF_NATIVE]),
                  "q8_tsv_copy": q8_oracle(adv[:NF_TEXT]),
                  "q8_sample": q8_oracle(adv[keep])}
         del keep
@@ -4139,7 +4149,8 @@ def phase_sql_formats(seed: int):
         stats, totals = run_statements_checked(s, statements, checks,
                                                "sql_formats")
         for k, st in stats.items():
-            st["rows_per_s"] = (NF_TEXT if k == "q8_tsv_copy" else NH) / \
+            st["rows_per_s"] = {"q8_tsv_copy": NF_TEXT,
+                                "q8_native_copy": NF_NATIVE}.get(k, NH) / \
                 (st["median_ms"] / 1e3)
             if st["launches_by_path"]["group_aggregate"] < 1:
                 raise AssertionError(f"sql_formats {k}: group_aggregate "
@@ -4147,14 +4158,17 @@ def phase_sql_formats(seed: int):
         s.drop_table("hits_n")
         s.drop_table("hits_tsv")
 
-        # (d) backup and restore: hits, then config 1 with a top-k (K1)
+        # (d) backup and restore: 10M rows of hits, then config 1 with a
+        # top-k (K1)
+        s.register("hits_b", table.head(NF_NATIVE))
         bdir = os.path.join(tmp, "backup_hits")
         _, steps["backup_hits"] = timed_step(
-            lambda: s.backup(bdir, ["hits"]), NH, hits_b, bdir)
+            lambda: s.backup(bdir, ["hits_b"]), NF_NATIVE, native_b, bdir)
+        s.drop_table("hits_b")
         s2 = P.connect()
         _, steps["restore_hits"] = timed_step(lambda: s2.restore(bdir),
-                                              NH, hits_b, bdir)
-        same_table("restore", s2.tables["hits"], table)
+                                              NF_NATIVE, native_b, bdir)
+        same_table("restore", s2.tables["hits_b"], table, NF_NATIVE)
         del s2
         shutil.rmtree(bdir)
         torch.cuda.empty_cache()
@@ -4257,6 +4271,9 @@ def phase_sql_formats(seed: int):
                       f"{NF_TEXT} of the {NH} rows: the slowest read ran "
                       f"{text_read:.0f} rows/s, {NH / text_read:.1f} s for "
                       "all of them, per format and direction",
+                      f"(a) Native and (d) hits' backup at {NF_NATIVE} of "
+                      f"the {NH} rows: at 100M rows they took ~145 s of the "
+                      "script's time limit",
                       "URL and SearchPhrase have 2^17 distinct values (as "
                       "sql_hits)", "only sql_hits' eleven columns"],
           "steps": steps, "per_statement": stats,
@@ -4816,6 +4833,674 @@ def phase_goldens_stateless() -> int:
     return len(names)
 
 
+# BASELINE config 5 (bench.py:319-345): 2M rows a shard of 768-dim f32
+# embeddings, 10 queries, k = 10, 256 groups, 1M dim keys, fact keys in
+# [0, 2M), vals = 1, the mask all true
+N5_PER_SHARD, D5, NQ5, K5, G5, N5_DIM = 2_000_000, 768, 10, 10, 256, \
+    1_000_000
+DIST_SHARDS = 8
+# the cut if the card cannot hold 8 shards' embeddings beside the rest
+N5_SHARDS_CUT = 4
+# config 5's bytes a fact row streams (bench.py): the embedding, the join
+# key's exchange (read, write, read) and gid/vals
+BYTES5_PER_ROW = D5 * 4 + 12 + 8
+DIST_REPS = 5                    # timed runs of each distributed statement
+DIST_TEXT_QUERIES = 5
+# sql_text's passages cut for this phase: two index builds (the table's,
+# the shards') took 60 s of the phase at 1M passages; at 600k each of the
+# 8 shards keeps 75,000 rows, past the 2^16 from which its scan takes K2
+NT_DIST = 600_000
+DIST_INSERT_ROWS = 10_000_000
+
+
+def config5_step_parts(mesh, x, q, fact, dim, gid, mask, vals, sqn):
+    """The fused step's parts timed apart on the card (CUDA events, median
+    of 3 after a warm-up): the join exchange, the shard scans, the top-k
+    merge, the shard join counts with their psum, the group partials and
+    their merge.  Shard bodies against merge/exchange."""
+    from myscaledb_tpu_torch.ops.aggregate import partial_aggregate_matmul
+    from myscaledb_tpu_torch.parallel.mesh import psum, row_slices
+    from myscaledb_tpu_torch.parallel.ops import (_merge_agg_states,
+                                                  _merge_distance_topk,
+                                                  _shard_distance_topk)
+    from myscaledb_tpu_torch.parallel.shuffle import (_all_pair_count,
+                                                      _exchange)
+    nsh = mesh.size
+    n_loc = x.shape[0] // nsh
+    fks, dks = row_slices(mesh, fact), row_slices(mesh, dim)
+    ones_f = [torch.ones_like(f, dtype=torch.bool) for f in fks]
+    ones_d = [torch.ones_like(d, dtype=torch.bool) for d in dks]
+    xs, sqs = row_slices(mesh, x), row_slices(mesh, sqn)
+    gids, masks, vs = (row_slices(mesh, gid), row_slices(mesh, mask),
+                       row_slices(mesh, vals))
+    box = {}
+
+    def exchange():
+        box["f"] = _exchange(mesh, fks, [], ones_f, n_loc)
+        box["d"] = _exchange(mesh, dks, [], ones_d,
+                             max(dim.shape[0] // nsh, 1))
+
+    def scans():
+        box["s"] = [_shard_distance_topk(xs[p], q, None, "L2", K5, 32768, p,
+                                         n_loc, sqs[p]) for p in range(nsh)]
+
+    def topk_merge():
+        _merge_distance_topk([a for a, _ in box["s"]],
+                             [b for _, b in box["s"]], K5, "L2")
+
+    def join_counts():
+        (fk, _, fv), (dk, _, dv) = box["f"], box["d"]
+        psum([_all_pair_count(fk[p], fv[p], dk[p], dv[p])
+              for p in range(nsh)])
+
+    def partials():
+        box["a"] = [partial_aggregate_matmul(gids[p], masks[p], (vs[p],),
+                                             ("sum",), G5)
+                    for p in range(nsh)]
+
+    def agg_merge():
+        _merge_agg_states(("sum",), [a for a, _ in box["a"]],
+                          [b for _, b in box["a"]])
+    out = {}
+    for name, fn in (("exchange", exchange), ("shard_scans", scans),
+                     ("topk_merge", topk_merge),
+                     ("shard_join_counts_psum", join_counts),
+                     ("shard_group_partials", partials),
+                     ("group_merge", agg_merge)):
+        out[name + "_ms"] = time_ms(fn, reps=3)
+    out["shard_bodies_ms"] = out["shard_scans_ms"] + \
+        out["shard_join_counts_psum_ms"] + out["shard_group_partials_ms"]
+    out["merge_and_exchange_ms"] = out["exchange_ms"] + \
+        out["topk_merge_ms"] + out["group_merge_ms"]
+    return out
+
+
+def phase_config5(seed: int, smi: str):
+    """BASELINE config 5 at bench.py's shapes on an 8-shard mesh (4 if the
+    card cannot hold 8 shards' embeddings) and on a 1-shard mesh over the
+    same tensors: the fused step checked against oracles on the card (ids
+    equal to the one-device scan's, distances within rtol 2e-5, the join
+    count equal to a searchsorted count, group sums and counts equal to a
+    bincount), its median over DIST_REPS runs after a warm-up, rows/s, K2
+    and K3 launches a step, and the step's parts timed apart."""
+    from myscaledb_tpu_torch.ops.vector import distance_scan
+    from myscaledb_tpu_torch.parallel.mesh import make_mesh, shard_rows
+    from myscaledb_tpu_torch.parallel.ops import sqnorm_rows
+    from myscaledb_tpu_torch.parallel.pipeline import fused_topk_join_agg
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    nsh = DIST_SHARDS
+    reduced = []
+    # the embeddings, their norms and ~8 GiB of exchange and sort buffers
+    if N5_PER_SHARD * nsh * (D5 * 4 + 16) + (8 << 30) > free:
+        reduced.append(f"{N5_SHARDS_CUT} shards, not {nsh}: "
+                       f"{free / 2 ** 30:.1f} GiB free of "
+                       f"{total / 2 ** 30:.1f}")
+        nsh = N5_SHARDS_CUT
+    n = N5_PER_SHARD * nsh
+    g = torch.Generator(device="cuda").manual_seed(seed + 15)
+    t0 = time.perf_counter()
+    mesh = make_mesh(nsh)
+    # made in place on the card, sharded by rows: no padding copy
+    x = shard_rows(mesh, torch.randn(n, D5, generator=g, device="cuda"))
+    q = torch.randn(NQ5, D5, generator=g, device="cuda")
+    fact = shard_rows(mesh, torch.randint(0, 2 * N5_DIM, (n,), generator=g,
+                                          device="cuda", dtype=torch.int32))
+    dim = shard_rows(mesh, torch.randint(0, 2 * N5_DIM, (N5_DIM,),
+                                         generator=g, device="cuda",
+                                         dtype=torch.int32))
+    gid = shard_rows(mesh, torch.randint(0, G5, (n,), generator=g,
+                                         device="cuda", dtype=torch.int32))
+    vals = torch.ones(n, dtype=torch.int32, device="cuda")
+    mask = torch.ones(n, dtype=torch.bool, device="cuda")
+    sqn = sqnorm_rows(x)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    # oracles on the card, outside every counted run
+    ld, li = distance_scan(x, q, "L2", K5, x_sqnorm=sqn)
+    sd = torch.sort(dim.long()).values
+    want_cnt = int((torch.searchsorted(sd, fact.long(), right=True)
+                    - torch.searchsorted(sd, fact.long())).sum())
+    del sd
+    want_gc = torch.bincount(gid.long(), minlength=G5)
+
+    def check(out, tag):
+        dd, ii, cnt, states, gc = out
+        if not torch.equal(ii, li):
+            raise AssertionError(f"config 5 {tag}: ids differ from the "
+                                 "one-device scan")
+        torch.testing.assert_close(dd, ld, rtol=SQL_RTOL, atol=0)
+        if int(cnt) != want_cnt:
+            raise AssertionError(f"config 5 {tag}: join count {int(cnt)} "
+                                 f"!= {want_cnt}")
+        if not (torch.equal(states[0], want_gc)
+                and torch.equal(gc, want_gc)):
+            raise AssertionError(f"config 5 {tag}: group sums/counts "
+                                 "differ from the bincount")
+
+    runs, counts = {}, None
+    for m in (mesh, make_mesh(1)):
+        tag = f"{m.size}_shards"
+
+        def step(m=m):
+            return fused_topk_join_agg(m, x, q, "L2", K5, fact, dim, gid,
+                                       mask, vals, ("sum",), G5,
+                                       x_sqnorm=sqn)
+        check(step(), tag)                          # warm-up
+        torch.cuda.synchronize()
+        # the path's own run: counts zeroed just before, read just after
+        zero_launches()
+        lat = []
+        for _ in range(DIST_REPS):
+            t0 = time.perf_counter()
+            out = step()
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+            check(out, tag)
+        launches = read_launches()
+        for k2k3 in ("segmin_f32", "group_aggregate"):
+            if launches[k2k3] != DIST_REPS * m.size:
+                raise AssertionError(
+                    f"config 5 {tag}: {k2k3} launched {launches[k2k3]} "
+                    f"times in {DIST_REPS} steps, want {m.size} a step")
+        if m is mesh:
+            counts = launches
+        prof = profile_calls(step)
+        med = float(np.median(lat))
+        runs[tag] = {
+            **summary_ms(lat), "launches": launches,
+            "launches_per_step": {k: v / DIST_REPS
+                                  for k, v in launches.items() if v},
+            "distributed_pipeline_rows_per_sec_per_chip": n / (med / 1e3),
+            "device_busy_share": prof["device_busy_share"],
+            "device_ms_per_step": prof["device_ms_per_query"],
+            "top_kernels_us": prof["top_kernels_us_per_query"],
+            "parts": config5_step_parts(m, x, q, fact, dim, gid, mask, vals,
+                                        sqn)}
+    bound = n * BYTES5_PER_ROW / HBM_BYTES_PER_S * 1e3
+    out = {"shards": nsh, "rows": n, "dim": D5, "queries": NQ5, "k": K5,
+           "groups": G5, "dim_keys": N5_DIM, "table_gen_s": gen_s,
+           "embedding_bytes": x.numel() * 4, "reduced": reduced,
+           "source": "BASELINE config 5 (bench.py:319-345): 2M rows a "
+                     "shard, d = 768, nq = 10, k = 10, 256 groups, 1M dim "
+                     "keys in [0, 2M)",
+           "bound_ms": bound, "bound_by": "bytes",
+           "bound_note": f"{BYTES5_PER_ROW} bytes a fact row (bench.py's "
+                         "count) over 3.35 TB/s",
+           "runs": runs, "nvidia_smi": smi,
+           "oracle": "ids equal to the one-device distance_scan, "
+                     "distances rtol 2e-5; join count equal to a "
+                     "searchsorted count; group sums and counts equal to "
+                     "a bincount"}
+    del x, sqn, fact, dim, gid, vals, mask, ld, li
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def dist_pair(s, stmt_local, stmt_dist, compare, reps=DIST_REPS,
+              to_rows=True):
+    """One statement on the undistributed table and on the distributed
+    one: ``reps`` timed runs of each after a warm-up (host clock; with
+    ``to_rows`` false a synchronize in place of to_rows()), the results
+    held equal by ``compare(dist, local)``, then a profiler pass (busy
+    share) and the host syncs of one run of each; the launch counts of
+    the distributed runs (warm-up included), zeroed just before and read
+    just after."""
+    def run(stmt):
+        res = s.sql(stmt)
+        if to_rows:
+            return res.to_rows()
+        torch.cuda.synchronize()
+        return res
+
+    def timed(stmt):
+        res = run(stmt)
+        lat = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            res = run(stmt)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        return lat, res
+    lat_l, res_l = timed(stmt_local)
+    zero_launches()
+    lat_d, res_d = timed(stmt_dist)
+    launches = read_launches()
+    compare(res_d, res_l)
+    out = {"launches_distributed": {k: v for k, v in launches.items() if v}}
+    for tag, stmt, lat in (("undistributed", stmt_local, lat_l),
+                           ("distributed", stmt_dist, lat_d)):
+        prof = profile_statements(s, [stmt], to_rows=to_rows)
+        syncs, _ = count_host_syncs(lambda st=stmt: run(st))
+        out[tag] = {**summary_ms(lat),
+                    "device_busy_share": prof["device_busy_share"],
+                    "device_ms_per_query": prof["device_ms_per_query"],
+                    "host_syncs": syncs}
+    out["distributed_over_undistributed"] = \
+        out["distributed"]["median_ms"] / out["undistributed"]["median_ms"]
+    return out, launches
+
+
+def rows_equal(tag):
+    def check(got, want):
+        if got != want:
+            raise AssertionError(f"sql_distributed {tag}: {got[:3]} != "
+                                 f"undistributed {want[:3]}")
+    return check
+
+
+def vector_rows_equal(tag):
+    """ids equal, distances within rtol 2e-5: the shards' scans sum in
+    other shapes than the one-device scan (ROADMAP section 3)."""
+    def check(got, want):
+        if [r[0] for r in got] != [r[0] for r in want]:
+            raise AssertionError(f"sql_distributed {tag}: ids differ")
+        np.testing.assert_allclose([r[1] for r in got],
+                                   [r[1] for r in want], rtol=SQL_RTOL,
+                                   atol=0)
+    return check
+
+
+def tables_equal(tag):
+    """Two join results equal as multisets of rows on the card: both
+    sorted by their unique id column (a shuffle join's rows come in its
+    shards' received order, a LEFT join's unmatched rows after the
+    matched ones undistributed and among them broadcast), then each
+    column's NULLs equal and its values equal where not NULL."""
+    def check(got, want):
+        if got.n_rows != want.n_rows or \
+                got.column_names != want.column_names:
+            raise AssertionError(f"sql_distributed {tag}: {got.n_rows} "
+                                 f"rows {got.column_names} != "
+                                 f"{want.n_rows} {want.column_names}")
+        got = got.take(torch.sort(got["id"].data).indices)
+        want = want.take(torch.sort(want["id"].data).indices)
+        for name in want.column_names:
+            a, b = got[name], want[name]
+            ones = torch.ones(a.data.shape[0], dtype=torch.bool,
+                              device=a.data.device)
+            va = ones if a.valid is None else a.valid
+            vb = ones if b.valid is None else b.valid
+            if not torch.equal(va, vb) or \
+                    not torch.equal(a.data[va], b.data[vb]):
+                raise AssertionError(f"sql_distributed {tag}: column "
+                                     f"{name} differs")
+    return check
+
+
+def add_counts(totals, launches):
+    for k, v in launches.items():
+        totals[k] = totals.get(k, 0) + v
+
+
+def dist_config1(seed, mesh):
+    """Config 1 (1M x 128, WHERE price < 50, k = 10) distributed: sql_sq8's
+    statement over 20 query vectors on both tables; K2 in every shard."""
+    import myscaledb_tpu_torch as P
+    from myscaledb_tpu_torch.core.table import Table
+    rng = np.random.default_rng(seed)
+    data = {"id": np.arange(N, dtype=np.int64),
+            "price": rng.integers(0, 100, N).astype(np.int32),
+            "emb": rng.standard_normal((N, D), dtype=np.float32)}
+    s = P.connect()
+    s.create_table("t", data)
+    s.register("td", Table(list(s.tables["t"].columns.values())))
+    s.distribute("td", mesh)
+    x, price = s.tables["t"]["emb"].data, s.tables["t"]["price"].data
+    stmt = ("SELECT id, distance(emb, {q}) AS d FROM {t} WHERE price < 50 "
+            "ORDER BY d LIMIT 10")
+    queries = rng.standard_normal((20, D), dtype=np.float32)
+    s.sql(stmt.format(q=vec_sql(queries[0]), t="t")).to_rows()
+    s.sql(stmt.format(q=vec_sql(queries[0]), t="td")).to_rows()
+    lat = {"t": [], "td": []}
+    rows = {"t": [], "td": []}
+
+    def run(t):
+        for qv in queries:
+            t0 = time.perf_counter()
+            rows[t].append(s.sql(stmt.format(q=vec_sql(qv), t=t)).to_rows())
+            lat[t].append((time.perf_counter() - t0) * 1e3)
+    run("t")
+    zero_launches()
+    run("td")
+    launches = read_launches()
+    for qv, got, want in zip(queries, rows["td"], rows["t"]):
+        vector_rows_equal("config 1")(got, want)
+        want_ids, want_d = oracle(x, price, torch.as_tensor(qv,
+                                                            device="cuda"), K)
+        if [r[0] for r in got] != want_ids.tolist():
+            raise AssertionError("sql_distributed config 1: ids differ from "
+                                 "the oracle")
+    if launches["segmin_f32"] != 20 * mesh.size:
+        raise AssertionError(f"sql_distributed config 1: segmin_f32 "
+                             f"launched {launches['segmin_f32']} times over "
+                             f"20 statements of {mesh.size} shards, not "
+                             f"once a shard and statement")
+    qs = [stmt.format(q=vec_sql(qv), t=t) for qv in queries[:3]
+          for t in ("t", "td")]
+    prof = {t: profile_statements(s, qs[i::2]) for i, t in
+            enumerate(("t", "td"))}
+    syncs = {t: count_host_syncs(lambda t=t: s.sql(qs[0 if t == "t" else 1])
+                                 .to_rows())[0] for t in ("t", "td")}
+    out = {"rows": N, "dim": D, "k": K, "queries": 20,
+           "statement": stmt.format(q="[...]", t="td"),
+           "undistributed": {**summary_ms(lat["t"]),
+                             "device_busy_share":
+                                 prof["t"]["device_busy_share"],
+                             "host_syncs": syncs["t"]},
+           "distributed": {**summary_ms(lat["td"]),
+                           "device_busy_share":
+                               prof["td"]["device_busy_share"],
+                           "host_syncs": syncs["td"]},
+           "launches": launches,
+           "check": "ids equal to the undistributed table's and the "
+                    "oracle's, distances rtol 2e-5"}
+    s.tables.clear()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def dist_hits(seed, mesh):
+    """The 100M-row hits table and its distributed twin (sharing its
+    columns): sql_hits' seven statements, Q8, ClickBench's Q16 (17.6M
+    UserID groups: the shuffle GROUP BY) and an ORDER BY ... LIMIT 100
+    (per-shard top-n), each against the undistributed table; then a
+    10M-row INSERT ... SELECT into the distributed table, count() and
+    sum() against the oracle."""
+    import myscaledb_tpu_torch as P
+    from myscaledb_tpu_torch.core.table import Table
+    from myscaledb_tpu_torch.runtime import metrics as M
+    t0 = time.perf_counter()
+    table, _urls = hits_table(seed)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    s = P.connect()
+    s.settings.max_memory_bytes_per_query = 32 << 30
+    s.register("hits", table)
+    s.register("hits_d", Table(list(table.columns.values())))
+    s.distribute("hits_d", mesh)
+    statements = dict(HITS_STATEMENTS)
+    statements["q8"] = Q8_SQL.format(t="hits", sample="")
+    statements["q16_users"] = ("SELECT UserID, count() AS c FROM hits "
+                               "GROUP BY UserID ORDER BY c DESC, UserID "
+                               "LIMIT 10")
+    statements["topn_100"] = ("SELECT UserID, EventTime, URL FROM hits "
+                              "WHERE URL LIKE '%google%' ORDER BY EventTime "
+                              "LIMIT 100")
+    per, totals = {}, {}
+    for name, stmt in statements.items():
+        events = M.events_snapshot()
+        per[name], launches = dist_pair(
+            s, stmt, stmt.replace("FROM hits", "FROM hits_d"),
+            rows_equal(f"hits {name}"))
+        after = M.events_snapshot()
+        per[name]["distributed_events"] = {
+            k: after.get(k, 0) - events.get(k, 0)
+            for k in ("DistributedTopNQueries", "DistributedShuffleGroupBy")}
+        add_counts(totals, launches)
+    if not per["q16_users"]["distributed_events"]["DistributedShuffleGroupBy"]:
+        raise AssertionError("sql_distributed hits q16_users: the shuffle "
+                             "GROUP BY did not run")
+    if not per["topn_100"]["distributed_events"]["DistributedTopNQueries"]:
+        raise AssertionError("sql_distributed hits topn_100: the per-shard "
+                             "top-n did not run")
+    # distributed INSERT of a 10M-row batch
+    width = table["ResolutionWidth"].data
+    want = [(NH + DIST_INSERT_ROWS,
+             int(width.sum(dtype=torch.int64)) +
+             int(width[:DIST_INSERT_ROWS].sum(dtype=torch.int64)))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.sql(f"INSERT INTO hits_d SELECT * FROM hits LIMIT {DIST_INSERT_ROWS}")
+    torch.cuda.synchronize()
+    insert_s = time.perf_counter() - t0
+    got = s.sql("SELECT count(), sum(ResolutionWidth) FROM hits_d").to_rows()
+    if got != want:
+        raise AssertionError(f"sql_distributed hits insert: {got} != {want}")
+    td = s.tables["hits_d"]
+    out = {"rows": NH, "table_gen_s": gen_s, "statements": statements,
+           "per_statement": per, "launches": totals,
+           "insert": {"rows": DIST_INSERT_ROWS, "seconds": insert_s,
+                      "rows_per_s": DIST_INSERT_ROWS / insert_s,
+                      "padded_rows_after": td.n_rows,
+                      "real_rows_after": td.real_rows,
+                      "count_sum": got[0]},
+           "check": "rows equal to the undistributed table's; after the "
+                    "INSERT count() and sum(ResolutionWidth) equal to the "
+                    "columns' own"}
+    s.tables.clear()
+    del table, td, width
+    torch.cuda.empty_cache()
+    return out, totals
+
+
+def dist_joins(seed, mesh):
+    """sql_join's fact (10M) and dim (1M) tables: each statement on the
+    undistributed pair, with the fact table distributed and the dim under
+    the broadcast threshold (broadcast), and with both distributed and the
+    threshold under 1M (shuffle); the results' rows equal (a shuffle's as
+    a multiset: its rows come in received order)."""
+    import myscaledb_tpu_torch as P
+    from myscaledb_tpu_torch.core.table import Table
+    from myscaledb_tpu_torch.runtime.tracing import (clear_span_log,
+                                                     span_log_snapshot)
+    rng = np.random.default_rng(seed + 5)
+    dim_k = ((np.arange(NJ_DIM, dtype=np.int64) * SPREAD) & 0x7FFFFFFF) \
+        .astype(np.int32)
+    u = rng.random(NJ_FACT, dtype=np.float32)
+    fact_k = ((((u * u * np.float32(2 * NJ_DIM)).astype(np.int64) * SPREAD)
+               & 0x7FFFFFFF)).astype(np.int32)
+    s = P.connect()
+    s.settings.max_memory_bytes_per_query = 8 << 30
+    s.create_table("f", {"id": np.arange(NJ_FACT, dtype=np.int64),
+                         "k": fact_k,
+                         "v": rng.integers(-1000, 1000, NJ_FACT,
+                                           dtype=np.int32)})
+    s.create_table("d", {"k": dim_k,
+                         "c": rng.integers(0, 100, NJ_DIM, dtype=np.int32)})
+    for src, dst in (("f", "fd"), ("d", "dd")):
+        s.register(dst, Table(list(s.tables[src].columns.values())))
+        s.distribute(dst, mesh)
+    shuffle_thr = NJ_DIM // 2
+    statements = {
+        "inner_any": "SELECT id, c FROM {f} ANY INNER JOIN {d} "
+                     "ON {f}.k = {d}.k",
+        "inner_all": "SELECT id, c FROM {f} ALL INNER JOIN {d} "
+                     "ON {f}.k = {d}.k",
+        "left": "SELECT id, c FROM {f} LEFT JOIN {d} ON {f}.k = {d}.k",
+        "semi": "SELECT id FROM {f} SEMI LEFT JOIN {d} ON {f}.k = {d}.k",
+        "anti": "SELECT id FROM {f} ANTI LEFT JOIN {d} ON {f}.k = {d}.k",
+        "aggregate": "SELECT count(), sum(v), sum(c) FROM {f} INNER JOIN "
+                     "{d} ON {f}.k = {d}.k"}
+    per, totals = {}, {}
+    for name, stmt in statements.items():
+        local = stmt.format(f="f", d="d")
+        agg = name == "aggregate"
+        for strategy, f, d, extra in (
+                ("broadcast", "fd", "d", ""),
+                ("shuffle", "fd", "dd", " SETTINGS "
+                 f"distributed_broadcast_join_threshold = {shuffle_thr}")):
+            dist = stmt.format(f=f, d=d) + extra
+            check = rows_equal(f"join {name} {strategy}") if agg else \
+                tables_equal(f"join {name} {strategy}")
+            clear_span_log()
+            per[f"{name}_{strategy}"], launches = dist_pair(
+                s, local, dist, check, reps=3, to_rows=agg)
+            spans = {sp.name for sp in span_log_snapshot()}
+            if f"{strategy}_join" not in spans:
+                raise AssertionError(f"sql_distributed join {name}: the "
+                                     f"{strategy} join did not run")
+            add_counts(totals, launches)
+    out = {"fact_rows": NJ_FACT, "dim_rows": NJ_DIM,
+           "broadcast_threshold": s.settings
+           .distributed_broadcast_join_threshold,
+           "shuffle_threshold_set": shuffle_thr, "statements": statements,
+           "per_statement": per, "launches": totals,
+           "check": "rows equal as multisets (sorted by the unique id), "
+                    "NULLs equal; the aggregate's rows equal"}
+    s.tables.clear()
+    torch.cuda.empty_cache()
+    return out, totals
+
+
+def dist_text(seed, mesh):
+    """sql_text's passage table (cut to NT_DIST passages) and its
+    distributed twin: TextSearch OR
+    and AND and under WHERE price < 50 with rows and scores bit-equal to
+    the undistributed table's, HybridSearch RRF bit-equal and RSF with ids
+    equal and scores within its fusion tolerance; the per-shard BM25
+    indexes built apart (timed)."""
+    import myscaledb_tpu_torch as P
+    from myscaledb_tpu_torch.core.table import Column, Table
+    from myscaledb_tpu_torch.core.types import DataType, Field
+    from myscaledb_tpu_torch.text.distributed import _shard_indexes
+    t0 = time.perf_counter()
+    passages, tok_doc, tok_word, wtable, wlen, cdf, g = text_corpus(
+        seed, NT_DIST)
+    del tok_doc, tok_word
+    emb = torch.randn(NT_DIST, DT, generator=g, device="cuda")
+    price = torch.rand(NT_DIST, generator=g, device="cuda") * 100
+    body = Column.from_numpy("body", np.array(passages, dtype=object),
+                             DataType.STRING, device="cuda")
+    del passages
+    cols = [Column.from_numpy("id", np.arange(NT_DIST, dtype=np.int64),
+                              device="cuda"),
+            body, Column(Field("price", DataType.FLOAT32), price),
+            Column(Field("emb", DataType.FLOAT32_VECTOR, vector_dim=DT),
+                   emb)]
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    s = P.connect()
+    s.register("p", Table(cols))
+    s.register("pd", Table(list(cols)))
+    s.distribute("pd", mesh)
+    t0 = time.perf_counter()
+    s.text_index("p", "body")
+    index_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shards = _shard_indexes(s, "pd", s.tables["pd"], "body")
+    shards_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 16)
+    u = torch.as_tensor(rng.random(4 * DIST_TEXT_QUERIES), device="cuda")
+    words = word_strings(wtable, wlen, torch.searchsorted(cdf, u)
+                         .clamp(max=NT_WORDS - 1))
+    texts = [" ".join(words[4 * i:4 * i + 4])
+             for i in range(DIST_TEXT_QUERIES)]
+    qvecs = [vec_sql(v) for v in (emb[torch.as_tensor(
+        rng.integers(0, NT_DIST, DIST_TEXT_QUERIES), device="cuda")] + 0.5)
+        .cpu().numpy()]
+    kinds = {
+        "text_or": ("SELECT id, TextSearch(body, '{w}') AS s FROM {t} "
+                    "ORDER BY s DESC LIMIT 10", rows_equal),
+        "text_and": ("SELECT id, TextSearch('operator=AND')(body, '{w}') "
+                     "AS s FROM {t} ORDER BY s DESC LIMIT 10", rows_equal),
+        "text_where": ("SELECT id, TextSearch(body, '{w}') AS s FROM {t} "
+                       "WHERE price < 50 ORDER BY s DESC LIMIT 10",
+                       rows_equal),
+        "hybrid_rrf": ("SELECT id, HybridSearch('fusion_type=rrf')(emb, "
+                       "body, {v}, '{w}') AS s FROM {t} WHERE price < 50 "
+                       "ORDER BY s DESC LIMIT 10", rows_equal),
+        "hybrid_rsf": ("SELECT id, HybridSearch('fusion_type=rsf')(emb, "
+                       "body, {v}, '{w}') AS s FROM {t} WHERE price < 50 "
+                       "ORDER BY s DESC LIMIT 10", None)}
+    per, totals = {}, {}
+    for name, (stmt, make_check) in kinds.items():
+        lat = {"p": [], "pd": []}
+        rows = {"p": [], "pd": []}
+
+        def run(t):
+            for w, v in zip(texts, qvecs):
+                sql = stmt.format(w=w, v=v, t=t)
+                s.sql(sql).to_rows()                  # warm-up
+                t0 = time.perf_counter()
+                rows[t].append(s.sql(sql).to_rows())
+                lat[t].append((time.perf_counter() - t0) * 1e3)
+        run("p")
+        zero_launches()
+        run("pd")
+        launches = read_launches()
+        bit_equal = rows["pd"] == rows["p"]
+        for got, want in zip(rows["pd"], rows["p"]):
+            if make_check is not None:
+                make_check(f"text {name}")(got, want)
+            else:
+                # RSF normalizes distances the shards' scans sum in other
+                # shapes (ROADMAP section 3)
+                if [r[0] for r in got] != [r[0] for r in want]:
+                    raise AssertionError(f"sql_distributed text {name}: "
+                                         "ids differ")
+                np.testing.assert_allclose(
+                    [r[1] for r in got], [r[1] for r in want],
+                    atol=FUSION_ATOL["RSF"], rtol=0)
+        # each distributed statement (warm-up and timed) scans every shard
+        # once with K2 where it fuses vectors, and TextSearch never
+        want_k2 = 2 * DIST_TEXT_QUERIES * mesh.size \
+            if name.startswith("hybrid") else 0
+        if launches["segmin_f32"] != want_k2:
+            raise AssertionError(f"sql_distributed text {name}: segmin_f32 "
+                                 f"launched {launches['segmin_f32']} times, "
+                                 f"not {want_k2}")
+        add_counts(totals, launches)
+        one = {t: stmt.format(w=texts[0], v=qvecs[0], t=t)
+               for t in ("p", "pd")}
+        per[name] = {"bit_equal": bool(bit_equal), "launches": launches}
+        for tag, t in (("undistributed", "p"), ("distributed", "pd")):
+            prof = profile_statements(s, [one[t]])
+            per[name][tag] = {
+                **summary_ms(lat[t]),
+                "device_busy_share": prof["device_busy_share"],
+                "host_syncs": count_host_syncs(
+                    lambda sql=one[t]: s.sql(sql).to_rows())[0]}
+    out = {"passages": NT_DIST,
+           "reduced": [f"{NT_DIST} of sql_text's {NT} passages: two "
+                       "index builds took 60 s of the phase at 1M; a "
+                       "shard's 75,000 rows still take K2"], "dim": DT, "queries": DIST_TEXT_QUERIES,
+           "table_gen_s": gen_s, "undistributed_index_s": index_s,
+           "shard_indexes_s": shards_s,
+           "shard_docs": [ix.n_docs for ix in shards],
+           "per_statement": per, "launches": totals,
+           "check": "TextSearch and HybridSearch RRF rows and scores "
+                    "bit-equal to the undistributed table's; RSF ids "
+                    f"equal, scores within {FUSION_ATOL['RSF']}"}
+    s.tables.clear()
+    del emb, price, body, cols, shards
+    torch.cuda.empty_cache()
+    return out, totals
+
+
+def phase_sql_distributed(seed: int):
+    """Distribution on the card, 8 logical shards on one device: (a) the
+    dry run of every distributed path at small shapes; (b) BASELINE
+    config 5's fused step (phase_config5); (c) SQL over distributed
+    tables against their undistributed copies in the same run: config 1,
+    the hits table (with a distributed INSERT), sql_join's joins
+    (broadcast and shuffle) and sql_text's text and hybrid search."""
+    from myscaledb_tpu_torch.parallel.dryrun import dryrun_multichip
+    from myscaledb_tpu_torch.parallel.mesh import make_mesh
+    smi = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(DIST_SHARDS)
+    dry["seconds"] = time.perf_counter() - t0
+    config5, counts = phase_config5(seed, smi)
+    # each part's line as it ends; the phase line repeats them all
+    emit({"phase": "sql_distributed.config5", **config5})
+    mesh = make_mesh(DIST_SHARDS)
+    sql, totals = {}, {}
+    for name, fn in (("config1", dist_config1), ("hits", dist_hits),
+                     ("joins", dist_joins), ("text", dist_text)):
+        t0 = time.perf_counter()
+        sql[name], launches = fn(seed, mesh)
+        sql[name]["seconds"] = time.perf_counter() - t0
+        emit({"phase": f"sql_distributed.{name}", **sql[name]})
+        add_counts(totals, launches)
+    emit({"phase": "sql_distributed", "shards": DIST_SHARDS,
+          "mesh": "logical shards on one card (parallel/mesh.py)",
+          "dryrun": dry, "config5": config5, "sql": sql,
+          "sql_launches": totals, "launches": counts,
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4885,6 +5570,7 @@ def main() -> int:
     counts["sql_views"] = phase_sql_views(args.seed)
     counts["sql_formats"] = phase_sql_formats(args.seed)
     counts["sql_server"] = phase_sql_server(args.seed)
+    counts["sql_distributed"] = phase_sql_distributed(args.seed)
     phase_goldens_stateless()
 
     summary = []

@@ -3,8 +3,11 @@
 Same module layout as the JAX package; columns are torch tensors on the
 session's device (the CUDA card by default), and the TPU kernels on the
 ported paths are CUDA kernels written for Hopper (``csrc/``).  This package
-never imports jax or myscaledb_tpu.  What is not ported yet raises
-``NotPortedError`` (ROADMAP.md, queue 1).
+never imports jax or myscaledb_tpu.  It runs everything the JAX package
+runs on one device, distribution included (``parallel/``: a table's rows
+split over a mesh of logical shards); ``NotPortedError`` remains for a
+mesh over several cards and for one statement kept out on purpose
+(ROADMAP.md, section 3).
 """
 
 from myscaledb_tpu_torch.core.types import DataType

@@ -10,8 +10,8 @@
 // (runtime/formats.py): the JAX library's typed column parsers, an exact
 // Float64 parser, date parsers, a CSV splitter with Python's csv.reader
 // semantics, JSONEachRow and RowBinary scanners and the writers' row
-// assembler.  The JAX library's partition hashing comes with the
-// distribution slice.
+// assembler.  The JAX library's partition hashing has no caller there (a
+// distributed INSERT hashes its shard key on the device) and is left out.
 //
 // Build: at first use, ops/kernels/build.py::host_library() runs
 // c++ -O3 -fPIC -std=c++17 -shared on this file into

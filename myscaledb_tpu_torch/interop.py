@@ -11,7 +11,9 @@ package's derived state, after ``np.asarray``, into this package's:
 ``merge_count.prepare_build``, and ``binary_sidecar_from_numpy`` the
 segment-major words of ``pack_binary_segs``, and
 ``bm25_index_from_jax_state`` a ``BM25Index``'s vocabulary, postings and
-statistics — so both packages can run on one state.
+statistics, and ``distributed_table_from_numpy`` a distributed table's
+padded columns (with ``__row_valid__``) and shard count — so both packages
+can run on one state.
 """
 
 from __future__ import annotations
@@ -137,3 +139,28 @@ def bm25_index_from_jax_state(vocab: dict, post_docs, post_tfs, df, doc_len,
     return BM25Index.from_state(vocab, starts, docs, tfs,
                                 np.asarray(doc_len, np.float32), avg_len,
                                 stat_docs, total_tokens, device=device)
+
+
+def distributed_table_from_numpy(columns: dict, n_shards: int, device,
+                                 dtypes=None, name: str = "") -> Table:
+    """A JAX distributed table's state — its padded columns as {name: numpy
+    array or list} with the ``__row_valid__`` mask among them, and its
+    mesh's shard count (``mesh.shape[axis]``) — as this package's
+    distributed Table over ``make_mesh(n_shards)`` on ``device``, with
+    the same row layout (shard p's rows at [p * n_loc, (p + 1) *
+    n_loc))."""
+    from myscaledb_tpu_torch.parallel.dist_table import ROW_VALID, _set_mesh
+    from myscaledb_tpu_torch.parallel.mesh import make_mesh
+    if ROW_VALID not in columns:
+        raise ValueError(f"a distributed table's columns hold {ROW_VALID}")
+    rv = np.asarray(columns[ROW_VALID], dtype=bool)
+    if len(rv) % n_shards:
+        raise ValueError(f"{len(rv)} rows do not split over {n_shards} "
+                         "shards")
+    dtypes = dict(dtypes or {})
+    dtypes[ROW_VALID] = DataType.BOOL
+    t = Table.from_dict({k: (rv if k == ROW_VALID else v)
+                         for k, v in columns.items()}, name=name,
+                        dtypes=dtypes, device=device)
+    return _set_mesh(t, make_mesh(n_shards, device=device), "shard",
+                     int(rv.sum()))

@@ -8,7 +8,9 @@ parts and the file formats' column work (typed text parsers, the CSV
 splitter, the JSONEachRow and RowBinary scanners and the row assembler of
 the writers, runtime/formats.py) run in C++.  ``load()`` builds the
 library or raises: there is no Python fallback.  The JAX module's
-partition hashing comes with the distribution slice.
+partition hashing (``msdb_partition32``) has no caller there: a
+distributed INSERT hashes its shard key on the device, in both packages
+(parallel/dist_table.py).
 """
 
 from __future__ import annotations

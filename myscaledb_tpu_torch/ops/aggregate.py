@@ -158,6 +158,25 @@ def partial_aggregate_matmul(gid, mask, args, fns: tuple, num_groups: int,
     return tuple(states), gc
 
 
+def kept_rows_only(mask, gid, m, G: int, args: list, valids: list,
+                   min_rows: int):
+    """(gid, mask, args, validities) for a grouped aggregation's
+    partials: over the rows a WHERE keeps, gathered first when it keeps
+    under half of at least ``min_rows`` rows (a count and the gather: two
+    host syncs), so no dropped row passes through K3, the matmul histogram
+    or a scatter's spare slot, whichever route the aggregation takes; else
+    as they are.  Rows keep their order."""
+    n = gid.shape[0]
+    if mask is None or G <= 1 or n < min_rows:
+        return gid, m, args, valids
+    if int(m.sum()) >= n // 2:
+        return gid, m, args, valids
+    rows = torch.nonzero(m).flatten()
+    return (gid[rows], torch.ones_like(rows, dtype=torch.bool),
+            [None if a is None else a[rows] for a in args],
+            [None if v is None else v[rows] for v in valids])
+
+
 def partial_aggregate(gid, mask, args, fns: tuple, num_groups: int,
                       arg_valids=None):
     """One partial aggregation by scatter reductions.

@@ -28,6 +28,9 @@ def backup_session(session, path: str, tables=None) -> dict:
     manifest = {"tables": [], "vector_indices": indices}
     for name in names:
         t = session.tables[name]
+        if getattr(t, "mesh", None) is not None:
+            raise ValueError(f"cannot back up distributed table {name!r}; "
+                             "back up before distribute()")
         store = TableStore(os.path.join(path, name), device=session.device)
         store.insert(t)
         ts = session.table_settings.get(name)

@@ -118,16 +118,17 @@ def build_system_table(session, name: str) -> Table:
             "granularity": np.asarray(grans, dtype=np.int64)}, device=dev)
 
     if name == "system.tables":
-        names, rows, ncols = [], [], []
+        names, rows, ncols, dist = [], [], [], []
         for tname, t in session.tables.items():
             names.append(tname)
-            rows.append(t.n_rows)
+            rows.append(getattr(t, "real_rows", t.n_rows))
             ncols.append(len(t.column_names))
+            dist.append(1 if getattr(t, "mesh", None) is not None else 0)
         return Table.from_dict({
             "database": ["default"] * len(names), "name": names,
             "total_rows": np.asarray(rows, dtype=np.int64),
             "total_columns": np.asarray(ncols, dtype=np.int64),
-            "is_distributed": np.zeros(len(names), dtype=np.uint8)},
+            "is_distributed": np.asarray(dist, dtype=np.uint8)},
             device=dev)
 
     if name == "system.views":

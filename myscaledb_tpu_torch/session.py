@@ -12,7 +12,8 @@ skip-index definitions, Join/Set engine keys and aggregate projections;
 views, materialized views and dictionaries.  ``get_table`` runs a view's
 SELECT where the view is read and refreshes a File/URL/S3/FileLog table
 from its source; ``system.*`` names resolve through
-runtime/system_tables.py.  ``import_file`` / ``export_file`` move rows
+runtime/system_tables.py.  ``distribute`` splits a table's rows over a
+mesh of shards (parallel/).  ``import_file`` / ``export_file`` move rows
 through the file formats (runtime/formats.py), ``backup`` / ``restore``
 through on-disk parts (runtime/backup.py).
 
@@ -129,6 +130,22 @@ class Session:
             t.name = name
             return t
         raise KeyError(f"unknown table {name!r}")
+
+    def distribute(self, name: str, mesh=None) -> Table:
+        """Convert a registered table to a row-split distributed table over
+        a mesh (the StorageDistributed analog): ``mesh`` from
+        ``parallel.mesh.make_mesh``; None means one shard per visible
+        device of the session's kind (one on the session's own device when
+        it is not a CUDA card)."""
+        from myscaledb_tpu_torch.parallel.mesh import make_mesh
+        from myscaledb_tpu_torch.parallel.dist_table import distribute_table
+        if mesh is None:
+            mesh = make_mesh(device=None if self.device.type == "cuda"
+                             else self.device)
+        t = distribute_table(self.tables[name], mesh)
+        self.tables[name] = t
+        self.bump_epoch()
+        return t
 
     def drop_table(self, name: str) -> None:
         """Forget a table with its settings, parts, constraints, order and

@@ -1627,12 +1627,29 @@ def insert_block(session, name: str, new: Table) -> int:
     logical part, the background merge, the materialized views once over
     the block, and a File-engine table's file written through.  Returns
     the rows inserted."""
+    from myscaledb_tpu_torch.parallel.dist_table import (ROW_VALID,
+                                                         insert_distributed,
+                                                         is_distributed)
     dev = session.device
     existing = session.tables[name]
     pkeys = session._table_partition_keys.get(name) or []
     if pkeys and all(k in new for k in pkeys) and new.n_rows > 1:
         new = _cluster_by_partition(new, pkeys)
-    if existing.n_rows == 0 and set(new.column_names) == \
+    dist = is_distributed(existing)
+    if dist:
+        # distributed INSERT: the new rows route to shards by the first
+        # ORDER BY key (the sharding key's analog) and each shard's rows
+        # grow in place (DistributedSink); absent columns take defaults
+        names = [n for n in existing.column_names if n != ROW_VALID]
+        missing = [n for n in names if n not in new.column_names]
+        if missing and new.n_rows:
+            new = Table(list(new.columns.values()) +
+                        [_default_column(existing[n], new.n_rows, dev)
+                         for n in missing])
+        okeys = session._table_order_keys.get(name) or []
+        merged = insert_distributed(existing, new.select(names),
+                                    shard_key=okeys[0] if okeys else None)
+    elif existing.n_rows == 0 and set(new.column_names) == \
             set(existing.column_names):
         # first insert fixes unknown vector dims
         merged = new.select(existing.column_names)
@@ -1648,7 +1665,7 @@ def insert_block(session, name: str, new: Table) -> int:
         merged = concat_tables([existing, new.select(
             existing.column_names)])
     merged.name = name
-    if pkeys:
+    if pkeys and not dist:
         _rebuild_zone_maps(merged)
     session.tables[name] = merged
     # logical part accounting for system.parts (one part per INSERT batch
@@ -2233,6 +2250,9 @@ def execute_statement(session, stmt) -> Table:
         if stmt.table not in session.tables:
             raise ValueError(f"unknown table {stmt.table!r}")
         existing = session.tables[stmt.table]
+        # a distributed table's hidden row mask takes no values
+        existing = existing.select([n for n in existing.column_names
+                                    if n != "__row_valid__"])
         if stmt.select_sql is not None:
             new = _insert_select(session, stmt, existing)
         elif stmt.format_name is not None and \

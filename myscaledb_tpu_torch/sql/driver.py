@@ -142,8 +142,9 @@ def _estimate(session, q) -> Table:
             continue
         t = session.get_table(s.table)
         names.append(s.table)
-        rows.append(t.n_rows)
-        blocks.append(-(-t.n_rows // BLOCK_ROWS))
+        nrows = getattr(t, "real_rows", t.n_rows)
+        rows.append(nrows)
+        blocks.append(-(-nrows // BLOCK_ROWS))
         conj = _split_conjuncts(s.prewhere) + _split_conjuncts(s.where)
         bm = _zonemap_block_mask(t, conj, session) if conj else None
         pruned.append(0 if bm is None else int((~bm).sum()))

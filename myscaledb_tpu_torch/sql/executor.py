@@ -48,9 +48,20 @@ column (``_set_op_keep``).  The file(), url() and s3() table functions
 read an external source through runtime/formats.py, behind
 ``check_external_source`` (the FILE/URL grants and ``user_files_path``);
 SAMPLE keeps the rows whose row-id hash falls under the fraction, hashed
-and compacted on the device (``sample_mask``).  No table of the port is
-distributed, so the JAX package's distributed joins have no counterpart
-here yet.
+and compacted on the device (``sample_mask``).
+A distributed table (parallel/dist_table.py: rows padded to a multiple of
+its mesh, a hidden ``__row_valid__`` mask) takes the shard bodies of
+parallel/: the row mask folds into the WHERE mask; a fused vector top-k
+runs ``sharded_distance_topk``; TextSearch and HybridSearch score each
+shard under global BM25 statistics (text/distributed.py); GROUP BY merges
+per-shard partials (``sharded_group_aggregate``) or, above
+``distributed_group_by_shuffle_threshold`` groups, shuffles rows by group
+(``sharded_shuffle_group_states``); ORDER BY ... LIMIT cuts per-shard
+top-n candidates (``_distributed_topn_ids``); a join probes per shard
+against a broadcast build side (``_distributed_join``) or shuffles both
+sides (``_distributed_shuffle_join``).  Zone-map pruning, the LIMIT
+pushdown and the spill route are skipped, and SAMPLE is refused, as in the
+JAX package.
 ``TextSearch`` (BM25, text/bm25.py) and ``HybridSearch`` (RSF/RRF over a
 vector and a text candidate list, text/fusion.py) fuse with ORDER BY
 <score> DESC LIMIT k; TextSearch outside that is a score column.  Their
@@ -108,7 +119,7 @@ from myscaledb_tpu_torch.ops.binary_vector import (BINARY_METRICS,
                                                    to_segs_layout,
                                                    words_tensor)
 from myscaledb_tpu_torch.ops.aggregate import (partial_aggregate_matmul,
-                                               finalize,
+                                               finalize, kept_rows_only,
                                                streaming_group_aggregate)
 from myscaledb_tpu_torch.ops.vector import (distance_scan, rowwise_distance,
                                             distance_scan_streaming,
@@ -121,6 +132,10 @@ from myscaledb_tpu_torch.ops.sort import (SortKey, encode_sort_key,
                                           topn_permutation)
 from myscaledb_tpu_torch.ops.window import WindowLayout
 from myscaledb_tpu_torch.ops.filter import compact_table_host
+from myscaledb_tpu_torch.parallel.dist_table import ROW_VALID, is_distributed
+from myscaledb_tpu_torch.parallel.ops import (sharded_distance_topk,
+                                              sharded_group_aggregate,
+                                              sharded_topn, sqnorm_rows)
 from myscaledb_tpu_torch.runtime import metrics as M
 from myscaledb_tpu_torch.runtime.tracing import span
 
@@ -450,8 +465,12 @@ def _get_text_index(session, table_name: str, table: Table, col: str):
     move the epoch, so the next query reads the new rows (the JAX package
     keys its cache by the row count and serves the old index)."""
     from myscaledb_tpu_torch.text.bm25 import BM25Index
+    # a distributed table's padding rows stay out of the statistics
+    rv = table[ROW_VALID].data \
+        if is_distributed(table) and ROW_VALID in table else None
     return _derived(session, "bm25", table_name, table, col,
-                    lambda c: BM25Index.from_column(c, session.device))
+                    lambda c: BM25Index.from_column(c, session.device,
+                                                    doc_valid=rv))
 
 
 def _ftsindex_table(session, table_name: str, col: str, query: str) -> Table:
@@ -498,18 +517,37 @@ def _text_search_topk(session, q: SelectQuery, table: Table, ts: TSInfo,
     candidate lists on the host (text/fusion.py)."""
     from myscaledb_tpu_torch.text.fusion import (relative_score_fusion,
                                                  reciprocal_rank_fusion)
+    from myscaledb_tpu_torch.text.distributed import sharded_text_search
     dev = session.device
-    idx = _get_text_index(session, q.table, table, ts.text_col)
+    # a distributed table scores per shard under global statistics: no
+    # whole-table index over its rows
+    dist = is_distributed(table)
+    idx = None if dist else _get_text_index(session, q.table, table,
+                                            ts.text_col)
+
+    def text_topk(k):
+        if dist:
+            return sharded_text_search(session, q.table, table, ts.text_col,
+                                       ts.query, k, mask=mask,
+                                       operator=ts.operator)
+        return idx.search(ts.query, k, mask=mask, operator=ts.operator)
+
     if ts.kind == "text":
-        with span("text_search", k=ts.k, rows=table.n_rows):
-            scores, ids = idx.search(ts.query, ts.k, mask=mask,
-                                     operator=ts.operator)
+        with span("text_search", k=ts.k, rows=table.n_rows,
+                  distributed=dist):
+            scores, ids = text_topk(ts.k)
         return scores[None, :], ids[None, :]
     ncand = ts.k * settings.hybrid_search_top_k_multiple_base
-    with span("hybrid_search", k=ts.k, rows=table.n_rows):
+    with span("hybrid_search", k=ts.k, rows=table.n_rows, distributed=dist):
         vcol = table[ts.vec_col]
         qv = torch.as_tensor(ts.qvec, device=dev)
-        if vcol.is_host:
+        if dist:
+            sqn = _derived(session, "sqnorm", q.table, table, ts.vec_col,
+                           lambda c: sqnorm_rows(c.data))
+            vd, vids = sharded_distance_topk(
+                table.mesh, vcol.data, qv, ts.metric, ncand, mask=mask,
+                block_rows=settings.vector_scan_block_rows, x_sqnorm=sqn)
+        elif vcol.is_host:
             vd, vids = distance_scan_streaming(
                 vcol.data, qv, metric=ts.metric, k=ncand,
                 mask=None if mask is None else mask.cpu().numpy())
@@ -521,8 +559,7 @@ def _text_search_topk(session, q: SelectQuery, table: Table, ts: TSInfo,
             vd, vids = distance_scan(
                 vcol.data, qv, metric=ts.metric, k=ncand, mask=mask,
                 block_rows=settings.vector_scan_block_rows, x_sqnorm=sqn)
-        tscores, tids = idx.search(ts.query, ncand, mask=mask,
-                                   operator=ts.operator)
+        tscores, tids = text_topk(ncand)
         vids_np = vids[0].cpu().numpy()
         vd_np = vd[0].cpu().numpy()
         tids_np = tids.cpu().numpy()
@@ -1075,6 +1112,55 @@ def _skipindex_block_mask(table: Table, conjuncts, session) -> \
     return possible
 
 
+def _distributed_topn_ids(q, table, env, mask, alias_exprs, device):
+    """ORDER BY ... LIMIT over a distributed table: per-shard top-n and the
+    merge cut (``sharded_topn``; the reference's remote stage
+    WithMergeableStateAfterAggregationAndLimit) instead of sorting every
+    row.  Returns the candidate global row ids (limit + offset of them;
+    rows failing ``mask`` sort last and the caller drops any in the cut),
+    or None where the pattern does not apply."""
+    if not q.order_by or q.limit is None or q.limit_by is not None \
+            or q.distinct or q.group_by or q.having is not None:
+        return None
+    if any(o.fill is not None for o in q.order_by):
+        return None
+    k = q.limit + q.offset
+    if k <= 0 or k >= getattr(table, "real_rows", table.n_rows):
+        return None
+    for it in list(q.items) + [SelectItem(o.expr) for o in q.order_by]:
+        for node in walk(it.expr):
+            if isinstance(node, WindowCall):
+                return None   # window frames need the full row set
+    n = table.n_rows
+    sks = []
+    if mask is not None:
+        # rows failing WHERE (and the mesh padding) sort behind every row
+        sks.append(SortKey((~mask.bool()).to(torch.int32), ascending=True))
+    try:
+        for o in q.order_by:
+            oe = _expand_item_aliases(o.expr, alias_exprs, table)
+            v = eval_expr(oe, env)
+            nl = o.nulls_last if o.nulls_last is not None else o.ascending
+            sks.append(_key_on_device(
+                _sort_key_from_value(v, o.ascending, nl, n, device), device))
+    except (EvalError, ExecError):
+        return None
+    with span("distributed_topn", rows=n, k=int(k)):
+        gids = sharded_topn(table.mesh, sks, int(k))
+    M.increment("DistributedTopNQueries")
+    return gids
+
+
+def _compact_distributed(table: Table) -> Table:
+    """A distributed table's real rows as a plain table (joins on the
+    host's row pairs never see the padding)."""
+    if is_distributed(table) and ROW_VALID in table:
+        keep = torch.nonzero(table[ROW_VALID].data).flatten()
+        table = Table([c for c in table.columns.values()
+                       if c.name != ROW_VALID], name=table.name).take(keep)
+    return table
+
+
 def _expand_order_tuples(order_by):
     """ORDER BY (a, b) — tuple syntax — expands to ORDER BY a, b."""
     out = []
@@ -1101,6 +1187,14 @@ def apply_join(session, left: Table, jc, alias_prefixes: dict,
             raise ExecError(f"unknown join table {jc.table!r}")
     ralias = jc.alias or jc.table or "_subquery"
     dev = session.device
+    st = settings if settings is not None else session.settings
+    if is_distributed(left):
+        out = _distributed_join(session, left, right, jc, ralias,
+                                alias_prefixes, st)
+        if out is not None:
+            return out
+    left = _compact_distributed(left)
+    right = _compact_distributed(right)
 
     # extract equality key pairs (+ for ASOF exactly one inequality)
     pairs = []
@@ -1166,7 +1260,6 @@ def apply_join(session, left: Table, jc, alias_prefixes: dict,
 
     M.increment(M.JOIN_PROBE_ROWS, left.n_rows)
     how, strict = jc.how, jc.strictness
-    st = settings if settings is not None else session.settings
     use_grace = st.join_algorithm == "grace_hash" or (
         st.join_algorithm == "auto" and
         right.n_rows > st.max_rows_in_hash_join_build)
@@ -1225,6 +1318,201 @@ def apply_join(session, left: Table, jc, alias_prefixes: dict,
 
     return _gather_join_output(left, right, left_rows, right_rows, right_has,
                                jc, ralias, alias_prefixes, strict, dev)
+
+
+def _join_pairs(jc, left: Table, right: Table, ralias: str):
+    """The (left Ident, right Ident) equality pairs of a join the
+    distributed paths take, or None (an inequality, an expression)."""
+    if jc.using:
+        return [(Ident(c), Ident(c)) for c in jc.using]
+    pairs = []
+    for term in _split_conjuncts(jc.condition):
+        if not (isinstance(term, BinOp) and term.op == "="):
+            return None
+        l, r = term.left, term.right
+        if not (isinstance(l, Ident) and isinstance(r, Ident)):
+            return None
+
+        def is_right(e):
+            return e.table == ralias or (e.table is None and
+                                         e.name in right and
+                                         e.name not in left)
+        if is_right(l) and not is_right(r):
+            l, r = r, l
+        elif not (is_right(r) and not is_right(l)):
+            return None
+        pairs.append((l, r))
+    return pairs or None
+
+
+def _distributed_join(session, left: Table, right: Table, jc, ralias: str,
+                      alias_prefixes: dict, st) -> Optional[Table]:
+    """A join whose left side is distributed, with no gather of that side
+    (StorageDistributed's GLOBAL join; the strategy is
+    ``plan.choose_join_strategy``'s, which EXPLAIN prints):
+
+      * a build side under the broadcast threshold: the build table is
+        replicated and every shard probes its own rows; the output stays
+        distributed, its row mask narrowed to the kept rows;
+      * both sides distributed and large: the shuffle join
+        (``_distributed_shuffle_join``).
+
+    Returns None for what neither covers (ASOF, CROSS, RIGHT/FULL, an ALL
+    join over duplicate build keys under broadcast, an empty or ragged
+    build side): the caller joins the compacted tables on the host."""
+    how, strict = jc.how, jc.strictness
+    if strict == "ASOF" or how == "CROSS" or \
+            (jc.condition is None and not jc.using):
+        return None
+    if how not in ("INNER", "LEFT") or strict not in ("ANY", "ALL", "SEMI",
+                                                      "ANTI"):
+        return None
+    pairs = _join_pairs(jc, left, right, ralias)
+    if pairs is None:
+        return None
+    from myscaledb_tpu_torch.sql.plan import choose_join_strategy
+    from myscaledb_tpu_torch.ops.join import (build_join_table,
+                                              probe_join_table,
+                                              try_build_direct, probe_direct)
+    from myscaledb_tpu_torch.parallel.mesh import all_gather, row_slices
+    strategy = choose_join_strategy(left, right, st, how, strict)
+    if strategy == "shuffle":
+        return _distributed_shuffle_join(session, left, right, jc, ralias,
+                                         alias_prefixes, pairs)
+    if strategy != "broadcast":
+        return None
+    right = _compact_distributed(right)
+    if right.n_rows == 0 or \
+            any(c.offsets is not None for c in right.columns.values()):
+        return None
+    dev = session.device
+    lenv, renv = Env(left, device=dev), Env(right, device=dev)
+    lkeys, rkeys = [], []
+    try:
+        for le, re_ in pairs:
+            lk, rk = _join_key_arrays(eval_expr(Ident(le.name), lenv),
+                                      eval_expr(Ident(re_.name), renv))
+            lkeys.append(lk)
+            rkeys.append(rk)
+    except (EvalError, ExecError):
+        return None
+    if strict == "ALL":
+        # one match per probe row: only while the build keys are unique
+        rk_all = torch.stack([k.to(torch.int64) for k in rkeys])
+        if torch.unique(rk_all, dim=1).shape[1] != rk_all.shape[1]:
+            return None
+    direct = try_build_direct(tuple(rkeys))
+    if direct is not None:
+        def probe(pk):
+            return probe_direct(direct, pk)
+    else:
+        ht = build_join_table(tuple(rkeys))
+
+        def probe(pk):
+            return probe_join_table(ht, pk)
+    mesh = left.mesh
+    M.increment(M.JOIN_PROBE_ROWS, getattr(left, "real_rows", left.n_rows))
+    with span("broadcast_join", how=how, strictness=strict,
+              probe_rows=left.n_rows, build_rows=right.n_rows):
+        lk_sl = [row_slices(mesh, k) for k in lkeys]
+        res = [probe(tuple(k[p] for k in lk_sl)) for p in range(mesh.size)]
+        build_row = all_gather([r.build_row for r in res], tiled=True)
+        found = all_gather([r.found for r in res], tiled=True)
+    rv_old = left[ROW_VALID].data if ROW_VALID in left else \
+        torch.ones(left.n_rows, dtype=torch.bool, device=dev)
+    if strict == "ANTI":
+        new_rv = rv_old & ~found
+    elif how == "LEFT" and strict != "SEMI":
+        new_rv = rv_old
+    else:   # INNER, SEMI (the JAX package keeps a LEFT SEMI join's misses)
+        new_rv = rv_old & found
+    cols = [c for c in left.columns.values() if c.name != ROW_VALID]
+    lnames = {c.name for c in cols}
+    using_names = set(jc.using or [])
+    safe_row = torch.where(found, build_row, 0).long()
+    right_ok = found & (strict != "ANTI")
+    for c in right.columns.values():
+        if c.name in using_names:
+            continue
+        out_name = c.name if c.name not in lnames else f"{ralias}.{c.name}"
+        data = c.data if not c.is_host else to_tensor(c.data, dev)
+        valid = right_ok
+        if c.valid is not None:
+            cv = c.valid if not c.is_host else to_tensor(c.valid, dev)
+            valid = valid & cv.bool()[safe_row]
+        cols.append(Column(Field(out_name, c.dtype, True,
+                                 c.field.vector_dim),
+                           data.index_select(0, safe_row), valid,
+                           c.dictionary))
+    cols.append(Column(Field(ROW_VALID, DataType.BOOL), new_rv))
+    out = Table(cols, name=left.name)
+    out.mesh = mesh
+    out.mesh_axis = left.mesh_axis
+    out.real_rows = int(new_rv.sum())
+    out.join_strategy = "broadcast"
+    alias_prefixes[ralias] = ""
+    return out
+
+
+def _distributed_shuffle_join(session, left: Table, right: Table, jc,
+                              ralias: str, alias_prefixes: dict,
+                              pairs) -> Optional[Table]:
+    """Big-big distributed join: both sides hash-repartitioned so equal
+    keys colocate, joined per shard, and only the matched global row pairs
+    gathered (the reference's shuffle join).  One integer key pair only;
+    else None."""
+    from myscaledb_tpu_torch.parallel.shuffle import \
+        sharded_shuffle_join_pairs
+    how, strict = jc.how, jc.strictness
+    if len(pairs) != 1:
+        return None
+    dev = session.device
+    try:
+        lk, rk = _join_key_arrays(
+            eval_expr(Ident(pairs[0][0].name), Env(left, device=dev)),
+            eval_expr(Ident(pairs[0][1].name), Env(right, device=dev)))
+    except (EvalError, ExecError):
+        return None
+    if lk.is_floating_point() or lk.dtype == torch.bool:
+        return None
+    lvalid = left[ROW_VALID].data if ROW_VALID in left else None
+    rvalid = right[ROW_VALID].data if ROW_VALID in right else None
+    M.increment(M.JOIN_PROBE_ROWS, getattr(left, "real_rows", left.n_rows))
+    with span("shuffle_join", how=how, strictness=strict,
+              probe_rows=left.n_rows, build_rows=right.n_rows):
+        pl_, pr_ = sharded_shuffle_join_pairs(
+            left.mesh, lk, rk,
+            how="ANY" if strict in ("ANY", "SEMI", "ANTI") else "ALL",
+            left_valid=lvalid, right_valid=rvalid)
+    lstrip = Table([c for c in left.columns.values() if c.name != ROW_VALID],
+                   name=left.name)
+    rstrip = Table([c for c in right.columns.values()
+                    if c.name != ROW_VALID], name=right.name)
+    if strict == "ANTI" or (how == "LEFT" and strict != "SEMI"):
+        lv_np = lvalid.cpu().numpy() if lvalid is not None else \
+            np.ones(left.n_rows, dtype=bool)
+        matched = np.zeros(left.n_rows, dtype=bool)
+        matched[pl_] = True
+        if strict == "ANTI":
+            left_rows = np.flatnonzero(lv_np & ~matched)
+            right_rows = np.zeros(len(left_rows), dtype=np.int64)
+            right_has = np.zeros(len(left_rows), dtype=bool)
+        else:   # LEFT (ANY or ALL)
+            extra = np.flatnonzero(lv_np & ~matched)
+            left_rows = np.concatenate([pl_.astype(np.int64), extra])
+            right_rows = np.concatenate(
+                [pr_.astype(np.int64), np.zeros(len(extra), dtype=np.int64)])
+            right_has = np.concatenate([np.ones(len(pl_), dtype=bool),
+                                        np.zeros(len(extra), dtype=bool)])
+    else:   # INNER / SEMI
+        left_rows = pl_.astype(np.int64)
+        right_rows = pr_.astype(np.int64)
+        right_has = np.ones(len(left_rows), dtype=bool)
+    out = _gather_join_output(lstrip, rstrip, left_rows, right_rows,
+                              right_has, jc, ralias, alias_prefixes, strict,
+                              dev)
+    out.join_strategy = "shuffle"
+    return out
 
 
 def _gather_side(c: Column, name: str, rows: np.ndarray, has, device):
@@ -1516,7 +1804,7 @@ def _maybe_streaming_aggregate(env: Env, q: SelectQuery, mask, session,
     to the resident path."""
     table = env.table
     dev = env.device
-    if table.n_rows == 0:
+    if is_distributed(table) or table.n_rows == 0:
         return None
     MERGEABLE = {"sum", "count", "avg", "min", "max", "any"}
 
@@ -1752,15 +2040,35 @@ def run_aggregate(env: Env, q: SelectQuery, mask, session,
         arg_valids.append(valid)
         arg_ranges.append(None)
         logical.append(None)
-    # the route is chosen for all n rows: gathering the kept ones sends no
-    # statement from the scatter to the one-hot matmul
-    agg_gid, agg_m, args, arg_valids = _kept_rows_only(
-        mask, gid, m, G, args, arg_valids)
-    states, gc = partial_aggregate_matmul(agg_gid, agg_m, tuple(args),
-                                          tuple(fns), G, tuple(arg_valids),
-                                          tuple(arg_ranges), tuple(logical),
-                                          route_rows=n)
-    del agg_gid, agg_m
+    if is_distributed(table):
+        if key_vals and \
+                G > session.settings.distributed_group_by_shuffle_threshold:
+            # high cardinality: one all_to_all of the rows beats G-wide
+            # partial states from every shard (the reference's two-level
+            # shuffle merge)
+            from myscaledb_tpu_torch.parallel.shuffle import \
+                sharded_shuffle_group_states
+            M.increment("DistributedShuffleGroupBy")
+            states, gc = sharded_shuffle_group_states(
+                table.mesh, gid, m, tuple(args), tuple(fns), G,
+                arg_valids=tuple(arg_valids))
+        else:
+            # each shard's kept rows gathered first, the route chosen for
+            # the statement's rows, as the undistributed path does
+            states, gc = sharded_group_aggregate(
+                table.mesh, gid, m, tuple(args), tuple(fns), G,
+                tuple(arg_valids), tuple(arg_ranges), tuple(logical),
+                route_rows=n, compact_min_rows=COMPACT_MIN_ROWS)
+    else:
+        # the route is chosen for all n rows: gathering the kept ones
+        # sends no statement from the scatter to the one-hot matmul
+        agg_gid, agg_m, agg_args, agg_valids = _kept_rows_only(
+            mask, gid, m, G, args, arg_valids)
+        states, gc = partial_aggregate_matmul(
+            agg_gid, agg_m, tuple(agg_args), tuple(fns), G,
+            tuple(agg_valids), tuple(arg_ranges), tuple(logical),
+            route_rows=n)
+        del agg_gid, agg_m, agg_args, agg_valids
     outs = finalize(states, gc, tuple(fns), tuple(logical))
     gc_np = gc.cpu().numpy()
     present = np.flatnonzero(gc_np > 0)
@@ -1825,22 +2133,11 @@ def run_aggregate(env: Env, q: SelectQuery, mask, session,
 COMPACT_MIN_ROWS = 1 << 16
 
 
+
+
 def _kept_rows_only(mask, gid, m, G: int, args: list, valids: list):
-    """(gid, mask, args, validities) for a grouped aggregation's
-    partials: over the rows a WHERE keeps, gathered first when it keeps
-    under half of many rows (a count and the gather: two host syncs), so
-    no dropped row passes through K3, the matmul histogram or a scatter's
-    spare slot, whichever route the aggregation takes; else as they are.
-    Rows keep their order."""
-    n = gid.shape[0]
-    if mask is None or G <= 1 or n < COMPACT_MIN_ROWS:
-        return gid, m, args, valids
-    if int(m.sum()) >= n // 2:
-        return gid, m, args, valids
-    rows = torch.nonzero(m).flatten()
-    return (gid[rows], torch.ones_like(rows, dtype=torch.bool),
-            [None if a is None else a[rows] for a in args],
-            [None if v is None else v[rows] for v in valids])
+    """``ops.aggregate.kept_rows_only`` from COMPACT_MIN_ROWS rows."""
+    return kept_rows_only(mask, gid, m, G, args, valids, COMPACT_MIN_ROWS)
 
 
 _TWO_ARG_AGGS = {"argmin", "argmax", "covarpop", "covarsamp", "corr"}
@@ -2127,6 +2424,7 @@ def apply_array_join(session, table: Table, items: list,
     Without any, an inner ARRAY JOIN makes no row ids: its element column
     is the array's flat tensor as it is."""
     dev = session.device
+    table = _compact_distributed(table)
     env = _session_env(session, table)
     n = table.n_rows
     is_left = any(left for _, _, left in items)
@@ -2574,9 +2872,12 @@ def execute_select(session, q: SelectQuery) -> Table:
         base = Table([Column.from_numpy("dummy", np.zeros(1, dtype=np.int64),
                                         build_zonemap=False, device=dev)])
     if q.sample is not None and base.n_rows:
+        if is_distributed(base):
+            raise ExecError("SAMPLE over distributed tables not supported")
         base, _ = compact_table_host(base, sample_mask(base.n_rows,
                                                        q.sample, dev))
-    if q.limit is not None and base.n_rows and _limit_prunable(q):
+    if q.limit is not None and base.n_rows and not is_distributed(base) \
+            and _limit_prunable(q):
         # LIMIT pushdown into the scan: only limit+offset base rows are
         # evaluated when no clause looks past them
         keep = min(base.n_rows, q.limit + (q.offset or 0))
@@ -2645,7 +2946,7 @@ def execute_select(session, q: SelectQuery) -> Table:
     # number of K1's 128-row segments, its rows, distances and ties are
     # those of a scan over the kept blocks alone
     block_sel = None
-    if pre_terms and ts is None:
+    if pre_terms and ts is None and not is_distributed(table):
         bmask = _zonemap_block_mask(
             table, [_expand_item_aliases(c, alias_exprs, table)
                     for c in pre_terms], session)
@@ -2682,6 +2983,10 @@ def execute_select(session, q: SelectQuery) -> Table:
         mask = as_bool_mask(eval_expr(pre_expr, env), table.n_rows)
     if block_sel is not None:
         mask = block_sel if mask is None else mask & block_sel
+    # a distributed table's padding rows: folded into the filter
+    if is_distributed(table) and ROW_VALID in table:
+        rv = table[ROW_VALID].data
+        mask = rv if mask is None else mask & rv
 
     # 4a. fused vector top-k
     if vs is not None and vs.fused:
@@ -2716,6 +3021,19 @@ def execute_select(session, q: SelectQuery) -> Table:
                     xw = words_tensor(_pack_column(table[vs.col]), dev)
                     d, ids = binary_distance_scan(xw, qw, metric=vs.metric,
                                                   k=vs.k, mask=mask)
+            elif is_distributed(table):
+                # per-shard exact top-k and the cross-shard merge, over
+                # the column's cached squared norms
+                sqn = None
+                base_tab = session.tables.get(q.table) if q.table else None
+                if base_tab is not None and vs.col in base_tab \
+                        and base_tab[vs.col].data is x:
+                    sqn = _derived(session, "sqnorm", q.table, table,
+                                   vs.col, lambda c: sqnorm_rows(c.data))
+                d, ids = sharded_distance_topk(
+                    table.mesh, x, qv, vs.metric, vs.k, mask=mask,
+                    block_rows=settings.vector_scan_block_rows,
+                    x_sqnorm=sqn)
             elif table[vs.col].is_host:
                 # out-of-device column: host -> device block stream
                 M.increment("StreamedVectorScans")
@@ -2864,6 +3182,23 @@ def execute_select(session, q: SelectQuery) -> Table:
     else:
         items = q.items
         order_by = q.order_by
+        cand = None
+        if is_distributed(table) and not env.extra and \
+                (vs is None or not vs.fused) and (ts is None or not ts.fused):
+            cand = _distributed_topn_ids(q, table, env, mask, alias_exprs,
+                                         dev)
+        if cand is not None:
+            # the candidate cut ran per shard; only limit + offset rows
+            # are gathered.  Rows failing the mask may pad the cut when
+            # fewer than k pass: dropped here with the row mask column.
+            small = table.take(cand)
+            small = Table([c for c in small.columns.values()
+                           if c.name != ROW_VALID], name=table.name)
+            if mask is not None:
+                small, _ = compact_table_host(small, mask[cand])
+            table = small
+            env = _session_env(session, table, alias_prefixes)
+            mask = None
         if mask is not None:
             carry_ts = ts is not None and not ts.fused \
                 and ts.name in env.extra
@@ -3178,8 +3513,9 @@ def _distinct_rows(table: Table) -> Table:
 def explain_select(session, q: SelectQuery, depth: int = 0) -> list:
     """Textual logical plan (EXPLAIN PIPELINE's stage lines; reference:
     InterpreterExplainQuery), the JAX package's: execute_select's stage
-    dispatch, without executing.  No table of the port is distributed, so
-    the JAX package's distributed notes never appear."""
+    dispatch, without executing, with the JAX package's notes on a
+    distributed table (its top-n, vector top-k and join strategies, its
+    shard count)."""
     pad = "  " * depth
     steps: list = []
 
@@ -3195,22 +3531,30 @@ def explain_select(session, q: SelectQuery, depth: int = 0) -> list:
     if q.limit_by is not None:
         add(f"LimitBy (n={q.limit_by[0]}, keys=["
             + ", ".join(render(e) for e in q.limit_by[1]) + "])")
-    if q.order_by:
-        keys = ", ".join(render(o.expr) + ("" if o.ascending else " DESC")
-                         for o in q.order_by)
-        if q.limit is not None:
-            add(f"TopN (k={q.limit + q.offset}, keys=[{keys}])")
-        else:
-            add(f"Sorting (keys=[{keys}])")
-    if q.having is not None:
-        add(f"Having ({render(q.having)})")
     table = vs = None
     if q.table is not None:
         try:
             table = session.get_table(q.table)
+        except (ExecError, KeyError):
+            pass
+    dist = table is not None and is_distributed(table)
+    if q.order_by:
+        keys = ", ".join(render(o.expr) + ("" if o.ascending else " DESC")
+                         for o in q.order_by)
+        if q.limit is not None:
+            note = ", strategy=sharded per-shard top-n + merge" \
+                if dist and not q.group_by and not q.distinct and \
+                q.limit_by is None else ""
+            add(f"TopN (k={q.limit + q.offset}, keys=[{keys}]{note})")
+        else:
+            add(f"Sorting (keys=[{keys}])")
+    if q.having is not None:
+        add(f"Having ({render(q.having)})")
+    if table is not None:
+        try:
             alias_exprs = {it.alias: it.expr for it in q.items if it.alias}
             vs = analyze_vector_search(q, session, table, alias_exprs)
-        except (ExecError, KeyError):
+        except ExecError:
             pass
     aggs = [render(node) for it in q.items for node in walk(it.expr)
             if isinstance(node, FuncCall) and node.name.lower() in AGG_NAMES]
@@ -3219,7 +3563,8 @@ def explain_select(session, q: SelectQuery, depth: int = 0) -> list:
             + "], aggregates=[" + ", ".join(aggs) + "])")
     if vs is not None and vs.fused:
         add(f"VectorTopK (metric={vs.metric}, k={vs.k}, "
-            f"queries={vs.qvec.shape[0]}, two-stage exact scan)")
+            f"queries={vs.qvec.shape[0]}, two-stage exact scan"
+            + (", distributed" if dist else "") + ")")
     elif vs is not None:
         add(f"DistanceMaterialize (metric={vs.metric})")
     if q.where is not None or q.prewhere is not None:
@@ -3227,14 +3572,30 @@ def explain_select(session, q: SelectQuery, depth: int = 0) -> list:
                  _split_conjuncts(q.prewhere) + _split_conjuncts(q.where)]
         add("Filter (" + " AND ".join(conds) + ")")
     for jc in q.joins:
+        strategy = "hash"
+        if dist:
+            try:
+                rt = session.get_table(jc.table) if jc.table else None
+            except KeyError:
+                rt = None
+            strategy = "gather+hash"
+            if rt is not None and jc.strictness != "ASOF" and \
+                    jc.how in ("INNER", "LEFT"):
+                thr = session.settings.distributed_broadcast_join_threshold
+                strategy = "broadcast" if rt.n_rows <= thr else (
+                    "shuffle" if is_distributed(rt) else "gather+hash")
         add(f"HashJoin ({jc.how} {jc.strictness}, table={jc.table}, "
-            f"strategy=hash)")
+            f"strategy={strategy})")
     if inner is not None:
         add("ReadFromSubquery")
         steps.extend(inner)
     elif q.table is not None:
-        add(f"ReadFromTable {q.table}" + (f" ({table.n_rows} rows)"
-                                          if table is not None else ""))
+        desc = f"ReadFromTable {q.table}"
+        if table is not None:
+            desc += f" ({getattr(table, 'real_rows', table.n_rows)} rows)"
+            if dist:
+                desc += f" [distributed over {table.mesh.size} shards]"
+        add(desc)
     return steps
 
 

@@ -1,7 +1,5 @@
 """Copy of myscaledb_tpu/sql/plan.py (JAX-free; imports renamed to this
-package; the port's tables are resident on one device, so
-``is_distributed`` is this module's and always false until the
-distribution slice).
+package; ``is_distributed`` from parallel/dist_table.py).
 
 Logical plan DAG + rewrite passes.
 
@@ -34,11 +32,7 @@ from typing import Optional
 from myscaledb_tpu_torch.sql.ast import (FuncCall, Ident, Literal, BinOp, InList,
                                    WindowCall, walk)
 from myscaledb_tpu_torch.sql.render import render
-
-
-def is_distributed(table) -> bool:
-    """No table of the port is sharded yet (ROADMAP item 11)."""
-    return False
+from myscaledb_tpu_torch.parallel.dist_table import is_distributed
 
 
 @dataclass

@@ -31,8 +31,12 @@ divisions divide by tensors, never by a Python scalar: PyTorch's CUDA
 division by a scalar multiplies by its reciprocal, which rounds
 differently.
 
-Distributed scoring (``doc_valid``, ``global_stats``) belongs to the
-distribution slice and raises ``NotPortedError``.
+Distributed scoring: ``doc_valid`` marks the rows that count (a
+distributed table's padding rows keep their doc slot but hold no tokens
+and stay out of ``stat_docs`` and ``avg_len``), and ``scores(...,
+global_stats=...)`` scores a shard's docs with the statistics merged over
+every shard (text/distributed.py), so each score is the undistributed
+table's, bit for bit.
 """
 
 from __future__ import annotations
@@ -44,8 +48,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from myscaledb_tpu_torch.errors import NotPortedError
-
 _TOKEN_RE = re.compile(r"[a-z0-9]+")
 
 K1 = 1.2
@@ -56,14 +58,21 @@ B = 0.75
 _NO_SCORE = 2 ** 31 - 1
 
 
+def mean_doc_len(total_tokens: int, n_docs: int) -> float:
+    """The mean doc length as the scores read it (float32): the exact
+    quotient rounded once, for one index and for the statistics merged
+    over shards alike, so a distributed table scores as the undistributed
+    one.  The JAX package's index takes numpy's float32 mean, the same
+    value while the float32 sum of the lengths is exact (below 2^24
+    tokens); its merged statistics divide exactly, as here (ROADMAP
+    section 3)."""
+    return float(np.float32(total_tokens / n_docs)) if n_docs else 0.0
+
+
 def tokenize(text: str) -> list[str]:
     if text is None:
         return []
     return _TOKEN_RE.findall(text.lower())
-
-
-def _distribution(what: str):
-    return NotPortedError(what, "distribution")
 
 
 class BM25Index:
@@ -72,18 +81,34 @@ class BM25Index:
 
     def __init__(self, docs: list[Optional[str]], doc_valid=None, *,
                  device):
-        if doc_valid is not None:
-            raise _distribution("BM25 over a distributed table's valid rows")
         from myscaledb_tpu_torch.core.dictionary import StringDictionary
         d = StringDictionary()
         ids = d.encode(list(docs))
-        self._build(d.values, torch.as_tensor(ids, device=device), None,
-                    torch.device(device))
+        dev = torch.device(device)
+        self._build(d.values, torch.as_tensor(ids, device=dev),
+                    self._valid_of(doc_valid, dev), dev)
+        self._count_valid(doc_valid)
+
+    @staticmethod
+    def _valid_of(doc_valid, dev):
+        return None if doc_valid is None else \
+            torch.as_tensor(doc_valid, device=dev).bool()
+
+    def _count_valid(self, doc_valid) -> None:
+        """With ``doc_valid``: the statistics of the valid docs alone."""
+        if doc_valid is None:
+            return
+        self.stat_docs = int(torch.as_tensor(doc_valid).sum())
+        self.avg_len = mean_doc_len(self.total_tokens, self.stat_docs)
 
     @classmethod
-    def from_column(cls, col, device) -> "BM25Index":
+    def from_column(cls, col, device, doc_valid=None,
+                    tokens=None) -> "BM25Index":
         """Index over a String column's rows: its dictionary's values are
-        tokenized once and its ids expanded to rows on ``device``."""
+        tokenized once and its ids expanded to rows on ``device``;
+        ``doc_valid`` as in the constructor.  ``tokens``: the dictionary's
+        ``native.tokenize_corpus`` output, where the caller has it (the
+        shards of one column share it)."""
         self = cls.__new__(cls)
         data = col.data
         if not isinstance(data, torch.Tensor):
@@ -92,8 +117,13 @@ class BM25Index:
         if valid is not None and not isinstance(valid, torch.Tensor):
             valid = torch.as_tensor(np.asarray(valid))
         device = torch.device(device)
-        self._build(col.dictionary.values, data.to(device),
-                    None if valid is None else valid.to(device), device)
+        valid = None if valid is None else valid.to(device).bool()
+        dv = cls._valid_of(doc_valid, device)
+        if dv is not None:
+            valid = dv if valid is None else valid & dv
+        self._build(col.dictionary.values, data.to(device), valid, device,
+                    tokens)
+        self._count_valid(doc_valid)
         return self
 
     @classmethod
@@ -121,13 +151,15 @@ class BM25Index:
         self._norm_denom = None
         return self
 
-    def _build(self, values: list, ids: torch.Tensor, valid, dev) -> None:
+    def _build(self, values: list, ids: torch.Tensor, valid, dev,
+               tokens=None) -> None:
         from myscaledb_tpu_torch import native
         t0 = time.perf_counter()
         self.device = dev
         n = int(ids.shape[0])
         self.n_docs = n
-        term_ids, val_ids, vocab_list = native.tokenize_corpus(values)
+        term_ids, val_ids, vocab_list = tokens if tokens is not None \
+            else native.tokenize_corpus(values)
         self.vocab = {t: i for i, t in enumerate(vocab_list)}
         t1 = time.perf_counter()
         nv = len(vocab_list)
@@ -168,8 +200,7 @@ class BM25Index:
         self.starts[1:] = torch.cumsum(self.df, 0)
         self._starts_host = self.starts.cpu().numpy()
         self.stat_docs = n
-        # numpy's float32 mean, as the JAX package takes it
-        self.avg_len = float(self.doc_len.cpu().numpy().mean()) if n else 0.0
+        self.avg_len = mean_doc_len(total, n)
         self._norm_denom = None
         # host seconds of the tokenizer and the vocabulary; seconds of the
         # rest, which ends in copies to the host (so the device is done)
@@ -203,13 +234,17 @@ class BM25Index:
 
     # -- scoring ------------------------------------------------------------
 
-    def _denominator(self) -> torch.Tensor:
+    def _denominator(self, avg_len: Optional[float] = None
+                     ) -> torch.Tensor:
         """k1 * (1 - b + b * len / avg_len) per doc, float32, in the JAX
-        package's order of operations."""
+        package's order of operations; ``avg_len`` overrides the index's
+        own (kept once made)."""
+        if avg_len is not None:
+            avg = torch.full_like(self.doc_len, np.float32(max(avg_len,
+                                                               1e-9)))
+            return K1 * ((1.0 - B) + (B * self.doc_len) / avg)
         if self._norm_denom is None:
-            avg = torch.full_like(self.doc_len,
-                                  np.float32(max(self.avg_len, 1e-9)))
-            self._norm_denom = K1 * ((1.0 - B) + (B * self.doc_len) / avg)
+            self._norm_denom = self._denominator(self.avg_len)
         return self._norm_denom
 
     def scores(self, query: str, operator: str = "OR",
@@ -217,11 +252,12 @@ class BM25Index:
         """Dense (n_docs,) float32 BM25 score vector for the query.
 
         operator='AND' zeroes docs that miss any query term (the reference's
-        text_operator, VSDescription.h:80-84)."""
-        if global_stats is not None:
-            raise _distribution("BM25 with global statistics")
+        text_operator, VSDescription.h:80-84).  ``global_stats``
+        (``text.distributed.global_stats``) supplies the doc count, token
+        total and per-term df merged over every shard."""
         terms = tokenize(query)
-        n = self.stat_docs
+        gs = global_stats
+        n = gs["n_docs"] if gs else self.stat_docs
         out = torch.zeros(self.n_docs, dtype=torch.float32,
                           device=self.device)
         if not terms or self.n_docs == 0:
@@ -229,7 +265,9 @@ class BM25Index:
         is_and = operator.upper() == "AND"
         hits = torch.zeros(self.n_docs, dtype=torch.int32,
                            device=self.device) if is_and else None
-        denom = self._denominator()
+        denom = self._denominator(
+            mean_doc_len(gs["total_tokens"], n)
+            if gs and "total_tokens" in gs else None)
         seen = set()
         for t in terms:
             if t in seen:
@@ -239,6 +277,8 @@ class BM25Index:
             if tid is None:
                 continue
             df = int(self._starts_host[tid + 1] - self._starts_host[tid])
+            if gs:
+                df = gs["df"].get(t, df)
             idf = float(np.log(1.0 + (n - df + 0.5) / (df + 0.5)))
             docs, tfs = self.term_postings(t)
             tf_norm = (tfs * (K1 + 1.0)) / (tfs + denom[docs])

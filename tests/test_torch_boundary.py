@@ -27,7 +27,11 @@ def test_import_loads_no_jax():
             "myscaledb_tpu_torch.storage.codecs, "
             "myscaledb_tpu_torch.runtime.faults, "
             "myscaledb_tpu_torch.runtime.dictionaries, "
-            "myscaledb_tpu_torch.sql.plan\n"
+            "myscaledb_tpu_torch.sql.plan, "
+            "myscaledb_tpu_torch.parallel.dryrun, "
+            "myscaledb_tpu_torch.parallel.pipeline, "
+            "myscaledb_tpu_torch.parallel.shuffle, "
+            "myscaledb_tpu_torch.text.distributed\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'myscaledb_tpu' "
             "or m.startswith('myscaledb_tpu.')]\n"

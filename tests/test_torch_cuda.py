@@ -1074,3 +1074,41 @@ def test_http_server_on_card_equals_cpu(cuda):
     np.testing.assert_allclose([float(r[1]) for r in top[0]],
                                [float(r[1]) for r in top[1]], rtol=2e-5)
     assert out["cuda"][1] == out["cpu"][1] and out["cuda"][1].count("\n") > 200
+
+
+def test_fused_pipeline_on_eight_shards_equals_local_path(cuda):
+    """Config 5's step on make_mesh(8) on the card: every shard's scan
+    launches K2 and every shard's GROUP BY partials K3; ids equal the
+    one-device scan's, distances within rtol 2e-5, the join count a
+    sort-based count's, the group sums a bincount's."""
+    from myscaledb_tpu_torch.ops.vector import distance_scan
+    from myscaledb_tpu_torch.parallel.mesh import make_mesh
+    from myscaledb_tpu_torch.parallel.pipeline import fused_topk_join_agg
+    nsh, n_loc, d, nq, k, G, n_dim = 8, 1 << 16, 128, 10, 10, 256, 50_000
+    n = nsh * n_loc
+    x = torch.randn(n, d, device="cuda", generator=cuda)
+    q = torch.randn(nq, d, device="cuda", generator=cuda)
+    fk = torch.randint(0, 2 * n_dim, (n,), device="cuda", generator=cuda,
+                       dtype=torch.int32)
+    dk = torch.randint(0, 2 * n_dim, (n_dim,), device="cuda",
+                       generator=cuda, dtype=torch.int32)
+    gid = torch.randint(0, G, (n,), device="cuda", generator=cuda,
+                        dtype=torch.int32)
+    vals = torch.ones(n, dtype=torch.int32, device="cuda")
+    mask = torch.ones(n, dtype=torch.bool, device="cuda")
+    before = (K2.segmin_f32.launches, K3.group_aggregate.launches)
+    dd, ii, cnt, states, gc = fused_topk_join_agg(
+        make_mesh(nsh, device="cuda"), x, q, "L2", k, fk, dk, gid, mask,
+        vals, ("sum",), G)
+    torch.cuda.synchronize()
+    assert K2.segmin_f32.launches == before[0] + nsh
+    assert K3.group_aggregate.launches == before[1] + nsh
+    ld, li = distance_scan(x, q, "L2", k)
+    assert torch.equal(ii, li)
+    torch.testing.assert_close(dd, ld, rtol=2e-5, atol=0)
+    sd = torch.sort(dk.long()).values
+    want = (torch.searchsorted(sd, fk.long(), right=True)
+            - torch.searchsorted(sd, fk.long())).sum()
+    assert int(cnt) == int(want)
+    assert torch.equal(states[0], torch.bincount(gid.long(), minlength=G))
+    assert torch.equal(gc, torch.bincount(gid.long(), minlength=G))

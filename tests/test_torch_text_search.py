@@ -12,7 +12,6 @@ import myscaledb_tpu_torch
 from myscaledb_tpu.text import bm25 as JB
 from myscaledb_tpu.text import fusion as JF
 from myscaledb_tpu_torch import interop
-from myscaledb_tpu_torch.errors import NotPortedError
 from myscaledb_tpu_torch.text import bm25 as PB
 from myscaledb_tpu_torch.text import fusion as PF
 
@@ -126,13 +125,53 @@ def test_bm25_from_jax_state():
 
 
 def test_bm25_distribution_is_not_ported():
-    docs = ["a b", "b c"]
-    with pytest.raises(NotPortedError, match="distribution"):
-        PB.BM25Index(docs, doc_valid=[True, False], device="cpu")
-    p = PB.BM25Index(docs, device="cpu")
-    with pytest.raises(NotPortedError, match="distribution"):
-        p.scores("b", global_stats={"n_docs": 2, "df": {}})
+    """(Named when the port refused these parameters.)  The distributed
+    parameters score as the JAX package's: ``doc_valid`` keeps invalid
+    docs out of the statistics and ``global_stats`` overrides them, bit for
+    bit (tests/test_torch_distributed_hybrid.py holds them at full
+    size)."""
+    docs = ["a b", "b c", "c c a"]
+    valid = [True, False, True]
+    p = PB.BM25Index(docs, doc_valid=valid, device="cpu")
+    j = JB.BM25Index(docs, doc_valid=valid)
+    assert (p.stat_docs, p.total_tokens, p.avg_len) == \
+        (j.stat_docs, j.total_tokens, j.avg_len)
+    stats = {"n_docs": 7, "total_tokens": 20, "df": {"b": 3}}
+    for q in ("b", "a c", "b c"):
+        assert np.array_equal(_bits(p.scores(q).numpy()),
+                              _bits(j.scores(q)))
+        assert np.array_equal(
+            _bits(p.scores(q, global_stats=stats).numpy()),
+            _bits(j.scores(q, global_stats=stats)))
 
+
+
+def test_bm25_mean_doc_len_past_2_24_tokens():
+    """2^24 + 11 tokens (two docs of 8388609, one of 9): the port's index
+    takes the exact token total over the doc count, rounded once
+    (5592409.0); the JAX package's index takes numpy's f32 mean of the
+    lengths, whose sum rounds (5592409.5), so its scores of the two long
+    docs differ in the last bit.  The port scores as the JAX package's
+    merged statistics do (``global_stats`` with the exact total), so a
+    distributed table scores as the undistributed one (ROADMAP section
+    3)."""
+    long = 8388609
+    docs = ["a" + " x" * (long - 1), "b" + " x" * (long - 1),
+            "a b c d e f g h i"]
+    total = 2 * long + 9
+    p = PB.BM25Index(docs, device="cpu")
+    j = JB.BM25Index(docs)
+    assert p.total_tokens == total
+    assert p.avg_len == float(np.float32(total / 3)) == 5592409.0
+    assert j.avg_len == 5592409.5
+    merged = {"n_docs": 3, "total_tokens": total, "df": {}}
+    for q in ("a", "b c"):
+        ps = _bits(p.scores(q).numpy())
+        assert np.array_equal(ps, _bits(j.scores(q, global_stats=merged)))
+        assert np.array_equal(
+            ps, _bits(p.scores(q, global_stats=merged).numpy()))
+        differ = ps != _bits(j.scores(q))
+        assert differ.tolist() == [q == "a", q == "b c", False]
 
 def test_tokenize_equals():
     for s in ["The Quick, brown-fox!", "", None, "ÄbC déf 12x", "a_b"]:

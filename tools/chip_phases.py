@@ -10,8 +10,8 @@ Each argument is ``checkout:phase,phase``; phases are ``groupby``
 (sql_groupby), ``binary`` (sql_binary), ``hits`` (sql_hits), ``arrays``
 (sql_arrays), ``subquery`` (sql_subquery), ``text`` (sql_text),
 ``storage`` (sql_storage), ``views`` (sql_views), ``formats``
-(sql_formats) and ``server`` (sql_server), the ones a checkout's
-chip_smoke.py has.
+(sql_formats), ``server`` (sql_server) and ``distributed``
+(sql_distributed), the ones a checkout's chip_smoke.py has.
 Each argument runs in a process of its own with the checkout as the
 working directory (so it imports that checkout's package and builds its
 kernels), after that checkout's kernel build.  The full output of run i
@@ -37,7 +37,8 @@ names = {'groupby': 'phase_groupby', 'binary': 'phase_sql_binary',
          'hits': 'phase_sql_hits', 'arrays': 'phase_sql_arrays',
          'subquery': 'phase_sql_subquery', 'text': 'phase_sql_text',
          'storage': 'phase_sql_storage', 'views': 'phase_sql_views',
-         'formats': 'phase_sql_formats', 'server': 'phase_sql_server'}
+         'formats': 'phase_sql_formats', 'server': 'phase_sql_server',
+         'distributed': 'phase_sql_distributed'}
 for ph in sys.argv[1].split(','):
     getattr(C, names[ph])(0)
 """
@@ -76,9 +77,14 @@ def summarize(stdout: str) -> None:
         stmts = {**d.get("per_statement", {}), **d.get("reads", {}),
                  **d.get("lookups", {})}
         for name, st in stmts.items():
+            if "median_ms" not in st:      # sql_distributed's pairs
+                st = st.get("distributed", {})
+                if "median_ms" not in st:
+                    continue
+            dev = st.get("device_ms_per_query")
             print(f"  {d['phase']} {name} median {st['median_ms']:.3f} "
-                  f"device {st['device_ms_per_query']:.3f} "
-                  f"busy {st['device_busy_share']:.3f}")
+                  + (f"device {dev:.3f} " if dev is not None else "")
+                  + f"busy {st['device_busy_share']:.3f}")
 
 
 def main() -> int:
