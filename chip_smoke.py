@@ -4915,16 +4915,60 @@ def config5_step_parts(mesh, x, q, fact, dim, gid, mask, vals, sqn):
     return out
 
 
+def config5_embeddings(mesh, n_loc: int, seed: int):
+    """Config 5's embeddings as one tensor per shard on the shard's card,
+    shard p's rows drawn by a generator seeded for p alone: the same
+    values on any mesh of as many shards, and as the slices of
+    ``config5_embeddings_whole``."""
+    parts = []
+    for p in range(mesh.size):
+        dev = mesh.device(p)
+        g = torch.Generator(device=dev).manual_seed(seed * 1000 + p)
+        parts.append(torch.empty(n_loc, D5, device=dev).normal_(generator=g))
+    return parts
+
+
+def config5_embeddings_whole(nsh: int, n_loc: int, seed: int, device):
+    """The rows of ``config5_embeddings`` over ``nsh`` shards as one
+    tensor on ``device`` (each shard's slice drawn by its generator)."""
+    x = torch.empty(nsh * n_loc, D5, device=device)
+    for p in range(nsh):
+        g = torch.Generator(device=device).manual_seed(seed * 1000 + p)
+        x[p * n_loc:(p + 1) * n_loc].normal_(generator=g)
+    return x
+
+
+def config5_small_columns(n: int, seed: int, device):
+    """Config 5's join keys, dim keys and group ids (one generator), vals
+    = 1 and the mask all true, as whole tensors on ``device``."""
+    g = torch.Generator(device=device).manual_seed(seed + 15)
+    fact = torch.randint(0, 2 * N5_DIM, (n,), generator=g, device=device,
+                         dtype=torch.int32)
+    dim = torch.randint(0, 2 * N5_DIM, (N5_DIM,), generator=g,
+                        device=device, dtype=torch.int32)
+    gid = torch.randint(0, G5, (n,), generator=g, device=device,
+                        dtype=torch.int32)
+    q = torch.randn(NQ5, D5, generator=g, device=device)
+    vals = torch.ones(n, dtype=torch.int32, device=device)
+    mask = torch.ones(n, dtype=torch.bool, device=device)
+    return fact, dim, gid, q, vals, mask
+
+
 def phase_config5(seed: int, smi: str):
     """BASELINE config 5 at bench.py's shapes on an 8-shard mesh (4 if the
     card cannot hold 8 shards' embeddings) and on a 1-shard mesh over the
-    same tensors: the fused step checked against oracles on the card (ids
-    equal to the one-device scan's, distances within rtol 2e-5, the join
-    count equal to a searchsorted count, group sums and counts equal to a
-    bincount), its median over DIST_REPS runs after a warm-up, rows/s, K2
-    and K3 launches a step, and the step's parts timed apart."""
+    same rows: each shard's rows a tensor of their own on its card, so
+    the two layouts are made one after the other from the same per-shard
+    generators (the card holds one copy of the embeddings).  The fused
+    step is checked against oracles on the card (ids equal to the
+    one-device scan's, distances within rtol 2e-5, the join count equal
+    to a searchsorted count, group sums and counts equal to a bincount);
+    its median over DIST_REPS runs after a warm-up, rows/s, K2 and K3
+    launches a step, host syncs a step, and the step's parts timed
+    apart."""
     from myscaledb_tpu_torch.ops.vector import distance_scan
-    from myscaledb_tpu_torch.parallel.mesh import make_mesh, shard_rows
+    from myscaledb_tpu_torch.parallel.mesh import (RowSplit, make_mesh,
+                                                   shard_rows)
     from myscaledb_tpu_torch.parallel.ops import sqnorm_rows
     from myscaledb_tpu_torch.parallel.pipeline import fused_topk_join_agg
     torch.cuda.empty_cache()
@@ -4938,31 +4982,23 @@ def phase_config5(seed: int, smi: str):
                        f"{total / 2 ** 30:.1f}")
         nsh = N5_SHARDS_CUT
     n = N5_PER_SHARD * nsh
-    g = torch.Generator(device="cuda").manual_seed(seed + 15)
     t0 = time.perf_counter()
-    mesh = make_mesh(nsh)
-    # made in place on the card, sharded by rows: no padding copy
-    x = shard_rows(mesh, torch.randn(n, D5, generator=g, device="cuda"))
-    q = torch.randn(NQ5, D5, generator=g, device="cuda")
-    fact = shard_rows(mesh, torch.randint(0, 2 * N5_DIM, (n,), generator=g,
-                                          device="cuda", dtype=torch.int32))
-    dim = shard_rows(mesh, torch.randint(0, 2 * N5_DIM, (N5_DIM,),
-                                         generator=g, device="cuda",
-                                         dtype=torch.int32))
-    gid = shard_rows(mesh, torch.randint(0, G5, (n,), generator=g,
-                                         device="cuda", dtype=torch.int32))
-    vals = torch.ones(n, dtype=torch.int32, device="cuda")
-    mask = torch.ones(n, dtype=torch.bool, device="cuda")
-    sqn = sqnorm_rows(x)
+    mesh = make_mesh(nsh, device="cuda:0")
+    fact, dim, gid, q, vals, mask = config5_small_columns(n, seed, "cuda:0")
+    x1 = config5_embeddings_whole(nsh, N5_PER_SHARD, seed, "cuda:0")
+    sqn1 = sqnorm_rows(x1)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     # oracles on the card, outside every counted run
-    ld, li = distance_scan(x, q, "L2", K5, x_sqnorm=sqn)
+    ld, li = distance_scan(x1, q, "L2", K5, x_sqnorm=sqn1)
     sd = torch.sort(dim.long()).values
     want_cnt = int((torch.searchsorted(sd, fact.long(), right=True)
                     - torch.searchsorted(sd, fact.long())).sum())
     del sd
     want_gc = torch.bincount(gid.long(), minlength=G5)
+    # each shard's rows summed, to hold the per-shard draw to the whole
+    slice_sums = [float(x1[p * N5_PER_SHARD:(p + 1) * N5_PER_SHARD]
+                        .double().sum()) for p in range(nsh)]
 
     def check(out, tag):
         dd, ii, cnt, states, gc = out
@@ -4978,14 +5014,17 @@ def phase_config5(seed: int, smi: str):
             raise AssertionError(f"config 5 {tag}: group sums/counts "
                                  "differ from the bincount")
 
-    runs, counts = {}, None
-    for m in (mesh, make_mesh(1)):
+    def run(m, x, sqn):
         tag = f"{m.size}_shards"
+        args = {k: (t if m.size == 1 else shard_rows(m, t)) for k, t in
+                (("fact", fact), ("dim", dim), ("gid", gid),
+                 ("vals", vals), ("mask", mask))}
 
-        def step(m=m):
-            return fused_topk_join_agg(m, x, q, "L2", K5, fact, dim, gid,
-                                       mask, vals, ("sum",), G5,
-                                       x_sqnorm=sqn)
+        def step():
+            return fused_topk_join_agg(m, x, q, "L2", K5, args["fact"],
+                                       args["dim"], args["gid"],
+                                       args["mask"], args["vals"], ("sum",),
+                                       G5, x_sqnorm=sqn)
         check(step(), tag)                          # warm-up
         torch.cuda.synchronize()
         # the path's own run: counts zeroed just before, read just after
@@ -5003,38 +5042,177 @@ def phase_config5(seed: int, smi: str):
                 raise AssertionError(
                     f"config 5 {tag}: {k2k3} launched {launches[k2k3]} "
                     f"times in {DIST_REPS} steps, want {m.size} a step")
-        if m is mesh:
-            counts = launches
+        syncs, sync_sites = count_host_syncs(step)
         prof = profile_calls(step)
         med = float(np.median(lat))
-        runs[tag] = {
+        return {
             **summary_ms(lat), "launches": launches,
             "launches_per_step": {k: v / DIST_REPS
                                   for k, v in launches.items() if v},
+            "host_syncs_per_step": syncs, "host_sync_sites": sync_sites,
             "distributed_pipeline_rows_per_sec_per_chip": n / (med / 1e3),
             "device_busy_share": prof["device_busy_share"],
             "device_ms_per_step": prof["device_ms_per_query"],
             "top_kernels_us": prof["top_kernels_us_per_query"],
-            "parts": config5_step_parts(m, x, q, fact, dim, gid, mask, vals,
-                                        sqn)}
+            "parts": config5_step_parts(m, x, q, args["fact"], args["dim"],
+                                        args["gid"], args["mask"],
+                                        args["vals"], sqn)}, launches
+
+    runs = {}
+    m1 = make_mesh(1, device="cuda:0")
+    runs["1_shards"], _ = run(m1, RowSplit([x1]), RowSplit([sqn1]))
+    del x1, sqn1
+    torch.cuda.empty_cache()
+    parts = config5_embeddings(mesh, N5_PER_SHARD, seed)
+    got_sums = [float(t.double().sum()) for t in parts]
+    if got_sums != slice_sums:
+        raise AssertionError("config 5: the per-shard draw differs from "
+                             "the whole table's slices")
+    x = RowSplit(parts)
+    sqn = RowSplit([sqnorm_rows(t) for t in parts])
+    runs[f"{nsh}_shards"], counts = run(mesh, x, sqn)
     bound = n * BYTES5_PER_ROW / HBM_BYTES_PER_S * 1e3
     out = {"shards": nsh, "rows": n, "dim": D5, "queries": NQ5, "k": K5,
            "groups": G5, "dim_keys": N5_DIM, "table_gen_s": gen_s,
-           "embedding_bytes": x.numel() * 4, "reduced": reduced,
+           "embedding_bytes": n * D5 * 4, "reduced": reduced,
+           "layout": "each shard's rows a tensor of their own on its card "
+                     "(parallel/mesh.py RowSplit); the 1-shard run first, "
+                     "then the same rows drawn again as 8 parts",
            "source": "BASELINE config 5 (bench.py:319-345): 2M rows a "
                      "shard, d = 768, nq = 10, k = 10, 256 groups, 1M dim "
                      "keys in [0, 2M)",
            "bound_ms": bound, "bound_by": "bytes",
            "bound_note": f"{BYTES5_PER_ROW} bytes a fact row (bench.py's "
                          "count) over 3.35 TB/s",
+           "global_view_layout_median_ms": {
+               f"{DIST_SHARDS}_shards": 77.081, "1_shards": 21.988,
+               "note": "the earlier layout's run (one global tensor with "
+                       "per-shard views; NVIDIA H100 80GB HBM3, 700.00 W; "
+                       "PERF.md section 6)"},
            "runs": runs, "nvidia_smi": smi,
            "oracle": "ids equal to the one-device distance_scan, "
                      "distances rtol 2e-5; join count equal to a "
                      "searchsorted count; group sums and counts equal to "
                      "a bincount"}
-    del x, sqn, fact, dim, gid, vals, mask, ld, li
+    del x, sqn, parts, fact, dim, gid, vals, mask, ld, li
     torch.cuda.empty_cache()
     return out, counts
+
+
+def phase_multi_card(seed: int, smi: str):
+    """Where two or more cards are visible: config 5 as bench.py defines
+    it, one shard a card (``make_mesh()``) at 2M rows a shard, and
+    sql_distributed's config-1 and GROUP BY statements over ``make_mesh()``,
+    each held equal (ids, join count, integer states, rows) to the same
+    data on a one-card mesh of as many logical shards.  On one card it
+    says so and runs nothing."""
+    import myscaledb_tpu_torch as P
+    from myscaledb_tpu_torch.core.table import Table
+    from myscaledb_tpu_torch.parallel.mesh import (RowSplit, make_mesh,
+                                                   shard_rows)
+    from myscaledb_tpu_torch.parallel.ops import sqnorm_rows
+    from myscaledb_tpu_torch.parallel.pipeline import fused_topk_join_agg
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        return {"ran": False, "cards": cards,
+                "reason": f"needs two cards, {cards} visible: not run"}
+    wide = make_mesh()
+    narrow = make_mesh(cards, device="cuda:0")
+    n = N5_PER_SHARD * cards
+    fact, dim, gid, q, vals, mask = config5_small_columns(n, seed, "cuda:0")
+    out = {"ran": True, "cards": cards, "rows": n, "nvidia_smi": smi,
+           "peer_access": [[torch.cuda.can_device_access_peer(a, b)
+                            if a != b else None for b in range(cards)]
+                           for a in range(cards)]}
+    results = {}
+    for tag, m in (("one_shard_a_card", wide),
+                   ("one_card_logical_shards", narrow)):
+        parts = config5_embeddings(m, N5_PER_SHARD, seed)
+        x = RowSplit(parts)
+        sqn = RowSplit([sqnorm_rows(t) for t in parts])
+        args = [shard_rows(m, t) for t in (fact, dim, gid, mask, vals)]
+
+        def step(m=m, x=x, sqn=sqn, args=args):
+            return fused_topk_join_agg(m, x, q, "L2", K5, args[0], args[1],
+                                       args[2], args[3], args[4], ("sum",),
+                                       G5, x_sqnorm=sqn)
+        step()
+        for d in range(cards):
+            torch.cuda.synchronize(d)
+        zero_launches()
+        lat = []
+        for _ in range(DIST_REPS):
+            t0 = time.perf_counter()
+            res = step()
+            for d in range(cards):
+                torch.cuda.synchronize(d)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        launches = read_launches()
+        for k2k3 in ("segmin_f32", "group_aggregate"):
+            if launches[k2k3] != DIST_REPS * m.size:
+                raise AssertionError(
+                    f"multi-card config 5 {tag}: {k2k3} launched "
+                    f"{launches[k2k3]} times in {DIST_REPS} steps, want "
+                    f"{m.size} a step")
+        syncs, _ = count_host_syncs(step)
+        med = float(np.median(lat))
+        results[tag] = res
+        out[tag] = {**summary_ms(lat), "launches": launches,
+                    "host_syncs_per_step": syncs,
+                    "distributed_pipeline_rows_per_sec_per_chip":
+                        n / (med / 1e3) / (cards if m is wide else 1),
+                    "devices": [str(d) for d in m.devices]}
+        del parts, x, sqn, args
+        torch.cuda.empty_cache()
+    a, b = results["one_shard_a_card"], results["one_card_logical_shards"]
+    if not torch.equal(a[1].cpu(), b[1].cpu()):
+        raise AssertionError("multi-card config 5: ids differ from the "
+                             "one-card mesh")
+    torch.testing.assert_close(a[0].cpu(), b[0].cpu(), rtol=SQL_RTOL, atol=0)
+    if int(a[2]) != int(b[2]) or not torch.equal(a[3][0].cpu(),
+                                                 b[3][0].cpu()) \
+            or not torch.equal(a[4].cpu(), b[4].cpu()):
+        raise AssertionError("multi-card config 5: join count or group "
+                             "states differ from the one-card mesh")
+    # config 1 and GROUP BY statements over make_mesh()
+    rng = np.random.default_rng(seed)
+    data = {"id": np.arange(N, dtype=np.int64),
+            "price": rng.integers(0, 100, N).astype(np.int32),
+            "emb": rng.standard_normal((N, D), dtype=np.float32)}
+    s = P.connect()
+    s.create_table("t", data)
+    for name, m in (("tw", wide), ("tn", narrow)):
+        s.register(name, Table(list(s.tables["t"].columns.values())))
+        s.distribute(name, m)
+    queries = rng.standard_normal((5, D), dtype=np.float32)
+    stmts = [f"SELECT id, distance(emb, {vec_sql(qv)}) AS d FROM {{t}} "
+             "WHERE price < 50 ORDER BY d LIMIT 10" for qv in queries]
+    stmts += ["SELECT price % 10 AS b, count(), sum(price), min(id), "
+              "max(id) FROM {t} WHERE price > 20 GROUP BY b ORDER BY b",
+              "SELECT id % 100000 AS b, count(), sum(price) FROM {t} "
+              "GROUP BY b ORDER BY b LIMIT 20",
+              "SELECT id, price FROM {t} WHERE price < 3 ORDER BY price "
+              "DESC, id LIMIT 15"]
+    sql = []
+    for st in stmts:
+        got = s.sql(st.format(t="tw")).to_rows()
+        want = s.sql(st.format(t="tn")).to_rows()
+        if "distance" in st:
+            vector_rows_equal("multi-card config 1")(got, want)
+        else:
+            rows_equal("multi-card GROUP BY")(got, want)
+        t0 = time.perf_counter()
+        s.sql(st.format(t="tw")).to_rows()
+        sql.append({"statement": st.format(t="t")[:80],
+                    "ms_one_shard_a_card": (time.perf_counter() - t0) * 1e3})
+    out["sql"] = sql
+    out["check"] = ("config 5 ids, join count and integer group states "
+                    "equal to the one-card mesh of as many shards, "
+                    "distances rtol 2e-5; SQL rows equal (distances rtol "
+                    "2e-5)")
+    s.tables.clear()
+    torch.cuda.empty_cache()
+    return out
 
 
 def dist_pair(s, stmt_local, stmt_dist, compare, reps=DIST_REPS,
@@ -5484,6 +5662,8 @@ def phase_sql_distributed(seed: int):
     config5, counts = phase_config5(seed, smi)
     # each part's line as it ends; the phase line repeats them all
     emit({"phase": "sql_distributed.config5", **config5})
+    multi = phase_multi_card(seed, smi)
+    emit({"phase": "sql_distributed.multi_card", **multi})
     mesh = make_mesh(DIST_SHARDS)
     sql, totals = {}, {}
     for name, fn in (("config1", dist_config1), ("hits", dist_hits),
@@ -5494,8 +5674,11 @@ def phase_sql_distributed(seed: int):
         emit({"phase": f"sql_distributed.{name}", **sql[name]})
         add_counts(totals, launches)
     emit({"phase": "sql_distributed", "shards": DIST_SHARDS,
-          "mesh": "logical shards on one card (parallel/mesh.py)",
-          "dryrun": dry, "config5": config5, "sql": sql,
+          "mesh": f"{DIST_SHARDS} shards on {mesh.n_cards} card(s), each "
+                  "shard's rows a tensor of their own on its card "
+                  "(parallel/mesh.py)",
+          "dryrun": dry, "config5": config5, "multi_card": multi,
+          "sql": sql,
           "sql_launches": totals, "launches": counts,
           "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
     return counts
@@ -5516,6 +5699,7 @@ def main() -> int:
     emit({"phase": "device", "name": kind, "nvidia_smi": smi,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
+    emit({"device_count": torch.cuda.device_count()})
 
     from concurrent.futures import ThreadPoolExecutor
     from myscaledb_tpu_torch.ops.kernels import build

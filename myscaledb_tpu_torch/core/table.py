@@ -178,7 +178,8 @@ class Column:
     data shape: (n,) for scalars, (n, dim) for FLOAT32_VECTOR; for ARRAY
     columns the flat element tensor, with host int64 row ``offsets``.
     valid: bool (n,) tensor, True where the value is non-NULL; None = no
-    nulls.
+    nulls.  A distributed table's column holds a ``parallel.mesh.RowSplit``
+    in both (one tensor per shard, on the shard's device).
     """
 
     __slots__ = ("field", "data", "valid", "dictionary", "zonemap", "offsets")
@@ -320,7 +321,12 @@ class Column:
     def to_numpy(self) -> np.ndarray:
         """Host copy in the logical type's numpy dtype (widened unsigned
         storage is cast back)."""
-        arr = self.data if self.is_host else self.data.cpu().numpy()
+        if self.is_host:
+            arr = self.data
+        elif isinstance(self.data, torch.Tensor):
+            arr = self.data.cpu().numpy()
+        else:
+            arr = np.asarray(self.data)     # a distributed column's parts
         if self.offsets is None and self.dtype.is_numeric:
             arr = arr.astype(physical_dtype(self.dtype), copy=False)
         return arr

@@ -725,8 +725,12 @@ class _ElemEnv(Env):
         self.device = parent.device
         self.extra = dict(binds)
         self.subquery_runner = getattr(parent, "subquery_runner", None)
+        self.memo = parent.memo
         self._off = off
         self._row_ids = None
+        # an element is live where its row is
+        self.live = None if parent.live is None else \
+            parent.live.index_select(0, self._rid)
 
     @property
     def n_rows(self) -> int:

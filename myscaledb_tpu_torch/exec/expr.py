@@ -101,6 +101,14 @@ class Env:
     subquery_runner = None
     dictionaries = None        # name -> runtime.dictionaries.Dictionary
     session = None             # the Session, for joinGet's Join tables
+    # the rows whose values the statement keeps (a bool tensor over the
+    # rows, None for every row): a valid zero divisor raises only in one
+    # of them.  The executor sets it to a WHERE mask, a shard's real rows;
+    # AND/OR and if/multiIf narrow it for the operands they may skip.
+    live = None
+    # per-statement host tables over a dictionary's values, shared by the
+    # statement's Envs (a distributed table's shards read one dictionary)
+    memo = None
 
     def __init__(self, table: Table, aliases: Optional[dict] = None,
                  device=None):
@@ -296,13 +304,29 @@ def _f_least(args, env):
 
 @func("toInt32")
 def _f_toint32(args, env):
-    return Value(_numeric(args[0], env.n_rows).to(torch.int32),
+    return Value(_saturating_int(_numeric(args[0], env.n_rows), torch.int32),
                  args[0].valid)
 
 @func("toInt64")
 def _f_toint64(args, env):
-    return Value(_numeric(args[0], env.n_rows).to(torch.int64),
+    return Value(_saturating_int(_numeric(args[0], env.n_rows), torch.int64),
                  args[0].valid)
+
+
+def _saturating_int(x: torch.Tensor, dtype) -> torch.Tensor:
+    """``x`` cast to ``dtype``; a float outside the type's range saturates
+    to its bound and NaN gives 0, as XLA converts (the JAX package's
+    answers).  A bare cast of such a float is undefined: x86 gives the
+    type's minimum, and the card need not agree."""
+    if not x.is_floating_point():
+        return x.to(dtype)
+    info = torch.iinfo(dtype)
+    hi = float(info.max) + 1.0          # 2^31 / 2^63: exact in f32 and f64
+    lo = float(info.min)
+    inside = (x >= lo) & (x < hi)
+    out = torch.where(inside, x, torch.zeros_like(x)).to(dtype)
+    out = torch.where(x >= hi, info.max, out)
+    return torch.where(x < lo, info.min, out)
 
 @func("toFloat32")
 def _f_tofloat32(args, env):
@@ -321,12 +345,36 @@ def _f_intdiv(args, env):
     if _is_bits(args[0]) and not b.is_floating_point():
         m = _positive_literal(args[1], "intDiv")
         return Value(_u64_div(a.to(torch.int64), m), valid, u64=True)
-    return Value(_trunc_div(a, b), valid)
+    return Value(_trunc_div(a, _divisor(args[1], b, valid, env)), valid)
 
 def _trunc_div(a, b):
     """intDiv: the quotient rounded toward zero, as ClickHouse gives it
     (intDiv(-5, 3) = -1); the JAX package floors (ROADMAP section 3)."""
     return torch.div(a, b, rounding_mode="trunc")
+
+
+def _divisor(bv: Value, b: torch.Tensor, valid, env: Env) -> torch.Tensor:
+    """The integer divisor of ``%`` and ``intDiv``: the 0 stored under a
+    NULL, or in a row the statement drops (``env.live``), is replaced by 1
+    (the row stays NULL or is dropped); a valid 0 in a kept row raises
+    "Division by zero", as ClickHouse does (the JAX package answers 5 % 0
+    = 0 and intDiv(5, 0) = -2: ROADMAP section 3).  A float divisor is
+    left as it is."""
+    if b.is_floating_point():
+        return b
+    if bv.is_scalar and isinstance(bv.py, int) and not isinstance(bv.py,
+                                                                   bool):
+        if bv.py == 0:
+            raise EvalError("Division by zero")
+        return b
+    zero = b == 0
+    bad = zero if valid is None else zero & valid
+    live = env.live
+    if live is not None and (bad.dim() == 0 or bad.shape == live.shape):
+        bad = bad & live
+    if bool(bad.any()):
+        raise EvalError("Division by zero")
+    return torch.where(zero, torch.ones_like(b), b)
 
 
 @func("modulo")
@@ -335,7 +383,8 @@ def _f_modulo(args, env):
         return _arith("%", args[0], args[1], env)
     a = _numeric(args[0], env.n_rows)
     b = _numeric(args[1], env.n_rows)
-    return Value(torch.fmod(a, b), _both_valid(args[0], args[1]))
+    valid = _both_valid(args[0], args[1])
+    return Value(torch.fmod(a, _divisor(args[1], b, valid, env)), valid)
 
 @func("plus")
 def _f_plus(args, env):
@@ -431,13 +480,27 @@ def _like_to_re(pat: str, icase: bool = False) -> re.Pattern:
                       re.DOTALL | (re.IGNORECASE if icase else 0))
 
 
-def _like_impl(args, negate: bool, icase: bool) -> Value:
+def _dictionary_table(env: Env, d: StringDictionary, key: tuple, compute):
+    """``compute()``'s per-value table of dictionary ``d``: made once a
+    statement where its Envs share a ``memo``, else on each call."""
+    if env.memo is None:
+        return compute()
+    k = (id(d), len(d)) + key
+    hit = env.memo.get(k)
+    if hit is None:
+        hit = env.memo[k] = (d, compute())    # d kept: its id stays its own
+    return hit[1]
+
+
+def _like_impl(args, env, negate: bool, icase: bool) -> Value:
     v, pat = args[0], args[1]
     if v.dictionary is None or not isinstance(pat.py, str):
         raise EvalError("LIKE needs a string column and literal pattern")
     rx = _like_to_re(pat.py, icase)
-    lut = np.array([bool(rx.match(s)) for s in v.dictionary.values],
-                   dtype=bool)
+    lut = _dictionary_table(
+        env, v.dictionary, ("like", pat.py, icase),
+        lambda: np.array([bool(rx.match(s)) for s in v.dictionary.values],
+                         dtype=bool))
     if negate:
         lut = ~lut
     if len(lut) == 0:
@@ -447,22 +510,22 @@ def _like_impl(args, negate: bool, icase: bool) -> Value:
 
 @func("like")
 def _f_like(args, env):
-    return _like_impl(args, False, False)
+    return _like_impl(args, env, False, False)
 
 
 @func("notLike")
 def _f_not_like(args, env):
-    return _like_impl(args, True, False)
+    return _like_impl(args, env, True, False)
 
 
 @func("ilike")
 def _f_ilike(args, env):
-    return _like_impl(args, False, True)
+    return _like_impl(args, env, False, True)
 
 
 @func("notILike")
 def _f_not_ilike(args, env):
-    return _like_impl(args, True, True)
+    return _like_impl(args, env, True, True)
 
 
 def _full(v: Value, n: int) -> torch.Tensor:
@@ -899,7 +962,8 @@ def _arith(op: str, a: Value, b: Value, env: Env) -> Value:
         # the JAX package, whose TPU has no f64 compute)
         d = _f32(x) / _f32(y)
     elif op == "%":
-        d = torch.fmod(x, y)          # truncated, as ClickHouse: -5 % 3 = -2
+        # truncated, as ClickHouse: -5 % 3 = -2
+        d = torch.fmod(x, _divisor(b, y, _both_valid(a, b), env))
     else:
         raise EvalError(f"unknown arithmetic op {op}")
     if tag is not None and not d.is_floating_point():
@@ -1232,7 +1296,8 @@ def _join_key(bc, kv: Value, n: int, dev):
         else:
             raise EvalError("joinGet: key type mismatch")
         return bc.data.to(torch.int64), pid
-    data = kv.data.reshape(1) if kv.is_scalar else kv.data.expand(n)
+    # a scalar key among column keys probes every row
+    data = kv.data.reshape(1).expand(n) if kv.is_scalar else kv.data
     dt = torch.promote_types(bc.data.dtype, data.dtype)
     return bc.data.to(dt), data.to(dt)
 
@@ -1309,7 +1374,14 @@ def _f_joingetornull(args, env):
 def eval_expr(e: Expr, env: Env) -> Value:
     if isinstance(e, Literal):
         if e.value is None:
-            return Value(_scalar(0, env.device), is_scalar=True, py=None)
+            # NULL: a 0 under an all-false validity, so that arithmetic,
+            # comparisons and greatest/least over it give NULL and
+            # coalesce/ifNull pass over it (the JAX package's literal is a
+            # plain 0: ROADMAP section 3)
+            return Value(_scalar(0, env.device),
+                         torch.zeros((), dtype=torch.bool,
+                                     device=env.device),
+                         is_scalar=True, py=None)
         if isinstance(e.value, str):
             return Value(None, is_scalar=True, py=e.value)
         return Value(_scalar(e.value, env.device), is_scalar=True,
@@ -1327,8 +1399,12 @@ def eval_expr(e: Expr, env: Env) -> Value:
         raise EvalError(f"unknown unary {e.op}")
     if isinstance(e, BinOp):
         if e.op in ("AND", "OR"):
+            # the right operand matters only where the left one does not
+            # decide the row
             a = as_bool_mask(eval_expr(e.left, env), env.n_rows)
-            b = as_bool_mask(eval_expr(e.right, env), env.n_rows)
+            b = as_bool_mask(_eval_in_rows(e.right, env,
+                                           a if e.op == "AND" else ~a),
+                             env.n_rows)
             return Value(a & b if e.op == "AND" else a | b)
         a = eval_expr(e.left, env)
         b = eval_expr(e.right, env)
@@ -1367,12 +1443,42 @@ def eval_expr(e: Expr, env: Env) -> Value:
         impl = _FUNCS.get(e.name.lower())
         if impl is None:
             raise EvalError(f"unknown function {e.name!r}")
+        if e.name.lower() in ("if", "multiif") and len(e.args) >= 3 and \
+                len(e.args) % 2 == 1:
+            return impl(_branch_args(e.args, env), env)
         args = [eval_expr(a, env) for a in e.args]
         return impl(args, env)
     if isinstance(e, WindowCall):
         # computed windows are read by name; one inside an expression is not
         raise EvalError(f"cannot evaluate {e!r}")
     raise EvalError(f"cannot evaluate {e!r}")
+
+
+def _eval_in_rows(e: Expr, env: Env, rows: torch.Tensor) -> Value:
+    """``e`` over every row, where only ``rows`` of the live ones keep its
+    value (see ``Env.live``)."""
+    prev = env.live
+    env.live = rows if prev is None else prev & rows
+    try:
+        return eval_expr(e, env)
+    finally:
+        env.live = prev
+
+
+def _branch_args(args, env: Env) -> list:
+    """if/multiIf's arguments (cond, then, ..., else): each condition over
+    the rows no earlier one took, each branch over the rows it gives."""
+    out = []
+    rest = None                      # the rows no condition took yet
+    for i in range(0, len(args) - 1, 2):
+        c = eval_expr(args[i], env) if rest is None else \
+            _eval_in_rows(args[i], env, rest)
+        cm = as_bool_mask(c, env.n_rows)
+        took = cm if rest is None else rest & cm
+        out += [c, _eval_in_rows(args[i + 1], env, took)]
+        rest = ~cm if rest is None else rest & ~cm
+    out.append(_eval_in_rows(args[-1], env, rest))
+    return out
 
 
 def _in_subquery(e: InSubquery, env: Env) -> Value:

@@ -147,20 +147,38 @@ def distributed_table_from_numpy(columns: dict, n_shards: int, device,
     array or list} with the ``__row_valid__`` mask among them, and its
     mesh's shard count (``mesh.shape[axis]``) — as this package's
     distributed Table over ``make_mesh(n_shards)`` on ``device``, with
-    the same row layout (shard p's rows at [p * n_loc, (p + 1) *
-    n_loc))."""
-    from myscaledb_tpu_torch.parallel.dist_table import ROW_VALID, _set_mesh
-    from myscaledb_tpu_torch.parallel.mesh import make_mesh
+    the same row layout (shard p's rows at [p * n_loc, (p + 1) * n_loc),
+    its part on the shard's device)."""
+    from myscaledb_tpu_torch.parallel.dist_table import (ROW_VALID,
+                                                         distribute_table)
+    from myscaledb_tpu_torch.parallel.mesh import make_mesh, shard_rows
     if ROW_VALID not in columns:
         raise ValueError(f"a distributed table's columns hold {ROW_VALID}")
     rv = np.asarray(columns[ROW_VALID], dtype=bool)
     if len(rv) % n_shards:
         raise ValueError(f"{len(rv)} rows do not split over {n_shards} "
                          "shards")
-    dtypes = dict(dtypes or {})
-    dtypes[ROW_VALID] = DataType.BOOL
-    t = Table.from_dict({k: (rv if k == ROW_VALID else v)
-                         for k, v in columns.items()}, name=name,
-                        dtypes=dtypes, device=device)
-    return _set_mesh(t, make_mesh(n_shards, device=device), "shard",
-                     int(rv.sum()))
+    t = Table.from_dict({k: v for k, v in columns.items()
+                         if k != ROW_VALID}, name=name, dtypes=dtypes,
+                        device=device)
+    mesh = make_mesh(n_shards, device=device)
+    # the rows are padded already: each shard's part is its rows as they
+    # are, and the JAX table's row mask replaces the all-true one
+    out = distribute_table(t, mesh)
+    out[ROW_VALID].data = shard_rows(mesh, torch.as_tensor(rv.copy()))
+    out.real_rows = int(rv.sum())
+    return out
+
+
+def row_split_from_numpy(shards, mesh):
+    """A JAX row-sharded array's per-device shards as numpy arrays, in
+    shard order (``[np.asarray(s.data) for s in arr.addressable_shards]``
+    sorted by their row index), as this package's shard parts over
+    ``mesh``: part p on ``mesh.device(p)``."""
+    from myscaledb_tpu_torch.parallel.mesh import RowSplit
+    shards = list(shards)
+    if len(shards) != mesh.size:
+        raise ValueError(f"{len(shards)} shards for a mesh of {mesh.size}")
+    return RowSplit([torch.as_tensor(np.array(a, copy=True),
+                                     device=mesh.device(p))
+                     for p, a in enumerate(shards)])

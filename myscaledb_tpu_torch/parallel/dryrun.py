@@ -1,6 +1,7 @@
 """A dry run of every distributed path at small shapes: the port's
 counterpart of the JAX package's ``dryrun_multichip``
-(``__graft_entry__.py``'s multi-chip check), on ``make_mesh(n_shards)``.
+(``__graft_entry__.py``'s multi-chip check), on ``make_mesh(n_shards)``:
+one shard per visible card without a count, as the JAX package's.
 
 It runs the operators (top-k, GROUP BY, top-n, the shuffle, both shuffle
 joins, the fused config-5 step) and the SQL surface over distributed tables
@@ -9,7 +10,7 @@ TextSearch and HybridSearch against the same tables undistributed), checks
 their shapes and the text searches' equality, and returns a summary.
 
     python -c "from myscaledb_tpu_torch.parallel.dryrun import \\
-        dryrun_multichip; print(dryrun_multichip(8))"
+        dryrun_multichip; print(dryrun_multichip())"
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 
-def dryrun_multichip(n_shards: int, device=None) -> dict:
+def dryrun_multichip(n_shards=None, device=None) -> dict:
     from myscaledb_tpu_torch import connect
     from myscaledb_tpu_torch.ops.sort import SortKey
     from myscaledb_tpu_torch.parallel.mesh import make_mesh, shard_rows
@@ -30,6 +31,7 @@ def dryrun_multichip(n_shards: int, device=None) -> dict:
         sharded_shuffle_join_pairs, shuffle_by_key)
 
     mesh = make_mesh(n_shards, device=device)
+    n_shards = mesh.size
     dev = mesh.device(0)
     n_loc, d, nq, k, G = 128, 16, 4, 5, 8
     n = n_shards * n_loc
@@ -117,7 +119,7 @@ def dryrun_multichip(n_shards: int, device=None) -> dict:
         "distributed TextSearch != local"
     assert s.sql(hybrid_q).to_rows() == local_h, \
         "distributed HybridSearch != local"
-    return {"shards": n_shards,
+    return {"shards": n_shards, "devices": mesh.n_cards,
             "topk": ids[0, :3].tolist(),
             "groups": int((gc > 0).sum()),
             "sql_rows": (r1.n_rows, r2.n_rows),

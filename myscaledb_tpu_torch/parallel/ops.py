@@ -14,7 +14,11 @@ Maps the reference's distribution mechanisms onto the mesh:
      -> a shard-local top-n, its candidates gathered and cut.
 
 Shard p owns global rows [p * n_loc, (p + 1) * n_loc), so a local row id
-lifts to a global one with one offset add.
+lifts to a global one with one offset add.  Each operator takes its
+row-split inputs as a ``RowSplit``, a list of per-shard tensors or a
+global tensor (split by ``shard_rows``); every shard body runs on its
+shard's device, and the merges run on ``mesh.device(0)``, where the
+replicated results live.
 
 The JAX shard body scans with XLA's plain block scan; here it is the
 port's local ``distance_scan`` over the shard's rows with no SQ8 sidecar:
@@ -37,7 +41,7 @@ from myscaledb_tpu_torch.ops.vector import (INVALID_ID, distance_scan,
                                             precompute_sqnorm)
 from myscaledb_tpu_torch.parallel.mesh import (Mesh, all_gather, pmax,
                                                pmin, ppermute, psum,
-                                               row_slices)
+                                               row_slices, rows_per_shard)
 
 # rows of a shard whose squared norms are taken at once (bounds the
 # temporary of x * x)
@@ -87,7 +91,9 @@ def sqnorm_rows(x: torch.Tensor) -> torch.Tensor:
 def _shard_distance_topk(x_loc, q, mask_loc, metric: str, k: int,
                          block_rows: int, p: int, n_loc: int, sqn_loc=None):
     """Shard body: the exact top-k of the shard's rows as internal
-    min-scores (+inf where absent) and global ids."""
+    min-scores (+inf where absent) and global ids, on the shard's
+    device."""
+    q = q.to(x_loc.device)
     if sqn_loc is None:
         sqn_loc = sqnorm_rows(x_loc.float())
     d, i = distance_scan(x_loc, q, metric=metric, k=k, mask=mask_loc,
@@ -123,8 +129,8 @@ def _local_distance_topk(mesh: Mesh, x, q, mask, metric: str, k: int,
     """Every shard's exact top-k and their merge (the fused pipeline reuses
     it between its exchange and its join count)."""
     nsh = mesh.size
-    n_loc = x.shape[0] // nsh
     xs = row_slices(mesh, x)
+    n_loc = rows_per_shard(xs)
     ms = row_slices(mesh, mask)
     sqs = row_slices(mesh, x_sqnorm)
     ss, ids = [], []
@@ -141,21 +147,23 @@ def sharded_distance_topk(mesh: Mesh, x, q, metric: str = "L2", k: int = 10,
     """Distributed exact top-k distance scan.
 
     x: (N, D) row-split over the mesh (N a multiple of the shard count);
-    q: (nq, D) replicated; mask: optional (N,) row-split; x_sqnorm:
-    optional (N,) squared norms (else each shard takes its own).  Returns
-    replicated (dist (nq, k), global ids (nq, k))."""
-    nsh = mesh.size
-    n = x.shape[0]
-    if n % nsh:
-        raise ValueError("table rows must be padded to a multiple of the "
-                         "mesh")
-    q = torch.as_tensor(q, device=x.device).float()
+    q: (nq, D) replicated; mask: optional (N,) row-split (a shard's part
+    may be None); x_sqnorm: optional (N,) row-split squared norms (else
+    each shard takes its own).  Returns replicated (dist (nq, k), global
+    ids (nq, k)) on ``mesh.device(0)``."""
+    xs = row_slices(mesh, x)
+    q = torch.as_tensor(q, device=mesh.device(0)).float()
     if q.dim() == 1:
         q = q[None, :]
-    if mask is not None:
-        mask = torch.as_tensor(mask, device=x.device).bool()
-    return _local_distance_topk(mesh, x, q, mask, metric, int(k),
+    masks = [None if m is None else m.bool()
+             for m in row_slices(mesh, mask)]
+    return _local_distance_topk(mesh, xs, q, masks, metric, int(k),
                                 int(block_rows), x_sqnorm)
+
+
+def sqnorm_parts(x) -> list:
+    """Each shard's squared row norms on its own device."""
+    return [sqnorm_rows(t.float()) for t in x.parts]
 
 
 def _merge_agg_states(fns, states: list, gcs: list):
@@ -203,6 +211,7 @@ def sharded_group_aggregate(mesh: Mesh, gid, mask, args, fns: tuple,
     fns = tuple(fns)
     nsh = mesh.size
     gids = row_slices(mesh, gid)
+    rows_per_shard(gids)
     masks = row_slices(mesh, mask)
     arg_sl = [row_slices(mesh, a) for a in args]
     val_sl = [row_slices(mesh, v) for v in arg_valids] \
@@ -228,16 +237,13 @@ def sharded_topn(mesh: Mesh, keys: Sequence[SortKey], k: int) -> torch.Tensor:
     """Distributed ORDER BY ... LIMIT k -> replicated global row ids.
 
     Each shard takes the top-n of its rows on the order-encoded keys (ties
-    by row), then the nsh * k candidates are gathered and cut (the
-    initiator's merge); equal keys keep global row order."""
+    by row) on its device, then the nsh * k candidates are gathered to
+    ``mesh.device(0)`` and cut (the initiator's merge); equal keys keep
+    global row order.  A key's values and validity are row-split."""
     nsh = mesh.size
-    n = keys[0].values.shape[0]
-    if n % nsh:
-        raise ValueError("table rows must be padded to a multiple of the "
-                         "mesh")
-    n_loc = n // nsh
-    kk = min(k, n_loc)
     vals = [row_slices(mesh, sk.values) for sk in keys]
+    n_loc = rows_per_shard(vals[0])
+    kk = min(k, n_loc)
     valids = [row_slices(mesh, sk.valid) for sk in keys]
     cand_vals = [[] for _ in keys]
     cand_valids = [[] for _ in keys]

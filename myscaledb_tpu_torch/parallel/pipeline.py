@@ -3,10 +3,12 @@ myscaledb_tpu/parallel/pipeline.py.
 
 The JAX package issues the join shuffle's all_to_alls before the top-k
 distance matmul inside one shard_map, so XLA's async collectives overlap
-the exchange with the scan.  Here the steps keep that order and run one
-after another: with every shard on one device the exchange is a local
-copy.  Overlapping it with the scan on a side stream is a later speed
-change (ROADMAP).
+the exchange with the scan.  Here the steps keep that order: the
+exchange's copies are queued first, then every shard's scan, join count
+and group partials on its own card.  The host queues the shard bodies one
+after another and waits for none of them, so shards on distinct cards run
+at once; on one card they run in turn.  Overlapping the exchange with the
+scan on a side stream is a later speed change (ROADMAP).
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ from __future__ import annotations
 import torch
 
 from myscaledb_tpu_torch.ops.aggregate import partial_aggregate_matmul
-from myscaledb_tpu_torch.parallel.mesh import Mesh, psum, row_slices
+from myscaledb_tpu_torch.parallel.mesh import (Mesh, psum, row_slices,
+                                               rows_per_shard)
 from myscaledb_tpu_torch.parallel.ops import (_local_distance_topk,
                                               _merge_agg_states)
 from myscaledb_tpu_torch.parallel.shuffle import _all_pair_count, _exchange
@@ -35,27 +38,26 @@ def fused_topk_join_agg(mesh: Mesh, x, q, metric: str, k: int, fact_key,
       5. the group-aggregate partials of each shard (K3 up to 256 groups)
          and their merge.
 
-    Returns replicated (top-k dist (nq, k), top-k ids (nq, k), join count
-    (0-d int64), aggregate states, group count)."""
+    Every row-split argument is a RowSplit, a list of per-shard tensors or
+    a global tensor (``row_slices``).  Returns replicated (top-k dist (nq,
+    k), top-k ids (nq, k), join count (0-d int64), aggregate states, group
+    count) on ``mesh.device(0)``."""
     nsh = mesh.size
-    n = x.shape[0]
-    if n % nsh:
-        raise ValueError("table rows must be padded to a multiple of the "
-                         "mesh")
-    n_loc = n // nsh
-    cap_f = max(n_loc, 1)
-    cap_d = max(dim_key.shape[0] // nsh, 1)
-    fns = tuple(fns)
-    q = torch.as_tensor(q, device=x.device).float()
-    # 1. exchange first
+    xs = row_slices(mesh, x)
+    n_loc = rows_per_shard(xs)
     fks = row_slices(mesh, fact_key)
     dks = row_slices(mesh, dim_key)
+    cap_f = max(n_loc, 1)
+    cap_d = max(int(dks[0].shape[0]), 1)
+    fns = tuple(fns)
+    q = torch.as_tensor(q, device=mesh.device(0)).float()
+    # 1. exchange first
     fk_rx, _, fv_rx = _exchange(mesh, fks, [], [torch.ones_like(
         f, dtype=torch.bool) for f in fks], cap_f)
     dk_rx, _, dv_rx = _exchange(mesh, dks, [], [torch.ones_like(
         d, dtype=torch.bool) for d in dks], cap_d)
-    # 2-3. the scan and its merge
-    md, mi = _local_distance_topk(mesh, x, q, None, metric, int(k),
+    # 2-3. the scans and their merge
+    md, mi = _local_distance_topk(mesh, xs, q, None, metric, int(k),
                                   int(block_rows), x_sqnorm)
     # 4. the join count over colocated keys
     cnt = psum([_all_pair_count(fk_rx[p], fv_rx[p], dk_rx[p], dv_rx[p])

@@ -9,11 +9,16 @@ and keeps the received rows with a validity mask; raggedness is carried
 as padding.  After a shuffle by key hash every occurrence of a key lives
 on one shard, so joins and aggregations become shard-local.
 
-Shard p receives its rows from shard 0 first, each source's rows in their
-row order: an ANY join's lowest build row and the pairs' order follow
+Each shard routes and packs its rows on its own device; the all_to_all
+copies each bucket to its destination shard's device, where the shard's
+join or grouping then runs.  Shard p receives its rows from shard 0
+first, each source's rows in their row order: an ANY join's lowest build row and the pairs' order follow
 from that, as in the JAX package.  The shard-local join count is the JAX
 package's sort-based count, its run starts carried by a scatter and a
-gather where the JAX package takes a cummax (``_at_run_start``).
+gather where the JAX package takes a cummax (``_at_run_start``).  A
+shard body reads nothing back to the host, so the host queues every
+shard's exchange and count without waiting (on distinct cards they run
+at once).
 """
 
 from __future__ import annotations
@@ -28,8 +33,9 @@ from myscaledb_tpu_torch.ops.hashtable import (INT32_MAX, _cat_keys, _ranks,
                                                group_ids_static,
                                                merge_join_any)
 from myscaledb_tpu_torch.ops.aggregate import partial_aggregate
-from myscaledb_tpu_torch.parallel.mesh import (Mesh, all_to_all, psum,
-                                               row_slices)
+from myscaledb_tpu_torch.parallel.mesh import (Mesh, all_gather,
+                                               all_to_all, psum, row_slices,
+                                               rows_per_shard)
 
 
 def _dest_of(key: torch.Tensor, nsh: int) -> torch.Tensor:
@@ -47,8 +53,10 @@ def _route(key_loc, vmask, nsh: int, cap: int):
     dest = torch.where(vmask.bool(), _dest_of(key_loc, nsh), nsh)
     order = torch.sort(dest, stable=True).indices
     sdest = dest[order].long()
-    counts = torch.bincount(sdest, minlength=nsh + 1)
-    starts = torch.cumsum(counts, 0) - counts
+    # each destination's first sorted position (bincount would read its
+    # size back to the host)
+    starts = torch.searchsorted(
+        sdest, torch.arange(nsh + 1, dtype=torch.int64, device=dev))
     within = torch.arange(n_loc, device=dev) - starts[sdest]
     real = sdest < nsh
     ok = real & (within < cap)
@@ -68,7 +76,7 @@ def _pack(col: torch.Tensor, order, slot, size: int) -> torch.Tensor:
 
 def _flag(slot, size: int, dev) -> torch.Tensor:
     buf = torch.zeros(size + 1, dtype=torch.bool, device=dev)
-    buf[slot] = True
+    buf.index_fill_(0, slot, True)      # no host scalar copied in
     return buf[:size]
 
 
@@ -147,22 +155,28 @@ def shuffle_by_key(mesh: Mesh, key, arrays: Sequence, valid=None,
     nsh.  key: (n,) row-split integer key; arrays: columns moved with it;
     valid: optional row validity (padding rows excluded); cap: bucket
     capacity (worst case n_loc when None).  Returns (key_out, arrays_out,
-    valid_out) in the global view: shard p's (nsh * cap,) received rows at
-    [p * nsh * cap, (p + 1) * nsh * cap)."""
-    nsh = mesh.size
-    n_loc = key.shape[0] // nsh
+    valid_out) in the global view on ``mesh.device(0)``: shard p's (nsh *
+    cap,) received rows at [p * nsh * cap, (p + 1) * nsh * cap)."""
+    keys = row_slices(mesh, key)
+    n_loc = rows_per_shard(keys)
     cap = int(cap or n_loc)
-    vm = row_slices(mesh, valid) if valid is not None else _ones(mesh, n_loc)
-    k_rx, c_rx, v_rx = _exchange(mesh, row_slices(mesh, key),
-                                 [row_slices(mesh, a) for a in arrays], vm,
-                                 cap)
-    return (torch.cat(k_rx), tuple(torch.cat(c) for c in c_rx),
-            torch.cat(v_rx))
+    k_rx, c_rx, v_rx = _exchange(mesh, keys,
+                                 [row_slices(mesh, a) for a in arrays],
+                                 _split_valid(mesh, valid, n_loc), cap)
+    return (all_gather(k_rx, tiled=True),
+            tuple(all_gather(c, tiled=True) for c in c_rx),
+            all_gather(v_rx, tiled=True))
 
 
 def _split_valid(mesh, valid, n_loc):
     return row_slices(mesh, valid) if valid is not None \
         else _ones(mesh, n_loc)
+
+
+def _row_ids(mesh: Mesh, n_loc: int) -> list:
+    """Each shard's global row ids (int32) on its own device."""
+    return [torch.arange(p * n_loc, (p + 1) * n_loc, dtype=torch.int32,
+                         device=mesh.device(p)) for p in range(mesh.size)]
 
 
 def sharded_shuffle_join_pairs(mesh: Mesh, left_key, right_key,
@@ -175,16 +189,14 @@ def sharded_shuffle_join_pairs(mesh: Mesh, left_key, right_key,
     right row, as hash_join_all orders them) or "ANY" (the lowest right
     row per left row; pairs in the shards' received order)."""
     nsh = mesh.size
-    n_l, n_r = left_key.shape[0], right_key.shape[0]
-    dev = left_key.device
-    cap_l, cap_r = n_l // nsh, n_r // nsh
-    lid = row_slices(mesh, torch.arange(n_l, dtype=torch.int32, device=dev))
-    rid = row_slices(mesh, torch.arange(n_r, dtype=torch.int32, device=dev))
+    lks, rks = row_slices(mesh, left_key), row_slices(mesh, right_key)
+    cap_l, cap_r = rows_per_shard(lks), rows_per_shard(rks)
+    n_r = nsh * cap_r
     lk_rx, (lid_rx,), lv_rx = _exchange(
-        mesh, row_slices(mesh, left_key), [lid],
+        mesh, lks, [_row_ids(mesh, cap_l)],
         _split_valid(mesh, left_valid, cap_l), cap_l)
     rk_rx, (rid_rx,), rv_rx = _exchange(
-        mesh, row_slices(mesh, right_key), [rid],
+        mesh, rks, [_row_ids(mesh, cap_r)],
         _split_valid(mesh, right_valid, cap_r), cap_r)
     if how == "ANY":
         out_l, out_r = [], []
@@ -195,10 +207,12 @@ def sharded_shuffle_join_pairs(mesh: Mesh, left_key, right_key,
             safe = torch.where(found, brow, 0).long()
             out_l.append(lid_rx[p][found])
             out_r.append(rid_rx[p][safe][found])
-        return (torch.cat(out_l).cpu().numpy().astype(np.int32),
-                torch.cat(out_r).cpu().numpy().astype(np.int32))
+        return (all_gather(out_l, tiled=True).cpu().numpy()
+                .astype(np.int32),
+                all_gather(out_r, tiled=True).cpu().numpy()
+                .astype(np.int32))
     # ALL: a count pass per shard sizes the expansion (one host sync)
-    totals = [int(t) for t in torch.stack(
+    totals = [int(t) for t in all_gather(
         [_all_pair_count(lk_rx[p], lv_rx[p], rk_rx[p], rv_rx[p])
          for p in range(nsh)]).cpu()]
     cap_out = max(1, max(totals))
@@ -209,8 +223,9 @@ def sharded_shuffle_join_pairs(mesh: Mesh, left_key, right_key,
                                        cap_out, totals[p])
         pl.append(pi[pv])
         pr.append(bi[pv])
-    # by left row, then right row, sorted on the device
-    out_l, out_r = torch.cat(pl).long(), torch.cat(pr).long()
+    # by left row, then right row, sorted on shard 0's device
+    out_l = all_gather(pl, tiled=True).long()
+    out_r = all_gather(pr, tiled=True).long()
     o = torch.sort(out_l * max(n_r, 1) + out_r).indices
     return (out_l[o].cpu().numpy().astype(np.int32),
             out_r[o].cpu().numpy().astype(np.int32))
@@ -229,11 +244,10 @@ def sharded_shuffle_join_count(mesh: Mesh, left_key, right_key,
     overflow is counted exactly and retried once at the worst case, so the
     count is always exact.  Returns a replicated 0-d int64 tensor."""
     nsh = mesh.size
-    n_l, n_r = left_key.shape[0], right_key.shape[0]
-    full_l, full_r = max(n_l // nsh, 1), max(n_r // nsh, 1)
     lks, rks = row_slices(mesh, left_key), row_slices(mesh, right_key)
-    lvs = _split_valid(mesh, left_valid, n_l // nsh)
-    rvs = _split_valid(mesh, right_valid, n_r // nsh)
+    full_l, full_r = max(rows_per_shard(lks), 1), max(rows_per_shard(rks), 1)
+    lvs = _split_valid(mesh, left_valid, rows_per_shard(lks))
+    rvs = _split_valid(mesh, right_valid, rows_per_shard(rks))
 
     def run(cap_l: int, cap_r: int):
         if nsh == 1 and not force_exchange:
@@ -275,8 +289,7 @@ def _sort_key_rank(keys_all, rank):
 def _run_starts(s_keys) -> torch.Tensor:
     n = s_keys[0].shape[0]
     start = torch.zeros(n, dtype=torch.bool, device=s_keys[0].device)
-    if n:
-        start[0] = True
+    start[:1].fill_(True)               # no host scalar copied in
     for k in s_keys:
         start[1:] |= k[1:] != k[:-1]
     return start
@@ -352,10 +365,10 @@ def _shuffle_groups(mesh: Mesh, key, mask, cols: list):
     group ids, the group -> key map, received columns, received
     validity)."""
     nsh = mesh.size
-    n_loc = key.shape[0] // nsh
-    k_rx, c_rx, v_rx = _exchange(mesh, row_slices(mesh, key),
+    keys = row_slices(mesh, key)
+    k_rx, c_rx, v_rx = _exchange(mesh, keys,
                                  [row_slices(mesh, c) for c in cols],
-                                 row_slices(mesh, mask), n_loc)
+                                 row_slices(mesh, mask), rows_per_shard(keys))
     out = []
     for p in range(nsh):
         lgid, (rep,), _ng = group_ids_static((k_rx[p],), v_rx[p])
@@ -370,7 +383,8 @@ def sharded_shuffle_aggregate(mesh: Mesh, key, mask, args, fns: tuple):
     shard).  Returns (keys (m,), per-aggregate results, counts (m,)) as
     numpy; the initiator's merge is a concatenation (keys disjoint)."""
     fns = tuple(fns)
-    m = key.shape[0]                  # received rows per shard (padded)
+    # received rows per shard (padded)
+    m = mesh.size * rows_per_shard(row_slices(mesh, key))
     reps, states, gcs = [], [], []
     for lgid, rep, a_rx, v_rx in _shuffle_groups(mesh, key, mask,
                                                  list(args)):
@@ -378,21 +392,23 @@ def sharded_shuffle_aggregate(mesh: Mesh, key, mask, args, fns: tuple):
         reps.append(rep)
         states.append(st)
         gcs.append(gc)
-    gc_np = torch.cat(gcs).cpu().numpy()
+    gc_np = all_gather(gcs, tiled=True).cpu().numpy()
     present = np.flatnonzero(gc_np > 0)
-    keys = torch.cat(reps).cpu().numpy()[present]
+    keys = all_gather(reps, tiled=True).cpu().numpy()[present]
     outs = []
     for j, fn in enumerate(fns):
         if fn == "avg":
-            ssum = torch.cat([s[j][0] for s in states]).cpu().numpy()
-            cnt = torch.cat([s[j][1] for s in states]).cpu().numpy()
+            ssum = all_gather([s[j][0] for s in states],
+                              tiled=True).cpu().numpy()
+            cnt = all_gather([s[j][1] for s in states],
+                             tiled=True).cpu().numpy()
             ssum = ssum.astype(np.float64)[present]
             cnt = cnt.astype(np.float64)[present]
             with np.errstate(divide="ignore", invalid="ignore"):
                 outs.append(np.where(cnt > 0, ssum / cnt, np.nan))
         else:
-            outs.append(torch.cat([s[j] for s in states]).cpu().numpy()
-                        [present])
+            outs.append(all_gather([s[j] for s in states], tiled=True)
+                        .cpu().numpy()[present])
     return keys, outs, gc_np[present]
 
 
@@ -413,8 +429,8 @@ def sharded_shuffle_group_states(mesh: Mesh, gid, mask, args, fns: tuple,
     moved = [i for i, a in enumerate(args) if a is not None]
     vmoved = [i for i, v in enumerate(arg_valids or ()) if v is not None]
     cols = [args[i] for i in moved] + [arg_valids[i] for i in vmoved]
-    m = gid.shape[0]
-    dev = gid.device
+    m = mesh.size * rows_per_shard(row_slices(mesh, gid))
+    dev = mesh.device(0)
     G = num_groups
     gc_dense = torch.zeros(G, dtype=torch.int64, device=dev)
     dense: list = [None] * len(fns)
@@ -430,16 +446,18 @@ def sharded_shuffle_group_states(mesh: Mesh, gid, mask, args, fns: tuple,
         st, gc = partial_aggregate(lgid, v_rx, tuple(loc_args), fns, m,
                                    None if loc_valids is None
                                    else tuple(loc_valids))
+        # each shard's groups scattered into the dense states on shard 0's
+        # device
         sel = gc > 0
-        tgt = rep[sel].long()
-        gc_dense[tgt] = gc[sel]
+        tgt = rep[sel].long().to(dev)
+        gc_dense[tgt] = gc[sel].to(dev)
         for j, fn in enumerate(fns):
             parts = st[j] if fn == "avg" else (st[j],)
             if dense[j] is None:
                 dense[j] = [torch.zeros(G, dtype=s.dtype, device=dev)
                             for s in parts]
             for d, s in zip(dense[j], parts):
-                d[tgt] = s[sel]
+                d[tgt] = s[sel].to(dev)
     states = tuple(tuple(d) if fn == "avg" else d[0]
                    for fn, d in zip(fns, dense))
     return states, gc_dense

@@ -1926,6 +1926,7 @@ def _alter_update(session, stmt: AlterUpdate) -> int:
     t = session.tables[stmt.table]
     env = Env(t, device=session.device)
     cond = as_bool_mask(eval_expr(stmt.where, env), t.n_rows)
+    env.live = cond                 # the assignments count where it holds
     cols = dict(t.columns)
     for name, expr in stmt.assignments:
         old = t[name]
@@ -1983,6 +1984,11 @@ def _cast_column(col: Column, tmpl: Column) -> Column:
         col.data.to(tmpl.data.dtype)
     valid = col.valid if tmpl.field.nullable else None
     return Column(tmpl.field, data, valid, col.dictionary)
+
+
+# statements that rewrite a table's rows or columns where it stands
+_ROW_REWRITES = (AlterDelete, AlterUpdate, TruncateTable, AddColumn,
+                 DropColumn, ModifyColumn, DropPartition)
 
 
 def required_privilege(stmt):
@@ -2112,6 +2118,29 @@ def _insert_select(session, stmt: InsertValues, existing: Table) -> Table:
 
 
 def execute_statement(session, stmt) -> Table:
+    """Run one DDL / data statement.  A statement that rewrites a
+    distributed table's rows or columns in place runs on the table's real
+    rows gathered to shard 0's card, and the result is distributed again
+    over the same mesh (an INSERT grows each shard's part on its own card
+    instead: ``insert_block``)."""
+    from myscaledb_tpu_torch.parallel.dist_table import (distribute_table,
+                                                         gather_table,
+                                                         is_distributed)
+    name = stmt.name if isinstance(stmt, TruncateTable) else \
+        getattr(stmt, "table", None)
+    t = session.tables.get(name) \
+        if isinstance(stmt, _ROW_REWRITES) and name else None
+    if t is None or not is_distributed(t):
+        return _execute_statement(session, stmt)
+    session.tables[name] = gather_table(t)
+    try:
+        return _execute_statement(session, stmt)
+    finally:
+        session.tables[name] = distribute_table(session.tables[name],
+                                                t.mesh, t.mesh_axis)
+
+
+def _execute_statement(session, stmt) -> Table:
     dev = session.device
     empty = Table([])
 

@@ -50,18 +50,27 @@ read an external source through runtime/formats.py, behind
 SAMPLE keeps the rows whose row-id hash falls under the fraction, hashed
 and compacted on the device (``sample_mask``).
 A distributed table (parallel/dist_table.py: rows padded to a multiple of
-its mesh, a hidden ``__row_valid__`` mask) takes the shard bodies of
-parallel/: the row mask folds into the WHERE mask; a fused vector top-k
-runs ``sharded_distance_topk``; TextSearch and HybridSearch score each
-shard under global BM25 statistics (text/distributed.py); GROUP BY merges
-per-shard partials (``sharded_group_aggregate``) or, above
+its mesh, a hidden ``__row_valid__`` mask, shard p's rows tensors of
+their own on ``mesh.device(p)``) takes the shard bodies of parallel/: the
+WHERE mask is evaluated per shard over the shard's rows on its card (the
+row mask folded in), and so are the operands of the shard-routed
+operators: a fused vector top-k runs ``sharded_distance_topk``; TextSearch
+and HybridSearch score each shard under global BM25 statistics
+(text/distributed.py); GROUP BY merges per-shard partials
+(``sharded_group_aggregate``) or, above
 ``distributed_group_by_shuffle_threshold`` groups, shuffles rows by group
 (``sharded_shuffle_group_states``); ORDER BY ... LIMIT cuts per-shard
 top-n candidates (``_distributed_topn_ids``); a join probes per shard
-against a broadcast build side (``_distributed_join``) or shuffles both
-sides (``_distributed_shuffle_join``).  Zone-map pruning, the LIMIT
-pushdown and the spill route are skipped, and SAMPLE is refused, as in the
-JAX package.
+against a build side copied to each card (``_distributed_join``) or
+shuffles both sides (``_distributed_shuffle_join``).  What crosses to
+shard 0's card: a top-k's, top-n's or shuffle join's rows (``take_rows``
+of the ids the shards kept); a GROUP BY's key values and its special
+aggregates' arguments (``_cat_values``: the groups are numbered once);
+and, for any other statement, the rows the WHERE kept of the columns the
+statement names (``undistribute``; a non-fused TextSearch takes every
+real row, its index covering them).  Zone-map pruning, the LIMIT
+pushdown and the spill route are skipped, and SAMPLE is refused, as in
+the JAX package.
 ``TextSearch`` (BM25, text/bm25.py) and ``HybridSearch`` (RSF/RRF over a
 vector and a text candidate list, text/fusion.py) fuse with ORDER BY
 <score> DESC LIMIT k; TextSearch outside that is a score column.  Their
@@ -132,10 +141,15 @@ from myscaledb_tpu_torch.ops.sort import (SortKey, encode_sort_key,
                                           topn_permutation)
 from myscaledb_tpu_torch.ops.window import WindowLayout
 from myscaledb_tpu_torch.ops.filter import compact_table_host
-from myscaledb_tpu_torch.parallel.dist_table import ROW_VALID, is_distributed
+from myscaledb_tpu_torch.parallel.dist_table import (ROW_VALID, _set_mesh,
+                                                     gather_table,
+                                                     is_distributed,
+                                                     shard_tables,
+                                                     take_rows)
+from myscaledb_tpu_torch.parallel.mesh import RowSplit
 from myscaledb_tpu_torch.parallel.ops import (sharded_distance_topk,
                                               sharded_group_aggregate,
-                                              sharded_topn, sqnorm_rows)
+                                              sharded_topn, sqnorm_parts)
 from myscaledb_tpu_torch.runtime import metrics as M
 from myscaledb_tpu_torch.runtime.tracing import span
 
@@ -465,12 +479,15 @@ def _get_text_index(session, table_name: str, table: Table, col: str):
     move the epoch, so the next query reads the new rows (the JAX package
     keys its cache by the row count and serves the old index)."""
     from myscaledb_tpu_torch.text.bm25 import BM25Index
-    # a distributed table's padding rows stay out of the statistics
-    rv = table[ROW_VALID].data \
-        if is_distributed(table) and ROW_VALID in table else None
+    if is_distributed(table):
+        # over the real rows gathered in order (its doc ids are those of
+        # ``gather_table(table)``), kept while the column's parts live
+        return derived_state(
+            session, ("bm25", table_name, col), table[col].data,
+            lambda: BM25Index.from_column(
+                gather_table(table, names={col})[col], session.device))
     return _derived(session, "bm25", table_name, table, col,
-                    lambda c: BM25Index.from_column(c, session.device,
-                                                    doc_valid=rv))
+                    lambda c: BM25Index.from_column(c, session.device))
 
 
 def _ftsindex_table(session, table_name: str, col: str, query: str) -> Table:
@@ -520,7 +537,7 @@ def _text_search_topk(session, q: SelectQuery, table: Table, ts: TSInfo,
     from myscaledb_tpu_torch.text.distributed import sharded_text_search
     dev = session.device
     # a distributed table scores per shard under global statistics: no
-    # whole-table index over its rows
+    # whole-table index over its rows; ``mask`` is then one per shard
     dist = is_distributed(table)
     idx = None if dist else _get_text_index(session, q.table, table,
                                             ts.text_col)
@@ -543,7 +560,7 @@ def _text_search_topk(session, q: SelectQuery, table: Table, ts: TSInfo,
         qv = torch.as_tensor(ts.qvec, device=dev)
         if dist:
             sqn = _derived(session, "sqnorm", q.table, table, ts.vec_col,
-                           lambda c: sqnorm_rows(c.data))
+                           lambda c: RowSplit(sqnorm_parts(c.data)))
             vd, vids = sharded_distance_topk(
                 table.mesh, vcol.data, qv, ts.metric, ncand, mask=mask,
                 block_rows=settings.vector_scan_block_rows, x_sqnorm=sqn)
@@ -736,9 +753,12 @@ def _value_to_column(name: str, v: Value, n: int, device) -> Column:
                           flat, None, None, None, off)
     if data.dim() == 0:
         data = data.expand(n).clone()   # constant or scalar-folded (1+1)
+    valid = v.valid
+    if valid is not None and valid.dim() == 0:
+        valid = valid.expand(n).clone()     # a NULL literal's validity
     dt = _logical_dtype_of(data, v)
-    fld = Field(name, dt, nullable=v.valid is not None)
-    return Column(fld, data, v.valid, v.dictionary)
+    fld = Field(name, dt, nullable=valid is not None)
+    return Column(fld, data, valid, v.dictionary)
 
 
 def _sort_key_from_value(v: Value, ascending: bool, nulls_last: bool, n: int,
@@ -1112,13 +1132,14 @@ def _skipindex_block_mask(table: Table, conjuncts, session) -> \
     return possible
 
 
-def _distributed_topn_ids(q, table, env, mask, alias_exprs, device):
+def _distributed_topn_ids(q, table, senvs, masks, alias_exprs):
     """ORDER BY ... LIMIT over a distributed table: per-shard top-n and the
     merge cut (``sharded_topn``; the reference's remote stage
     WithMergeableStateAfterAggregationAndLimit) instead of sorting every
-    row.  Returns the candidate global row ids (limit + offset of them;
-    rows failing ``mask`` sort last and the caller drops any in the cut),
-    or None where the pattern does not apply."""
+    row.  The sort keys are evaluated per shard (``senvs``) on its card.
+    Returns the candidate global row ids (limit + offset of them; rows
+    failing the shard's mask in ``masks`` sort last and the caller drops
+    any in the cut), or None where the pattern does not apply."""
     if not q.order_by or q.limit is None or q.limit_by is not None \
             or q.distinct or q.group_by or q.having is not None:
         return None
@@ -1132,17 +1153,28 @@ def _distributed_topn_ids(q, table, env, mask, alias_exprs, device):
             if isinstance(node, WindowCall):
                 return None   # window frames need the full row set
     n = table.n_rows
-    sks = []
-    if mask is not None:
-        # rows failing WHERE (and the mesh padding) sort behind every row
-        sks.append(SortKey((~mask.bool()).to(torch.int32), ascending=True))
+    # rows failing WHERE (and the mesh padding) sort behind every row
+    sks = [SortKey([(~m.bool()).to(torch.int32) for m in masks],
+                   ascending=True)]
     try:
         for o in q.order_by:
             oe = _expand_item_aliases(o.expr, alias_exprs, table)
-            v = eval_expr(oe, env)
+            vals = [eval_expr(oe, se) for se in senvs]
+            if any(v.dictionary is not vals[0].dictionary for v in vals):
+                return None      # strings ranked by per-shard dictionaries
             nl = o.nulls_last if o.nulls_last is not None else o.ascending
-            sks.append(_key_on_device(
-                _sort_key_from_value(v, o.ascending, nl, n, device), device))
+            parts = [_key_on_device(_sort_key_from_value(
+                v, o.ascending, nl, se.n_rows, se.device), se.device)
+                for v, se in zip(vals, senvs)]
+            valids = None
+            if any(sk.valid is not None for sk in parts):
+                valids = [torch.ones(se.n_rows, dtype=torch.bool,
+                                     device=se.device)
+                          if sk.valid is None else
+                          sk.valid.expand(se.n_rows)
+                          for sk, se in zip(parts, senvs)]
+            sks.append(SortKey([sk.values for sk in parts], o.ascending,
+                               valids, nl))
     except (EvalError, ExecError):
         return None
     with span("distributed_topn", rows=n, k=int(k)):
@@ -1152,13 +1184,33 @@ def _distributed_topn_ids(q, table, env, mask, alias_exprs, device):
 
 
 def _compact_distributed(table: Table) -> Table:
-    """A distributed table's real rows as a plain table (joins on the
-    host's row pairs never see the padding)."""
-    if is_distributed(table) and ROW_VALID in table:
-        keep = torch.nonzero(table[ROW_VALID].data).flatten()
-        table = Table([c for c in table.columns.values()
-                       if c.name != ROW_VALID], name=table.name).take(keep)
-    return table
+    """A distributed table's real rows gathered as a plain table (joins on
+    the host's row pairs never see the padding)."""
+    return gather_table(table) if is_distributed(table) else table
+
+
+# the hidden column that carries a distributed statement's WHERE mask
+# through a gather
+WHERE_COL = "__where__"
+
+
+def _with_split_column(table: Table, name: str, parts: list) -> Table:
+    """A distributed table with one more (bool) column of shard parts."""
+    t = Table(list(table.columns.values()) +
+              [Column(Field(name, DataType.BOOL), RowSplit(parts))],
+              name=table.name)
+    return _set_mesh(t, table.mesh, table.mesh_axis, table.real_rows)
+
+
+def _split_where(t: Table) -> tuple:
+    """(``t`` without the WHERE column, the WHERE column's data); a table
+    left with no column keeps its row count in an all-true row mask."""
+    where = t[WHERE_COL].data
+    cols = [c for c in t.columns.values() if c.name != WHERE_COL]
+    if not cols:
+        cols = [Column(Field(ROW_VALID, DataType.BOOL),
+                       torch.ones_like(where))]
+    return Table(cols, name=t.name), where
 
 
 def _expand_order_tuples(order_by):
@@ -1374,7 +1426,6 @@ def _distributed_join(session, left: Table, right: Table, jc, ralias: str,
     from myscaledb_tpu_torch.ops.join import (build_join_table,
                                               probe_join_table,
                                               try_build_direct, probe_direct)
-    from myscaledb_tpu_torch.parallel.mesh import all_gather, row_slices
     strategy = choose_join_strategy(left, right, st, how, strict)
     if strategy == "shuffle":
         return _distributed_shuffle_join(session, left, right, jc, ralias,
@@ -1386,13 +1437,17 @@ def _distributed_join(session, left: Table, right: Table, jc, ralias: str,
             any(c.offsets is not None for c in right.columns.values()):
         return None
     dev = session.device
-    lenv, renv = Env(left, device=dev), Env(right, device=dev)
-    lkeys, rkeys = [], []
+    mesh = left.mesh
+    lshards = shard_tables(left)
+    renv = Env(right, device=dev)
+    lkeys, rkeys = [[] for _ in lshards], []
     try:
         for le, re_ in pairs:
-            lk, rk = _join_key_arrays(eval_expr(Ident(le.name), lenv),
-                                      eval_expr(Ident(re_.name), renv))
-            lkeys.append(lk)
+            rv = eval_expr(Ident(re_.name), renv)
+            for p, lt in enumerate(lshards):
+                lk, rk = _join_key_arrays(
+                    eval_expr(Ident(le.name), Env(lt, device=lt.device)), rv)
+                lkeys[p].append(lk)
             rkeys.append(rk)
     except (EvalError, ExecError):
         return None
@@ -1401,54 +1456,62 @@ def _distributed_join(session, left: Table, right: Table, jc, ralias: str,
         rk_all = torch.stack([k.to(torch.int64) for k in rkeys])
         if torch.unique(rk_all, dim=1).shape[1] != rk_all.shape[1]:
             return None
-    direct = try_build_direct(tuple(rkeys))
-    if direct is not None:
-        def probe(pk):
-            return probe_direct(direct, pk)
-    else:
-        ht = build_join_table(tuple(rkeys))
-
-        def probe(pk):
-            return probe_join_table(ht, pk)
-    mesh = left.mesh
+    # the build side replicated: one copy of its keys, its probe
+    # structure and its columns on each card the shards use
+    cards = {}
+    for p in range(mesh.size):
+        d = mesh.device(p)
+        if str(d) not in cards:
+            rk_d = tuple(k.to(d) for k in rkeys)
+            direct = try_build_direct(rk_d)
+            if direct is not None:
+                cards[str(d)] = (lambda pk, t=direct: probe_direct(t, pk))
+            else:
+                ht = build_join_table(rk_d)
+                cards[str(d)] = (lambda pk, t=ht: probe_join_table(t, pk))
     M.increment(M.JOIN_PROBE_ROWS, getattr(left, "real_rows", left.n_rows))
     with span("broadcast_join", how=how, strictness=strict,
               probe_rows=left.n_rows, build_rows=right.n_rows):
-        lk_sl = [row_slices(mesh, k) for k in lkeys]
-        res = [probe(tuple(k[p] for k in lk_sl)) for p in range(mesh.size)]
-        build_row = all_gather([r.build_row for r in res], tiled=True)
-        found = all_gather([r.found for r in res], tiled=True)
-    rv_old = left[ROW_VALID].data if ROW_VALID in left else \
-        torch.ones(left.n_rows, dtype=torch.bool, device=dev)
+        res = [cards[str(mesh.device(p))](tuple(lkeys[p]))
+               for p in range(mesh.size)]
+    founds = [r.found for r in res]
+    rv_old = left[ROW_VALID].data.parts
     if strict == "ANTI":
-        new_rv = rv_old & ~found
+        new_rv = [v & ~f for v, f in zip(rv_old, founds)]
     elif how == "LEFT" and strict != "SEMI":
-        new_rv = rv_old
+        new_rv = list(rv_old)
     else:   # INNER, SEMI (the JAX package keeps a LEFT SEMI join's misses)
-        new_rv = rv_old & found
+        new_rv = [v & f for v, f in zip(rv_old, founds)]
     cols = [c for c in left.columns.values() if c.name != ROW_VALID]
     lnames = {c.name for c in cols}
     using_names = set(jc.using or [])
-    safe_row = torch.where(found, build_row, 0).long()
-    right_ok = found & (strict != "ANTI")
+    safe_rows = [torch.where(r.found, r.build_row, 0).long() for r in res]
+    right_oks = [f & (strict != "ANTI") for f in founds]
     for c in right.columns.values():
         if c.name in using_names:
             continue
         out_name = c.name if c.name not in lnames else f"{ralias}.{c.name}"
         data = c.data if not c.is_host else to_tensor(c.data, dev)
-        valid = right_ok
+        cv = None
         if c.valid is not None:
-            cv = c.valid if not c.is_host else to_tensor(c.valid, dev)
-            valid = valid & cv.bool()[safe_row]
+            cv = (c.valid if not c.is_host else to_tensor(c.valid, dev)) \
+                .bool()
+        on_card, datas, valids = {}, [], []
+        for p, (sr, ok) in enumerate(zip(safe_rows, right_oks)):
+            d = str(sr.device)
+            if d not in on_card:
+                on_card[d] = (data.to(sr.device),
+                              None if cv is None else cv.to(sr.device))
+            cd, cvd = on_card[d]
+            datas.append(cd.index_select(0, sr))
+            valids.append(ok if cvd is None else ok & cvd[sr])
         cols.append(Column(Field(out_name, c.dtype, True,
                                  c.field.vector_dim),
-                           data.index_select(0, safe_row), valid,
-                           c.dictionary))
-    cols.append(Column(Field(ROW_VALID, DataType.BOOL), new_rv))
+                           RowSplit(datas), RowSplit(valids), c.dictionary))
+    cols.append(Column(Field(ROW_VALID, DataType.BOOL), RowSplit(new_rv)))
     out = Table(cols, name=left.name)
-    out.mesh = mesh
-    out.mesh_axis = left.mesh_axis
-    out.real_rows = int(new_rv.sum())
+    _set_mesh(out, mesh, left.mesh_axis,
+              int(sum(int(v.sum()) for v in new_rv)))
     out.join_strategy = "broadcast"
     alias_prefixes[ralias] = ""
     return out
@@ -1467,30 +1530,36 @@ def _distributed_shuffle_join(session, left: Table, right: Table, jc,
     if len(pairs) != 1:
         return None
     dev = session.device
+    if right.mesh.size != left.mesh.size:
+        return None
+    lshards, rshards = shard_tables(left), shard_tables(right)
     try:
-        lk, rk = _join_key_arrays(
-            eval_expr(Ident(pairs[0][0].name), Env(left, device=dev)),
-            eval_expr(Ident(pairs[0][1].name), Env(right, device=dev)))
+        rvs = [eval_expr(Ident(pairs[0][1].name), Env(t, device=t.device))
+               for t in rshards]
+        if any(v.dictionary is not rvs[0].dictionary for v in rvs):
+            return None
+        lks, rks = [], []
+        for p, t in enumerate(lshards):
+            lk, rk = _join_key_arrays(
+                eval_expr(Ident(pairs[0][0].name), Env(t, device=t.device)),
+                rvs[p])
+            lks.append(lk)
+            rks.append(rk)
     except (EvalError, ExecError):
         return None
-    if lk.is_floating_point() or lk.dtype == torch.bool:
+    if lks[0].is_floating_point() or lks[0].dtype == torch.bool:
         return None
-    lvalid = left[ROW_VALID].data if ROW_VALID in left else None
-    rvalid = right[ROW_VALID].data if ROW_VALID in right else None
+    lvalid = left[ROW_VALID].data
+    rvalid = right[ROW_VALID].data
     M.increment(M.JOIN_PROBE_ROWS, getattr(left, "real_rows", left.n_rows))
     with span("shuffle_join", how=how, strictness=strict,
               probe_rows=left.n_rows, build_rows=right.n_rows):
         pl_, pr_ = sharded_shuffle_join_pairs(
-            left.mesh, lk, rk,
+            left.mesh, lks, rks,
             how="ANY" if strict in ("ANY", "SEMI", "ANTI") else "ALL",
             left_valid=lvalid, right_valid=rvalid)
-    lstrip = Table([c for c in left.columns.values() if c.name != ROW_VALID],
-                   name=left.name)
-    rstrip = Table([c for c in right.columns.values()
-                    if c.name != ROW_VALID], name=right.name)
     if strict == "ANTI" or (how == "LEFT" and strict != "SEMI"):
-        lv_np = lvalid.cpu().numpy() if lvalid is not None else \
-            np.ones(left.n_rows, dtype=bool)
+        lv_np = np.asarray(lvalid).astype(bool)
         matched = np.zeros(left.n_rows, dtype=bool)
         matched[pl_] = True
         if strict == "ANTI":
@@ -1508,9 +1577,12 @@ def _distributed_shuffle_join(session, left: Table, right: Table, jc,
         left_rows = pl_.astype(np.int64)
         right_rows = pr_.astype(np.int64)
         right_has = np.ones(len(left_rows), dtype=bool)
-    out = _gather_join_output(lstrip, rstrip, left_rows, right_rows,
-                              right_has, jc, ralias, alias_prefixes, strict,
-                              dev)
+    # only the joined rows of each side are gathered from their shards
+    lrows = take_rows(left, left_rows)
+    rrows = take_rows(right, right_rows)
+    pos = np.arange(len(left_rows), dtype=np.int64)
+    out = _gather_join_output(lrows, rrows, pos, pos, right_has, jc, ralias,
+                              alias_prefixes, strict, dev)
     out.join_strategy = "shuffle"
     return out
 
@@ -1910,37 +1982,32 @@ def _maybe_streaming_aggregate(env: Env, q: SelectQuery, mask, session,
     return Table(cols, name=table.name), mapping
 
 
-def run_aggregate(env: Env, q: SelectQuery, mask, session,
-                  alias_exprs: dict) -> tuple[Table, dict]:
-    table = env.table
-    n = table.n_rows
-    dev = env.device
-    streamed = _maybe_streaming_aggregate(env, q, mask, session, alias_exprs)
-    if streamed is not None:
-        return streamed
-    # collect aggregate calls across all clauses
-    agg_calls: dict[str, FuncCall] = {}
-    scan_exprs = [it.expr for it in q.items] + [o.expr for o in q.order_by]
-    if q.having is not None:
-        scan_exprs.append(q.having)
-    for e in scan_exprs:
-        e = _expand_item_aliases(e, alias_exprs, table)
-        for node in walk_outside_windows(e):
-            if isinstance(node, FuncCall) and node.name.lower() in AGG_NAMES:
-                for inner in node.args:
-                    for sub in walk_outside_windows(inner):
-                        if isinstance(sub, FuncCall) and \
-                                sub.name.lower() in AGG_NAMES:
-                            raise ExecError("nested aggregate functions")
-                agg_calls[render(node)] = node
+class _AggOperands:
+    """What ``run_aggregate`` evaluates over one Env (the table's rows, or
+    one shard's): per plain aggregate its fn, argument tensor (None for
+    counts: nothing reads it), validity, zone-map range and logical numpy
+    dtype; the special and -State/-Merge calls' argument Values; the
+    String min/max/any states' info; the result types."""
 
-    # per aggregate: fn, argument tensor (None for counts: nothing reads
-    # it), its own validity, zone-map range and logical numpy dtype
-    fns, args, arg_valids, arg_ranges, logical = [], [], [], [], []
-    normal_order: list[str] = []
-    special: dict[str, tuple] = {}       # render -> (kind, arg Values, params)
-    string_aggs: dict[str, tuple] = {}   # render -> String min/max/any state
-    out_types = {}
+    def __init__(self):
+        self.fns, self.args, self.arg_valids = [], [], []
+        self.arg_ranges, self.logical = [], []
+        self.normal_order: list[str] = []
+        self.special: dict[str, tuple] = {}   # render -> (kind, Values, params)
+        self.string_aggs: dict[str, tuple] = {}
+        self.out_types = {}
+
+
+def _agg_operands(env: Env, agg_calls: dict, alias_exprs: dict,
+                  table: Table) -> _AggOperands:
+    """Evaluate the aggregates' arguments over ``env``'s rows; ``table``
+    is the statement's table (its schema and zone maps)."""
+    n = env.n_rows
+    ops = _AggOperands()
+    fns, args, arg_valids = ops.fns, ops.args, ops.arg_valids
+    arg_ranges, logical = ops.arg_ranges, ops.logical
+    normal_order, special = ops.normal_order, ops.special
+    string_aggs, out_types = ops.string_aggs, ops.out_types
     for r, call in agg_calls.items():
         name = call.name.lower()
         if call.distinct:
@@ -2012,16 +2079,79 @@ def run_aggregate(env: Env, q: SelectQuery, mask, session,
         arg_ranges.append(_column_range(arg_e, table))
         logical.append(physical_dtype(lt))
         out_types[r] = _agg_out_type(name, lt, v)
+    return ops
+
+
+def run_aggregate(env: Env, q: SelectQuery, mask, session,
+                  alias_exprs: dict, shards=None) -> tuple[Table, dict]:
+    """GROUP BY / aggregates over ``env``'s table under ``mask``.  For a
+    distributed table ``shards`` is (one Env per shard over the shard's
+    rows on its card, one WHERE mask per shard): the arguments are
+    evaluated per shard and the plain aggregates' partial states made per
+    shard (``sharded_group_aggregate`` / ``sharded_shuffle_group_states``);
+    the group keys and the special aggregates' arguments are gathered to
+    shard 0's card, where the groups are numbered.  Raises
+    ``_NotShardable`` where the shards' values do not merge (a String
+    state over per-shard dictionaries): the caller gathers the rows."""
+    table = env.table
+    n = table.n_rows
+    dev = env.device
+    streamed = _maybe_streaming_aggregate(env, q, mask, session, alias_exprs)
+    if streamed is not None:
+        return streamed
+    # collect aggregate calls across all clauses
+    agg_calls: dict[str, FuncCall] = {}
+    scan_exprs = [it.expr for it in q.items] + [o.expr for o in q.order_by]
+    if q.having is not None:
+        scan_exprs.append(q.having)
+    for e in scan_exprs:
+        e = _expand_item_aliases(e, alias_exprs, table)
+        for node in walk_outside_windows(e):
+            if isinstance(node, FuncCall) and node.name.lower() in AGG_NAMES:
+                for inner in node.args:
+                    for sub in walk_outside_windows(inner):
+                        if isinstance(sub, FuncCall) and \
+                                sub.name.lower() in AGG_NAMES:
+                            raise ExecError("nested aggregate functions")
+                agg_calls[render(node)] = node
+
+    if shards is None:
+        ops = _agg_operands(env, agg_calls, alias_exprs, table)
+        per = None
+    else:
+        senvs, smasks = shards
+        dev = senvs[0].table.device
+        per = [_agg_operands(se, agg_calls, alias_exprs, table)
+               for se in senvs]
+        ops = per[0]
+        for o in per[1:]:
+            for r, info in o.string_aggs.items():
+                if info[0] is not ops.string_aggs[r][0]:
+                    raise _NotShardable(r)
+        # the special aggregates read every row: their Values gathered
+        for r, (kind, vals, sparams) in ops.special.items():
+            ops.special[r] = (kind, [_cat_values([o.special[r][1][i]
+                                                  for o in per], dev)
+                                     for i in range(len(vals))], sparams)
+    fns, args, arg_valids = ops.fns, ops.args, ops.arg_valids
+    arg_ranges, logical = ops.arg_ranges, ops.logical
+    normal_order, special = ops.normal_order, ops.special
+    string_aggs, out_types = ops.string_aggs, ops.out_types
 
     # group keys
     key_exprs = [_expand_item_aliases(k, alias_exprs, table)
                  for k in q.group_by]
-    key_vals = [eval_expr(k, env) for k in key_exprs]
+    if per is None:
+        key_vals = [eval_expr(k, env) for k in key_exprs]
+    else:
+        key_vals = [_cat_values([eval_expr(k, se) for se in senvs], dev)
+                    for k in key_exprs]
     for kv in key_vals:
         if kv.is_scalar:
             raise ExecError("GROUP BY constant not supported")
 
-    m = _mask_or_true(mask, n, dev)
+    m = _mask_or_true(mask, n, dev) if per is None else \
+        torch.cat([sm.to(dev) for sm in smasks])
     if key_vals:
         # an array key groups by its whole value (ClickHouse compares
         # arrays); the JAX package fails here (ROADMAP section 3)
@@ -2040,7 +2170,18 @@ def run_aggregate(env: Env, q: SelectQuery, mask, session,
         arg_valids.append(valid)
         arg_ranges.append(None)
         logical.append(None)
-    if is_distributed(table):
+        for o in (per or [])[1:]:
+            o.args.append(None)
+            o.arg_valids.append(o.string_aggs[r][2])
+    if per is not None:
+        mesh = table.mesh
+        n_loc = n // mesh.size
+        gid_parts = [gid[p * n_loc:(p + 1) * n_loc].to(mesh.device(p))
+                     for p in range(mesh.size)]
+        d_args = tuple(_by_shard([o.args[j] for o in per])
+                       for j in range(len(fns)))
+        d_valids = tuple(_by_shard([o.arg_valids[j] for o in per])
+                         for j in range(len(fns)))
         if key_vals and \
                 G > session.settings.distributed_group_by_shuffle_threshold:
             # high cardinality: one all_to_all of the rows beats G-wide
@@ -2050,14 +2191,14 @@ def run_aggregate(env: Env, q: SelectQuery, mask, session,
                 sharded_shuffle_group_states
             M.increment("DistributedShuffleGroupBy")
             states, gc = sharded_shuffle_group_states(
-                table.mesh, gid, m, tuple(args), tuple(fns), G,
-                arg_valids=tuple(arg_valids))
+                mesh, gid_parts, list(smasks), d_args, tuple(fns), G,
+                arg_valids=d_valids)
         else:
             # each shard's kept rows gathered first, the route chosen for
             # the statement's rows, as the undistributed path does
             states, gc = sharded_group_aggregate(
-                table.mesh, gid, m, tuple(args), tuple(fns), G,
-                tuple(arg_valids), tuple(arg_ranges), tuple(logical),
+                mesh, gid_parts, list(smasks), d_args, tuple(fns), G,
+                d_valids, tuple(arg_ranges), tuple(logical),
                 route_rows=n, compact_min_rows=COMPACT_MIN_ROWS)
     else:
         # the route is chosen for all n rows: gathering the kept ones
@@ -2131,6 +2272,69 @@ def run_aggregate(env: Env, q: SelectQuery, mask, session,
 # from this many rows, a WHERE that keeps under half of them has the
 # grouped aggregation read the kept rows only
 COMPACT_MIN_ROWS = 1 << 16
+
+
+class _NotShardable(Exception):
+    """A statement part whose per-shard values do not merge: its rows are
+    gathered and it runs undistributed."""
+
+
+def _by_shard(parts: list):
+    """One aggregate's per-shard tensors as a row-split argument: None
+    where no shard has one, a shard's missing validity as all-true."""
+    if all(t is None for t in parts):
+        return None
+    if any(t is None for t in parts):
+        ref = next(t for t in parts if t is not None)
+        parts = [torch.ones(ref.shape[0], dtype=torch.bool,
+                            device=ref.device) if t is None else t
+                 for t in parts]
+    return list(parts)
+
+
+def _cat_values(vals: list, dev) -> Value:
+    """The Values of one expression over every shard, concatenated in
+    shard order on ``dev``: the expression's value over the whole padded
+    table.  Strings of per-shard dictionaries are re-encoded into one."""
+    v0 = vals[0]
+    if v0.is_scalar:
+        return Value(None if v0.data is None else v0.data.to(dev),
+                     None if v0.valid is None else v0.valid.to(dev),
+                     v0.dictionary, True, v0.py, v0.offsets, v0.dt,
+                     v0.umax, v0.u64)
+    dictionary = v0.dictionary
+    datas = [v.data.to(dev) for v in vals]
+    if dictionary is not None and any(v.dictionary is not dictionary
+                                      for v in vals):
+        dictionary = StringDictionary()
+        for i, v in enumerate(vals):
+            remap = dictionary.merge_from(v.dictionary)
+            lut = to_tensor(np.append(remap, NULL_ID).astype(np.int32), dev)
+            datas[i] = torch.where(datas[i] == NULL_ID, NULL_ID,
+                                   lut[datas[i].long()])
+    valid = None
+    if any(v.valid is not None for v in vals):
+        valid = torch.cat([
+            torch.ones(_rows_of(v), dtype=torch.bool, device=dev)
+            if v.valid is None else v.valid.to(dev).expand(_rows_of(v))
+            for v in vals])
+    offsets = None
+    if v0.offsets is not None:
+        offs, base = [np.zeros(1, dtype=np.int64)], 0
+        for v in vals:
+            o = np.asarray(v.offsets, dtype=np.int64)
+            offs.append(o[1:] + base)
+            base += int(o[-1])
+        offsets = np.concatenate(offs)
+    umax = None if any(v.umax is None for v in vals) else \
+        max(v.umax for v in vals)
+    return Value(torch.cat(datas), valid, dictionary, False, None, offsets,
+                 v0.dt, umax, any(v.u64 for v in vals))
+
+
+def _rows_of(v: Value) -> int:
+    return len(v.offsets) - 1 if v.offsets is not None else \
+        int(v.data.shape[0])
 
 
 
@@ -2317,11 +2521,13 @@ def _totals_table(env, q, mask, session, alias_exprs,
 # ---------------------------------------------------------------------------
 # the slice boundary
 
-def _session_env(session, table: Table, aliases=None) -> Env:
-    """An Env of the statement's session: on its device, with the runner
-    ``IN (subquery)`` evaluates through (the JAX package sets it only on
-    the first Env of a statement: ROADMAP section 3)."""
-    env = Env(table, aliases, device=session.device)
+def _session_env(session, table: Table, aliases=None, device=None) -> Env:
+    """An Env of the statement's session: on its device (a shard's
+    ``device`` for a shard's rows), with the runner ``IN (subquery)``
+    evaluates through (the JAX package sets it only on the first Env of a
+    statement: ROADMAP section 3)."""
+    env = Env(table, aliases,
+              device=session.device if device is None else device)
     env.subquery_runner = lambda sub: execute_any(session, sub)
     env.dictionaries = session.dictionaries
     env.session = session                 # joinGet's Join-engine tables
@@ -2979,14 +3185,49 @@ def execute_select(session, q: SelectQuery) -> Table:
                     table = table.take(rows)
                     env = _session_env(session, table, alias_prefixes)
     mask = None
-    if pre_expr is not None:
+    # a distributed table: the WHERE mask is evaluated per shard, over the
+    # shard's rows on its card, its padding rows folded in; a statement
+    # that no shard-routed operator below takes reads the kept rows
+    # gathered (``undistribute``)
+    senvs = shard_masks = None
+    if is_distributed(table):
+        senvs = [_session_env(session, st, alias_prefixes, st.device)
+                 for st in shard_tables(table)]
+        shard_masks = []
+        memo = {}          # the shards' host tables over one dictionary
+        for se in senvs:
+            m = se.table[ROW_VALID].data
+            se.live, se.memo = m, memo
+            if pre_expr is not None:
+                m = as_bool_mask(eval_expr(pre_expr, se), se.n_rows) & m
+            se.live = m
+            shard_masks.append(m)
+    elif pre_expr is not None:
         mask = as_bool_mask(eval_expr(pre_expr, env), table.n_rows)
     if block_sel is not None:
         mask = block_sel if mask is None else mask & block_sel
-    # a distributed table's padding rows: folded into the filter
-    if is_distributed(table) and ROW_VALID in table:
-        rv = table[ROW_VALID].data
-        mask = rv if mask is None else mask & rv
+    env.live = mask           # the rows that aggregates and filters keep
+
+    def undistribute(keep_mask: bool = False):
+        """The distributed table's rows that the statement reads, gathered
+        to shard 0's card as a plain table: the kept rows of the columns
+        it names, or with ``keep_mask`` every real row and the WHERE mask
+        beside them."""
+        nonlocal table, env, mask, senvs, shard_masks
+        refs = _referenced_columns(q)
+        if keep_mask:
+            table, mask = _split_where(gather_table(
+                _with_split_column(table, WHERE_COL, shard_masks),
+                names=None if refs is None else refs | {WHERE_COL}))
+        else:
+            table = gather_table(table, shard_masks, refs)
+        env = _session_env(session, table, alias_prefixes)
+        env.live = mask
+        senvs = shard_masks = None
+
+    if shard_masks is not None and vs is not None and vs.fused and \
+            vs.binary:
+        undistribute()
 
     # 4a. fused vector top-k
     if vs is not None and vs.fused:
@@ -2997,7 +3238,10 @@ def execute_select(session, q: SelectQuery) -> Table:
             x = table[vs.col].data
             # rows whose stored vector is invalid never rank
             _vcv = table[vs.col].valid
-            if _vcv is not None:
+            if _vcv is not None and shard_masks is not None:
+                shard_masks = [m & v for m, v in zip(shard_masks,
+                                                     _vcv.parts)]
+            elif _vcv is not None:
                 mask = _vcv if mask is None else mask & _vcv
             qv = torch.as_tensor(vs.qvec, device=dev)
             if table.n_rows == 0:
@@ -3022,16 +3266,18 @@ def execute_select(session, q: SelectQuery) -> Table:
                     d, ids = binary_distance_scan(xw, qw, metric=vs.metric,
                                                   k=vs.k, mask=mask)
             elif is_distributed(table):
-                # per-shard exact top-k and the cross-shard merge, over
-                # the column's cached squared norms
+                # per-shard exact top-k on each shard's card and the
+                # cross-shard merge, over the column's cached per-shard
+                # squared norms
                 sqn = None
                 base_tab = session.tables.get(q.table) if q.table else None
                 if base_tab is not None and vs.col in base_tab \
                         and base_tab[vs.col].data is x:
                     sqn = _derived(session, "sqnorm", q.table, table,
-                                   vs.col, lambda c: sqnorm_rows(c.data))
+                                   vs.col,
+                                   lambda c: RowSplit(sqnorm_parts(c.data)))
                 d, ids = sharded_distance_topk(
-                    table.mesh, x, qv, vs.metric, vs.k, mask=mask,
+                    table.mesh, x, qv, vs.metric, vs.k, mask=shard_masks,
                     block_rows=settings.vector_scan_block_rows,
                     x_sqnorm=sqn)
             elif table[vs.col].is_host:
@@ -3060,7 +3306,7 @@ def execute_select(session, q: SelectQuery) -> Table:
                 table, env = _materialize_topk(table, vs, d, ids,
                                                tuple_groups, dev)
                 env.subquery_runner = lambda sub: execute_any(session, sub)
-        mask = None
+        mask = shard_masks = None
         # post-search filters on the distance value (WHERE d < x applies
         # AFTER the top-k search)
         if post_terms:
@@ -3075,12 +3321,14 @@ def execute_select(session, q: SelectQuery) -> Table:
             post_terms = []
     elif ts is not None and ts.fused:
         # 4a'. fused text / hybrid top-k
-        d2, i2 = _text_search_topk(session, q, table, ts, mask, settings)
+        d2, i2 = _text_search_topk(
+            session, q, table, ts,
+            mask if shard_masks is None else shard_masks, settings)
         with span("materialize", rows=int(i2.numel())):
             table, env = _materialize_topk(table, ts, d2, i2, tuple_groups,
                                            dev)
             env.subquery_runner = lambda sub: execute_any(session, sub)
-        mask = None
+        mask = shard_masks = None
         if post_terms:
             pe = _conjoin([substitute(c, {ts.name: ts.name})
                            for c in post_terms])
@@ -3096,6 +3344,9 @@ def execute_select(session, q: SelectQuery) -> Table:
         # package's; the score terms of the WHERE filter it afterwards (the
         # JAX package drops them)
         idx = _get_text_index(session, q.table, table, ts.text_col)
+        if shard_masks is not None:
+            # the index covers the real rows in gathered order
+            undistribute(keep_mask=True)
         sc = idx.scores(ts.query, ts.operator)
         if mask is not None:
             sc = torch.where(mask, sc, 0.0)
@@ -3121,6 +3372,8 @@ def execute_select(session, q: SelectQuery) -> Table:
                                  "expression and function breadth")
         # non-fused: materialize the full distance column (batch_distance
         # always fuses: _apply_vs_fusion refuses it without LIMIT BY)
+        if shard_masks is not None:
+            undistribute()
         dist = rowwise_distance(table[vs.col].data, vs.qvec, vs.metric)
         env.extra[vs.name] = Value(dist)
         if vs.alias:
@@ -3144,11 +3397,21 @@ def execute_select(session, q: SelectQuery) -> Table:
                         node.name.lower() in AGG_NAMES:
                     has_aggs = True
     totals_src = None
+    if has_aggs and shard_masks is not None and (
+            q.grouping_sets is not None or q.with_totals or
+            (q.group_modifier and q.group_by)):
+        undistribute()
     if has_aggs:
         M.increment(M.AGG_ROWS, table.n_rows)
         with span("aggregate", rows=table.n_rows):
-            agg_table, mapping = run_aggregate(env, q, mask, session,
-                                               alias_exprs)
+            try:
+                agg_table, mapping = run_aggregate(
+                    env, q, mask, session, alias_exprs,
+                    None if shard_masks is None else (senvs, shard_masks))
+            except _NotShardable:
+                undistribute()
+                agg_table, mapping = run_aggregate(env, q, mask, session,
+                                                   alias_exprs)
         if q.grouping_sets is not None:
             agg_table = _expand_grouping_sets(env, q, mask, session,
                                               alias_exprs, agg_table)
@@ -3183,22 +3446,22 @@ def execute_select(session, q: SelectQuery) -> Table:
         items = q.items
         order_by = q.order_by
         cand = None
-        if is_distributed(table) and not env.extra and \
-                (vs is None or not vs.fused) and (ts is None or not ts.fused):
-            cand = _distributed_topn_ids(q, table, env, mask, alias_exprs,
-                                         dev)
+        if shard_masks is not None:
+            cand = _distributed_topn_ids(q, table, senvs, shard_masks,
+                                         alias_exprs)
         if cand is not None:
             # the candidate cut ran per shard; only limit + offset rows
             # are gathered.  Rows failing the mask may pad the cut when
-            # fewer than k pass: dropped here with the row mask column.
-            small = table.take(cand)
-            small = Table([c for c in small.columns.values()
-                           if c.name != ROW_VALID], name=table.name)
-            if mask is not None:
-                small, _ = compact_table_host(small, mask[cand])
-            table = small
+            # fewer than k pass: dropped here with the WHERE column.
+            refs = _referenced_columns(q)
+            small, keep = _split_where(take_rows(
+                _with_split_column(table, WHERE_COL, shard_masks), cand,
+                None if refs is None else refs | {WHERE_COL}))
+            table, _ = compact_table_host(small, keep)
             env = _session_env(session, table, alias_prefixes)
-            mask = None
+            mask = shard_masks = None
+        elif shard_masks is not None:
+            undistribute()
         if mask is not None:
             carry_ts = ts is not None and not ts.fused \
                 and ts.name in env.extra
@@ -3346,7 +3609,9 @@ def _materialize_topk(table: Table, vs, d, ids, tuple_groups, device):
         dists.append(d_np[qi][valid])
         qids.append(np.full(valid.sum(), qi, dtype=np.uint32))
     rows = np.concatenate(rows) if rows else np.zeros(0, dtype=np.int64)
-    gathered = table.take(torch.as_tensor(rows, device=device))
+    # a distributed table's rows come from their shards (global ids)
+    gathered = take_rows(table, rows) if is_distributed(table) else \
+        table.take(torch.as_tensor(rows, device=device))
     dist_col = np.concatenate(dists).astype(np.float32) if dists else \
         np.zeros(0, dtype=np.float32)
     if vs.is_batch:

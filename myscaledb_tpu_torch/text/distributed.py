@@ -8,12 +8,14 @@ aggregated first (BM25InfoInDataParts: df, doc and token counts summed
 across parts and shards), ships its top-k, and the initiator merges them
 (FusionSortingStep).
 
-Here each shard's slice of the row-split text column gets its own BM25
-index (one tokenization of the column's dictionary serves them all); the
-host sums the per-term statistics (the psum of this layer), every shard
-scores with them — bit-identical to the undistributed table, since BM25
-is per doc given (N, avg_len, df) — and the initiator merges the
-candidate lists by score descending, then global row id ascending.
+Here each shard's part of the row-split text column gets its own BM25
+index on the shard's card (one tokenization of the column's dictionary
+serves them all); the per-term statistics, host integers every index
+keeps, are summed on the host (the psum of this layer) and every shard
+scores with them on its card — bit-identical to the undistributed table,
+since BM25 is per doc given (N, avg_len, df) — and the initiator merges
+the shards' candidate lists by score descending, then global row id
+ascending.
 """
 
 from __future__ import annotations
@@ -38,13 +40,12 @@ def _shard_indexes(session, table_name: str, table, text_col: str) -> list:
 
     def build():
         tokens = native.tokenize_corpus(c.dictionary.values)
-        datas = row_slices(mesh, torch.as_tensor(c.data))
+        datas = row_slices(mesh, c.data)
         valids = row_slices(mesh, c.valid)
-        rvs = row_slices(mesh, table[ROW_VALID].data) \
-            if ROW_VALID in table else [None] * mesh.size
+        rvs = row_slices(mesh, table[ROW_VALID].data)
         return [BM25Index.from_column(
             Column(c.field, datas[p], valids[p], c.dictionary),
-            session.device, doc_valid=rvs[p], tokens=tokens)
+            mesh.device(p), doc_valid=rvs[p], tokens=tokens)
             for p in range(mesh.size)]
 
     return derived_state(session, ("bm25_shards", table_name, text_col),
@@ -63,8 +64,9 @@ def global_stats(shards, query: str) -> dict:
 def sharded_text_search(session, table_name: str, table, text_col: str,
                         query: str, k: int, mask=None,
                         operator: str = "OR"):
-    """Per-shard BM25 top-k and the initiator's merge.  Returns (scores
-    (k,), global ids (k,)) tensors on the session's device,
+    """Per-shard BM25 top-k and the initiator's merge.  ``mask``: the
+    statement's WHERE mask, one tensor per shard (or None).  Returns
+    (scores (k,), global ids (k,)) tensors on the session's device,
     INVALID_ID-padded, bit-identical to the undistributed
     ``BM25Index.search`` over the whole table."""
     from myscaledb_tpu_torch.ops.vector import INVALID_ID
@@ -82,8 +84,8 @@ def sharded_text_search(session, table_name: str, table, text_col: str,
         keep = s[top] > 0
         cand_s.append(s[top][keep])
         cand_i.append(top[keep] + p * ix.n_docs)
-    scores = torch.cat(cand_s).cpu().numpy()
-    gids = torch.cat(cand_i).cpu().numpy()
+    scores = np.concatenate([t.cpu().numpy() for t in cand_s])
+    gids = np.concatenate([t.cpu().numpy() for t in cand_i])
     # the initiator's merge: score desc, global id asc
     order = np.lexsort((gids, -scores))[:k]
     out_s = np.zeros(k, dtype=np.float32)

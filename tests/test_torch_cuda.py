@@ -1112,3 +1112,97 @@ def test_fused_pipeline_on_eight_shards_equals_local_path(cuda):
     assert int(cnt) == int(want)
     assert torch.equal(states[0], torch.bincount(gid.long(), minlength=G))
     assert torch.equal(gc, torch.bincount(gid.long(), minlength=G))
+
+
+def test_float_to_int_saturates_on_card(cuda):
+    """toInt32/toInt64 of out-of-range floats and NaN give the same
+    answers on the card as on the CPU: the type's bound, and 0 for NaN
+    (the JAX package's; a bare cast is undefined there)."""
+    import myscaledb_tpu_torch as P
+    f = np.array([2e10, -2e10, 1e19, -1e19, np.nan, 3.7, -3.7])
+    stmt = ("SELECT id, toInt32(f), toInt64(f), toInt32(g), toInt64(g) "
+            "FROM fl ORDER BY id")
+    rows = []
+    for dev in ("cuda", "cpu"):
+        s = P.connect(device=dev)
+        s.create_table("fl", {"id": np.arange(len(f), dtype=np.int64),
+                              "f": f, "g": f.astype(np.float32)})
+        rows.append(s.sql(stmt).to_rows())
+    assert rows[0] == rows[1]
+    assert rows[0][0][1:] == (2147483647, 20000000000, 2147483647,
+                              20000000000)
+    assert rows[0][2][1:3] == (2147483647, 9223372036854775807)
+    assert rows[0][3][1:3] == (-2147483648, -9223372036854775808)
+    assert rows[0][4][1:] == (0, 0, 0, 0)
+
+
+def test_multi_card_mesh_equals_one_card_mesh(cuda):
+    """One shard a card (``make_mesh()``) against a one-card mesh of as
+    many logical shards, over the same rows: config 5's fused step (ids,
+    join count, group states equal; K2 and K3 once a shard) and three
+    distributed SQL statements (a filtered vector top-k, a GROUP BY, a
+    shuffle GROUP BY) with equal rows."""
+    import myscaledb_tpu_torch as P
+    from myscaledb_tpu_torch.core.table import Table
+    from myscaledb_tpu_torch.parallel.mesh import make_mesh, shard_rows
+    from myscaledb_tpu_torch.parallel.pipeline import fused_topk_join_agg
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip(f"needs two CUDA cards, {cards} visible: the mesh "
+                    "over distinct cards runs on a multi-card machine")
+    wide, narrow = make_mesh(), make_mesh(cards, device="cuda:0")
+    assert wide.n_cards == cards and narrow.n_cards == 1
+    n_loc, d, nq, k, G, n_dim = 1 << 16, 128, 4, 10, 64, 20_000
+    n = cards * n_loc
+    x = torch.randn(n, d, device="cuda", generator=cuda)
+    q = torch.randn(nq, d, device="cuda", generator=cuda)
+    fk = torch.randint(0, 2 * n_dim, (n,), device="cuda", generator=cuda,
+                       dtype=torch.int32)
+    dk = torch.randint(0, 2 * n_dim, (n_dim * cards,), device="cuda",
+                       generator=cuda, dtype=torch.int32)
+    gid = torch.randint(0, G, (n,), device="cuda", generator=cuda,
+                        dtype=torch.int32)
+    vals = torch.ones(n, dtype=torch.int32, device="cuda")
+    mask = torch.ones(n, dtype=torch.bool, device="cuda")
+    outs = []
+    for m in (wide, narrow):
+        before = (K2.segmin_f32.launches, K3.group_aggregate.launches)
+        xs = shard_rows(m, x)
+        assert [str(t.device) for t in xs.parts] == \
+            [str(dv) for dv in m.devices]
+        outs.append(fused_topk_join_agg(
+            m, xs, q, "L2", k, fk, dk, gid, mask, vals, ("sum",), G))
+        for dv in range(cards):
+            torch.cuda.synchronize(dv)
+        assert K2.segmin_f32.launches == before[0] + cards
+        assert K3.group_aggregate.launches == before[1] + cards
+    (d1, i1, c1, s1, g1), (d2, i2, c2, s2, g2) = outs
+    assert torch.equal(i1.cpu(), i2.cpu())
+    torch.testing.assert_close(d1.cpu(), d2.cpu(), rtol=2e-5, atol=0)
+    assert int(c1) == int(c2)
+    assert torch.equal(s1[0].cpu(), s2[0].cpu())
+    assert torch.equal(g1.cpu(), g2.cpu())
+    # distributed SQL over make_mesh() against the one-card mesh
+    rng = np.random.default_rng(3)
+    rows = 50_000
+    s = P.connect()
+    s.create_table("t", {"id": np.arange(rows, dtype=np.int64),
+                         "p": rng.integers(0, 100, rows).astype(np.int32),
+                         "emb": rng.standard_normal((rows, 32),
+                                                    dtype=np.float32)})
+    for name, m in (("tw", wide), ("tn", narrow)):
+        s.register(name, Table(list(s.tables["t"].columns.values())))
+        s.distribute(name, m)
+    qv = ", ".join(f"{v:.4f}" for v in rng.standard_normal(32))
+    s.settings.distributed_group_by_shuffle_threshold = 64
+    for stmt in (f"SELECT id, distance(emb, [{qv}]) AS dd FROM {{t}} "
+                 "WHERE p < 50 ORDER BY dd LIMIT 10",
+                 "SELECT p % 7 AS b, count(), sum(p) FROM {t} GROUP BY b "
+                 "ORDER BY b",
+                 "SELECT id % 1000 AS b, count(), sum(p) FROM {t} "
+                 "GROUP BY b ORDER BY b LIMIT 30"):
+        got = s.sql(stmt.format(t="tw")).to_rows()
+        want = s.sql(stmt.format(t="tn")).to_rows()
+        assert [r[0] for r in got] == [r[0] for r in want], stmt
+        np.testing.assert_allclose([r[1:] for r in got],
+                                   [r[1:] for r in want], rtol=2e-5)

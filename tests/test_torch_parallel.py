@@ -19,7 +19,6 @@ from myscaledb_tpu.parallel.mesh import make_mesh as j_mesh, \
 from myscaledb_tpu.parallel import ops as jops
 from myscaledb_tpu.ops.sort import SortKey as JSortKey
 
-from myscaledb_tpu_torch.errors import NotPortedError
 from myscaledb_tpu_torch.ops.sort import SortKey
 from myscaledb_tpu_torch.ops.vector import distance_scan
 from myscaledb_tpu_torch.parallel import mesh as pmesh
@@ -215,5 +214,11 @@ def test_mesh_shapes_and_multi_device_refusal():
         == [3] * 8
     with pytest.raises(ValueError):
         pmesh.shard_rows(m, torch.zeros(10))
-    with pytest.raises(NotPortedError, match="multi-card mesh"):
-        pmesh.Mesh(["cpu", "meta"])
+    # a mesh over distinct devices is taken (the CPU tests have one device
+    # with tensors, so only the placement shows here); a card that does
+    # not exist is refused
+    two = pmesh.Mesh(["cpu", "meta"])
+    assert two.n_cards == 2 and two.device(1) == torch.device("meta")
+    with pytest.raises(ValueError, match="no device"):
+        pmesh.Mesh(["cuda:%d" % max(8, torch.cuda.device_count() if
+                                    torch.cuda.is_available() else 0)])

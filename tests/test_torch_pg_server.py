@@ -117,7 +117,17 @@ EXTENDED = {"select": _extended_select, "row_limit": _row_limit,
 @pytest.mark.parametrize("flow", sorted(EXTENDED))
 def test_extended_protocol_equals_the_jax_server(servers, flow):
     got = _both(servers, EXTENDED[flow])
-    assert got[1] == got[0]
+    want = got[0]
+    if flow == "literal_placeholder":
+        # a NULL parameter binds the NULL literal: NULL in the port's row
+        # (length -1), 0 in the JAX server's (its NULL literal is a
+        # non-nullable 0: ROADMAP section 3)
+        null_zero = b"\x00\x00\x00\x010"
+        assert any(t == b"D" and p.endswith(null_zero) for t, p in want)
+        want = [(t, p[:-len(null_zero)] + b"\xff\xff\xff\xff")
+                if t == b"D" and p.endswith(null_zero) else (t, p)
+                for t, p in want]
+    assert got[1] == want
 
 
 def test_extended_protocol_rows(servers):

@@ -101,9 +101,18 @@ SUBQUERIES = [
 ]
 
 
+# an empty scalar subquery folds to the NULL literal: NULL in the port, as
+# ClickHouse answers, 0 in the JAX package (its NULL literal is a
+# non-nullable 0: ROADMAP section 3)
+EMPTY_SCALAR = {"SELECT (SELECT k FROM v WHERE k > 100) AS m"}
+
+
 @pytest.mark.parametrize("sql", SUBQUERIES)
 def test_subqueries_match(sessions, sql):
     j, p = sessions
+    if sql in EMPTY_SCALAR:
+        assert (j.sql_tsv(sql), p.sql_tsv(sql)) == ("0", "\\N")
+        return
     _same(j, p, sql)
 
 

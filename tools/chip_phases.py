@@ -71,6 +71,14 @@ def summarize(stdout: str) -> None:
                 else f"not measured (profile {st['profile_device_s']:.3f} s)"
             print(f"  {d['phase']} {name} {st['seconds']:.3f} s "
                   f"{st['rows_per_s']:.0f} rows/s device {dev}")
+        if d.get("phase") == "sql_distributed.config5":
+            for tag, r in d["runs"].items():
+                print(f"  config5 {tag} median {r['median_ms']:.3f} "
+                      f"exchange {r['parts']['exchange_ms']:.3f} host syncs "
+                      f"{r.get('host_syncs_per_step')} busy "
+                      f"{r['device_busy_share']:.3f}")
+        if d.get("phase") == "sql_distributed.multi_card":
+            print(f"  multi_card {json.dumps(d)[:300]}")
         if "device_split_probe" in d:
             print(f"  {d['phase']} device_split_probe "
                   f"{json.dumps(d['device_split_probe'])}")
