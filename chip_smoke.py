@@ -359,6 +359,7 @@ last lines are the kernels summary, the nvidia-smi name/power line, and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import os
@@ -1052,6 +1053,30 @@ def device_events(prof) -> list:
         or e.self_cpu_time_total == 0)]
 
 
+def device_trace(prof) -> list:
+    """The profile's device-side events (kernels, copies, fills) one by
+    one: each has its card (``device_index``), its stream
+    (``device_resource_id``) and its interval (``time_range``, in us)."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def union_us(events) -> float:
+    """Length of the union of the events' intervals (us): the time some
+    kernel ran, however many ran at once."""
+    total, end = 0.0, None
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        a, b = e.time_range.start, e.time_range.end
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
 def profile_statements(s, statements, to_rows: bool = True):
     """Where a query's time goes: torch.profiler over a few main-path
     statements (each result read back with to_rows() unless ``to_rows`` is
@@ -1069,22 +1094,27 @@ def profile_statements(s, statements, to_rows: bool = True):
 
 def profile_calls(fn, n: int = 1):
     """profile_statements' reading of ``fn()``, which makes ``n`` calls:
-    wall and device ms a call, busy share, the top kernels."""
+    wall ms a call; device ms a call, the union of the device events'
+    intervals, and the busy share it gives (at most 1 however many
+    streams run at once); the events' summed time a call beside it; the
+    top kernels by summed time."""
     with device_profiler() as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    kernels = device_events(prof)
-    device_ms = sum(_dev_us(e) for e in kernels) / 1e3 / n
+    events = device_trace(prof)
+    device_ms = union_us(events) / 1e3 / n
     # kernels whose names share their first 60 characters (two template
     # instances) are summed under that prefix
     by_name = {}
-    for e in kernels:
-        by_name[e.key[:60]] = by_name.get(e.key[:60], 0.0) + _dev_us(e) / n
+    for e in events:
+        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + \
+            e.time_range.elapsed_us() / n
     top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:8]
     return {"wall_ms_per_query": wall_ms,
             "device_ms_per_query": device_ms,
+            "kernel_ms_summed_per_query": sum(by_name.values()) / 1e3,
             "device_busy_share": device_ms / wall_ms,
             "top_kernels_us_per_query": dict(top)}
 
@@ -4845,6 +4875,14 @@ N5_SHARDS_CUT = 4
 # key's exchange (read, write, read) and gid/vals
 BYTES5_PER_ROW = D5 * 4 + 12 + 8
 DIST_REPS = 5                    # timed runs of each distributed statement
+# config 5's overlapped steps run back to back, each held bit-equal to
+# the serial parts
+OVERLAP_STEPS = 20
+# before each of those steps every side stream spins this many cycles
+# (~0.1 s at the H100's clocks, longer than the host takes to queue a
+# step), so the scratch that follows the step comes before the join
+# branch reads its inputs
+SIDE_HOLD_CYCLES = 200_000_000
 DIST_TEXT_QUERIES = 5
 # sql_text's passages cut for this phase: two index builds (the table's,
 # the shards') took 60 s of the phase at 1M passages; at 600k each of the
@@ -4854,10 +4892,13 @@ DIST_INSERT_ROWS = 10_000_000
 
 
 def config5_step_parts(mesh, x, q, fact, dim, gid, mask, vals, sqn):
-    """The fused step's parts timed apart on the card (CUDA events, median
-    of 3 after a warm-up): the join exchange, the shard scans, the top-k
-    merge, the shard join counts with their psum, the group partials and
-    their merge.  Shard bodies against merge/exchange."""
+    """The fused step's parts run one at a time on the current streams
+    and timed apart (CUDA events on device 0, median of 3 after a
+    warm-up): the join exchange, the shard scans, the top-k merge, the
+    shard join counts with their psum, the group partials and their
+    merge.  Shard bodies against merge/exchange.  Returns the times and
+    the serial order's five outputs (top-k distances and ids, join count,
+    group states, group count), which the overlapped step must equal."""
     from myscaledb_tpu_torch.ops.aggregate import partial_aggregate_matmul
     from myscaledb_tpu_torch.parallel.mesh import psum, row_slices
     from myscaledb_tpu_torch.parallel.ops import (_merge_agg_states,
@@ -4885,13 +4926,14 @@ def config5_step_parts(mesh, x, q, fact, dim, gid, mask, vals, sqn):
                                          n_loc, sqs[p]) for p in range(nsh)]
 
     def topk_merge():
-        _merge_distance_topk([a for a, _ in box["s"]],
-                             [b for _, b in box["s"]], K5, "L2")
+        box["topk"] = _merge_distance_topk([a for a, _ in box["s"]],
+                                           [b for _, b in box["s"]], K5,
+                                           "L2")
 
     def join_counts():
         (fk, _, fv), (dk, _, dv) = box["f"], box["d"]
-        psum([_all_pair_count(fk[p], fv[p], dk[p], dv[p])
-              for p in range(nsh)])
+        box["cnt"] = psum([_all_pair_count(fk[p], fv[p], dk[p], dv[p])
+                           for p in range(nsh)])
 
     def partials():
         box["a"] = [partial_aggregate_matmul(gids[p], masks[p], (vs[p],),
@@ -4899,8 +4941,8 @@ def config5_step_parts(mesh, x, q, fact, dim, gid, mask, vals, sqn):
                     for p in range(nsh)]
 
     def agg_merge():
-        _merge_agg_states(("sum",), [a for a, _ in box["a"]],
-                          [b for _, b in box["a"]])
+        box["agg"] = _merge_agg_states(("sum",), [a for a, _ in box["a"]],
+                                       [b for _, b in box["a"]])
     out = {}
     for name, fn in (("exchange", exchange), ("shard_scans", scans),
                      ("topk_merge", topk_merge),
@@ -4912,7 +4954,11 @@ def config5_step_parts(mesh, x, q, fact, dim, gid, mask, vals, sqn):
         out["shard_join_counts_psum_ms"] + out["shard_group_partials_ms"]
     out["merge_and_exchange_ms"] = out["exchange_ms"] + \
         out["topk_merge_ms"] + out["group_merge_ms"]
-    return out
+    out["sum_of_parts_ms"] = sum(v for k, v in out.items()
+                                 if k.endswith("_ms") and k not in (
+                                     "shard_bodies_ms",
+                                     "merge_and_exchange_ms"))
+    return out, (*box["topk"], box["cnt"], *box["agg"])
 
 
 def config5_embeddings(mesh, n_loc: int, seed: int):
@@ -4954,6 +5000,145 @@ def config5_small_columns(n: int, seed: int, device):
     return fact, dim, gid, q, vals, mask
 
 
+def sync_cards() -> None:
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(d)
+
+
+def outputs_equal(a, b) -> bool:
+    """Two fused-step outputs (distances, ids, count, states, group
+    count) bit-equal, avg's (sum, count) states part by part."""
+    def flat(out):
+        dd, ii, cnt, states, gc = out
+        parts = [dd, ii, cnt, gc]
+        for st in states:
+            parts += list(st) if isinstance(st, tuple) else [st]
+        return parts
+    fa, fb = flat(a), flat(b)
+    return len(fa) == len(fb) and all(
+        x.device == y.device and torch.equal(x, y) for x, y in zip(fa, fb))
+
+
+def keys_step(m, x, q, args, sqn, fks, dks):
+    """One fused step of config 5 given the key columns' parts."""
+    from myscaledb_tpu_torch.parallel.pipeline import fused_topk_join_agg
+    return fused_topk_join_agg(m, x, q, "L2", K5, fks, dks, args["gid"],
+                               args["mask"], args["vals"], ("sum",), G5,
+                               x_sqnorm=sqn)
+
+
+@contextlib.contextmanager
+def in_pools(pools: dict):
+    """Allocations on each card routed to its private pool."""
+    with contextlib.ExitStack() as stack:
+        for dev, pool in pools.items():
+            stack.enter_context(torch.cuda.use_mem_pool(pool, dev))
+        yield
+
+
+def traced_step(step, tries: int = 3):
+    """One step's device events from torch.profiler.  A step runs first
+    inside the window (a trace can miss its window's first events), then
+    a marker kernel (``torch.cuda._sleep``, ``spin_kernel``), then the
+    traced step: the events that start after the marker ends.  Tried
+    again, at most ``tries`` times, where the trace lacks the marker or
+    K2."""
+    for _ in range(tries):
+        with device_profiler() as prof:
+            step()
+            sync_cards()
+            torch.cuda._sleep(1000)
+            sync_cards()
+            step()
+            sync_cards()
+        events = device_trace(prof)
+        marks = [e.time_range.end for e in events
+                 if "spin_kernel" in e.name]
+        if marks:
+            events = [e for e in events if e.time_range.start >= max(marks)]
+            if any("segmin_f32_kernel" in e.name for e in events):
+                return events
+    raise AssertionError(f"config 5: {tries} traces of a step lack the "
+                         "marker or K2")
+
+
+def config5_overlap(m, x, q, args, sqn, serial, tag: str) -> dict:
+    """The overlapped step's checks on mesh ``m``.  (1) OVERLAP_STEPS
+    steps back to back with no synchronize between them.  Before each,
+    every side stream spins SIDE_HOLD_CYCLES, so the step's join branch
+    reads its inputs late.  Each step gets fresh copies of the key
+    columns, made in a private pool of each card and dropped as the step
+    returns; then scratch of the same sizes is allocated in those pools
+    on the current streams and filled with -1, and scratch the size of
+    the exchange buffers beside it.  A copy the join branch
+    still reads must not be handed out again: no scratch block may start
+    inside one (``freed_too_early``), and every step's five outputs must
+    be torch.equal to ``serial``, the parts run one at a time.  (2) One
+    traced step: K2 and K3 on one stream a card, the join branch's sorts
+    on another; ``overlap_ms``, the step's summed device time less the
+    union of its events' intervals."""
+    from myscaledb_tpu_torch.parallel.mesh import row_slices
+    pools = {d: torch.cuda.MemPool() for d in dict.fromkeys(m.devices)}
+    outs, early = [], 0
+    for _ in range(OVERLAP_STEPS):
+        for side in m.side_streams().values():
+            with torch.cuda.stream(side):
+                torch.cuda._sleep(SIDE_HOLD_CYCLES)
+        with in_pools(pools):
+            fks = [t.clone() for t in row_slices(m, args["fact"])]
+            dks = [t.clone() for t in row_slices(m, args["dim"])]
+        spans = [(t.data_ptr(), t.data_ptr() + t.nbytes) for t in fks + dks]
+        outs.append(keys_step(m, x, q, args, sqn, fks, dks))
+        sizes = [(t.numel(), t.dtype, t.device) for t in fks + dks]
+        del fks, dks
+        with in_pools(pools):
+            scratch = [torch.empty(n, dtype=dt, device=dev).fill_(-1)
+                       for n, dt, dev in sizes]
+        early += sum(any(a <= t.data_ptr() < b for a, b in spans)
+                     for t in scratch)
+        # and the exchange buffers' sizes (keys and flags) on each card
+        scratch += [torch.empty(m.size * n + 1, dtype=dt,
+                                device=dev).fill_(-1)
+                    for n, _, dev in sizes for dt in (torch.int32,
+                                                      torch.int8)]
+        del scratch
+    sync_cards()
+    if early:
+        raise AssertionError(f"config 5 {tag}: {early} scratch blocks "
+                             "handed out while the join branch read them")
+    bad = [i for i, o in enumerate(outs) if not outputs_equal(o, serial)]
+    if bad:
+        raise AssertionError(f"config 5 {tag}: overlapped steps {bad} "
+                             "differ from the serial parts")
+    del outs
+    events = traced_step(lambda: keys_step(m, x, q, args, sqn, args["fact"],
+                                           args["dim"]))
+    scan = {(e.device_index, e.device_resource_id) for e in events
+            if "segmin_f32_kernel" in e.name or "group_agg" in e.name}
+    if len(scan) != m.n_cards:
+        raise AssertionError(f"config 5 {tag}: K2 and K3 ran on streams "
+                             f"{sorted(scan)}, want one a card")
+    branch = [e for e in events
+              if (e.device_index, e.device_resource_id) not in scan]
+    if not any("sort" in e.name.lower() for e in branch):
+        raise AssertionError(f"config 5 {tag}: no sort of the join "
+                             "branch ran beside K2's stream")
+    streams = {}
+    for e in events:
+        key = f"cuda:{e.device_index}/stream {e.device_resource_id}"
+        streams[key] = streams.get(key, 0) + 1
+    summed = sum(e.time_range.elapsed_us() for e in events)
+    union = union_us(events)
+    return {"steps_bit_equal_to_serial": OVERLAP_STEPS,
+            "freed_too_early": early,
+            "events_per_stream": streams,
+            "scan_streams": len(scan),
+            "join_branch_events": len(branch),
+            "traced_kernel_ms_summed": summed / 1e3,
+            "traced_device_union_ms": union / 1e3,
+            "overlap_ms": (summed - union) / 1e3}
+
+
 def phase_config5(seed: int, smi: str):
     """BASELINE config 5 at bench.py's shapes on an 8-shard mesh (4 if the
     card cannot hold 8 shards' embeddings) and on a 1-shard mesh over the
@@ -4963,9 +5148,12 @@ def phase_config5(seed: int, smi: str):
     step is checked against oracles on the card (ids equal to the
     one-device scan's, distances within rtol 2e-5, the join count equal
     to a searchsorted count, group sums and counts equal to a bincount);
-    its median over DIST_REPS runs after a warm-up, rows/s, K2 and K3
-    launches a step, host syncs a step, and the step's parts timed
-    apart."""
+    its median over DIST_REPS runs after a warm-up, the time the host
+    takes to queue a step (``host_queue_ms``), rows/s, K2 and K3
+    launches a step, host syncs a step (0 on 8 shards, at most 1 on 1),
+    the step's parts run one at a time and timed apart, and
+    config5_overlap's checks of the overlapped step against those
+    parts' outputs."""
     from myscaledb_tpu_torch.ops.vector import distance_scan
     from myscaledb_tpu_torch.parallel.mesh import (RowSplit, make_mesh,
                                                    shard_rows)
@@ -5029,10 +5217,11 @@ def phase_config5(seed: int, smi: str):
         torch.cuda.synchronize()
         # the path's own run: counts zeroed just before, read just after
         zero_launches()
-        lat = []
+        lat, queued = [], []
         for _ in range(DIST_REPS):
             t0 = time.perf_counter()
             out = step()
+            queued.append((time.perf_counter() - t0) * 1e3)
             torch.cuda.synchronize()
             lat.append((time.perf_counter() - t0) * 1e3)
             check(out, tag)
@@ -5043,20 +5232,28 @@ def phase_config5(seed: int, smi: str):
                     f"config 5 {tag}: {k2k3} launched {launches[k2k3]} "
                     f"times in {DIST_REPS} steps, want {m.size} a step")
         syncs, sync_sites = count_host_syncs(step)
+        if syncs > (0 if m.size > 1 else 1):
+            raise AssertionError(f"config 5 {tag}: {syncs} host syncs a "
+                                 f"step ({sync_sites})")
         prof = profile_calls(step)
         med = float(np.median(lat))
+        parts, serial = config5_step_parts(m, x, q, args["fact"],
+                                           args["dim"], args["gid"],
+                                           args["mask"], args["vals"], sqn)
+        check(serial, tag + " serial parts")
+        overlap = config5_overlap(m, x, q, args, sqn, serial, tag)
         return {
             **summary_ms(lat), "launches": launches,
             "launches_per_step": {k: v / DIST_REPS
                                   for k, v in launches.items() if v},
             "host_syncs_per_step": syncs, "host_sync_sites": sync_sites,
+            "host_queue_ms": float(np.median(queued)),
             "distributed_pipeline_rows_per_sec_per_chip": n / (med / 1e3),
             "device_busy_share": prof["device_busy_share"],
             "device_ms_per_step": prof["device_ms_per_query"],
+            "kernel_ms_summed_per_step": prof["kernel_ms_summed_per_query"],
             "top_kernels_us": prof["top_kernels_us_per_query"],
-            "parts": config5_step_parts(m, x, q, args["fact"], args["dim"],
-                                        args["gid"], args["mask"],
-                                        args["vals"], sqn)}, launches
+            "parts": parts, "overlap": overlap}, launches
 
     runs = {}
     m1 = make_mesh(1, device="cuda:0")
@@ -5104,8 +5301,9 @@ def phase_multi_card(seed: int, smi: str):
     it, one shard a card (``make_mesh()``) at 2M rows a shard, and
     sql_distributed's config-1 and GROUP BY statements over ``make_mesh()``,
     each held equal (ids, join count, integer states, rows) to the same
-    data on a one-card mesh of as many logical shards.  On one card it
-    says so and runs nothing."""
+    data on a one-card mesh of as many logical shards; on each mesh
+    config5_overlap's checks (one side stream a card) and no host sync a
+    step.  On one card it says so and runs nothing."""
     import myscaledb_tpu_torch as P
     from myscaledb_tpu_torch.core.table import Table
     from myscaledb_tpu_torch.parallel.mesh import (RowSplit, make_mesh,
@@ -5154,15 +5352,23 @@ def phase_multi_card(seed: int, smi: str):
                     f"multi-card config 5 {tag}: {k2k3} launched "
                     f"{launches[k2k3]} times in {DIST_REPS} steps, want "
                     f"{m.size} a step")
-        syncs, _ = count_host_syncs(step)
+        syncs, sync_sites = count_host_syncs(step)
+        if syncs:
+            raise AssertionError(f"multi-card config 5 {tag}: {syncs} host "
+                                 f"syncs a step ({sync_sites})")
+        _, serial = config5_step_parts(m, x, q, *args, sqn)
+        keys = dict(zip(("fact", "dim", "gid", "mask", "vals"), args))
+        overlap = config5_overlap(m, x, q, keys, sqn, serial,
+                                  f"multi-card {tag}")
         med = float(np.median(lat))
         results[tag] = res
         out[tag] = {**summary_ms(lat), "launches": launches,
                     "host_syncs_per_step": syncs,
                     "distributed_pipeline_rows_per_sec_per_chip":
                         n / (med / 1e3) / (cards if m is wide else 1),
-                    "devices": [str(d) for d in m.devices]}
-        del parts, x, sqn, args
+                    "devices": [str(d) for d in m.devices],
+                    "overlap": overlap}
+        del parts, x, sqn, args, keys, serial
         torch.cuda.empty_cache()
     a, b = results["one_shard_a_card"], results["one_card_logical_shards"]
     if not torch.equal(a[1].cpu(), b[1].cpu()):

@@ -25,6 +25,13 @@ Where values live: a row-split value is a ``RowSplit`` (shard p's part on
 merged group states, a psum) is one tensor on ``mesh.device(0)``, and a
 shard body that reads it moves it to its own card first: no shard body
 computes on another card's tensor.
+
+Streams: a shard body queues its work on its card's current stream, and
+the host waits for none of it.  A peer copy (``tensor.to(device)``) is
+ordered on the current streams of both cards it joins.  The fused config-5
+step (``parallel/pipeline.py``) runs its join branch on a second stream of
+each card, ``Mesh.side_streams()``, made current on every card at once so
+that the branch's copies stay off the streams the scans run on.
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ class Mesh:
                         if d.type == "cuda" and d.index is None else d
                         for d in devs]
         self.axis = axis
+        self._side = None
 
     @property
     def shape(self) -> dict:
@@ -71,6 +79,18 @@ class Mesh:
 
     def device(self, p: int = 0) -> torch.device:
         return self.devices[p]
+
+    def side_streams(self) -> dict:
+        """One side stream per distinct CUDA card of the mesh, keyed by the
+        card: made at the first call and kept with the mesh, so that the
+        shards on one card share it from step to step.  Empty for a CPU
+        mesh, whose tensors have no streams (no CUDA call is made); on a
+        CUDA mesh a stream that cannot be made raises."""
+        if self._side is None:
+            self._side = {d: torch.cuda.Stream(device=d)
+                          for d in dict.fromkeys(self.devices)
+                          if d.type == "cuda"}
+        return self._side
 
     @property
     def n_cards(self) -> int:

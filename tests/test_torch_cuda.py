@@ -1114,6 +1114,135 @@ def test_fused_pipeline_on_eight_shards_equals_local_path(cuda):
     assert torch.equal(gc, torch.bincount(gid.long(), minlength=G))
 
 
+def _serial_config5(mesh, x, q, fk, dk, gid, mask, vals, fns, G, k):
+    """Config 5's parts one at a time on the current streams (the order
+    of ``config5_step_parts`` in chip_smoke.py): what the overlapped
+    step must give bit for bit."""
+    from myscaledb_tpu_torch.ops.aggregate import partial_aggregate_matmul
+    from myscaledb_tpu_torch.parallel.mesh import (psum, row_slices,
+                                                   rows_per_shard)
+    from myscaledb_tpu_torch.parallel.ops import (_local_distance_topk,
+                                                  _merge_agg_states)
+    from myscaledb_tpu_torch.parallel.shuffle import (_all_pair_count,
+                                                      _exchange)
+    nsh = mesh.size
+    xs = row_slices(mesh, x)
+    fks, dks = row_slices(mesh, fk), row_slices(mesh, dk)
+    fk_rx, _, fv_rx = _exchange(mesh, fks, [], [
+        torch.ones_like(t, dtype=torch.bool) for t in fks],
+        rows_per_shard(xs))
+    dk_rx, _, dv_rx = _exchange(mesh, dks, [], [
+        torch.ones_like(t, dtype=torch.bool) for t in dks],
+        max(int(dks[0].shape[0]), 1))
+    cnt = psum([_all_pair_count(fk_rx[p], fv_rx[p], dk_rx[p], dv_rx[p])
+                for p in range(nsh)])
+    md, mi = _local_distance_topk(mesh, xs, q, None, "L2", k, 32768)
+    gids, masks, vs = (row_slices(mesh, gid), row_slices(mesh, mask),
+                       row_slices(mesh, vals))
+    parts = [partial_aggregate_matmul(gids[p], masks[p], (vs[p],), fns, G)
+             for p in range(nsh)]
+    states, gc = _merge_agg_states(fns, [a for a, _ in parts],
+                                   [b for _, b in parts])
+    return md, mi, cnt, states, gc
+
+
+def _flat_outputs(out) -> list:
+    dd, ii, cnt, states, gc = out
+    flat = [dd, ii, cnt, gc]
+    for st in states:
+        flat += list(st) if isinstance(st, tuple) else [st]
+    return [t.cpu() for t in flat]
+
+
+def _overlapped_steps_equal_serial(mesh, x, q, fk, dk, gid, mask, vals,
+                                   fns, G, k, steps=20):
+    """``steps`` overlapped steps back to back with no synchronize between
+    them.  Before each, every side stream spins (~25 ms), so the step's
+    join branch reads its inputs late.  Each step gets fresh copies of
+    the key columns, made in a private pool of each card and dropped as
+    it returns; then scratch of the same sizes is allocated in those
+    pools and filled with -1 on the current streams, and scratch the size
+    of the exchange buffers beside it.  No scratch block may start inside
+    a copy the join branch still reads, and every step's outputs equal
+    the serial parts'.  Returns the last step's outputs."""
+    from contextlib import ExitStack
+    from myscaledb_tpu_torch.parallel.mesh import row_slices
+    from myscaledb_tpu_torch.parallel.pipeline import fused_topk_join_agg
+    serial = _flat_outputs(_serial_config5(mesh, x, q, fk, dk, gid, mask,
+                                           vals, fns, G, k))
+    pools = {dv: torch.cuda.MemPool() for dv in dict.fromkeys(mesh.devices)}
+
+    def in_pools():
+        stack = ExitStack()
+        for dv, pool in pools.items():
+            stack.enter_context(torch.cuda.use_mem_pool(pool, dv))
+        return stack
+    before = K3.group_aggregate.launches
+    outs, early = [], 0
+    for _ in range(steps):
+        for side in mesh.side_streams().values():
+            with torch.cuda.stream(side):
+                torch.cuda._sleep(50_000_000)
+        with in_pools():
+            fks = [t.clone() for t in row_slices(mesh, fk)]
+            dks = [t.clone() for t in row_slices(mesh, dk)]
+        spans = [(t.data_ptr(), t.data_ptr() + t.nbytes) for t in fks + dks]
+        sizes = [(t.numel(), t.device) for t in fks + dks]
+        outs.append(fused_topk_join_agg(mesh, x, q, "L2", k, fks, dks, gid,
+                                        mask, vals, fns, G))
+        del fks, dks
+        with in_pools():
+            scratch = [torch.empty(n, dtype=torch.int32,
+                                   device=dv).fill_(-1) for n, dv in sizes]
+        early += sum(any(a <= t.data_ptr() < b for a, b in spans)
+                     for t in scratch)
+        scratch += [torch.empty(mesh.size * n + 1, dtype=torch.int32,
+                                device=dv).fill_(-1) for n, dv in sizes]
+        del scratch
+    for dv in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(dv)
+    assert early == 0
+    assert K3.group_aggregate.launches == before + steps * mesh.size
+    for i, out in enumerate(outs):
+        got = _flat_outputs(out)
+        assert len(got) == len(serial)
+        assert all(torch.equal(a, b) for a, b in zip(got, serial)), i
+    return outs[-1]
+
+
+@pytest.mark.parametrize("fn", ["sum", "avg"])
+def test_overlapped_pipeline_equals_serial_parts_on_card(cuda, fn):
+    """Config 5's overlapped step on 8 logical shards of one card (4096
+    rows a shard, d = 64): 20 steps back to back with scratch fills, each
+    bit-equal to the serial parts on the card; and the step against the
+    port's CPU mesh (held to the JAX package by test_torch_pipeline.py):
+    ids, join count and integer states equal, distances rtol 2e-5."""
+    from myscaledb_tpu_torch.parallel.mesh import make_mesh
+    from myscaledb_tpu_torch.parallel.pipeline import fused_topk_join_agg
+    nsh, n_loc, d, nq, k, G, n_dim = 8, 4096, 64, 5, 10, 256, 2048
+    n = nsh * n_loc
+    rng = np.random.default_rng(7)
+    host = dict(
+        x=rng.standard_normal((n, d)).astype(np.float32),
+        q=rng.standard_normal((nq, d)).astype(np.float32),
+        fk=rng.integers(0, 2 * n_dim, n).astype(np.int32),
+        dk=rng.integers(0, 2 * n_dim, n_dim).astype(np.int32),
+        gid=rng.integers(0, G, n).astype(np.int32),
+        mask=rng.random(n) < 0.9,
+        vals=rng.integers(-100, 100, n).astype(np.int32))
+    dev = {a: torch.as_tensor(v, device="cuda") for a, v in host.items()}
+    args = [dev[a] for a in ("x", "q", "fk", "dk", "gid", "mask", "vals")]
+    got = _flat_outputs(_overlapped_steps_equal_serial(
+        make_mesh(nsh, device="cuda"), *args, (fn,), G, k))
+    cpu = [torch.as_tensor(host[a])
+           for a in ("x", "q", "fk", "dk", "gid", "mask", "vals")]
+    want = _flat_outputs(fused_topk_join_agg(
+        make_mesh(nsh, device="cpu"), cpu[0], cpu[1], "L2", k, *cpu[2:],
+        (fn,), G))
+    torch.testing.assert_close(got[0], want[0], rtol=2e-5, atol=0)
+    assert all(torch.equal(a, b) for a, b in zip(got[1:], want[1:]))
+
+
 def test_float_to_int_saturates_on_card(cuda):
     """toInt32/toInt64 of out-of-range floats and NaN give the same
     answers on the card as on the CPU: the type's bound, and 0 for NaN
@@ -1139,7 +1268,9 @@ def test_float_to_int_saturates_on_card(cuda):
 def test_multi_card_mesh_equals_one_card_mesh(cuda):
     """One shard a card (``make_mesh()``) against a one-card mesh of as
     many logical shards, over the same rows: config 5's fused step (ids,
-    join count, group states equal; K2 and K3 once a shard) and three
+    join count, group states equal; K2 and K3 once a shard; 20
+    overlapped steps on ``make_mesh()`` bit-equal to its serial parts)
+    and three
     distributed SQL statements (a filtered vector top-k, a GROUP BY, a
     shuffle GROUP BY) with equal rows."""
     import myscaledb_tpu_torch as P
@@ -1176,6 +1307,10 @@ def test_multi_card_mesh_equals_one_card_mesh(cuda):
             torch.cuda.synchronize(dv)
         assert K2.segmin_f32.launches == before[0] + cards
         assert K3.group_aggregate.launches == before[1] + cards
+    # the overlapped step, one side stream a card, against the serial
+    # parts on the same mesh
+    _overlapped_steps_equal_serial(wide, shard_rows(wide, x), q, fk, dk,
+                                   gid, mask, vals, ("sum",), G, k)
     (d1, i1, c1, s1, g1), (d2, i2, c2, s2, g2) = outs
     assert torch.equal(i1.cpu(), i2.cpu())
     torch.testing.assert_close(d1.cpu(), d2.cpu(), rtol=2e-5, atol=0)

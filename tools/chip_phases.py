@@ -10,8 +10,10 @@ Each argument is ``checkout:phase,phase``; phases are ``groupby``
 (sql_groupby), ``binary`` (sql_binary), ``hits`` (sql_hits), ``arrays``
 (sql_arrays), ``subquery`` (sql_subquery), ``text`` (sql_text),
 ``storage`` (sql_storage), ``views`` (sql_views), ``formats``
-(sql_formats), ``server`` (sql_server) and ``distributed``
-(sql_distributed), the ones a checkout's chip_smoke.py has.
+(sql_formats), ``server`` (sql_server), ``distributed``
+(sql_distributed) and ``config5`` (config 5's fused step alone,
+sql_distributed's ``phase_config5``), the ones a checkout's chip_smoke.py
+has.
 Each argument runs in a process of its own with the checkout as the
 working directory (so it imports that checkout's package and builds its
 kernels), after that checkout's kernel build.  The full output of run i
@@ -40,7 +42,11 @@ names = {'groupby': 'phase_groupby', 'binary': 'phase_sql_binary',
          'formats': 'phase_sql_formats', 'server': 'phase_sql_server',
          'distributed': 'phase_sql_distributed'}
 for ph in sys.argv[1].split(','):
-    getattr(C, names[ph])(0)
+    if ph == 'config5':
+        out, _ = C.phase_config5(0, C.nvidia_smi_line())
+        C.emit({'phase': 'sql_distributed.config5', **out})
+    else:
+        getattr(C, names[ph])(0)
 """
 
 
@@ -73,10 +79,14 @@ def summarize(stdout: str) -> None:
                   f"{st['rows_per_s']:.0f} rows/s device {dev}")
         if d.get("phase") == "sql_distributed.config5":
             for tag, r in d["runs"].items():
+                ov = r.get("overlap", {}).get("overlap_ms")
                 print(f"  config5 {tag} median {r['median_ms']:.3f} "
+                      f"ms {[round(v, 3) for v in r['ms']]} "
                       f"exchange {r['parts']['exchange_ms']:.3f} host syncs "
                       f"{r.get('host_syncs_per_step')} busy "
-                      f"{r['device_busy_share']:.3f}")
+                      f"{r['device_busy_share']:.3f} device "
+                      f"{r['device_ms_per_step']:.3f} queued "
+                      f"{r.get('host_queue_ms')} overlap_ms {ov}")
         if d.get("phase") == "sql_distributed.multi_card":
             print(f"  multi_card {json.dumps(d)[:300]}")
         if "device_split_probe" in d:
