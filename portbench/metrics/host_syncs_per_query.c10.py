@@ -1,0 +1,9 @@
+"""host_syncs_per_query.c10: what ``host_syncs_per_query.py`` reads,
+in the cells whose one end-to-end metric besides set-up is ``qps``, which
+it moves."""
+
+from portbench import spec
+
+
+def read(r):
+    return spec.metric_reader("host_syncs_per_query").read(r)

@@ -1,0 +1,8 @@
+"""parse_ms.c10: what ``parse_ms.py`` reads, in the cells
+whose one end-to-end metric besides set-up is ``qps``, which it moves."""
+
+from portbench import spec
+
+
+def read(r):
+    return spec.metric_reader("parse_ms").read(r)
