@@ -28,6 +28,7 @@ from myscaledb_tpu_torch.core.types import (DataType, Field, infer_type,
                                             physical_dtype,
                                             storage_numpy_dtype)
 from myscaledb_tpu_torch.core.dictionary import StringDictionary, NULL_ID
+from myscaledb_tpu_torch.runtime.tracing import span, sync
 
 # Rows per zone-map block (the JAX package's BLOCK_ROWS).
 BLOCK_ROWS = 65536
@@ -52,7 +53,8 @@ def to_tensor(arr, device) -> torch.Tensor:
     arr = np.ascontiguousarray(arr.astype(sd, copy=False))
     if not arr.flags.writeable:
         arr = arr.copy()
-    return torch.from_numpy(arr).to(device)
+    with sync("table.to_tensor"):
+        return torch.from_numpy(arr).to(device)
 
 
 # device copies of host row offsets, by the id of the host array; an entry
@@ -372,6 +374,9 @@ class Table:
                         f"column {c.name} has {len(c)} rows, expected {n}")
         self.name = name
         self.columns: dict[str, Column] = {c.name: c for c in columns}
+        # (trace_id, span_id) of the ``query`` span that returned this
+        # table (sql/driver.py): the parent of its ``to_rows`` span
+        self.span_ids = None
 
     # -- construction -------------------------------------------------------
 
@@ -485,8 +490,9 @@ class Table:
         return {n: c.to_python() for n, c in self.columns.items()}
 
     def to_rows(self) -> list[tuple]:
-        cols = [c.to_python() for c in self.columns.values()]
-        return list(zip(*cols)) if cols else []
+        with span("to_rows", parent=self.span_ids):
+            cols = [c.to_python() for c in self.columns.values()]
+            return list(zip(*cols)) if cols else []
 
     def __repr__(self) -> str:
         flds = ", ".join(str(f) for f in self.schema())

@@ -43,6 +43,7 @@ import torch
 from myscaledb_tpu_torch.core.types import DataType, physical_dtype
 from myscaledb_tpu_torch.core.table import Table, to_tensor
 from myscaledb_tpu_torch.core.dictionary import StringDictionary, NULL_ID
+from myscaledb_tpu_torch.runtime.tracing import sync
 from myscaledb_tpu_torch.sql.ast import (Expr, Literal, VectorLiteral, Ident,
                                          BinOp, UnOp, FuncCall, InList,
                                          Between, WindowCall, InSubquery,
@@ -199,10 +200,13 @@ def _scalar(x, device) -> torch.Tensor:
     """Python literal -> 0-d tensor in the dtype jnp.asarray gives it with
     x64 on (bool, int64, float64)."""
     if isinstance(x, bool):
-        return torch.tensor(x, dtype=torch.bool, device=device)
-    if isinstance(x, int):
-        return torch.tensor(x, dtype=torch.int64, device=device)
-    return torch.tensor(float(x), dtype=torch.float64, device=device)
+        dtype = torch.bool
+    elif isinstance(x, int):
+        dtype = torch.int64
+    else:
+        x, dtype = float(x), torch.float64
+    with sync("expr._scalar"):
+        return torch.tensor(x, dtype=dtype, device=device)
 
 
 # ---------------------------------------------------------------------------

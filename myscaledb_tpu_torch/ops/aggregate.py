@@ -35,6 +35,7 @@ import torch
 
 from myscaledb_tpu_torch.core.table import to_tensor
 from myscaledb_tpu_torch.core.types import TORCH_TO_NUMPY
+from myscaledb_tpu_torch.runtime.tracing import sync
 
 AGG_FNS = ("sum", "count", "min", "max", "avg", "any")
 
@@ -169,9 +170,12 @@ def kept_rows_only(mask, gid, m, G: int, args: list, valids: list,
     n = gid.shape[0]
     if mask is None or G <= 1 or n < min_rows:
         return gid, m, args, valids
-    if int(m.sum()) >= n // 2:
+    with sync("aggregate.kept_rows_only.count"):
+        most = int(m.sum()) >= n // 2
+    if most:
         return gid, m, args, valids
-    rows = torch.nonzero(m).flatten()
+    with sync("aggregate.kept_rows_only.rows"):
+        rows = torch.nonzero(m).flatten()
     return (gid[rows], torch.ones_like(rows, dtype=torch.bool),
             [None if a is None else a[rows] for a in args],
             [None if v is None else v[rows] for v in valids])
@@ -251,7 +255,8 @@ def _counts(tgt: torch.Tensor, G: int) -> torch.Tensor:
     on one counter."""
     if G == 1:
         return (tgt == 0).sum(dtype=torch.int64).reshape(1)
-    return torch.bincount(tgt, minlength=G + 1)[:G]
+    with sync("aggregate._counts"):
+        return torch.bincount(tgt, minlength=G + 1)[:G]
 
 
 def merge_states(states_a, states_b, group_count_a, group_count_b, fns):
@@ -275,7 +280,10 @@ def merge_states(states_a, states_b, group_count_a, group_count_b, fns):
 
 
 def _host(x) -> np.ndarray:
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    if not isinstance(x, torch.Tensor):
+        return np.asarray(x)
+    with sync("aggregate._host"):
+        return x.cpu().numpy()
 
 
 def finalize(states, group_count, fns, logical_dtypes=None

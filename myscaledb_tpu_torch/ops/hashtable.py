@@ -37,6 +37,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from myscaledb_tpu_torch.runtime.tracing import sync
 from myscaledb_tpu_torch.ops.kernels.merge_count import (CountIndex,
                                                         build_count_index,
                                                         merge_count,
@@ -105,7 +106,8 @@ def _sorted_runs(key_cols, mask):
     s_invalid = invalid[perm]
     s_keys = [k[perm] for k in key_cols]
     changed = torch.zeros(n, dtype=torch.bool, device=dev)
-    changed[0] = True
+    with sync("hashtable._sorted_runs.first"):
+        changed[0] = True
     for k in s_keys:
         changed[1:] |= k[1:] != k[:-1]
     is_start = changed & ~s_invalid
@@ -123,7 +125,8 @@ def _group_ids_impl(key_cols, mask, cap: int):
     # representative (lowest) row per group: the run start's row id (the
     # sort is stable).  Only the starts are written: a scatter of every
     # other row into one spare slot would queue them all on one address
-    starts = torch.nonzero(is_start).flatten()
+    with sync("hashtable._group_ids_impl.starts"):
+        starts = torch.nonzero(is_start).flatten()
     slot_row = torch.full((cap,), INT32_MAX, dtype=torch.int32,
                           device=gid.device)
     slot_row[run_idx[starts]] = s_row[starts].to(torch.int32)
@@ -157,7 +160,8 @@ def build_group_ids(key_cols, mask=None, num_groups_hint: Optional[int] = None,
         return table, torch.zeros(0, dtype=torch.int32, device=dev), 1
     _charge_sort(n, len(key_cols) + 2, "group_by_sort")
     gid, slot_row, num_groups = _group_ids_impl(key_cols, mask, n)
-    cap = max(int(num_groups), 1)           # one host sync, like the
+    with sync("hashtable.build_group_ids.groups"):
+        cap = max(int(num_groups), 1)       # one host sync, like the
     slot_row = slot_row[:cap]               # reference's table growth
     sorted_keys = has_max = index = None
     if (prepare_count_probe and len(key_cols) == 1

@@ -34,6 +34,7 @@ import torch
 
 from myscaledb_tpu_torch.core.table import to_tensor
 from myscaledb_tpu_torch.ops.topk import total_order_key
+from myscaledb_tpu_torch.runtime.tracing import sync
 
 
 class SortKey(NamedTuple):
@@ -107,7 +108,8 @@ def _smallest_k(key: torch.Tensor, k: int) -> torch.Tensor:
     below = key < kth
     at = key == kth
     take = below | (at & (torch.cumsum(at, 0) <= k - below.sum()))
-    idx = torch.nonzero(take).flatten()
+    with sync("sort._smallest_k"):
+        idx = torch.nonzero(take).flatten()
     return idx[torch.sort(key[idx], stable=True).indices]
 
 

@@ -26,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from myscaledb_tpu_torch.runtime.tracing import sync
 from myscaledb_tpu_torch.ops.topk import (block_topk_min, merge_sorted_topk,
                                           sort_by_score_then_id,
                                           stable_argsort_min, POS_INF)
@@ -370,7 +371,9 @@ def distance_scan(x, q, metric: str = "L2", k: int = 10, mask=None,
         x8, sides = sq8
         d_, i_, ok = _distance_scan_sq8(x, x8, sides, q, mask, metric, k,
                                         has_mask, max(margin, 16))
-        if bool(ok):
+        with sync("vector.distance_scan.certificate"):
+            certified = bool(ok)
+        if certified:
             return d_, i_
         # certificate failed (clustered/tied data): full-precision path
     if pallas_supported(d, nq) and n >= (1 << 16) \

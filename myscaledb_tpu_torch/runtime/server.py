@@ -31,6 +31,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import urlparse, parse_qs
 
 from myscaledb_tpu_torch.runtime import metrics as M
+from myscaledb_tpu_torch.runtime import tracing
 from myscaledb_tpu_torch.runtime.access import (AccessDeniedError,
                                                 QuotaExceededError)
 from myscaledb_tpu_torch.session import Session
@@ -109,7 +110,7 @@ def metrics_text() -> str:
     lines += [f"msdb_metrics_{k} {v}"
               for k, v in sorted(M.metrics_snapshot().items())]
     lines += [f"msdb_seconds_{k} {v:.6f}"
-              for k, v in sorted(M.timings_snapshot().items())]
+              for k, v in sorted(tracing.timings_snapshot().items())]
     return "\n".join(lines) + "\n"
 
 

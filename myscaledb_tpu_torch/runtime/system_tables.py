@@ -229,7 +229,7 @@ def build_system_table(session, name: str) -> Table:
             device=dev)
 
     if name == "system.timings":
-        ev = sorted(M.timings_snapshot().items())
+        ev = sorted(tracing.timings_snapshot().items())
         return Table.from_dict({
             "name": [k for k, _ in ev],
             "seconds": np.asarray([v for _, v in ev], dtype=np.float64)},
@@ -313,9 +313,10 @@ def build_system_table(session, name: str) -> Table:
         spans = tracing.span_log_snapshot()
         return Table.from_dict({
             "name": [s.name for s in spans],
-            "trace_id": [s.trace_id for s in spans],
-            "span_id": [s.span_id for s in spans],
-            "parent_span_id": [s.parent_span_id or "" for s in spans],
+            "trace_id": [tracing.hex_id(s.trace_id) for s in spans],
+            "span_id": [tracing.hex_id(s.span_id) for s in spans],
+            "parent_span_id": [tracing.hex_id(s.parent_span_id)
+                               for s in spans],
             "start": np.asarray([s.start for s in spans], dtype=np.float64),
             "duration_us": np.asarray([s.duration_us for s in spans],
                                       dtype=np.int64),

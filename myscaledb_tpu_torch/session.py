@@ -34,6 +34,7 @@ import torch
 
 from myscaledb_tpu_torch.config import Settings, TableSettings
 from myscaledb_tpu_torch.core.table import Table
+from myscaledb_tpu_torch.runtime import tracing
 from myscaledb_tpu_torch.runtime.access import AccessControl
 
 
@@ -236,16 +237,22 @@ class Session:
 
     def sql_as(self, user: Optional[str], query: str) -> Table:
         """Run ``query`` as ``user`` (None: the session's own user) under
-        ``exec_lock``, and restore the session's user after it."""
-        with self.exec_lock:
-            if user is None:
-                return self.sql(query)
-            prev = self.current_user
-            self.current_user = user
+        ``exec_lock``, and restore the session's user after it.  The wait
+        for the lock is the statement's ``lock_wait`` span."""
+        with tracing.statement():
+            with tracing.span("lock_wait"):
+                self.exec_lock.acquire()
             try:
-                return self.sql(query)
+                if user is None:
+                    return self.sql(query)
+                prev = self.current_user
+                self.current_user = user
+                try:
+                    return self.sql(query)
+                finally:
+                    self.current_user = prev
             finally:
-                self.current_user = prev
+                self.exec_lock.release()
 
     def sql_tsv(self, query: str) -> str:
         """Execute and format as ClickHouse-style TSV."""

@@ -36,6 +36,7 @@ from myscaledb_tpu_torch.core.dictionary import StringDictionary
 from myscaledb_tpu_torch.core.table import Column, to_tensor
 from myscaledb_tpu_torch.core.types import Field, DataType
 from myscaledb_tpu_torch.sql.ast import Ident
+from myscaledb_tpu_torch.runtime.tracing import sync
 from myscaledb_tpu_torch.ops.hash import float_bits_key
 from myscaledb_tpu_torch.exec.expr import _full
 from myscaledb_tpu_torch.ops.hashtable import (INT32_MAX, _charge_sort,
@@ -113,7 +114,11 @@ def _distinct_first_hit(key_vals, gid, vm, n: int):
     # budgeted as the JAX package's build_group_ids over the same keys
     _charge_sort(n, len(keys) + 2, "distinct_sort")
     _gid, _ng, perm, s_keys, is_start, _run = _sorted_runs(keys, vm)
-    return perm[is_start], s_keys[0][is_start].to(torch.int64)
+    with sync("agg_fns._distinct_first_hit.rows"):
+        rows = perm[is_start]
+    with sync("agg_fns._distinct_first_hit.groups"):
+        groups = s_keys[0][is_start]
+    return rows, groups.to(torch.int64)
 
 
 def _seg_sum(x: torch.Tensor, sel, gid, G: int, dtype) -> torch.Tensor:
@@ -249,7 +254,8 @@ def _special_aggregate(kind: str, vals, gid, m, G: int, present, n: int,
     present the host ids of the groups to return."""
     from myscaledb_tpu_torch.ops.sort import _ascending_code
     dev = gid.device
-    pres = torch.as_tensor(present, dtype=torch.int64, device=dev)
+    with sync("agg_fns._special_aggregate.present"):
+        pres = torch.as_tensor(present, dtype=torch.int64, device=dev)
     if kind in ("grouparray", "groupuniqarray", "topk", "quantiles"):
         return _array_aggregate(kind, vals[0], gid, m, G, present, n, params)
     if kind == "quantiletdigest":
@@ -290,7 +296,8 @@ def _special_aggregate(kind: str, vals, gid, m, G: int, present, n: int,
             regs = hll_registers(h64, gid, vm, G)
             return _result(hll_estimate(regs)[pres])
         _rows, groups = _distinct_first_hit(vals, gid, vm, n)
-        counts = torch.bincount(groups, minlength=G)[:G]
+        with sync("agg_fns._special_aggregate.uniq"):
+            counts = torch.bincount(groups, minlength=G)[:G]
         return _result(counts[pres])
     if kind in ("sumdistinct", "avgdistinct"):
         vm = _valid_mask(m, vals)

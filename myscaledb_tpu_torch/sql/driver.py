@@ -232,6 +232,15 @@ def _execute_ddl(session, sql: str, stmt) -> Table:
 
 
 def execute_query(session, sql: str, params=None) -> Table:
+    """Run one statement under its ``query`` span; the result Table carries
+    the span's ids, the parent of its ``to_rows`` span."""
+    with span("query", query=sql.lstrip()[:200]) as qs:
+        result = _execute_query(session, sql, params)
+    result.span_ids = (qs.trace_id, qs.span_id)
+    return result
+
+
+def _execute_query(session, sql: str, params=None) -> Table:
     stripped = sql.lstrip().rstrip().rstrip(";")
     m = _OUTFILE_RE.search(stripped)
     if m and stripped.upper().lstrip().startswith("SELECT"):
@@ -275,8 +284,7 @@ def execute_query(session, sql: str, params=None) -> Table:
             return hit
         M.increment("QueryCacheMisses")
     try:
-        with span("query", query=sql[:200]), \
-                query_scope(settings.max_memory_bytes_per_query):
+        with query_scope(settings.max_memory_bytes_per_query):
             with span("parse"):
                 q = parse_sql(sql)
             result = execute_any(session, q)

@@ -151,7 +151,7 @@ from myscaledb_tpu_torch.parallel.ops import (sharded_distance_topk,
                                               sharded_group_aggregate,
                                               sharded_topn, sqnorm_parts)
 from myscaledb_tpu_torch.runtime import metrics as M
-from myscaledb_tpu_torch.runtime.tracing import span
+from myscaledb_tpu_torch.runtime.tracing import span, sync
 
 __all__ = ["ExecError", "NotPortedError", "VSInfo", "execute_any",
            "execute_select", "analyze_vector_search"]
@@ -1773,8 +1773,10 @@ def _group_ids(key_vals: list, n: int, mask, hint: int):
         if not v.data.is_floating_point():
             data = v.data.to(torch.int64)
             sel = _mask_or_true(mask, n, data.device)
-            lo = int(torch.min(torch.where(sel, data, data[0])))
-            hi = int(torch.max(torch.where(sel, data, data[0])))
+            with sync("executor._group_ids.lo"):
+                lo = int(torch.min(torch.where(sel, data, data[0])))
+            with sync("executor._group_ids.hi"):
+                hi = int(torch.max(torch.where(sel, data, data[0])))
             rng = hi - lo + 1
             if rng <= max(4 * hint, 1 << 20):
                 gid = (data - lo).to(torch.int32)
@@ -2211,7 +2213,8 @@ def run_aggregate(env: Env, q: SelectQuery, mask, session,
             route_rows=n)
         del agg_gid, agg_m, agg_args, agg_valids
     outs = finalize(states, gc, tuple(fns), tuple(logical))
-    gc_np = gc.cpu().numpy()
+    with sync("executor.run_aggregate.counts"):
+        gc_np = gc.cpu().numpy()
     present = np.flatnonzero(gc_np > 0)
     if not key_vals and len(present) == 0:
         present = np.array([0])   # global agg over empty set still yields a row
@@ -2219,9 +2222,13 @@ def run_aggregate(env: Env, q: SelectQuery, mask, session,
     # representative row per group (its lowest row id) -> group key output
     # values; a global aggregate has no key to fetch
     if key_vals:
-        rep_np = _first_rows(gid, m, G, dev).cpu().numpy()[present]
+        first = _first_rows(gid, m, G, dev)
+        with sync("executor.run_aggregate.first_rows"):
+            rep_np = first.cpu().numpy()[present]
         rep_np = np.where(rep_np == INT32_MAX, 0, rep_np)
-        rep_dev = torch.as_tensor(rep_np, dtype=torch.int64, device=dev)
+        with sync("executor.run_aggregate.keys"):
+            rep_dev = torch.as_tensor(rep_np, dtype=torch.int64,
+                                      device=dev)
     gid_kept = gid if special else None
     del gid
 
@@ -3243,7 +3250,8 @@ def execute_select(session, q: SelectQuery) -> Table:
                                                      _vcv.parts)]
             elif _vcv is not None:
                 mask = _vcv if mask is None else mask & _vcv
-            qv = torch.as_tensor(vs.qvec, device=dev)
+            with sync("executor.execute_select.qvec"):
+                qv = torch.as_tensor(vs.qvec, device=dev)
             if table.n_rows == 0:
                 d = torch.zeros((vs.qvec.shape[0], 0), device=dev)
                 ids = torch.zeros((vs.qvec.shape[0], 0), dtype=torch.int64,
@@ -3599,8 +3607,10 @@ def _materialize_topk(table: Table, vs, d, ids, tuple_groups, device):
     distance or score column — for
     batch_distance the (query index, distance) tuple members ``<alias>.1``
     (UInt32) and ``<alias>.2`` (Float32), rows in query order."""
-    d_np = d.cpu().numpy()
-    ids_np = ids.cpu().numpy()
+    with sync("executor._materialize_topk.distances"):
+        d_np = d.cpu().numpy()
+    with sync("executor._materialize_topk.ids"):
+        ids_np = ids.cpu().numpy()
     nq = ids_np.shape[0]
     rows, qids, dists = [], [], []
     for qi in range(nq):
@@ -3610,8 +3620,12 @@ def _materialize_topk(table: Table, vs, d, ids, tuple_groups, device):
         qids.append(np.full(valid.sum(), qi, dtype=np.uint32))
     rows = np.concatenate(rows) if rows else np.zeros(0, dtype=np.int64)
     # a distributed table's rows come from their shards (global ids)
-    gathered = take_rows(table, rows) if is_distributed(table) else \
-        table.take(torch.as_tensor(rows, device=device))
+    if is_distributed(table):
+        gathered = take_rows(table, rows)
+    else:
+        with sync("executor._materialize_topk.take"):
+            rows_dev = torch.as_tensor(rows, device=device)
+        gathered = table.take(rows_dev)
     dist_col = np.concatenate(dists).astype(np.float32) if dists else \
         np.zeros(0, dtype=np.float32)
     if vs.is_batch:

@@ -1341,3 +1341,128 @@ def test_multi_card_mesh_equals_one_card_mesh(cuda):
         assert [r[0] for r in got] == [r[0] for r in want], stmt
         np.testing.assert_allclose([r[1:] for r in got],
                                    [r[1:] for r in want], rtol=2e-5)
+
+
+def _clustered_unit_rows(gen, n, d, clusters=1000, sigma=0.6):
+    """Unit rows about random unit centres: the int8 certificate fails on
+    them, so a top-k scan takes K1, then K2 and the rescore."""
+    c = torch.randn(clusters, d, device="cuda", generator=gen)
+    c /= torch.linalg.vector_norm(c, dim=1, keepdim=True)
+    j = torch.randint(0, clusters, (n,), device="cuda", generator=gen)
+    v = c[j] + sigma / d ** 0.5 * torch.randn(n, d, device="cuda",
+                                              generator=gen)
+    return v / torch.linalg.vector_norm(v, dim=1, keepdim=True)
+
+
+def _hits_by_primary_key(gen, n):
+    """ClickBench's hits columns that its Q5, Q7-Q9 and Q43 read, rows in
+    the order of its primary key (CounterID, EventDate, UserID,
+    EventTime)."""
+    from myscaledb_tpu_torch.core.table import Column, Table
+    from myscaledb_tpu_torch.core.types import DataType, Field
+
+    def u():
+        return torch.rand(n, device="cuda", generator=gen,
+                          dtype=torch.float64)
+
+    def ints(lo, hi):
+        return torch.randint(lo, hi, (n,), device="cuda", generator=gen)
+    time_ = 1372636800 + ints(0, 31 * 86400)        # July 2013, UTC
+    cols = {"UserID": (DataType.INT64, (u() ** 2 * n // 4).long()),
+            "EventTime": (DataType.DATETIME, time_),
+            "EventDate": (DataType.DATE, (time_ // 86400).to(torch.int32)),
+            "CounterID": (DataType.INT32, torch.where(
+                u() < 0.3, 62, (u() ** 3 * 7000).long() + 1).int()),
+            "RegionID": (DataType.INT32, (u() ** 2 * 9040).int()),
+            "AdvEngineID": (DataType.INT16, torch.where(
+                u() < 0.97, 0, ints(1, 60)).short()),
+            "IsRefresh": (DataType.INT16, (u() < 0.1).short()),
+            "DontCountHits": (DataType.INT16, (u() < 0.05).short())}
+    perm = torch.arange(n, device="cuda")
+    for key in ("EventTime", "UserID", "EventDate", "CounterID"):
+        perm = perm[torch.sort(cols[key][1][perm], stable=True).indices]
+    return Table([Column(Field(k, dt), v[perm], None, None)
+                  for k, (dt, v) in cols.items()], name="hits")
+
+
+def test_every_sync_of_a_statement_lies_in_a_sync_or_to_rows_span(cuda):
+    """The benchmark's statements, small: each synchronising operation
+    (a warning under the sync debug mode) runs inside a ``sync`` span, or
+    inside ``to_rows``; a ``sync`` span holds such an operation and never
+    another ``sync`` span."""
+    import warnings
+
+    import myscaledb_tpu_torch as P
+    from myscaledb_tpu_torch.config import TableSettings
+    from myscaledb_tpu_torch.runtime import tracing
+    from myscaledb_tpu_torch.core.table import Column, Table
+    from myscaledb_tpu_torch.core.types import DataType, Field
+    n, d = 1 << 17, 768
+    s = P.connect()
+    ts = TableSettings()
+    ts.float_vector_search_metric_type = "Cosine"
+    s.register("t", Table([
+        Column(Field("id", DataType.INT64),
+               torch.arange(n, device="cuda"), None, None),
+        Column(Field("emb", DataType("Array(Float32)"), vector_dim=d),
+               _clustered_unit_rows(cuda, n, d), None, None)], name="t"), ts)
+    s.register("hits", _hits_by_primary_key(cuda, 1 << 20))
+    queries = _clustered_unit_rows(cuda, 4, d).cpu().tolist()
+    vector = ("SELECT id, distance(emb, [{}]) AS d FROM t WHERE id >= "
+              f"{n // 100} ORDER BY d LIMIT 100")
+    stmts = [vector.format(",".join(map(repr, q))) for q in queries] + [
+        "SELECT count(DISTINCT UserID) FROM hits",
+        "SELECT min(EventDate), max(EventDate) FROM hits",
+        "SELECT AdvEngineID, count() FROM hits WHERE AdvEngineID <> 0 "
+        "GROUP BY AdvEngineID ORDER BY count() DESC",
+        "SELECT RegionID, count(DISTINCT UserID) AS u FROM hits "
+        "GROUP BY RegionID ORDER BY u DESC LIMIT 10",
+        "SELECT toStartOfMinute(EventTime) AS M, count() AS PageViews "
+        "FROM hits WHERE CounterID = 62 AND EventDate >= '2013-07-14' AND "
+        "EventDate <= '2013-07-15' AND IsRefresh = 0 AND DontCountHits = 0 "
+        "GROUP BY M ORDER BY M LIMIT 10 OFFSET 100"]
+    # warm-up (the SQ8 sidecar, the kernels) over two of the vectors
+    measured = stmts[:2] + stmts[4:]
+    for sql in stmts[2:]:
+        s.sql_as(None, sql).to_rows()
+    torch.cuda.synchronize()
+    outside, per_sync, in_to_rows = [], {}, [0]
+    running = [False]
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if not running[0] or "synchroniz" not in str(message):
+            return
+        cur = tracing.current_span()
+        if cur is not None and cur.name == "sync":
+            per_sync[cur.span_id] = per_sync.get(cur.span_id, 0) + 1
+        elif cur is not None and cur.name == "to_rows":
+            in_to_rows[0] += 1
+        else:
+            outside.append(f"{filename}:{lineno} in "
+                           f"{cur.name if cur else 'no span'}")
+    tracing.span_log_snapshot()
+    tracing.clear_span_log()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        running[0] = True
+        try:
+            for sql in measured:
+                s.sql_as(None, sql).to_rows()
+        finally:
+            running[0] = False
+            torch.cuda.set_sync_debug_mode("default")
+    assert not outside, outside
+    spans = tracing.span_log_snapshot()
+    syncs = [sp for sp in spans if sp.name == "sync"]
+    sync_ids = {sp.span_id for sp in syncs}
+    assert syncs and in_to_rows[0] >= len(measured)
+    assert all(sp.parent_span_id not in sync_ids for sp in syncs)
+    # no span where no synchronising operation is (torch.bincount waits
+    # twice: for its input's minimum and its maximum)
+    assert all(per_sync.get(sp.span_id, 0) >= 1 for sp in syncs), {
+        sp.attributes["site"]: per_sync.get(sp.span_id) for sp in syncs}
+    sites = {sp.attributes["site"] for sp in syncs}
+    assert {"vector.distance_scan.certificate", "aggregate._host",
+            "executor._materialize_topk.ids"} <= sites
