@@ -912,9 +912,12 @@ def k5_kernel(gen):
 
 def k3_kernel(gen):
     """K3 against group_aggregate_plain on the card: n in {100M,
-    1,000,003}, G in {1, 17, 256}, three argument sets, a 50% and an
-    all-false mask, int extremes; float sums also bit-identical between two
-    kernel calls.  Then the times at config-2 shapes."""
+    1,000,003}, G in {1, 17, 256}, four argument sets (the last with min
+    and max lanes), a 50% and an all-false mask, int extremes; float sums
+    also bit-identical between two kernel calls.  Then the times at
+    config-2 shapes, and of a global min and max of one int32 column over
+    100M rows (mix5's date_range) beside the scatter reductions they
+    replace."""
     from myscaledb_tpu_torch.ops.kernels import build
     from myscaledb_tpu_torch.ops.kernels.group_agg import (
         group_aggregate, group_aggregate_plain, grid)
@@ -937,7 +940,9 @@ def k3_kernel(gen):
                 for kinds, args in ((("int", "count"), (v, None)),
                                     (("float",), (f,)),
                                     (("int", "float", "count", "int"),
-                                     (v, f, None, v))):
+                                     (v, f, None, v)),
+                                    (("min", "max", "float", "int"),
+                                     (v, v, f, v))):
                     tag = f"n={n} G={G} mask={mask_name} kinds={kinds}"
                     got = group_aggregate(gid, mask, args, kinds, G)
                     again = group_aggregate(gid, mask, args, kinds, G)
@@ -986,13 +991,16 @@ def k3_kernel(gen):
     out_i = torch.empty((2, G), dtype=torch.int64, device=dev)
     out_f = torch.empty((1, G), dtype=torch.float32, device=dev)
     ptrs = (ctypes.c_void_p * 8)(v.data_ptr())
+    lane_arg = (ctypes.c_byte * 8)(0)
+    lane_kind = (ctypes.c_byte * 8)(0)           # one int sum lane
+    init = (ctypes.c_longlong * 8)(0)
 
     def raw_k3():   # the bare launch (both kernels of the entry point)
         build.check(build.library().msdb_group_agg(
-            gid.data_ptr(), mask.data_ptr(), ptrs, 1, 0, n, G, nblocks, rows,
-            part_i.data_ptr(), part_f.data_ptr(), out_i.data_ptr(),
-            out_f.data_ptr(), torch.cuda.current_stream().cuda_stream),
-            "group_aggregate")
+            gid.data_ptr(), mask.data_ptr(), ptrs, 1, 0, 0, lane_arg,
+            lane_kind, init, 1, n, G, nblocks, rows, part_i.data_ptr(),
+            part_f.data_ptr(), out_i.data_ptr(), out_f.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "group_aggregate")
 
     tgt = torch.where(mask, gid.long(), G)
     v64 = v.long()
@@ -1016,7 +1024,60 @@ def k3_kernel(gen):
                              "plain version")
     del gid, v, mask, tgt, v64, part_i, part_f
     torch.cuda.empty_cache()
+    t["min_max_one_group"] = k3_min_max_one_group(gen)
     return rep, t
+
+
+def k3_min_max_one_group(gen):
+    """SELECT min(d), max(d) over 100M int32 rows with no WHERE: K3 (one
+    argument, a min and a max lane, G = 1) against the scatter reductions
+    it replaces (ops/aggregate.py::partial_aggregate)."""
+    from myscaledb_tpu_torch.ops import aggregate as A
+    from myscaledb_tpu_torch.ops.kernels import build
+    from myscaledb_tpu_torch.ops.kernels.group_agg import (
+        group_aggregate, grid)
+
+    dev, n = "cuda", N2
+    gid = torch.zeros(n, dtype=torch.int32, device=dev)
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    v = torch.randint(0, 65536, (n,), device=dev, generator=gen,
+                      dtype=torch.int32)
+    nblocks, rows = grid(n)
+    part_i = torch.empty((nblocks, 3, 1), dtype=torch.int64, device=dev)
+    part_f = torch.empty((nblocks, 2, 1), dtype=torch.float32, device=dev)
+    out_i = torch.empty((3, 1), dtype=torch.int64, device=dev)
+    out_f = torch.empty((2, 1), dtype=torch.float32, device=dev)
+    ptrs = (ctypes.c_void_p * 8)(v.data_ptr())
+    lane_arg = (ctypes.c_byte * 8)(0, 0)
+    lane_kind = (ctypes.c_byte * 8)(1, 2)
+    init = (ctypes.c_longlong * 8)(2 ** 31 - 1, -2 ** 31)
+
+    def raw():      # the bare launch (both kernels of the entry point)
+        build.check(build.library().msdb_group_agg(
+            gid.data_ptr(), mask.data_ptr(), ptrs, 1, 0, 0, lane_arg,
+            lane_kind, init, 2, n, 1, nblocks, rows, part_i.data_ptr(),
+            part_f.data_ptr(), out_i.data_ptr(), out_f.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "group_aggregate")
+
+    raw()
+    (lo, hi), _gc = A.partial_aggregate(gid, mask, (v, v), ("min", "max"), 1)
+    if not (int(out_i[1, 0]) == int(lo[0]) == int(v.min())
+            and int(out_i[2, 0]) == int(hi[0]) == int(v.max())):
+        raise AssertionError("group_aggregate min/max lanes differ from the "
+                             "scatter reductions")
+    b, by = bound_ms(n * (4 + 1 + 4) + 3 * 8, 3.0 * n, F32_FLOPS)
+    t = {"ms": time_ms(lambda: group_aggregate(gid, mask, (v, v),
+                                               ("min", "max"), 1)),
+         "kernel_ms": time_ms(raw),
+         "scatter_ms": time_ms(lambda: A.partial_aggregate(
+             gid, mask, (v, v), ("min", "max"), 1), reps=3),
+         "scatter_note": "ops/aggregate.py::partial_aggregate, min and max "
+                         "by scatter_reduce_ into G + 1 slots (the route "
+                         "before the lanes)",
+         "bound_ms": b, "bound_by": by}
+    del gid, mask, v, part_i, part_f
+    torch.cuda.empty_cache()
+    return t
 
 
 def vec_sql(v: np.ndarray) -> str:
@@ -1432,7 +1493,7 @@ def groupby_branches(s, rng):
             for k in range(G2) if int(cnt[k])]
     if [tuple(r) for r in rows] != want:
         raise AssertionError("sumIf: rows differ from the oracle")
-    # scatter path: min / max / any (the value of the lowest row id)
+    # min / max: K3's lanes; any (the value of the lowest row id): scatter
     rows = run("min_max_any", "SELECT g, min(v), max(v), any(v) FROM b "
                "GROUP BY g ORDER BY g")
     gl = g.long()

@@ -12,8 +12,16 @@ computed onto a dense state vector indexed by group id:
   * sum/count/avg: K3 (ops/kernels/group_agg.py) for G <= 256 without
     per-argument validity, else the one-hot matmul histogram
     (ops/aggregate_matmul.py);
-  * min/max/any, and sums of 64-bit or unsigned arguments: scatter
-    reductions (``partial_aggregate``).
+  * min/max of integer arguments: K3's min/max lanes for G <= 256 without
+    validity of their own (counted as ``K3MinMaxAggregates``);
+  * any, min/max of floats, over more than 256 groups or of a Nullable
+    argument (``ScatterMinMaxAggregates``), and sums of 64-bit or unsigned
+    arguments: scatter reductions (``partial_aggregate``).
+
+The two counters count the min/max aggregates that
+``partial_aggregate_matmul`` routes, once each; callers of
+``partial_aggregate`` itself (the shuffled GROUP BY of
+parallel/shuffle.py) are not counted.
 
 States merge with plain tensor ops: sum/count add, min/max take the
 minimum/maximum; avg = (sum, count) is finalized on the host in float64.
@@ -35,6 +43,7 @@ import torch
 
 from myscaledb_tpu_torch.core.table import to_tensor
 from myscaledb_tpu_torch.core.types import TORCH_TO_NUMPY
+from myscaledb_tpu_torch.runtime import metrics as M
 from myscaledb_tpu_torch.runtime.tracing import sync
 
 AGG_FNS = ("sum", "count", "min", "max", "avg", "any")
@@ -100,9 +109,11 @@ def partial_aggregate_matmul(gid, mask, args, fns: tuple, num_groups: int,
     """partial_aggregate with sum/count/avg routed through K3 for
     G <= 256 (``ops/kernels/group_agg.py``), falling back to the one-hot
     matmul histogram when ineligible (per-arg validity masks, G > 256)
-    unless that takes more than MATMUL_MAX_PRODUCTS products; min/max/any
-    keep the scatter path.  Integer results are exact on
-    every route; float sums differ only in accumulation order.
+    unless that takes more than MATMUL_MAX_PRODUCTS products; min/max of
+    an integer argument without validity of its own take K3's min/max
+    lanes for G <= 256 (in the sums' launch, or alone where the sums take
+    the matmul); the rest keeps the scatter path.  Integer results are
+    exact on every route; float sums differ only in accumulation order.
     arg_ranges: per-arg zone-map bounds, passed to K3 (which ignores them).
     logical_dtypes: per-arg numpy dtype of the logical type, or None to
     read it off the tensor.
@@ -111,47 +122,62 @@ def partial_aggregate_matmul(gid, mask, args, fns: tuple, num_groups: int,
     never changes a result's route; None: gid's."""
     from myscaledb_tpu_torch.ops.aggregate_matmul import \
         matmul_group_aggregate
-    from myscaledb_tpu_torch.ops.kernels.group_agg import (group_aggregate,
-                                                           MAX_G)
-    kinds, mm_args, mm_valids, mm_slots, mm_ranges = [], [], [], [], []
+    from myscaledb_tpu_torch.ops.kernels.group_agg import (
+        group_aggregate, MAX_G, MINMAX_DTYPES)
+    G = num_groups
+
+    def valid(i):
+        return None if arg_valids is None else arg_valids[i]
+
+    sums, lanes, scatter_idx = [], [], []   # (slot, K3 kind) / slots
     for i, (fn, a) in enumerate(zip(fns, args)):
         lg = logical_dtypes[i] if logical_dtypes is not None else None
         k = _matmul_kind(fn, a, lg)
         if k is not None:
-            kinds.append(k)
-            mm_args.append(a if k != "count" else None)
-            mm_valids.append(None if arg_valids is None else arg_valids[i])
-            mm_ranges.append(arg_ranges[i] if arg_ranges is not None
-                             and i < len(arg_ranges) else None)
-            mm_slots.append(i)
-    scatter_idx = [i for i in range(len(fns)) if i not in mm_slots]
+            sums.append((i, k))
+        elif fn in ("min", "max") and G <= MAX_G and valid(i) is None \
+                and a.dtype in MINMAX_DTYPES:
+            lanes.append((i, fn))
+        else:
+            scatter_idx.append(i)
+    n_minmax = sum(fn in ("min", "max") for fn in fns)
+    if lanes:
+        M.increment("K3MinMaxAggregates", len(lanes))
+    if n_minmax > len(lanes):
+        M.increment("ScatterMinMaxAggregates", n_minmax - len(lanes))
+    if sums and G <= MAX_G and all(valid(i) is None for i, _k in sums):
+        lanes, sums = sorted(sums + lanes), []
+    elif sums and G > MAX_G and \
+            _matmul_products(gid.shape[0] if route_rows is None
+                             else route_rows, G) > MATMUL_MAX_PRODUCTS:
+        scatter_idx = sorted(scatter_idx + [i for i, _k in sums])
+        sums = []                       # too many one-hot products: scatter
 
     states: list = [None] * len(fns)
     gc = None
-    if mm_slots and num_groups > MAX_G and \
-            _matmul_products(gid.shape[0] if route_rows is None
-                             else route_rows, num_groups) > \
-            MATMUL_MAX_PRODUCTS:
-        mm_slots = []                   # too many one-hot products: scatter
-        scatter_idx = list(range(len(fns)))
-    if mm_slots:
-        if num_groups <= MAX_G and all(v is None for v in mm_valids):
-            mm_states, gc, mm_counts = group_aggregate(
-                gid, mask, tuple(mm_args), tuple(kinds), num_groups,
-                arg_ranges=tuple(mm_ranges))
+    for route, group in (("k3", lanes), ("matmul", sums)):
+        if not group:
+            continue
+        kinds = tuple(k for _i, k in group)
+        g_args = tuple(None if k == "count" else args[i] for i, k in group)
+        if route == "k3":
+            r_states, r_gc, r_counts = group_aggregate(
+                gid, mask, g_args, kinds, G, arg_ranges=tuple(
+                    arg_ranges[i] if arg_ranges is not None
+                    and i < len(arg_ranges) else None for i, _k in group))
         else:
-            mm_states, gc, mm_counts = matmul_group_aggregate(
-                gid, mask, tuple(mm_args), tuple(kinds), num_groups,
-                tuple(mm_valids))
-        for slot, st, cnt in zip(mm_slots, mm_states, mm_counts):
+            r_states, r_gc, r_counts = matmul_group_aggregate(
+                gid, mask, g_args, kinds, G,
+                tuple(valid(i) for i, _k in group))
+        gc = r_gc if gc is None else gc
+        for (slot, _k), st, cnt in zip(group, r_states, r_counts):
             states[slot] = (st, cnt) if fns[slot] == "avg" else st
     if scatter_idx or gc is None:
-        sub_fns = tuple(fns[i] for i in scatter_idx)
-        sub_args = tuple(args[i] for i in scatter_idx)
-        sub_valids = None if arg_valids is None else tuple(
-            arg_valids[i] for i in scatter_idx)
-        sc_states, gc2 = partial_aggregate(gid, mask, sub_args, sub_fns,
-                                           num_groups, sub_valids)
+        sc_states, gc2 = partial_aggregate(
+            gid, mask, tuple(args[i] for i in scatter_idx),
+            tuple(fns[i] for i in scatter_idx), G,
+            None if arg_valids is None else tuple(
+                arg_valids[i] for i in scatter_idx))
         if gc is None:
             gc = gc2
         for slot, st in zip(scatter_idx, sc_states):

@@ -47,10 +47,11 @@ _SIGNATURES = {
     # build, nb, starts, lo, hi, shift, steps, probe, n, has_max, out,
     # blocks, stream
     "msdb_merge_count": [_P, _I, _P, _I, _I, _I, _I, _P, _L, _P, _P, _I, _P],
-    # gid, mask, arg_ptrs, na, float_bits, n, G, nblocks, rows_per_block,
-    # part_i, part_f, out_i, out_f, stream
-    "msdb_group_agg": [_P, _P, _P, _I, ctypes.c_uint, _L, _I, _I, _L, _P, _P,
-                       _P, _P, _P],
+    # gid, mask, arg_ptrs, na, float_bits, wide_bits, lane_arg, lane_kind,
+    # init, nl, n, G, nblocks, rows_per_block, part_i, part_f, out_i, out_f,
+    # stream
+    "msdb_group_agg": [_P, _P, _P, _I, ctypes.c_uint, ctypes.c_uint, _P, _P,
+                       _P, _I, _L, _I, _I, _L, _P, _P, _P, _P, _P],
     # x, q, sqn, qaux, mask, qsplit, out, n, d, nq, metric, stream
     "msdb_segmin_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x8, sides, q, scratch, mv, out, n_pad, d, nq, metric, stream

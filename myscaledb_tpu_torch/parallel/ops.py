@@ -199,8 +199,9 @@ def sharded_group_aggregate(mesh: Mesh, gid, mask, args, fns: tuple,
                             arg_ranges=None, logical_dtypes=None,
                             route_rows=None, compact_min_rows=None):
     """Distributed GROUP BY: per-shard dense partial states from
-    ``partial_aggregate_matmul`` (K3 for sum/count/avg up to 256 groups
-    without per-argument validity) merged with psum/pmin/pmax.
+    ``partial_aggregate_matmul`` (K3 for sum/count/avg and integer
+    min/max up to 256 groups without per-argument validity) merged with
+    psum/pmin/pmax.
     gid/mask/args row-split (an arg may be None where the aggregate reads
     none, a count); arg_valids: optional per-aggregate validity (None where
     the argument has no nulls).  ``route_rows``: the row count each

@@ -584,8 +584,8 @@ def state_column(base: str, v, gid, m, G: int, present, n: int) -> Column:
     engine's JSON state strings, byte-identical to the JAX package's
     (``{"f": "sum", "v": ...}``; for uniq the base64 of the 4096 HLL
     registers).  The partials come from one pass over the rows on the
-    device — K3 for sum/count up to 256 groups, the grouping's segment
-    reductions beyond — and only the distinct states are formatted on the
+    device — K3 for sum/count and integer min/max up to 256 groups, the
+    grouping's segment reductions beyond — and only the distinct states are formatted on the
     host.  Float sums run on the device in numpy's summation order
     (``numpy_order_sums``); only quantileTDigest's digests are built from
     each group's host slice."""

@@ -290,9 +290,28 @@ def test_sql_main_path_launches_k1_on_card(cuda):
     assert [r[0] for r in rows] == want
 
 
+def _int64s(n, gen):
+    """n int64 values over the whole range (torch.randint cannot span it)."""
+    hi = torch.randint(-2 ** 31, 2 ** 31, (n,), device="cuda", generator=gen,
+                       dtype=torch.int64)
+    return hi * 2 ** 32 + torch.randint(0, 2 ** 32, (n,), device="cuda",
+                                        generator=gen, dtype=torch.int64)
+
+
+# the kernel's launch kinds: counts alone, counts and sums, then min and
+# max beside them (int32, int64 and int16 arguments)
+K3_KINDS = {
+    "count": ("count",),
+    "sums": ("int", "float", "count", "int", "int"),
+    "minmax": ("int", "float", "count", "min", "max", "min", "max", "int",
+               "max"),
+}
+
+
 @pytest.mark.parametrize("n", [1, 31, 1000, 4133, 70_001])
 @pytest.mark.parametrize("G", [1, 2, 17, 256])
-def test_group_agg_kernel_matches_plain(cuda, n, G):
+@pytest.mark.parametrize("which", list(K3_KINDS))
+def test_group_agg_kernel_matches_plain(cuda, n, G, which):
     gid = torch.randint(0, G, (n,), device="cuda", generator=cuda,
                         dtype=torch.int32)
     gid[::7] = G + 3                                  # out of range: skipped
@@ -300,10 +319,16 @@ def test_group_agg_kernel_matches_plain(cuda, n, G):
     v = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), device="cuda",
                       generator=cuda, dtype=torch.int32)
     v[: min(n, 3)] = -2 ** 31
+    v[n // 2] = 2 ** 31 - 1
     f = torch.randn(n, device="cuda", generator=cuda)
     flags = torch.rand(n, device="cuda", generator=cuda) < 0.3
-    kinds = ("int", "float", "count", "int", "int")
-    args = (v, f, None, v, flags)
+    w = _int64s(n, cuda)
+    w[: min(n, 2)] = torch.tensor([-2 ** 63, 2 ** 63 - 1])[: min(n, 2)]
+    h = torch.randint(-2 ** 15, 2 ** 15, (n,), device="cuda",
+                      generator=cuda, dtype=torch.int16)
+    kinds = K3_KINDS[which]
+    args = {"count": (None,), "sums": (v, f, None, v, flags),
+            "minmax": (v, f, None, v, v, w, w, flags, h)}[which]
     before = K3.group_aggregate.launches
     got = K3.group_aggregate(gid, mask, args, kinds, G)
     want = K3.group_aggregate_plain(gid, mask, args, kinds, G)
@@ -315,6 +340,77 @@ def test_group_agg_kernel_matches_plain(cuda, n, G):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-3)
         else:
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["one_group_10m", "skewed", "int64"])
+def test_group_agg_min_max_lanes_at_scale(cuda, case):
+    """G = 1 over 10M rows, every row in one group (the butterflies alone);
+    a skewed small G (most steps one group, the rest shared-memory
+    atomics); an int64 column.  One launch a call, equal to the plain
+    version."""
+    n = {"one_group_10m": 10_000_019, "skewed": 2_000_003,
+         "int64": 1_000_003}[case]
+    G = {"one_group_10m": 1, "skewed": 5, "int64": 17}[case]
+    if case == "skewed":
+        gid = torch.where(torch.rand(n, device="cuda", generator=cuda) < 0.97,
+                          0, torch.randint(1, G, (n,), device="cuda",
+                                           generator=cuda)).to(torch.int32)
+    else:
+        gid = torch.randint(0, G, (n,), device="cuda", generator=cuda,
+                            dtype=torch.int32)
+    mask = torch.ones(n, dtype=torch.bool, device="cuda") \
+        if case == "one_group_10m" else \
+        torch.rand(n, device="cuda", generator=cuda) < 0.7
+    dt = torch.int64 if case == "int64" else torch.int32
+    info = torch.iinfo(dt)
+    v = _int64s(n, cuda) if case == "int64" else torch.randint(
+        info.min, info.max, (n,), device="cuda", generator=cuda, dtype=dt)
+    v[n // 3] = info.min
+    v[n // 2] = info.max
+    before = K3.group_aggregate.launches
+    got = K3.group_aggregate(gid, mask, (v, v, None), ("min", "max", "count"),
+                             G)
+    want = K3.group_aggregate_plain(gid, mask, (v, v, None),
+                                    ("min", "max", "count"), G)
+    torch.cuda.synchronize()
+    assert K3.group_aggregate.launches == before + 1
+    assert torch.equal(got[1], want[1])
+    for a, b in zip(got[0], want[0]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    if case == "one_group_10m":
+        assert int(got[0][0][0]) == info.min and int(got[0][1][0]) == info.max
+
+
+def test_sql_min_max_take_k3_and_equal_the_scatter(cuda):
+    """SELECT min(d), max(d) FROM t and a grouped min/max at G <= 256: one
+    K3 launch a statement, the rows of the scatter reductions."""
+    import myscaledb_tpu_torch as P
+    from myscaledb_tpu_torch.ops.aggregate import partial_aggregate
+    rng = np.random.default_rng(6)
+    n = 1 << 21
+    s = P.connect()
+    s.create_table("t", {"g": rng.integers(0, 200, n, dtype=np.int32),
+                         "d": rng.integers(0, 65536, n).astype(np.uint16),
+                         "x": rng.integers(-2 ** 40, 2 ** 40, n)})
+    g = s.tables["t"]["g"].data
+    d = s.tables["t"]["d"].data
+    x = s.tables["t"]["x"].data
+    before = K3.group_aggregate.launches
+    rows = s.sql("SELECT min(d), max(d) FROM t").to_rows()
+    assert K3.group_aggregate.launches == before + 1
+    (lo, hi), _gc = partial_aggregate(torch.zeros_like(g), torch.ones_like(
+        g, dtype=torch.bool), (d, d), ("min", "max"), 1)
+    assert rows == [(int(lo[0]), int(hi[0]))]
+    before = K3.group_aggregate.launches
+    rows = s.sql("SELECT g, min(x), max(x), min(d) FROM t WHERE d > 1000 "
+                 "GROUP BY g ORDER BY g").to_rows()
+    assert K3.group_aggregate.launches == before + 1
+    (mn, mx, md), gc = partial_aggregate(g, d > 1000, (x, x, d),
+                                         ("min", "max", "min"), 200)
+    keep = (gc > 0).cpu().numpy()
+    want = [(k, int(a), int(b), int(c)) for k, a, b, c in zip(
+        range(200), mn.tolist(), mx.tolist(), md.tolist()) if keep[k]]
+    assert rows == want
 
 
 def test_group_agg_more_args_than_one_launch(cuda):
