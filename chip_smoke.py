@@ -1584,8 +1584,9 @@ def phase_sql_join(seed: int):
     fact_k = ((((u * u * np.float32(2 * NJ_DIM)).astype(np.int64) * SPREAD)
                & 0x7FFFFFFF)).astype(np.int32)
     s = P.connect()
-    # the ALL join's merge sort over 11M rows asks ~1 GiB of the per-query
-    # budget, whose 512 MiB default refuses it (in the JAX package too)
+    # the ALL fan-out's probe and row pairs over 10M fact rows ask more
+    # of the per-query budget than its 512 MiB default (the JAX
+    # package's merge sort over 11M rows, ~1 GiB)
     s.settings.max_memory_bytes_per_query = 8 << 30
     s.create_table("f", {"id": np.arange(NJ_FACT, dtype=np.int64),
                          "k": fact_k,
@@ -1681,10 +1682,10 @@ def phase_sql_join(seed: int):
     counts = read_launches()
     # outside every reported count
     breakdown = profile_statements(s, [agg_sql] * 3)
-    # what K4's directory adds to a join build of the dim keys: the ANY,
-    # SEMI and ANTI statements build it and never count-probe (ALL joins,
-    # the aggregate statement's among them, do not build it); host clock,
-    # median of ten after a warm-up
+    # what K4's directory costs over the dim keys, timed alone: no
+    # statement here builds it (a join of one integer key takes the
+    # sorted build, ops/join.py::build_sorted), only the join count of
+    # the join_count phase; host clock, median of ten after a warm-up
     dsorted, _ = prepare_build(d["k"].data)
     dir_ms = []
     for _ in range(11):

@@ -18,14 +18,18 @@ group ids, representatives and join matches come out identical:
 
   lookup  merge-join: concatenate build and probe rows, sort by (key
           columns, side-rank, payload), hand every position its key run's
-          representative with one cumulative max over packed int64s, and
-          match on key equality.  Build rows sort before probe rows of the
-          same key, so the lowest build row wins (ANY semantics,
-          deterministic — HashJoin.h:147 any_take_last_row = false).
+          representative by one scatter of the run starts and one gather
+          (``at_run_start``), and match on key equality.  Build rows sort
+          before probe rows of the same key, so the lowest build row wins
+          (ANY semantics, deterministic — HashJoin.h:147
+          any_take_last_row = false).
 
 ``lax.sort(..., num_keys)`` becomes successive stable ``torch.sort``s,
 least significant key first, starting from the identity permutation (so
-ties keep ascending row id), and ``lax.cummax`` becomes ``torch.cummax``.
+ties keep ascending row id).  The JAX package's ``lax.cummax`` over
+packed run-start snapshots becomes ``at_run_start``: on the card a
+``torch.cummax`` over 17M rows took 45 ms, the scatter and gather well
+under one.
 Join builds of one narrow integer key also keep the sorted layout of the
 count probe, K4 (ops/kernels/merge_count.py), which ``ht_count_matches``
 runs.
@@ -212,16 +216,27 @@ def group_ids_static(key_cols, mask=None):
     return gid, rep_keys, num_groups
 
 
+def at_run_start(values, run_start, run_idx):
+    """Per position, ``values`` at its run's first position: each run start
+    scattered to its run's slot (every other position to a dropped slot),
+    gathered back by run.  ``run_idx`` is the run index of every position
+    (``cumsum(run_start) - 1``)."""
+    n = values.shape[0]
+    slot = torch.where(run_start, run_idx, n)
+    buf = torch.zeros(n + 1, dtype=values.dtype, device=values.device)
+    buf.scatter_(0, slot, values)
+    return buf[run_idx]
+
+
 def _merged_run_fill(keys_all, rank, payload, extra_payload=()):
     """Core of every lookup: sort the concatenated (build+probe) rows by
-    (keys..., rank, payload), then resolve each row's key-run representative
-    with ONE packed cumulative max.
+    (keys..., rank, payload), then hand each row its key run's
+    representative (``at_run_start``).
 
     Within a key run the sort places valid build rows (rank 0) first,
     ordered by payload ascending — so the run's FIRST element is the lowest
-    build payload.  Each run start packs (position+1) << 32 | (payload+1 if
-    valid build else 0) into an int64; a cummax then hands every position
-    its own run's representative.
+    build payload.  Each run start holds payload+1 if it is a valid build
+    row, else 0.
 
     Returns (s_rank, found_at, rep_payload, extra_sorted): per sorted
     position, whether the run has a valid build row and its payload.
@@ -239,13 +254,11 @@ def _merged_run_fill(keys_all, rank, payload, extra_payload=()):
     run_start[0] = True
     for k in s_keys:
         run_start[1:] |= k[1:] != k[:-1]
-    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    run_idx = torch.cumsum(run_start, 0) - 1
     rep = torch.where(run_start & (s_rank == 0), s_pay.to(torch.int64) + 1, 0)
-    packed = torch.where(run_start, ((pos + 1) << 32) | rep, 0)
-    cm = torch.cummax(packed, 0).values
-    pay_part = cm & 0xFFFFFFFF
-    found_at = pay_part > 0
-    rep_payload = (pay_part - 1).to(torch.int32)
+    rep = at_run_start(rep, run_start, run_idx)
+    found_at = rep > 0
+    rep_payload = (rep - 1).to(torch.int32)
     return s_rank, found_at, rep_payload, s_extra
 
 

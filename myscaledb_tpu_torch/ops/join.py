@@ -1,9 +1,10 @@
 """Hash join: build + probe over the sorted-run hash table.  The port of
 myscaledb_tpu/ops/join.py (``JoinResult``, ``build_join_table``,
-``probe_join_table``, ``DirectTable``, ``try_build_direct``,
-``probe_direct``, ``hash_join_any``, ``_partition_ids``,
-``grace_hash_join_any``, ``grace_hash_join_all``, ``JoinExpansion``,
-``hash_join_all``).
+``probe_join_table``, ``DirectTable``, ``hash_join_any``,
+``_partition_ids``, ``grace_hash_join_any``, ``grace_hash_join_all``,
+``JoinExpansion``, ``hash_join_all``), and the port's sorted build
+(``SortedBuild``), which takes the place of ``try_build_direct`` and
+``probe_direct``.
 
 Reference analog: HashJoin (src/Interpreters/HashJoin.h:147) — right-table
 build, block-at-a-time probe.  ANY joins give at most one match per probe
@@ -12,6 +13,15 @@ from the ``found`` mask); ALL joins fan probe rows out over every matching
 build row, with one host synchronisation for the output size.  The grace
 variants partition both sides by key hash on the host and join one
 partition at a time on the device (GraceHashJoin.cpp).
+
+A build over one integer key is sorted once (``build_sorted``) and
+probed without sorting the probe side: by a direct lookup where its keys
+occupy a dense range, else by binary search (``probe_sorted`` for one
+match a probe row, ``probe_sorted_all`` for every match);
+``hash_join_any`` and ``hash_join_all`` take it for such a key, and so
+do the grace partitions.  Only multi-column keys take the merge sort of
+build plus probe rows (ops/hashtable.py).  Each step charges its
+tensors to the query's memory budget (runtime/memory.py).
 
 Join keys are tensors on one device; results come back on it.
 """
@@ -25,7 +35,11 @@ import torch
 
 from myscaledb_tpu_torch.ops.hash import hash32, hash_combine
 from myscaledb_tpu_torch.ops.hashtable import (HashTable, build_group_ids,
-                                               ht_lookup, INT32_MAX)
+                                               ht_lookup, INT32_MAX,
+                                               _charge_sort)
+from myscaledb_tpu_torch.runtime import metrics as M
+from myscaledb_tpu_torch.runtime.memory import charge
+from myscaledb_tpu_torch.runtime.tracing import sync
 
 
 class JoinResult(NamedTuple):
@@ -59,61 +73,19 @@ def probe_join_table(table: HashTable, probe_keys,
 
 class DirectTable(NamedTuple):
     """Dense-key join table: build row per key via one gather (reference
-    analog: DirectJoin, src/Interpreters/DirectJoin.h).  Duplicate build
-    keys: lowest row id wins (ANY)."""
+    analog: DirectJoin, src/Interpreters/DirectJoin.h).  Repeated build
+    keys: the lowest row wins (ANY)."""
     lookup: torch.Tensor      # (range,) int32 build row, INT32_MAX = absent
     lo: int
 
 
-def try_build_direct(build_keys, build_mask=None,
-                     max_range_factor: int = 8) -> Optional[DirectTable]:
-    """A DirectTable when the (single, integer) build key occupies a dense
-    range; None otherwise."""
-    if len(build_keys) != 1:
-        return None
-    k = torch.as_tensor(build_keys[0])
-    if k.is_floating_point() or k.dtype == torch.bool:
-        return None
-    n = k.shape[0]
-    if n == 0:
-        return None
-    if build_mask is not None:
-        m = torch.as_tensor(build_mask, dtype=torch.bool, device=k.device)
-        lo = int(torch.where(m, k, torch.iinfo(k.dtype).max).min())
-        hi = int(torch.where(m, k, torch.iinfo(k.dtype).min).max())
-    else:
-        lo, hi = int(k.min()), int(k.max())
-    rng = hi - lo + 1
-    if rng <= 0 or rng > max(max_range_factor * n, 1 << 16):
-        return None
-    rows = torch.arange(n, dtype=torch.int32, device=k.device)
-    tgt = k.to(torch.int64) - lo
-    if build_mask is not None:
-        tgt = torch.where(m, tgt, rng)
-    lookup = torch.full((rng + 1,), INT32_MAX, dtype=torch.int32,
-                        device=k.device)
-    lookup.scatter_reduce_(0, tgt, rows, "amin")
-    return DirectTable(lookup[:rng], lo)
-
-
-def probe_direct(table: DirectTable, probe_keys,
-                 probe_mask=None) -> JoinResult:
-    k = torch.as_tensor(probe_keys[0])
-    idx = k.to(torch.int64) - table.lo
-    in_range = (idx >= 0) & (idx < table.lookup.shape[0])
-    if probe_mask is not None:
-        in_range &= torch.as_tensor(probe_mask, dtype=torch.bool,
-                                    device=k.device)
-    safe = torch.where(in_range, idx, 0)
-    row = torch.where(in_range, table.lookup[safe], INT32_MAX)
-    return JoinResult(row, row != INT32_MAX)
-
-
 def hash_join_any(build_keys, probe_keys, build_mask=None,
                   probe_mask=None) -> JoinResult:
-    direct = try_build_direct(build_keys, build_mask)
-    if direct is not None:
-        return probe_direct(direct, probe_keys, probe_mask)
+    if sortable_key(build_keys):
+        pk = torch.as_tensor(probe_keys[0])
+        b = build_sorted(torch.as_tensor(build_keys[0]), build_mask,
+                         pk.shape[0])
+        return probe_sorted(b, pk, probe_mask)
     table = build_join_table(build_keys, build_mask)
     return probe_join_table(table, probe_keys, probe_mask)
 
@@ -129,18 +101,29 @@ def _partition_ids(keys, n_partitions: int) -> torch.Tensor:
     return (h >> shift).to(torch.int32)
 
 
+def rows_to_host(t: torch.Tensor, site: str) -> np.ndarray:
+    """A join's row indexes or mask copied to the host, counted in
+    ``JoinRowsToHost``."""
+    M.increment(M.JOIN_ROWS_TO_HOST, int(t.numel()))
+    with sync(site):
+        return torch.as_tensor(t).cpu().numpy()
+
+
 def _grace_partitions(build_keys, probe_keys, build_mask, probe_mask,
                       n_partitions: int):
     """Host partition ids of both sides (-1 where a mask drops the row)."""
     if n_partitions <= 0 or n_partitions & (n_partitions - 1):
         raise ValueError(f"grace hash join: n_partitions = {n_partitions} "
                          "must be a power of two")
-    bpid = _partition_ids(build_keys, n_partitions).cpu().numpy()
-    ppid = _partition_ids(probe_keys, n_partitions).cpu().numpy()
+    with sync("join.grace.partitions"):
+        bpid = _partition_ids(build_keys, n_partitions).cpu().numpy()
+        ppid = _partition_ids(probe_keys, n_partitions).cpu().numpy()
     if build_mask is not None:
-        bpid = np.where(torch.as_tensor(build_mask).cpu().numpy(), bpid, -1)
+        bpid = np.where(rows_to_host(build_mask, "join.grace.mask"),
+                        bpid, -1)
     if probe_mask is not None:
-        ppid = np.where(torch.as_tensor(probe_mask).cpu().numpy(), ppid, -1)
+        ppid = np.where(rows_to_host(probe_mask, "join.grace.mask"),
+                        ppid, -1)
     return bpid, ppid
 
 
@@ -166,8 +149,8 @@ def grace_hash_join_any(build_keys, probe_keys, build_mask=None,
             torch.as_tensor(bsel, device=dev)
         res = hash_join_any(tuple(b[bs] for b in build_keys),
                             tuple(q[ps] for q in probe_keys))
-        f = res.found.cpu().numpy()
-        br = res.build_row.cpu().numpy()
+        f = rows_to_host(res.found, "join.grace.found")
+        br = rows_to_host(res.build_row, "join.grace.rows")
         found[psel] = f
         build_row[psel[f]] = bsel[br[f]]
     return JoinResult(torch.as_tensor(build_row.astype(np.int32), device=dev),
@@ -197,9 +180,11 @@ def grace_hash_join_all(build_keys, probe_keys, build_mask=None,
             torch.as_tensor(bsel, device=dev)
         exp = hash_join_all(tuple(b[bs] for b in build_keys),
                             tuple(q[ps] for q in probe_keys))
-        found[psel] = exp.found.cpu().numpy()
-        pi_parts.append(psel[exp.probe_idx.cpu().numpy()])
-        bi_parts.append(bsel[exp.build_idx.cpu().numpy()])
+        found[psel] = rows_to_host(exp.found, "join.grace.found")
+        pi_parts.append(psel[rows_to_host(exp.probe_idx,
+                                           "join.grace.pairs")])
+        bi_parts.append(bsel[rows_to_host(exp.build_idx,
+                                           "join.grace.pairs")])
     if not pi_parts:
         empty = torch.zeros(0, dtype=torch.int64, device=dev)
         return JoinExpansion(empty, empty, torch.as_tensor(found, device=dev))
@@ -215,13 +200,18 @@ def hash_join_all(build_keys, probe_keys, build_mask=None,
                   probe_mask=None) -> JoinExpansion:
     """ALL-strictness join: every (probe, build) key match becomes an output
     pair (reference: HashJoin MapsAll row-ref lists, HashJoin.cpp).
+    Within a probe row, matches ascend by build row.
 
-    Build rows are bucketed per slot (a stable sort by slot gives
-    contiguous runs); the probe fans out with one host sync for the output
-    cardinality.  Within a probe row, matches ascend by build row.
+    One integer key: the sorted build (``probe_sorted_all``).  Several
+    keys: build rows are bucketed per slot (a stable sort by slot gives
+    contiguous runs); the probe fans out with one host sync for the
+    output cardinality.
     """
     build_keys = tuple(torch.as_tensor(b) for b in build_keys)
     probe_keys = tuple(torch.as_tensor(p) for p in probe_keys)
+    if sortable_key(build_keys):
+        b = build_sorted(build_keys[0], build_mask, probe_keys[0].shape[0])
+        return probe_sorted_all(b, probe_keys[0], probe_mask)
     n_build = build_keys[0].shape[0]
     dev = probe_keys[0].device
     table, slot_of_build, _ = build_group_ids(
@@ -247,4 +237,128 @@ def hash_join_all(build_keys, probe_keys, build_mask=None,
     offsets = torch.cumsum(match_count, 0) - match_count
     j = torch.arange(total, device=dev) - offsets[probe_idx]
     build_idx = rows_by_slot[starts[safe_pslot[probe_idx]] + j]
+    return JoinExpansion(probe_idx, build_idx, found)
+
+
+class SortedBuild(NamedTuple):
+    """Build side of one integer key, its rows sorted stably by key: equal
+    keys are one run, lowest build row first.  ``direct``: a dense lookup
+    of each key's lowest build row over the key range, where the range is
+    at most 8 times the build rows, 2^16, or a quarter of the probe rows
+    (a lookup that size costs less than a binary search a probe row)."""
+    keys: torch.Tensor               # (n,) ascending
+    rows: torch.Tensor               # (n,) int64 build row of each key
+    unique: bool
+    direct: Optional[DirectTable]
+
+
+def sortable_key(keys) -> bool:
+    """One integer key column (float keys reach here as their bits)."""
+    if len(keys) != 1:
+        return False
+    k = torch.as_tensor(keys[0])
+    return not (k.is_floating_point() or k.is_complex()
+                or k.dtype == torch.bool)
+
+
+def build_sorted(build_key: torch.Tensor, build_mask=None,
+                 probe_rows: int = 0) -> SortedBuild:
+    """Sort the build side once (rows a mask drops left out); one host
+    read of its least and greatest key and whether any key repeats."""
+    rows = None
+    if build_mask is not None:
+        m = torch.as_tensor(build_mask, dtype=torch.bool,
+                            device=build_key.device)
+        with sync("join.build_sorted.mask"):
+            rows = torch.nonzero(m).flatten()
+        build_key = build_key.index_select(0, rows)
+    n = build_key.shape[0]
+    _charge_sort(n, 1, "join_build_sort")
+    if build_key.dtype not in (torch.int32, torch.int64):
+        build_key = build_key.to(torch.int32)     # narrow ints, losslessly
+    keys, order = torch.sort(build_key, stable=True)
+    rows = order if rows is None else rows[order]
+    if n == 0:
+        return SortedBuild(keys, rows, True, None)
+    repeats = (keys[1:] == keys[:-1]).any().to(keys.dtype)
+    with sync("join.build_sorted"):
+        lo, hi, dup = torch.stack([keys[0], keys[-1], repeats]).tolist()
+    direct = None
+    rng = hi - lo + 1
+    if 0 < rng <= max(8 * n, 1 << 16, probe_rows // 4):
+        charge(4 * rng, "join_direct_lookup")
+        lookup = torch.full((rng,), INT32_MAX, dtype=torch.int32,
+                            device=keys.device)
+        lookup.scatter_reduce_(0, keys.to(torch.int64) - lo,
+                               rows.to(torch.int32), "amin")
+        direct = DirectTable(lookup, lo)
+    return SortedBuild(keys, rows, not dup, direct)
+
+
+def _masked(found: torch.Tensor, probe_mask) -> torch.Tensor:
+    if probe_mask is None:
+        return found
+    return found & torch.as_tensor(probe_mask, dtype=torch.bool,
+                                   device=found.device)
+
+
+def _search_keys(b: SortedBuild, probe_key: torch.Tensor):
+    """The build keys and the probe keys in one dtype, the wider one."""
+    dt = torch.promote_types(b.keys.dtype, probe_key.dtype)
+    return b.keys.to(dt), probe_key.to(dt)
+
+
+def probe_sorted(b: SortedBuild, probe_key: torch.Tensor,
+                 probe_mask=None) -> JoinResult:
+    """Each probe row's lowest matching build row (ANY), found by the
+    direct lookup or by binary search; the probe side is never sorted."""
+    npr = probe_key.shape[0]
+    dev = probe_key.device
+    charge(16 * npr, "join_probe")
+    if b.direct is not None:
+        m = b.direct.lookup.shape[0]
+        idx = probe_key.to(torch.int64) - b.direct.lo
+        hit = (idx >= 0) & (idx < m)
+        row = b.direct.lookup[idx.clamp_(0, m - 1)]
+        del idx                     # 8 B a probe row, gone before the next
+        found = _masked(hit & (row != INT32_MAX), probe_mask)
+        return JoinResult(torch.where(found, row, INT32_MAX), found)
+    n = b.keys.shape[0]
+    if n == 0:
+        return JoinResult(torch.full((npr,), INT32_MAX, dtype=torch.int32,
+                                     device=dev),
+                          torch.zeros(npr, dtype=torch.bool, device=dev))
+    keys, pk = _search_keys(b, probe_key)
+    pos = torch.searchsorted(keys, pk, out_int32=n < INT32_MAX)
+    pos = pos.clamp_(max=n - 1)
+    found = _masked(keys[pos] == pk, probe_mask)
+    row = torch.where(found, b.rows[pos].to(torch.int32), INT32_MAX)
+    return JoinResult(row, found)
+
+
+def probe_sorted_all(b: SortedBuild, probe_key: torch.Tensor,
+                     probe_mask=None) -> JoinExpansion:
+    """Every (probe, build) match, by probe row, then by build row, from
+    two binary searches a probe row and one host read of the output
+    size."""
+    dev = probe_key.device
+    npr = probe_key.shape[0]
+    charge(24 * npr, "join_probe")
+    keys, pk = _search_keys(b, probe_key)
+    lo = torch.searchsorted(keys, pk)
+    cnt = torch.searchsorted(keys, pk, right=True) - lo
+    if probe_mask is not None:
+        cnt = torch.where(_masked(cnt > 0, probe_mask), cnt, 0)
+    with sync("join.probe_sorted_all.total"):
+        total = int(cnt.sum())
+    found = cnt > 0
+    if total == 0:
+        empty = torch.zeros(0, dtype=torch.int64, device=dev)
+        return JoinExpansion(empty, empty, found)
+    charge(24 * total, "join_pairs")
+    probe_idx = torch.repeat_interleave(
+        torch.arange(npr, device=dev), cnt, output_size=total)
+    offsets = torch.cumsum(cnt, 0) - cnt
+    j = torch.arange(total, device=dev) - offsets[probe_idx]
+    build_idx = b.rows[lo[probe_idx] + j]
     return JoinExpansion(probe_idx, build_idx, found)

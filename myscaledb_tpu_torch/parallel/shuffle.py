@@ -15,7 +15,8 @@ join or grouping then runs.  Shard p receives its rows from shard 0
 first, each source's rows in their row order: an ANY join's lowest build row and the pairs' order follow
 from that, as in the JAX package.  The shard-local join count is the JAX
 package's sort-based count, its run starts carried by a scatter and a
-gather where the JAX package takes a cummax (``_at_run_start``).  A
+gather where the JAX package takes a cummax
+(``ops.hashtable.at_run_start``).  A
 shard body reads nothing back to the host, so the host queues every
 shard's exchange and count without waiting (on distinct cards they run
 at once).
@@ -30,6 +31,7 @@ import torch
 
 from myscaledb_tpu_torch.ops.hash import hash32
 from myscaledb_tpu_torch.ops.hashtable import (INT32_MAX, _cat_keys, _ranks,
+                                               at_run_start,
                                                group_ids_static,
                                                merge_join_any)
 from myscaledb_tpu_torch.ops.aggregate import partial_aggregate
@@ -295,19 +297,6 @@ def _run_starts(s_keys) -> torch.Tensor:
     return start
 
 
-def _at_run_start(values, run_start, run_idx):
-    """Per position, ``values`` at its key run's first position: each
-    run start scattered to its run's slot (every other position to a
-    dropped slot), gathered back by run.  (The JAX package takes a cummax
-    of the run-start snapshots; on the card a cummax over 17M rows took
-    45 ms, this scatter and gather well under one.)"""
-    n = values.shape[0]
-    slot = torch.where(run_start, run_idx, n)
-    buf = torch.zeros(n + 1, dtype=values.dtype, device=values.device)
-    buf.scatter_(0, slot, values)
-    return buf[run_idx]
-
-
 def _builds_in_run(s_keys, s_rank):
     """Per sorted position, the build rows (rank 0) of its key run up to
     and including it; the run starts and each position's run index."""
@@ -315,7 +304,7 @@ def _builds_in_run(s_keys, s_rank):
     run_start = _run_starts(s_keys)
     bcount = torch.cumsum(is_b, 0, dtype=torch.int32)
     run_idx = torch.cumsum(run_start, 0) - 1
-    before = _at_run_start(bcount - is_b, run_start, run_idx)
+    before = at_run_start(bcount - is_b, run_start, run_idx)
     return bcount - before, run_start, run_idx
 
 
@@ -341,7 +330,7 @@ def _all_pairs_padded(lk, lid, lv, rk, rid, rv, cap: int, total: int):
         perm = perm[torch.sort(op[perm], stable=True).indices]
     s_keys, s_rank, s_idx = (keys_all[0][perm],), rank[perm], idx[perm]
     bir, run_start, run_idx = _builds_in_run(s_keys, s_rank)
-    start_of = _at_run_start(torch.arange(n, dtype=torch.int64, device=dev),
+    start_of = at_run_start(torch.arange(n, dtype=torch.int64, device=dev),
                              run_start, run_idx)
     per_pos = torch.where(s_rank == 1, bir, 0).to(torch.int64)
     # pair t belongs to sorted probe position rep[t] and is its j-th build

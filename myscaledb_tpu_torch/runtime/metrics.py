@@ -28,6 +28,10 @@ VECTOR_SCAN_ROWS = "VectorScanRows"
 VECTOR_SCAN_QUERIES = "VectorScanQueries"
 AGG_ROWS = "AggregatedRows"
 JOIN_PROBE_ROWS = "JoinProbeRows"
+# rows x storage width of every column a join materializes, and elements
+# of join row indexes or masks copied to the host (the port's own)
+JOIN_CARRIED_BYTES = "JoinCarriedBytes"
+JOIN_ROWS_TO_HOST = "JoinRowsToHost"
 SORTED_ROWS = "SortedRows"
 FAILED_QUERY = "FailedQuery"
 PARTS_WRITTEN = "PartsWritten"

@@ -118,10 +118,14 @@ from myscaledb_tpu_torch.exec.expr import (DIST_FNS, UNSIGNED_OF_MAX, Env,
 from myscaledb_tpu_torch.exec.datetime_fns import parse_date_literal
 from myscaledb_tpu_torch.exec.arrays import array_row_keys, as_array
 from myscaledb_tpu_torch.ops.hash import float_bits_key
-from myscaledb_tpu_torch.ops.hashtable import build_group_ids, INT32_MAX
+from myscaledb_tpu_torch.ops.hashtable import (at_run_start, build_group_ids,
+                                               INT32_MAX)
 from myscaledb_tpu_torch.ops.join import (hash_join_any, hash_join_all,
                                           grace_hash_join_any,
-                                          grace_hash_join_all)
+                                          grace_hash_join_all, build_sorted,
+                                          probe_sorted, probe_sorted_all,
+                                          sortable_key, rows_to_host,
+                                          JoinResult)
 from myscaledb_tpu_torch.ops.binary_vector import (BINARY_METRICS,
                                                    binary_distance_scan,
                                                    pack_binary,
@@ -151,6 +155,7 @@ from myscaledb_tpu_torch.parallel.ops import (sharded_distance_topk,
                                               sharded_group_aggregate,
                                               sharded_topn, sqnorm_parts)
 from myscaledb_tpu_torch.runtime import metrics as M
+from myscaledb_tpu_torch.runtime.memory import charge
 from myscaledb_tpu_torch.runtime.tracing import span, sync
 
 __all__ = ["ExecError", "NotPortedError", "VSInfo", "execute_any",
@@ -1228,15 +1233,25 @@ def _expand_order_tuples(order_by):
 # ---------------------------------------------------------------------------
 # join
 
-def apply_join(session, left: Table, jc, alias_prefixes: dict,
-               settings=None) -> Table:
+def _join_right_table(session, jc) -> Table:
     if jc.subquery is not None:
-        right = execute_any(session, jc.subquery)
-    else:
-        try:
-            right = session.read_table_checked(jc.table)
-        except KeyError:
-            raise ExecError(f"unknown join table {jc.table!r}")
+        return execute_any(session, jc.subquery)
+    try:
+        return session.read_table_checked(jc.table)
+    except KeyError:
+        raise ExecError(f"unknown join table {jc.table!r}")
+
+
+def apply_join(session, left: Table, jc, alias_prefixes: dict,
+               settings=None, right: Optional[Table] = None,
+               right_terms=(), keep=None) -> Table:
+    """``left`` joined with the clause's table (``right`` where the caller
+    read it already).  ``right_terms``: WHERE conjuncts pushed below the
+    join (``_plan_joins``), which filter the right table before its
+    build; ``keep``: the names the rest of the statement reads (None:
+    every column), the only columns of either side the join carries."""
+    if right is None:
+        right = _join_right_table(session, jc)
     ralias = jc.alias or jc.table or "_subquery"
     dev = session.device
     st = settings if settings is not None else session.settings
@@ -1285,91 +1300,306 @@ def apply_join(session, left: Table, jc, alias_prefixes: dict,
                 asof_term = (l, op, r)
     elif jc.how == "CROSS":
         # cartesian product (reference: JoinAlgorithm CROSS)
+        right = _filter_side(session, right, right_terms, keep)
         nl, nr = left.n_rows, right.n_rows
         left_rows = np.repeat(np.arange(nl), nr)
         right_rows = np.tile(np.arange(nr), nl)
         right_has = np.ones(nl * nr, dtype=bool)
-        return _gather_join_output(left, right, left_rows, right_rows,
-                                   right_has, jc, ralias, alias_prefixes,
-                                   "ALL", dev)
+        return _gather_join_output(left, right, *_host_pairs(
+            left_rows, right_rows, right_has, dev), jc, ralias,
+            alias_prefixes, "ALL", dev, keep=keep)
     else:
         raise ExecError("JOIN requires ON or USING")
     if jc.strictness == "ASOF":
         if asof_term is None:
             raise ExecError("ASOF JOIN requires an inequality in ON")
         return _apply_asof_join(left, right, jc, ralias, alias_prefixes,
-                                pairs, asof_term, dev)
-
-    lenv = Env(left, device=dev)
-    renv = Env(right, device=dev)
-    lkeys, rkeys = [], []
-    for le, re_ in pairs:
-        lv = eval_expr(Ident(le.name), lenv)
-        rv = eval_expr(Ident(re_.name), renv)
-        lk, rk = _join_key_arrays(lv, rv)
-        lkeys.append(lk)
-        rkeys.append(rk)
+                                pairs, asof_term, dev, keep)
 
     M.increment(M.JOIN_PROBE_ROWS, left.n_rows)
     how, strict = jc.how, jc.strictness
     use_grace = st.join_algorithm == "grace_hash" or (
         st.join_algorithm == "auto" and
         right.n_rows > st.max_rows_in_hash_join_build)
-    with span("hash_join", how=how, strictness=strict, grace=use_grace,
+    with span("join", how=how, strictness=strict, grace=use_grace,
               probe_rows=left.n_rows, build_rows=right.n_rows):
-        if strict in ("ANY", "SEMI", "ANTI"):
+        with span("join_build"):
+            right = _filter_side(session, right, right_terms, None if
+                                 keep is None else keep | _clause_reads(jc))
+            lenv = Env(left, device=dev)
+            renv = Env(right, device=dev)
+            lkeys, rkeys = [], []
+            for le, re_ in pairs:
+                lv = eval_expr(Ident(le.name), lenv)
+                rv = eval_expr(Ident(re_.name), renv)
+                lk, rk = _join_key_arrays(lv, rv)
+                lkeys.append(lk)
+                rkeys.append(rk)
+            sorted_build = build_sorted(rkeys[0], probe_rows=left.n_rows) \
+                if not use_grace and sortable_key(rkeys) else None
+        with span("join_probe"):
+            # an ALL join over unique build keys is an ANY join
+            as_any = strict in ("ANY", "SEMI", "ANTI") or (
+                sorted_build is not None and sorted_build.unique)
             if use_grace:
-                res = grace_hash_join_any(
-                    tuple(rkeys), tuple(lkeys),
-                    n_partitions=st.grace_hash_join_initial_buckets)
+                n_parts = st.grace_hash_join_initial_buckets
+                res = (grace_hash_join_any if as_any else
+                       grace_hash_join_all)(tuple(rkeys), tuple(lkeys),
+                                            n_partitions=n_parts)
+            elif sorted_build is not None:
+                res = (probe_sorted if as_any else probe_sorted_all)(
+                    sorted_build, lkeys[0])
             else:
-                res = hash_join_any(tuple(rkeys), tuple(lkeys))
-            found_np = res.found.cpu().numpy()
-            build_row = torch.where(res.found, res.build_row, 0) \
-                .cpu().numpy()
-            if strict == "ANTI":
-                left_rows = np.flatnonzero(~found_np)
-                right_rows = np.zeros(len(left_rows), dtype=np.int64)
-                right_has = np.zeros(len(left_rows), dtype=bool)
-            elif strict == "SEMI" or how == "INNER":
-                left_rows = np.flatnonzero(found_np)
-                right_rows = build_row[left_rows]
-                right_has = np.ones(len(left_rows), dtype=bool)
-            else:  # LEFT ANY (and RIGHT/FULL ANY, as in the JAX package)
-                left_rows = np.arange(left.n_rows)
-                right_rows = build_row
-                right_has = found_np
-        else:   # ALL multiplicity
-            if use_grace:
-                exp = grace_hash_join_all(
-                    tuple(rkeys), tuple(lkeys),
-                    n_partitions=st.grace_hash_join_initial_buckets)
-            else:
-                exp = hash_join_all(tuple(rkeys), tuple(lkeys))
-            left_rows = exp.probe_idx.cpu().numpy()
-            right_rows = exp.build_idx.cpu().numpy()
-            right_has = np.ones(len(left_rows), dtype=bool)
-            found_np = exp.found.cpu().numpy()
-            if how in ("LEFT", "FULL"):
-                extra = np.flatnonzero(~found_np)
-                left_rows = np.concatenate([left_rows, extra])
-                right_rows = np.concatenate(
-                    [right_rows, np.zeros(len(extra), dtype=right_rows.dtype)])
-                right_has = np.concatenate(
-                    [right_has, np.zeros(len(extra), dtype=bool)])
-            if how in ("RIGHT", "FULL"):
-                matched_right = np.zeros(right.n_rows, dtype=bool)
-                matched_right[exp.build_idx.cpu().numpy()] = True
-                extra_r = np.flatnonzero(~matched_right)
-                left_rows = np.concatenate(
-                    [left_rows, np.full(len(extra_r), -1,
-                                        dtype=left_rows.dtype)])
-                right_rows = np.concatenate([right_rows, extra_r])
-                right_has = np.concatenate(
-                    [right_has, np.ones(len(extra_r), dtype=bool)])
+                res = (hash_join_any if as_any else hash_join_all)(
+                    tuple(rkeys), tuple(lkeys))
+            pairs_ = _join_pairs_on_card(left.n_rows, right.n_rows, res, how,
+                                         strict, dev)
+        with span("join_gather"):
+            return _gather_join_output(left, right, *pairs_, jc, ralias,
+                                       alias_prefixes, strict, dev,
+                                       keep=keep)
 
-    return _gather_join_output(left, right, left_rows, right_rows, right_has,
-                               jc, ralias, alias_prefixes, strict, dev)
+
+def _nonzero(mask: torch.Tensor, site: str) -> torch.Tensor:
+    """The rows a mask keeps, charged to the query's budget (8 B each)."""
+    with sync(site):
+        rows = torch.nonzero(mask).flatten()
+    charge(8 * rows.shape[0], site)
+    return rows
+
+
+def _join_pairs_on_card(n_left: int, n_right: int, res, how: str,
+                        strict: str, dev):
+    """The joined row pairs as device tensors: (left_rows or None for every
+    left row in order, right_rows, right_has or None for all, left_has or
+    None for all), from a probe's ``JoinResult`` (one match a left row)
+    or ``JoinExpansion`` (every match).  Pairs come in the order the JAX
+    package gives them: matches by left row, then a LEFT or FULL join's
+    unmatched left rows, then a RIGHT or FULL join's unmatched right
+    rows.  Host reads: the output sizes."""
+    if isinstance(res, JoinResult):
+        if strict == "ANTI":
+            rows = _nonzero(~res.found, "executor.join.anti_rows")
+            zeros = torch.zeros(rows.shape[0], dtype=torch.int64, device=dev)
+            return rows, zeros, zeros.bool(), None
+        if strict != "ALL" and not (strict == "SEMI" or how == "INNER"):
+            # LEFT ANY (and RIGHT/FULL ANY, as in the JAX package)
+            return (None, torch.where(res.found, res.build_row, 0),
+                    res.found, None)
+        probe_idx = _nonzero(res.found, "executor.join.matched_rows")
+        found = res.found
+        if probe_idx.shape[0] == n_left and (
+                strict != "ALL" or how == "INNER"):
+            return None, res.build_row, None, None    # every left row
+        build_idx = res.build_row.index_select(0, probe_idx)
+        if strict != "ALL" or how == "INNER":
+            return probe_idx, build_idx, None, None
+        build_idx = build_idx.long()
+    else:
+        probe_idx, build_idx, found = res.probe_idx, res.build_idx, res.found
+    # ALL multiplicity
+    parts_l, parts_r = [probe_idx], [build_idx]
+    n_pairs = probe_idx.shape[0]
+    right_has = left_has = None
+    n_extra_l = n_extra_r = 0
+    if how in ("LEFT", "FULL"):
+        extra = _nonzero(~found, "executor.join.left_misses")
+        n_extra_l = extra.shape[0]
+        parts_l.append(extra)
+        parts_r.append(torch.zeros_like(extra))
+    if how in ("RIGHT", "FULL"):
+        matched_right = torch.zeros(n_right, dtype=torch.bool, device=dev)
+        matched_right[build_idx] = True
+        extra_r = _nonzero(~matched_right, "executor.join.right_misses")
+        n_extra_r = extra_r.shape[0]
+        parts_l.append(torch.full_like(extra_r, -1))
+        parts_r.append(extra_r)
+    left_rows, right_rows = torch.cat(parts_l), torch.cat(parts_r)
+    if n_extra_l:
+        right_has = torch.ones(left_rows.shape[0], dtype=torch.bool,
+                               device=dev)
+        right_has[n_pairs:n_pairs + n_extra_l] = False
+    if n_extra_r:
+        left_has = left_rows >= 0
+    return left_rows, right_rows, right_has, left_has
+
+
+# WHERE conjuncts below the joins, and the columns a join carries
+
+# calls whose value depends on more than their row's arguments, or that the
+# statement evaluates apart from its WHERE: a conjunct holding one stays
+_UNPUSHED_FNS = frozenset({
+    "arrayjoin", "now", "now64", "today", "yesterday", "generateuuidv4",
+    "rownumberinblock", "rownumberinallblocks", "blocknumber",
+    "runningdifference", "runningdifferencestartingwithfirstvalue",
+    "runningaccumulate", "neighbor", "ftsindex"}) | TEXT_FNS | DIST_FNS
+
+
+def _statement_reads(q) -> Optional[set]:
+    """Names the statement reads after its joins (``_referenced_columns``
+    and its grouping sets and fills), or None where it may read any
+    column: a ``*``, or a subquery that may correlate."""
+    refs = _referenced_columns(q)
+    if refs is None:
+        return None
+    exprs = [e for gs in (q.grouping_sets or []) for e in gs]
+    exprs += [v for o in q.order_by for v in (o.fill or {}).values()
+              if isinstance(v, Expr)]
+    exprs += [e for e, _a, _l in q.array_joins]
+    clauses = [it.expr for it in q.items] + exprs + [
+        e for e in (q.where, q.prewhere, q.having) if e is not None]
+    if any(isinstance(n, (ScalarSubquery, ExistsSubquery, InSubquery))
+           for e in clauses for n in walk(e)):
+        return None
+    return refs | _names_read(exprs)
+
+
+def _clause_reads(jc) -> set:
+    names = set(jc.using or [])
+    if jc.condition is not None:
+        names |= _names_read([jc.condition])
+    return names
+
+
+def _pushable(term, aliases) -> bool:
+    for n in walk(term):
+        if isinstance(n, (ScalarSubquery, ExistsSubquery, InSubquery,
+                          WindowCall, Lambda)):
+            return False
+        if isinstance(n, FuncCall):
+            name = n.name.lower()
+            if name in _UNPUSHED_FNS or name in AGG_NAMES \
+                    or name.startswith("rand"):
+                return False
+        if isinstance(n, Ident) and n.name in aliases:
+            return False
+    return True
+
+
+def _term_source(term, sources) -> Optional[int]:
+    """The one source (0 the FROM table, i the i-th join's table) whose
+    columns every identifier of ``term`` names, or None."""
+    found = set()
+    for n in walk(term):
+        if not isinstance(n, Ident):
+            continue
+        hits = [i for i, (names, cols) in enumerate(sources)
+                if n.name in cols and (n.table is None or n.table in names)]
+        if len(hits) != 1:
+            return None
+        found.add(hits[0])
+    return found.pop() if len(found) == 1 else None
+
+
+def _keeps_left(jc) -> bool:
+    """The join keeps or drops each left row by a test of that row alone,
+    so a filter of the left rows commutes with it."""
+    return jc.how in ("INNER", "LEFT", "CROSS")
+
+
+def _right_filter_commutes(jc) -> bool:
+    """A filter of the right rows commutes with the join: every matching
+    right row is joined (ALL) and unmatched right rows stay only under
+    RIGHT, where they are right rows too."""
+    return jc.how == "CROSS" or (jc.how in ("INNER", "RIGHT")
+                                 and jc.strictness == "ALL")
+
+
+def _filter_side(session, table: Table, terms, keep=None) -> Table:
+    """``table``'s rows that every conjunct of ``terms`` keeps, of the
+    columns ``keep`` names (None: all; with none named, the first)."""
+    rows = None
+    if terms:
+        env = _session_env(session, table)
+        mask = as_bool_mask(eval_expr(_conjoin(list(terms)), env),
+                            table.n_rows)
+        rows = _nonzero(mask, "executor.join.pushed_rows")
+    if keep is not None:
+        table = Table([c for c in table.columns.values()
+                       if _carried(c.name, keep)]
+                      or list(table.columns.values())[:1], name=table.name)
+    if rows is not None and rows.shape[0] < table.n_rows:
+        table = table.take(rows)
+    return table
+
+
+def _plan_joins(session, q, base: Table):
+    """Before the joins: what each join carries, and the WHERE and
+    PREWHERE conjuncts that read one side's columns alone moved below the
+    joins, where the join kinds keep their meaning:
+
+      * a conjunct of the FROM table's columns filters it before the first
+        join, when every join keeps or drops each left row by that row
+        alone (INNER, LEFT, CROSS: never RIGHT or FULL);
+      * a conjunct of the i-th join's table filters that table before its
+        build, when the join is INNER ALL, RIGHT ALL or CROSS and every
+        later join keeps the left rows as above.
+
+    A conjunct with a search, an aggregate, a window, a lambda, a
+    subquery, a non-deterministic call or a SELECT alias stays, as does
+    every conjunct of a statement with an ARRAY JOIN, a vector or text
+    search, or a distributed table.  The statement's rows and their order
+    are what the WHERE after the joins gives.
+
+    Returns (the statement without the moved conjuncts, the FROM table
+    filtered and cut to what the joins carry, and per join (its table or
+    None, the conjuncts moved into it, the names it carries or None))."""
+    from dataclasses import replace as dc_replace
+    plan = [[None, [], None] for _jc in q.joins]
+
+    def carried(q):
+        """Each join's carried names after the conjuncts moved, and the
+        FROM table's."""
+        refs = _statement_reads(q)
+        later = set()
+        for p, jc in reversed(list(zip(plan, q.joins))):
+            p[2] = None if refs is None else refs | later
+            later |= _clause_reads(jc)
+        return None if refs is None else refs | later
+    base_keep = carried(q)
+    where, prewhere = _split_conjuncts(q.where), _split_conjuncts(q.prewhere)
+    searches = any(isinstance(n, FuncCall) and (
+        n.name.lower() in DIST_FNS or n.name.lower() in TEXT_FNS)
+        for e in [it.expr for it in q.items] + [o.expr for o in q.order_by]
+        + where + prewhere for n in walk(e))
+    if is_distributed(base) or q.array_joins or searches \
+            or not (where or prewhere):
+        return q, _filter_side(session, base, [], base_keep) \
+            if not is_distributed(base) else base, plan
+    for p, jc in zip(plan, q.joins):
+        p[0] = _join_right_table(session, jc)
+        if is_distributed(p[0]):
+            return q, _filter_side(session, base, [], base_keep), plan
+    aliases = {it.alias for it in q.items if it.alias}
+    aliases |= {n for n, _e in q.with_aliases}
+    sources = [({q.table_alias, q.table} - {None}, set(base.column_names))]
+    sources += [({jc.alias, jc.table} - {None}, set(p[0].column_names))
+                for p, jc in zip(plan, q.joins)]
+    base_terms = []
+
+    def place(term) -> bool:
+        if not _pushable(term, aliases):
+            return False
+        src = _term_source(term, sources)
+        if src is None:
+            return False
+        if not all(_keeps_left(jc) for jc in q.joins[src:]):
+            return False
+        if src == 0:
+            base_terms.append(term)
+            return True
+        if not _right_filter_commutes(q.joins[src - 1]):
+            return False
+        plan[src - 1][1].append(map_expr(
+            term, lambda n: Ident(n.name) if isinstance(n, Ident) else n))
+        return True
+    where = [t for t in where if not place(t)]
+    prewhere = [t for t in prewhere if not place(t)]
+    base_terms = [map_expr(t, lambda n: Ident(n.name)
+                           if isinstance(n, Ident) else n)
+                  for t in base_terms]
+    q = dc_replace(q, where=_conjoin(where), prewhere=_conjoin(prewhere))
+    return q, _filter_side(session, base, base_terms, carried(q)), plan
 
 
 def _join_pairs(jc, left: Table, right: Table, ralias: str):
@@ -1424,8 +1654,7 @@ def _distributed_join(session, left: Table, right: Table, jc, ralias: str,
         return None
     from myscaledb_tpu_torch.sql.plan import choose_join_strategy
     from myscaledb_tpu_torch.ops.join import (build_join_table,
-                                              probe_join_table,
-                                              try_build_direct, probe_direct)
+                                              probe_join_table)
     strategy = choose_join_strategy(left, right, st, how, strict)
     if strategy == "shuffle":
         return _distributed_shuffle_join(session, left, right, jc, ralias,
@@ -1463,9 +1692,9 @@ def _distributed_join(session, left: Table, right: Table, jc, ralias: str,
         d = mesh.device(p)
         if str(d) not in cards:
             rk_d = tuple(k.to(d) for k in rkeys)
-            direct = try_build_direct(rk_d)
-            if direct is not None:
-                cards[str(d)] = (lambda pk, t=direct: probe_direct(t, pk))
+            if sortable_key(rk_d):
+                b = build_sorted(rk_d[0])
+                cards[str(d)] = (lambda pk, b=b: probe_sorted(b, pk[0]))
             else:
                 ht = build_join_table(rk_d)
                 cards[str(d)] = (lambda pk, t=ht: probe_join_table(t, pk))
@@ -1581,17 +1810,21 @@ def _distributed_shuffle_join(session, left: Table, right: Table, jc,
     lrows = take_rows(left, left_rows)
     rrows = take_rows(right, right_rows)
     pos = np.arange(len(left_rows), dtype=np.int64)
-    out = _gather_join_output(lrows, rrows, pos, pos, right_has, jc, ralias,
-                              alias_prefixes, strict, dev)
+    out = _gather_join_output(lrows, rrows,
+                              *_host_pairs(pos, pos, right_has, dev), jc,
+                              ralias, alias_prefixes, strict, dev)
     out.join_strategy = "shuffle"
     return out
 
 
-def _gather_side(c: Column, name: str, rows: np.ndarray, has, device):
-    """One output column of a join: c's rows gathered by the host row ids,
-    NULL where ``has`` (a bool tensor, or None for all rows) is False."""
-    if c.offsets is not None:
-        rc = c.take_ragged(rows)
+def _gather_side(c: Column, name: str, rows, has, device):
+    """One output column of a join: c's rows gathered by the row ids (a
+    device tensor; None keeps every row in order), NULL where ``has`` (a
+    bool tensor, or None for all rows) is False."""
+    if rows is None:
+        data, valid, offsets = c.data, c.valid, c.offsets
+    elif c.offsets is not None:
+        rc = c.take_ragged(rows_to_host(rows, "executor.join.ragged_rows"))
         data, valid, offsets = rc.data, rc.valid, rc.offsets
     else:
         offsets = None
@@ -1605,51 +1838,89 @@ def _gather_side(c: Column, name: str, rows: np.ndarray, has, device):
                               dtype=dtype, device=device)
             valid = torch.zeros(len(rows), dtype=torch.bool, device=device)
         elif c.is_host:
-            data = to_tensor(c.data[rows], device)
-            valid = to_tensor(c.valid[rows], device) \
+            rows_np = rows_to_host(rows, "executor.join.host_rows")
+            data = to_tensor(c.data[rows_np], device)
+            valid = to_tensor(c.valid[rows_np], device) \
                 if c.valid is not None else None
         else:
-            idx = torch.as_tensor(rows, device=device)
-            data = c.data.index_select(0, idx)
-            valid = c.valid.index_select(0, idx) \
+            data = c.data.index_select(0, rows)
+            valid = c.valid.index_select(0, rows) \
                 if c.valid is not None else None
     if has is not None:
         valid = has if valid is None else valid & has
     # as in the JAX package, the output keeps no FixedString width
     elem = c.field.elem if offsets is not None else None
-    return Column(Field(name, c.dtype, valid is not None, c.field.vector_dim,
-                        elem), data, valid, c.dictionary, None, offsets)
+    out = Column(Field(name, c.dtype, valid is not None, c.field.vector_dim,
+                       elem), data, valid, c.dictionary, None, offsets)
+    if rows is not None:
+        M.increment(M.JOIN_CARRIED_BYTES, _column_bytes(out))
+    return out
+
+
+def _column_bytes(c: Column) -> int:
+    """Storage bytes of a column: its data and its validity."""
+    n = 0
+    for t in (c.data, c.valid):
+        if t is not None:
+            n += int(t.nbytes)
+    return n
+
+
+def _host_pairs(left_rows, right_rows, right_has, device) -> tuple:
+    """Host row pairs (left_rows < 0 => left side NULL, right_has False =>
+    right side NULL) as ``_gather_join_output`` takes them."""
+    left_rows = np.asarray(left_rows, dtype=np.int64)
+    right_has = np.asarray(right_has, dtype=bool)
+    left_has = left_rows >= 0
+    return (torch.as_tensor(np.where(left_has, left_rows, 0), device=device),
+            torch.as_tensor(np.asarray(right_rows, dtype=np.int64),
+                            device=device),
+            None if right_has.all() else torch.as_tensor(right_has,
+                                                         device=device),
+            None if left_has.all() else torch.as_tensor(left_has,
+                                                        device=device))
+
+
+def _carried(name: str, keep) -> bool:
+    return keep is None or name in keep or name.rsplit(".", 1)[-1] in keep
 
 
 def _gather_join_output(left: Table, right: Table, left_rows, right_rows,
-                        right_has, jc, ralias: str, alias_prefixes: dict,
-                        strict: str, device) -> Table:
-    """Materialize the joined table from host row-index pairs (left_rows < 0
-    => left side NULL, right_has False => right side NULL)."""
-    left_rows = np.asarray(left_rows, dtype=np.int64)
-    right_rows = np.asarray(right_rows, dtype=np.int64)
-    right_has = np.asarray(right_has, dtype=bool)
-    left_has = left_rows >= 0
-    safe_left = np.where(left_has, left_rows, 0)
-    lh = None if left_has.all() else torch.as_tensor(left_has, device=device)
-    rh = None if right_has.all() else torch.as_tensor(right_has,
-                                                      device=device)
-    cols = [_gather_side(c, c.name, safe_left, lh, device)
-            for c in left.columns.values()]
+                        right_has, left_has, jc, ralias: str,
+                        alias_prefixes: dict, strict: str, device,
+                        keep=None) -> Table:
+    """Materialize the joined table from device row-index pairs: left_rows
+    (None: every left row in order; a negative index is a NULL left side),
+    right_rows, and the masks right_has and left_has (None: all True).
+    Only the columns ``keep`` names are carried (None: all); a join that
+    would carry none keeps its first left column for the row count."""
+    safe_left = None if left_rows is None else left_rows.clamp(min=0)
+    lcols = [c for c in left.columns.values() if _carried(c.name, keep)]
     lnames = set(left.column_names)
     using_names = set(jc.using or [])
+    rcols = []
     for c in right.columns.values():
         if c.name in using_names:
             continue
-        out_name = c.name if c.name not in lnames else f"{ralias}.{c.name}"
-        cols.append(_gather_side(c, out_name, right_rows, rh, device))
+        if c.name not in lnames:
+            if _carried(c.name, keep):
+                rcols.append((c.name, c))
+        elif keep is None or f"{ralias}.{c.name}" in keep:
+            # a name both sides have is the left's unless qualified
+            rcols.append((f"{ralias}.{c.name}", c))
+    if not lcols and not rcols:
+        lcols = list(left.columns.values())[:1]
+    cols = [_gather_side(c, c.name, safe_left, left_has, device)
+            for c in lcols]
+    cols += [_gather_side(c, out_name, right_rows, right_has, device)
+             for out_name, c in rcols]
     alias_prefixes[ralias] = ""
     return Table(cols, name=left.name)
 
 
 def _apply_asof_join(left: Table, right: Table, jc, ralias: str,
                      alias_prefixes: dict, pairs, asof_term,
-                     device) -> Table:
+                     device, keep=None) -> Table:
     """ASOF JOIN: per equality-key group, match each left row to the closest
     right row satisfying the inequality (reference: AsofRowRefs sorted
     lookup, src/Interpreters/joinDispatch.h + HashJoin ASOF maps).
@@ -1716,8 +1987,9 @@ def _apply_asof_join(left: Table, right: Table, jc, ralias: str,
         left_rows = np.flatnonzero(found)
         right_rows = build_row[left_rows]
         right_has = np.ones(len(left_rows), dtype=bool)
-    return _gather_join_output(left, right, left_rows, right_rows, right_has,
-                               jc, ralias, alias_prefixes, "ASOF", device)
+    return _gather_join_output(left, right, *_host_pairs(
+        left_rows, right_rows, right_has, device), jc, ralias,
+        alias_prefixes, "ASOF", device, keep=keep)
 
 
 def _join_key_arrays(lv: Value, rv: Value):
@@ -3100,8 +3372,11 @@ def execute_select(session, q: SelectQuery) -> Table:
     alias_prefixes = {}
     if q.table_alias:
         alias_prefixes[q.table_alias] = ""
-    for jc in q.joins:
-        table = apply_join(session, table, jc, alias_prefixes, settings)
+    if q.joins:
+        q, table, plan = _plan_joins(session, q, table)
+        for jc, (right, right_terms, keep) in zip(q.joins, plan):
+            table = apply_join(session, table, jc, alias_prefixes, settings,
+                               right, right_terms, keep)
     if q.array_joins:
         # the ARRAY JOIN clause's arrays expand together, then each distinct
         # arrayJoin() argument on its own: a cartesian product (the JAX
@@ -3752,7 +4027,7 @@ def _limit_by(table: Table, lb_exprs, nlb: int, alias_exprs, src_table,
     gsorted, order = torch.sort(gid, stable=True)
     first = torch.ones(n, dtype=torch.bool, device=device)
     first[1:] = gsorted[1:] != gsorted[:-1]
-    start = torch.cummax(torch.where(first, rows, 0), dim=0).values
+    start = at_run_start(rows, first, torch.cumsum(first, 0) - 1)
     keep = torch.empty(n, dtype=torch.bool, device=device)
     keep[order] = (rows - start) < nlb
     return table.take(torch.nonzero(keep).flatten())

@@ -118,7 +118,7 @@ def test_direct_join_path_equals_hash(rng):
     build = np.concatenate([build, build[:50]])           # duplicates
     probe = rng.integers(-100, 1200, 5000).astype(np.int32)
     bmask = rng.random(len(build)) < 0.9
-    assert PJ.try_build_direct(_t(build)) is not None
+    assert PJ.build_sorted(_t(build)[0]).direct is not None
     r1 = PJ.hash_join_any(_t(build), _t(probe),
                           build_mask=torch.from_numpy(bmask))
     table = PJ.build_join_table(_t(build),
@@ -132,7 +132,7 @@ def test_direct_join_path_equals_hash(rng):
 
 def test_direct_join_sparse_keys_fall_back(rng):
     sparse = rng.integers(0, 2 ** 30, 100).astype(np.int64)
-    assert PJ.try_build_direct(_t(sparse)) is None
+    assert PJ.build_sorted(_t(sparse)[0]).direct is None
     assert JJ.try_build_direct(_j(sparse)) is None
 
 
