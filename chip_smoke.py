@@ -321,9 +321,12 @@ each), ``plain_ms`` the plain PyTorch version and
 ``library_ms`` the yardstick call (torch.matmul in f32 for segmin_f32,
 torch._int_mm for segmin_sq8 with the query block zero-padded to a
 multiple of 8 columns, one index_add_ into G + 1 int64 slots for
-group_aggregate, torch.isin and a sum for merge_count; none for
+group_aggregate, torch.isin and a sum for merge_count, torch.unique over
+the stacked (group, key) pairs for distinct_count; none for
 binary_segment_mins, since no single PyTorch call computes a popcount
-distance).  ``bound_ms`` is the larger of the bytes over 3.35 TB/s and the
+distance).  distinct_count (K6) is timed at mix5's shapes: 100M rows of
+the benchmark generator's UserID at G = 1 and grouped by its RegionID
+(``timing_distinct_count_mix5``; ``fill_ms`` the table's fill alone).  ``bound_ms`` is the larger of the bytes over 3.35 TB/s and the
 operations over the H100's peak for their type (integer operations are
 counted against the f32 rate outside the tensor cores; segmin_f32's
 products as three TF32 products each, at 495 TFLOP/s).  The kernels
@@ -333,7 +336,7 @@ non-FMA f32 rate, computed from the shapes beside ``bound_ms``, and under
 ``timing_segmin_sq8_d1152`` the __dp4a branch at 128 queries of d = 1152
 beside the same queries 64 at a time on the wgmma branch.
 
-All five launch counters are zeroed just before each path's run (the
+All six launch counters are zeroed just before each path's run (the
 twenty certified queries; the three uncertifiable statements; the ten
 config-2 statements; the join build and count probes; the join statements
 up to the last timed one; the ten config-6 statements; on the DDL-built
@@ -348,7 +351,8 @@ reports every kernel's count on every path.  Launches made to compare a
 kernel with its plain version, the profiler passes and the 10M-row
 branch statements count nowhere.  Config 3's and the windows' paths
 launch no kernel of the port (their JAX counterparts reach no Pallas
-kernel either), the hits and array statements only K3, the subquery
+kernel either), the hits statements K3 and K6 (its distinct counts), the
+array statements only K3, the subquery
 statements K1 (K2 where the certificate fails) and K3, the HybridSearch
 statements of sql_text K2 (each text statement's timed runs are zeroed
 and read the same way); their counts are reported all the same.  The
@@ -366,6 +370,7 @@ import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -436,9 +441,12 @@ def kernel_wrappers() -> dict:
     from myscaledb_tpu_torch.ops.kernels.distance_q import segmin_sq8
     from myscaledb_tpu_torch.ops.kernels.group_agg import group_aggregate
     from myscaledb_tpu_torch.ops.kernels.merge_count import merge_count
+    from myscaledb_tpu_torch.ops.kernels.distinct_count import \
+        distinct_count
     return {"segmin_sq8": segmin_sq8, "segmin_f32": segmin_f32,
             "group_aggregate": group_aggregate, "merge_count": merge_count,
-            "binary_segment_mins": binary_segment_mins}
+            "binary_segment_mins": binary_segment_mins,
+            "distinct_count": distinct_count}
 
 
 def zero_launches() -> None:
@@ -678,6 +686,8 @@ def phase_kernels(gen):
     report["merge_count"], timings[("merge_count", 1)] = k4_kernel(gen)
     report["binary_segment_mins"], k5_times = k5_kernel(gen)
     timings.update(k5_times)
+    report["distinct_count"], k6_times = k6_kernel(gen)
+    timings.update({("distinct_count", G): t for G, t in k6_times.items()})
     return report, timings, extra
 
 
@@ -1078,6 +1088,83 @@ def k3_min_max_one_group(gen):
     del gid, mask, v, part_i, part_f
     torch.cuda.empty_cache()
     return t
+
+
+def k6_kernel(gen):
+    """K6 (distinct_count) at mix5's shapes: the hits table's UserID and
+    RegionID made by the benchmark's own generator (100M rows, UserID
+    skewed over 17.6M values, rows in PRIMARY KEY order), counted at G = 1
+    (count(DISTINCT UserID)) and G = 9,040 (grouped by RegionID), every
+    row selected.  Each count equals the sort-based plain version; then
+    the wrapper, the bare launch, the plain version and torch.unique over
+    the (group, key) pairs (a yardstick the port never calls) are timed."""
+    from portbench.datagen import hits as hits_gen
+    from myscaledb_tpu_torch.ops.kernels import build
+    from myscaledb_tpu_torch.ops.kernels.distinct_count import (
+        capacity, distinct_count, distinct_count_plain)
+
+    cfg = json.loads((Path(__file__).resolve().parent / "portbench" /
+                      "configs" / "clickbench_hits_100m.json").read_text())
+    cfg["tables"] = {"hits": [["UserID", "Int64"], ["RegionID", "Int32"],
+                              ["CounterID", "Int32"], ["EventDate", "Date"],
+                              ["EventTime", "DateTime"]]}
+    cols = hits_gen.make(cfg, gen.initial_seed() + 6, "cuda")["tables"]["hits"]
+    uid, region = cols["UserID"], cols["RegionID"]
+    del cols
+    torch.cuda.empty_cache()
+    n = uid.shape[0]
+    G_REGIONS = int(cfg["assumed"]["regions"])
+    mask = torch.ones(n, dtype=torch.bool, device="cuda")
+    cap = capacity(n)
+    table = torch.empty((cap, 2), dtype=torch.int64, device="cuda")
+    overflow = torch.empty(1, dtype=torch.int32, device="cuda")
+    rep, times = {"checks": 0, "max_abs_err": 0.0}, {}
+    for G, gid in ((1, torch.zeros(n, dtype=torch.int32, device="cuda")),
+                   (G_REGIONS, region)):
+        counts = torch.empty(G, dtype=torch.int64, device="cuda")
+
+        def raw():      # the bare launch: fill, memsets and the kernel
+            build.check(build.library().msdb_distinct_count(
+                gid.data_ptr(), uid.data_ptr(), 8, mask.data_ptr(), n, G,
+                table.data_ptr(), cap, counts.data_ptr(),
+                overflow.data_ptr(), torch.cuda.current_stream().cuda_stream),
+                "distinct_count")
+
+        def raw_fill():     # the same entry over no rows: the table's fill
+            build.check(build.library().msdb_distinct_count(
+                gid.data_ptr(), uid.data_ptr(), 8, mask.data_ptr(), 0, G,
+                table.data_ptr(), cap, counts.data_ptr(),
+                overflow.data_ptr(), torch.cuda.current_stream().cuda_stream),
+                "distinct_count")
+
+        got = distinct_count(gid, uid, mask, G)
+        raw()
+        want = distinct_count_plain(gid, uid, mask, G)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(counts, want)):
+            raise AssertionError(f"distinct_count G={G}: counts differ from "
+                                 "the plain version")
+        rep["checks"] += 1
+        pairs = torch.stack((gid.long(), uid), 1)
+        # key, gid and mask read once, the counts written once
+        b, by = bound_ms(n * (8 + 4 + 1) + G * 8, 0.0, F32_FLOPS)
+        times[G] = {
+            "ms": time_ms(lambda: distinct_count(gid, uid, mask, G), reps=20),
+            "kernel_ms": time_ms(raw, reps=20),
+            "fill_ms": time_ms(raw_fill, reps=20),
+            "plain_ms": time_ms(lambda: distinct_count_plain(
+                gid, uid, mask, G), reps=3),
+            "library_ms": time_ms(lambda: torch.unique(pairs, dim=0),
+                                  reps=3),
+            "library_note": "torch.unique(torch.stack((gid, key), 1), dim=0)",
+            "bound_ms": b, "bound_by": by,
+            "table_bytes": cap * 16, "distinct_tuples": int(want.sum()),
+            "rows": n}
+        del pairs
+        torch.cuda.empty_cache()
+    del uid, region, mask, table
+    torch.cuda.empty_cache()
+    return rep, times
 
 
 def vec_sql(v: np.ndarray) -> str:
@@ -5996,14 +6083,19 @@ def main() -> int:
           "checks": report,
           "timing_L2_50pct_mask": {f"{k}/nq={nq}": v
                                    for (k, nq), v in timings.items()
-                                   if k != "group_aggregate"},
+                                   if k not in ("group_aggregate",
+                                                "distinct_count")},
+          "timing_distinct_count_mix5": {
+              f"G={G}": t for (k, G), t in timings.items()
+              if k == "distinct_count"},
           "timing_group_aggregate_config2": timings[("group_aggregate", 1)],
           "timing_merge_count_config4": timings[("merge_count", 1)],
           "timing_binary_segment_mins_config6": {
               f"nq={nq}": timings[("binary_segment_mins", nq)]
               for nq in (1, 10)},
           "kernels": ["segmin_sq8", "segmin_f32", "group_aggregate",
-                      "merge_count", "binary_segment_mins"]})
+                      "merge_count", "binary_segment_mins",
+                      "distinct_count"]})
 
     counts = phase_sql(args.seed)
     counts["sql_groupby"] = phase_groupby(args.seed)
@@ -6030,8 +6122,9 @@ def main() -> int:
     # K1 from the certified main path (sql_sq8), K2 from the path where the
     # certificate fails (sql_f32), K3 from config 2's statement
     # (sql_groupby), K4 from config 4's count probe (join_count), K5 from
-    # config 6's statement (sql_binary); every path's counts of it are
-    # printed beside
+    # config 6's statement (sql_binary), K6 from the hits statements'
+    # distinct counts (sql_hits); every path's counts of it are printed
+    # beside
     for name, path, src, replaces in (
             ("segmin_sq8", "sql_sq8", "myscaledb_tpu_torch/csrc/segmin_sq8.cu",
              "myscaledb_tpu/ops/pallas/distance_q.py:103"),
@@ -6045,7 +6138,11 @@ def main() -> int:
              "myscaledb_tpu/ops/pallas/merge_count.py:259"),
             ("binary_segment_mins", "sql_binary",
              "myscaledb_tpu_torch/csrc/binary_scan.cu",
-             "myscaledb_tpu/ops/pallas/binary_scan.py:79")):
+             "myscaledb_tpu/ops/pallas/binary_scan.py:79"),
+            ("distinct_count", "sql_hits",
+             "myscaledb_tpu_torch/csrc/distinct_count.cu",
+             "none: the sorts of myscaledb_tpu/sql/agg_fns.py's distinct "
+             "counts")):
         if counts[path][name] < 1:
             raise AssertionError(f"{name} never launched on path {path}")
         t = timings[(name, 1)]          # each path scans one query

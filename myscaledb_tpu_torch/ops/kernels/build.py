@@ -30,8 +30,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("binary_scan.cu", "errors.cu", "group_agg.cu", "merge_count.cu",
-           "segmin_f32.cu", "segmin_sq8.cu")
+SOURCES = ("binary_scan.cu", "distinct_count.cu", "errors.cu", "group_agg.cu",
+           "merge_count.cu", "segmin_f32.cu", "segmin_sq8.cu")
 HEADERS = ("hopper.cuh",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -44,6 +44,9 @@ _SIGNATURES = {
     # x3, qw, mask2, out, nseg, words, nq, n, has_mask, jaccard, qchunk,
     # stream
     "msdb_binary_segmin": [_P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _I, _P],
+    # gid, key, key_bytes, mask, n, G, table, capacity, counts, overflow,
+    # stream
+    "msdb_distinct_count": [_P, _P, _I, _P, _L, _I, _P, _L, _P, _P, _P],
     # build, nb, starts, lo, hi, shift, steps, probe, n, has_max, out,
     # blocks, stream
     "msdb_merge_count": [_P, _I, _P, _I, _I, _I, _I, _P, _L, _P, _P, _I, _P],

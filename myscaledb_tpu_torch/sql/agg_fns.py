@@ -5,11 +5,16 @@ combinators of ``_state_combinator``: ``state_column`` and
 
 The special aggregates run on the device where the JAX package's do:
 
-* uniqExact / countDistinct / sumDistinct / avgDistinct take one row per
-  distinct (group, value...) tuple.  The JAX package picks each tuple's
-  lowest row id with a scatter-min over build_group_ids' groups; the
-  port's build_group_ids sorts stably, so that row starts its run and no
-  scatter is needed.
+* the exact uniq kinds (uniq, uniqExact, uniqTheta, countDistinct,
+  count(DISTINCT x), uniqCombined up to its exact threshold) of one
+  argument whose equality key is an integer column count through K6, one
+  hash set of (group, key) tuples on the device
+  (ops/kernels/distinct_count.py).
+* sumDistinct / avgDistinct and the multi-argument or array-argument uniq
+  kinds take one row per distinct (group, value...) tuple.  The JAX
+  package picks each tuple's lowest row id with a scatter-min over
+  build_group_ids' groups; the port's build_group_ids sorts stably, so
+  that row starts its run and no scatter is needed.
 * quantile / median / quantileExact* / quantiles: one stable sort by
   (group, value) and one gather per group of element ceil(level n_g) - 1,
   the element ``np.quantile(..., method="inverted_cdf")`` picks on the
@@ -36,11 +41,13 @@ from myscaledb_tpu_torch.core.dictionary import StringDictionary
 from myscaledb_tpu_torch.core.table import Column, to_tensor
 from myscaledb_tpu_torch.core.types import Field, DataType
 from myscaledb_tpu_torch.sql.ast import Ident
+from myscaledb_tpu_torch.runtime import metrics as M
 from myscaledb_tpu_torch.runtime.tracing import sync
 from myscaledb_tpu_torch.ops.hash import float_bits_key
 from myscaledb_tpu_torch.exec.expr import _full
 from myscaledb_tpu_torch.ops.hashtable import (INT32_MAX, _charge_sort,
                                               _sorted_runs)
+from myscaledb_tpu_torch.ops.kernels.distinct_count import distinct_count
 from myscaledb_tpu_torch.sql.agg_kinds import (UNIQ_KINDS, VAR_KINDS,
                                                COVAR_KINDS, BIT_KINDS)
 
@@ -100,6 +107,16 @@ def _distinct_key(v, n: int) -> torch.Tensor:
     if data.dtype == torch.bool:
         return data.to(torch.int32)
     return data
+
+
+def _hash_distinct_key(vals, n: int):
+    """The key K6 counts distinct values of: one argument whose equality
+    key is a 1-D integer tensor; None where the count needs the sort
+    (several arguments, an array argument)."""
+    if len(vals) != 1 or vals[0].is_array:
+        return None
+    key = _distinct_key(vals[0], n)
+    return key if key.dim() == 1 else None
 
 
 def _distinct_first_hit(key_vals, gid, vm, n: int):
@@ -295,11 +312,18 @@ def _special_aggregate(kind: str, vals, gid, m, G: int, present, n: int,
             h64 = hash_key_columns([_distinct_key(v, n) for v in vals])
             regs = hll_registers(h64, gid, vm, G)
             return _result(hll_estimate(regs)[pres])
+        key = _hash_distinct_key(vals, n)
+        if key is not None:
+            # one integer key: K6's hash set counts each new tuple
+            M.increment("HashDistinctAggregates")
+            return _result(distinct_count(gid, key, vm, G)[pres])
+        M.increment("SortDistinctAggregates")
         _rows, groups = _distinct_first_hit(vals, gid, vm, n)
         with sync("agg_fns._special_aggregate.uniq"):
             counts = torch.bincount(groups, minlength=G)[:G]
         return _result(counts[pres])
     if kind in ("sumdistinct", "avgdistinct"):
+        M.increment("SortDistinctAggregates")
         vm = _valid_mask(m, vals)
         rows, groups = _distinct_first_hit(vals, gid, vm, n)
         data = _full(vals[0], n)[rows]

@@ -488,6 +488,146 @@ def test_sql_groupby_launches_k3_on_card(cuda):
                                      if cnt[k]]
 
 
+# the value K6 marks its empty slots' keys with, as a signed int64: a key
+# equal to it takes the kernel's atomic re-read of a full slot
+K6_EMPTY_KEY = 0x9E3779B97F4A7C15 - 2 ** 64
+
+
+def _k6_keys(case, n, gen):
+    if case == "skewed":          # few hot keys, a long tail (UserID-like)
+        u = torch.rand(n, device="cuda", generator=gen, dtype=torch.float64)
+        return (u * u * 3_000_000).long() * -0x61C8864680B583EB
+    if case == "sorted_runs":     # each key in runs, as a sorted table
+        u = torch.rand(n, device="cuda", generator=gen, dtype=torch.float64)
+        return torch.sort((u * u * 3_000_000).long()).values * 977
+    if case == "all_equal":
+        return torch.full((n,), 7, dtype=torch.int64, device="cuda")
+    if case == "all_distinct":
+        return torch.randperm(n, device="cuda", generator=gen) \
+            * 0x100000001 - 2 ** 62
+    vals = torch.tensor([0, -1, -2 ** 63, 2 ** 63 - 1, K6_EMPTY_KEY],
+                        dtype=torch.int64, device="cuda")
+    return vals[torch.randint(0, 5, (n,), device="cuda", generator=gen)]
+
+
+@pytest.mark.parametrize("keys", ["skewed", "sorted_runs", "all_equal",
+                                  "all_distinct", "extremes"])
+@pytest.mark.parametrize("G", [1, 9040, 70_000])
+def test_distinct_count_kernel_matches_plain(cuda, G, keys):
+    """10M rows, 90% selected: G = 1 and 9,040 count in shared memory,
+    70,000 by global atomics; keys all equal, all distinct, skewed, sorted
+    into runs (rows that repeat the row before them probe nothing), and 0,
+    -1, INT64_MIN, INT64_MAX and the empty slots' key value.  One launch a
+    call, counts equal to the sort-based plain version."""
+    from myscaledb_tpu_torch.ops.kernels import distinct_count as K6
+    n = 10_000_000
+    gid = torch.randint(0, G, (n,), device="cuda", generator=cuda,
+                        dtype=torch.int32)
+    mask = torch.rand(n, device="cuda", generator=cuda) < 0.9
+    key = _k6_keys(keys, n, cuda)
+    before = K6.distinct_count.launches
+    got = K6.distinct_count(gid, key, mask, G)
+    torch.cuda.synchronize()
+    assert K6.distinct_count.launches == before + 1
+    want = K6.distinct_count_plain(gid, key, mask, G)
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+    if keys == "all_equal":
+        sel = torch.bincount(gid[mask].long(), minlength=G)
+        assert torch.equal(got, (sel > 0).long())
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.uint8, torch.int16,
+                                   torch.int32, torch.int64, torch.bool])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_distinct_count_key_widths_and_unaligned_columns(cuda, dtype,
+                                                         offset):
+    """Every key width, through the 16-byte loads (offset 0) and the row
+    loads of columns that do not start on a 16-byte boundary; n not a
+    multiple of 4."""
+    from myscaledb_tpu_torch.ops.kernels import distinct_count as K6
+    n, G = 100_003, 37
+    gid = torch.randint(0, G, (n + offset,), device="cuda", generator=cuda,
+                        dtype=torch.int32)[offset:]
+    mask = (torch.rand(n + offset, device="cuda", generator=cuda)
+            < 0.8)[offset:]
+    raw = torch.randint(-2 ** 62, 2 ** 62, (n + offset,), device="cuda",
+                        generator=cuda)
+    key = (raw % 2 if dtype == torch.bool else raw).to(dtype)[offset:]
+    before = K6.distinct_count.launches
+    got = K6.distinct_count(gid, key, mask, G)
+    torch.cuda.synchronize()
+    assert K6.distinct_count.launches == before + 1
+    assert torch.equal(got, K6.distinct_count_plain(gid, key, mask, G))
+
+
+def test_distinct_count_tiny_table_runs_long_probes(cuda):
+    """A table forced to 1,024 slots for 997 distinct tuples (a load of
+    0.97): probes walk long runs, and wrap at the end of the table; the
+    counts stay exact.  512 slots overflow, and the wrapper says so."""
+    from myscaledb_tpu_torch.ops.kernels import distinct_count as K6
+    n, G = 2_000_000, 4
+    key = torch.randint(0, 250, (n,), device="cuda", generator=cuda) \
+        * 0x10000000001
+    gid = torch.randint(0, G, (n,), device="cuda", generator=cuda,
+                        dtype=torch.int32)
+    gid[key == 0] = 0                   # 997 tuples: key 0 in one group
+    mask = torch.ones(n, dtype=torch.bool, device="cuda")
+    want = K6.distinct_count_plain(gid, key, mask, G)
+    assert int(want.sum()) == 997
+    got = K6.distinct_count(gid, key, mask, G, capacity_slots=1024)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    with pytest.raises(RuntimeError, match="slots"):
+        K6.distinct_count(gid, key, mask, G, capacity_slots=512)
+
+
+def test_distinct_count_no_rows_launches_nothing(cuda):
+    from myscaledb_tpu_torch.ops.kernels import distinct_count as K6
+    empty = torch.zeros(0, dtype=torch.int64, device="cuda")
+    before = K6.distinct_count.launches
+    got = K6.distinct_count(empty.int(), empty, empty.bool(), 3)
+    assert K6.distinct_count.launches == before
+    assert got.device.type == "cuda" and got.tolist() == [0, 0, 0]
+
+
+def test_sql_distinct_counts_take_k6_and_equal_cpu(cuda):
+    """count(DISTINCT), uniq and uniqExact of one column launch K6 once
+    each on the card, with no sort; sumDistinct and a two-argument uniqExact
+    keep the sort; every row equals the CPU session's."""
+    import myscaledb_tpu_torch as P
+    from myscaledb_tpu_torch.ops.kernels import distinct_count as K6
+    from myscaledb_tpu_torch.runtime import metrics as M
+    rng = np.random.default_rng(8)
+    n = 1 << 21
+    data = {"r": rng.integers(0, 9040, n, dtype=np.int32),
+            "u": (rng.random(n) ** 2 * 300_000).astype(np.int64) * 977,
+            "s": [("a", "b", "", "c")[i] for i in rng.integers(0, 4, n)],
+            "f": rng.choice(np.array([0.0, -0.0, np.nan, 2.5],
+                                     dtype=np.float32), n)}
+    card, cpu = P.connect(), P.connect(device="cpu")
+    card.create_table("t", data)
+    cpu.create_table("t", data)
+
+    def events():
+        ev = M.events_snapshot()
+        return (ev.get("HashDistinctAggregates", 0),
+                ev.get("SortDistinctAggregates", 0))
+
+    for sql, launches, routes in [
+            ("SELECT count(DISTINCT u) FROM t", 1, (1, 0)),
+            ("SELECT r, count(DISTINCT u) AS c FROM t GROUP BY r "
+             "ORDER BY c DESC, r LIMIT 10", 1, (1, 0)),
+            ("SELECT uniq(s), uniqExact(f), count(DISTINCT r) FROM t "
+             "WHERE u % 3 = 0", 3, (3, 0)),
+            ("SELECT sumDistinct(r), uniqExact(r, s) FROM t", 0, (0, 2))]:
+        before, ev = K6.distinct_count.launches, events()
+        rows = card.sql(sql).to_rows()
+        torch.cuda.synchronize()
+        assert K6.distinct_count.launches - before == launches, sql
+        assert tuple(b - a for a, b in zip(ev, events())) == routes, sql
+        assert rows == cpu.sql(sql).to_rows(), sql
+
+
 IMAX = 2 ** 31 - 1
 
 
