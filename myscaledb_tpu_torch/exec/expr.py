@@ -42,7 +42,10 @@ import torch
 
 from myscaledb_tpu_torch.core.types import DataType, physical_dtype
 from myscaledb_tpu_torch.core.table import Table, to_tensor
+from myscaledb_tpu_torch.core.derived import derived_state
 from myscaledb_tpu_torch.core.dictionary import StringDictionary, NULL_ID
+from myscaledb_tpu_torch.ops.join import build_join, probe_any
+from myscaledb_tpu_torch.runtime.memory import uncharged
 from myscaledb_tpu_torch.runtime.tracing import sync
 from myscaledb_tpu_torch.sql.ast import (Expr, Literal, VectorLiteral, Ident,
                                          BinOp, UnOp, FuncCall, InList,
@@ -1307,13 +1310,14 @@ def _join_key(bc, kv: Value, n: int, dev):
 
 
 def _join_probe(name, t, info, key_args, env: Env):
-    """(build row, found, scalar) of joinGet's keys.  One key is looked up
-    by ``torch.searchsorted`` over the table's keys, sorted once per
-    mutation epoch (the session's derived-state cache); several keys go
-    through the sort-merge ANY join of ops/hashtable.py.  Of equal keys
-    the lowest row answers."""
-    from myscaledb_tpu_torch.ops.hashtable import merge_join_any
-    from myscaledb_tpu_torch.sql.executor import _derived
+    """(build row, found, scalar) of joinGet's keys: the table's keys go
+    through the join build of ops/join.py (sorted for one integer key,
+    else the hash table), made once per mutation epoch and key types in
+    the session's derived-state cache, and each probe row takes its
+    lowest matching row (the ANY probe).  Neither step is charged to the
+    statement's memory budget (``uncharged``): the build is session state
+    kept across statements, and a lookup into it, like dictGet's, is not
+    one of the statement's join intermediates."""
     if len(key_args) != len(info["keys"]):
         raise EvalError(f"joinGet: expected {len(info['keys'])} key(s)")
     scalar = all(k.is_scalar for k in key_args)
@@ -1331,20 +1335,14 @@ def _join_probe(name, t, info, key_args, env: Env):
     if t.n_rows == 0:
         return (torch.zeros(n, dtype=torch.int32, device=dev),
                 torch.zeros(n, dtype=torch.bool, device=dev), scalar)
-    if len(builds) == 1 and not builds[0].is_floating_point():
-        b, p = builds[0].to(torch.int64), probes[0].to(torch.int64)
-        srt, perm = _derived(
-            env.session, "join_keys", name, t, info["keys"][0],
-            lambda c: torch.sort(c.data.to(torch.int64), stable=True))
-        pos = torch.clamp(torch.searchsorted(srt, p), max=srt.shape[0] - 1)
-        found = srt[pos] == p
-        row = perm[pos]
-    else:
-        row, found = merge_join_any(tuple(builds), tuple(probes),
-                                    probe_valid=pvalid)
-    if pvalid is not None:
-        found = found & pvalid
-    return torch.where(found, row, 0).to(torch.int32), found, scalar
+    key = ("join_keys", name, tuple(info["keys"]),
+           tuple(b.dtype for b in builds))
+    with uncharged():
+        build = derived_state(env.session, key, t[info["keys"][0]].data,
+                              lambda: build_join(builds))
+        res = probe_any(build, probes, pvalid)
+    return torch.where(res.found, res.build_row, 0).to(torch.int32), \
+        res.found, scalar
 
 
 def _join_get(args, env, default=None, or_null=False) -> Value:

@@ -14,14 +14,19 @@ build row, with one host synchronisation for the output size.  The grace
 variants partition both sides by key hash on the host and join one
 partition at a time on the device (GraceHashJoin.cpp).
 
-A build over one integer key is sorted once (``build_sorted``) and
+How a join's keys are matched is decided here alone: ``build_join``
+builds the probe structure from what the build keys are, ``probe_any``
+gives each probe row its lowest matching build row and ``probe_all``
+every match, and ``probe`` answers an ALL join over unique build keys
+with the ANY probe.  SQL joins, the broadcast join, joinGet,
+``hash_join_any``/``hash_join_all`` and the grace partitions all go
+through them.  One integer key is sorted once (``build_sorted``) and
 probed without sorting the probe side: by a direct lookup where its keys
-occupy a dense range, else by binary search (``probe_sorted`` for one
-match a probe row, ``probe_sorted_all`` for every match);
-``hash_join_any`` and ``hash_join_all`` take it for such a key, and so
-do the grace partitions.  Only multi-column keys take the merge sort of
-build plus probe rows (ops/hashtable.py).  Each step charges its
-tensors to the query's memory budget (runtime/memory.py).
+occupy a dense range, else by binary search (``probe_sorted``,
+``probe_sorted_all``).  Several keys, or a float key, take the hash
+table (``build_join_table``, ``probe_join_table``, ``probe_table_all``):
+the merge sort of build plus probe rows (ops/hashtable.py).  Each step
+charges its tensors to the query's memory budget (runtime/memory.py).
 
 Join keys are tensors on one device; results come back on it.
 """
@@ -79,15 +84,45 @@ class DirectTable(NamedTuple):
     lo: int
 
 
+def build_join(build_keys, build_mask=None, probe_rows: int = 0):
+    """The build side's probe structure, chosen from its keys: one integer
+    key is sorted (``build_sorted``, probed by a direct lookup or by
+    binary search; ``probe_rows`` sizes the lookup); several keys, or a
+    float key, take the hash table (``build_join_table``)."""
+    build_keys = tuple(torch.as_tensor(k) for k in build_keys)
+    if sortable_key(build_keys):
+        return build_sorted(build_keys[0], build_mask, probe_rows)
+    return build_join_table(build_keys, build_mask)
+
+
+def probe_any(b, probe_keys, probe_mask=None) -> JoinResult:
+    """Each probe row's lowest matching build row, from ``build_join``."""
+    if isinstance(b, SortedBuild):
+        return probe_sorted(b, torch.as_tensor(probe_keys[0]), probe_mask)
+    return probe_join_table(b, probe_keys, probe_mask)
+
+
+def probe_all(b, probe_keys, probe_mask=None) -> JoinExpansion:
+    """Every (probe, build) match, from ``build_join``."""
+    if isinstance(b, SortedBuild):
+        return probe_sorted_all(b, torch.as_tensor(probe_keys[0]),
+                                probe_mask)
+    return probe_table_all(b, probe_keys, probe_mask)
+
+
+def probe(b, probe_keys, all_rows: bool):
+    """An ANY probe, or with ``all_rows`` an ALL probe.  An ALL join over
+    unique build keys is an ANY join: its ``JoinResult`` has the one match
+    a probe row can have."""
+    if all_rows and not (isinstance(b, SortedBuild) and b.unique):
+        return probe_all(b, probe_keys)
+    return probe_any(b, probe_keys)
+
+
 def hash_join_any(build_keys, probe_keys, build_mask=None,
                   probe_mask=None) -> JoinResult:
-    if sortable_key(build_keys):
-        pk = torch.as_tensor(probe_keys[0])
-        b = build_sorted(torch.as_tensor(build_keys[0]), build_mask,
-                         pk.shape[0])
-        return probe_sorted(b, pk, probe_mask)
-    table = build_join_table(build_keys, build_mask)
-    return probe_join_table(table, probe_keys, probe_mask)
+    b = build_join(build_keys, build_mask, len(probe_keys[0]))
+    return probe_any(b, probe_keys, probe_mask)
 
 
 def _partition_ids(keys, n_partitions: int) -> torch.Tensor:
@@ -111,10 +146,15 @@ def rows_to_host(t: torch.Tensor, site: str) -> np.ndarray:
 
 def _grace_partitions(build_keys, probe_keys, build_mask, probe_mask,
                       n_partitions: int):
-    """Host partition ids of both sides (-1 where a mask drops the row)."""
+    """Each partition that both sides reach: its probe and build row ids on
+    the host (a row a mask drops is in none) and their keys on the
+    device."""
     if n_partitions <= 0 or n_partitions & (n_partitions - 1):
         raise ValueError(f"grace hash join: n_partitions = {n_partitions} "
                          "must be a power of two")
+    build_keys = tuple(torch.as_tensor(b) for b in build_keys)
+    probe_keys = tuple(torch.as_tensor(p) for p in probe_keys)
+    dev = probe_keys[0].device
     with sync("join.grace.partitions"):
         bpid = _partition_ids(build_keys, n_partitions).cpu().numpy()
         ppid = _partition_ids(probe_keys, n_partitions).cpu().numpy()
@@ -124,7 +164,14 @@ def _grace_partitions(build_keys, probe_keys, build_mask, probe_mask,
     if probe_mask is not None:
         ppid = np.where(rows_to_host(probe_mask, "join.grace.mask"),
                         ppid, -1)
-    return bpid, ppid
+    for p in range(n_partitions):
+        psel = np.flatnonzero(ppid == p)
+        bsel = np.flatnonzero(bpid == p)
+        if len(psel) and len(bsel):
+            ps, bs = torch.as_tensor(psel, device=dev), \
+                torch.as_tensor(bsel, device=dev)
+            yield psel, bsel, tuple(b[bs] for b in build_keys), \
+                tuple(q[ps] for q in probe_keys)
 
 
 def grace_hash_join_any(build_keys, probe_keys, build_mask=None,
@@ -132,29 +179,19 @@ def grace_hash_join_any(build_keys, probe_keys, build_mask=None,
     """Partitioned ANY join for build sides larger than device memory
     (reference: GraceHashJoin.cpp — bucketed spill-to-disk; here partitions
     stay in host RAM and go to the device one at a time)."""
-    build_keys = tuple(torch.as_tensor(b) for b in build_keys)
-    probe_keys = tuple(torch.as_tensor(p) for p in probe_keys)
-    dev = probe_keys[0].device
-    n_probe = probe_keys[0].shape[0]
-    bpid, ppid = _grace_partitions(build_keys, probe_keys, build_mask,
-                                   probe_mask, n_partitions)
-    found = np.zeros(n_probe, dtype=bool)
-    build_row = np.full(n_probe, INT32_MAX, dtype=np.int64)
-    for p in range(n_partitions):
-        psel = np.flatnonzero(ppid == p)
-        bsel = np.flatnonzero(bpid == p)
-        if len(psel) == 0 or len(bsel) == 0:
-            continue
-        ps, bs = torch.as_tensor(psel, device=dev), \
-            torch.as_tensor(bsel, device=dev)
-        res = hash_join_any(tuple(b[bs] for b in build_keys),
-                            tuple(q[ps] for q in probe_keys))
+    pk = torch.as_tensor(probe_keys[0])
+    found = np.zeros(pk.shape[0], dtype=bool)
+    build_row = np.full(pk.shape[0], INT32_MAX, dtype=np.int64)
+    for psel, bsel, bkeys, pkeys in _grace_partitions(
+            build_keys, probe_keys, build_mask, probe_mask, n_partitions):
+        res = hash_join_any(bkeys, pkeys)
         f = rows_to_host(res.found, "join.grace.found")
         br = rows_to_host(res.build_row, "join.grace.rows")
         found[psel] = f
         build_row[psel[f]] = bsel[br[f]]
-    return JoinResult(torch.as_tensor(build_row.astype(np.int32), device=dev),
-                      torch.as_tensor(found, device=dev))
+    return JoinResult(torch.as_tensor(build_row.astype(np.int32),
+                                      device=pk.device),
+                      torch.as_tensor(found, device=pk.device))
 
 
 def grace_hash_join_all(build_keys, probe_keys, build_mask=None,
@@ -163,23 +200,13 @@ def grace_hash_join_all(build_keys, probe_keys, build_mask=None,
     """Partitioned ALL join; output pairs are re-sorted by probe row so the
     result is identical to hash_join_all (within a probe row, matches
     ascend by build row in both)."""
-    build_keys = tuple(torch.as_tensor(b) for b in build_keys)
-    probe_keys = tuple(torch.as_tensor(p) for p in probe_keys)
-    dev = probe_keys[0].device
-    n_probe = probe_keys[0].shape[0]
-    bpid, ppid = _grace_partitions(build_keys, probe_keys, build_mask,
-                                   probe_mask, n_partitions)
-    found = np.zeros(n_probe, dtype=bool)
+    pk = torch.as_tensor(probe_keys[0])
+    dev = pk.device
+    found = np.zeros(pk.shape[0], dtype=bool)
     pi_parts, bi_parts = [], []
-    for p in range(n_partitions):
-        psel = np.flatnonzero(ppid == p)
-        bsel = np.flatnonzero(bpid == p)
-        if len(psel) == 0 or len(bsel) == 0:
-            continue
-        ps, bs = torch.as_tensor(psel, device=dev), \
-            torch.as_tensor(bsel, device=dev)
-        exp = hash_join_all(tuple(b[bs] for b in build_keys),
-                            tuple(q[ps] for q in probe_keys))
+    for psel, bsel, bkeys, pkeys in _grace_partitions(
+            build_keys, probe_keys, build_mask, probe_mask, n_partitions):
+        exp = hash_join_all(bkeys, pkeys)
         found[psel] = rows_to_host(exp.found, "join.grace.found")
         pi_parts.append(psel[rows_to_host(exp.probe_idx,
                                            "join.grace.pairs")])
@@ -200,25 +227,19 @@ def hash_join_all(build_keys, probe_keys, build_mask=None,
                   probe_mask=None) -> JoinExpansion:
     """ALL-strictness join: every (probe, build) key match becomes an output
     pair (reference: HashJoin MapsAll row-ref lists, HashJoin.cpp).
-    Within a probe row, matches ascend by build row.
+    Within a probe row, matches ascend by build row."""
+    b = build_join(build_keys, build_mask, len(probe_keys[0]))
+    return probe_all(b, probe_keys, probe_mask)
 
-    One integer key: the sorted build (``probe_sorted_all``).  Several
-    keys: build rows are bucketed per slot (a stable sort by slot gives
-    contiguous runs); the probe fans out with one host sync for the
-    output cardinality.
-    """
-    build_keys = tuple(torch.as_tensor(b) for b in build_keys)
-    probe_keys = tuple(torch.as_tensor(p) for p in probe_keys)
-    if sortable_key(build_keys):
-        b = build_sorted(build_keys[0], build_mask, probe_keys[0].shape[0])
-        return probe_sorted_all(b, probe_keys[0], probe_mask)
-    n_build = build_keys[0].shape[0]
-    dev = probe_keys[0].device
-    table, slot_of_build, _ = build_group_ids(
-        build_keys, mask=build_mask, num_groups_hint=min(n_build, 1 << 16))
+
+def probe_table_all(table: HashTable, probe_keys,
+                    probe_mask=None) -> JoinExpansion:
+    """Every match through the hash table: build rows are bucketed per
+    slot (a stable sort by slot gives contiguous runs); the probe fans out
+    with one host sync for the output cardinality."""
     cap = table.capacity
     # bucket build rows by slot: counts, starts, and slot-sorted row ids
-    safe_slot = torch.where(slot_of_build != INT32_MAX, slot_of_build,
+    safe_slot = torch.where(table.gid_of_row != INT32_MAX, table.gid_of_row,
                             cap).long()
     counts = torch.bincount(safe_slot, minlength=cap + 1)[:cap]
     rows_by_slot = torch.sort(safe_slot, stable=True).indices
@@ -228,16 +249,23 @@ def hash_join_all(build_keys, probe_keys, build_mask=None,
     safe_pslot = torch.where(found, pslot, 0).long()
     match_count = torch.where(found, counts[safe_pslot], 0)
     total = int(match_count.sum())                    # host sync (one)
+    return _fan_out(rows_by_slot, starts[safe_pslot], match_count, total,
+                    found)
+
+
+def _fan_out(rows, first, cnt, total: int, found) -> JoinExpansion:
+    """The (probe, build) pairs where probe row i matches the ``cnt[i]``
+    build rows ``rows[first[i]:first[i] + cnt[i]]``; ``total`` is
+    ``cnt.sum()``."""
+    dev = cnt.device
     if total == 0:
         empty = torch.zeros(0, dtype=torch.int64, device=dev)
         return JoinExpansion(empty, empty, found)
-    n_probe = pslot.shape[0]
     probe_idx = torch.repeat_interleave(
-        torch.arange(n_probe, device=dev), match_count, output_size=total)
-    offsets = torch.cumsum(match_count, 0) - match_count
+        torch.arange(cnt.shape[0], device=dev), cnt, output_size=total)
+    offsets = torch.cumsum(cnt, 0) - cnt
     j = torch.arange(total, device=dev) - offsets[probe_idx]
-    build_idx = rows_by_slot[starts[safe_pslot[probe_idx]] + j]
-    return JoinExpansion(probe_idx, build_idx, found)
+    return JoinExpansion(probe_idx, rows[first[probe_idx] + j], found)
 
 
 class SortedBuild(NamedTuple):
@@ -341,9 +369,7 @@ def probe_sorted_all(b: SortedBuild, probe_key: torch.Tensor,
     """Every (probe, build) match, by probe row, then by build row, from
     two binary searches a probe row and one host read of the output
     size."""
-    dev = probe_key.device
-    npr = probe_key.shape[0]
-    charge(24 * npr, "join_probe")
+    charge(24 * probe_key.shape[0], "join_probe")
     keys, pk = _search_keys(b, probe_key)
     lo = torch.searchsorted(keys, pk)
     cnt = torch.searchsorted(keys, pk, right=True) - lo
@@ -351,14 +377,5 @@ def probe_sorted_all(b: SortedBuild, probe_key: torch.Tensor,
         cnt = torch.where(_masked(cnt > 0, probe_mask), cnt, 0)
     with sync("join.probe_sorted_all.total"):
         total = int(cnt.sum())
-    found = cnt > 0
-    if total == 0:
-        empty = torch.zeros(0, dtype=torch.int64, device=dev)
-        return JoinExpansion(empty, empty, found)
     charge(24 * total, "join_pairs")
-    probe_idx = torch.repeat_interleave(
-        torch.arange(npr, device=dev), cnt, output_size=total)
-    offsets = torch.cumsum(cnt, 0) - cnt
-    j = torch.arange(total, device=dev) - offsets[probe_idx]
-    build_idx = b.rows[lo[probe_idx] + j]
-    return JoinExpansion(probe_idx, build_idx, found)
+    return _fan_out(b.rows, lo, cnt, total, cnt > 0)

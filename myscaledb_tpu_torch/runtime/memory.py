@@ -1,4 +1,5 @@
-"""Copy of myscaledb_tpu/runtime/memory.py (JAX-free; imports renamed to this package).
+"""Copy of myscaledb_tpu/runtime/memory.py (JAX-free; imports renamed to this package),
+plus ``uncharged``.
 
 Hierarchical memory budget: query -> process.
 
@@ -87,6 +88,19 @@ def query_scope(limit: int | None):
     finally:
         _tl.query = prev
         PROCESS.release(tracker.used)
+
+
+@contextmanager
+def uncharged():
+    """Work that no statement's budget covers (a lookup into state the
+    session keeps): inside, ``charge`` does nothing, as it does outside
+    every ``query_scope``."""
+    prev = getattr(_tl, "query", None)
+    _tl.query = None
+    try:
+        yield
+    finally:
+        _tl.query = prev
 
 
 def charge(nbytes: int, site: str = "") -> None:

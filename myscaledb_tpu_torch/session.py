@@ -49,7 +49,7 @@ class Session:
         self._query_cache = {}
         # state derived from a column, per (kind, table, column, epoch):
         # squared norms, the SQ8 sidecar, packed binary words, the BM25
-        # index (sql/executor.py::_derived)
+        # index (core/derived.py::derived_state)
         self._derived = {}
         self.sidecar_lock = threading.Lock()
         self.access = AccessControl()

@@ -37,6 +37,7 @@ import math
 import numpy as np
 import torch
 
+from myscaledb_tpu_torch.core.derived import derived_state
 from myscaledb_tpu_torch.core.dictionary import StringDictionary
 from myscaledb_tpu_torch.core.table import Column, to_tensor
 from myscaledb_tpu_torch.core.types import Field, DataType
@@ -773,7 +774,6 @@ def parsed_states(session, d, device) -> dict:
     """_parse_states of dictionary ``d``, kept in the session's
     derived-state cache for the current mutation epoch: a -Merge parses
     each distinct state once, not once a row or a query."""
-    from myscaledb_tpu_torch.sql.executor import derived_state
     return derived_state(session, ("aggstate", None, (id(d), len(d))), d,
                          lambda: _parse_states(d, device))
 

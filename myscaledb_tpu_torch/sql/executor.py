@@ -81,7 +81,6 @@ goldens pin stay byte-equal to the JAX package's.
 
 from __future__ import annotations
 
-import weakref
 from dataclasses import dataclass
 from typing import Optional
 
@@ -95,6 +94,7 @@ from myscaledb_tpu_torch.core.table import (BLOCK_ROWS, Table, Column,
                                             fits_device, offsets_total,
                                             to_tensor)
 from myscaledb_tpu_torch.core.dictionary import NULL_ID, StringDictionary
+from myscaledb_tpu_torch.core.derived import _derived, derived_state
 from myscaledb_tpu_torch.config import TableSettings
 from myscaledb_tpu_torch.errors import ExecError, NotPortedError
 from myscaledb_tpu_torch.sql.ast import (Expr, Literal, VectorLiteral, Ident,
@@ -120,11 +120,9 @@ from myscaledb_tpu_torch.exec.arrays import array_row_keys, as_array
 from myscaledb_tpu_torch.ops.hash import float_bits_key
 from myscaledb_tpu_torch.ops.hashtable import (at_run_start, build_group_ids,
                                                INT32_MAX)
-from myscaledb_tpu_torch.ops.join import (hash_join_any, hash_join_all,
+from myscaledb_tpu_torch.ops.join import (build_join, probe, probe_any,
                                           grace_hash_join_any,
-                                          grace_hash_join_all, build_sorted,
-                                          probe_sorted, probe_sorted_all,
-                                          sortable_key, rows_to_host,
+                                          grace_hash_join_all, rows_to_host,
                                           JoinResult)
 from myscaledb_tpu_torch.ops.binary_vector import (BINARY_METRICS,
                                                    binary_distance_scan,
@@ -802,52 +800,6 @@ def _key_on_device(sk: SortKey, device) -> SortKey:
     return SortKey(values, sk.ascending, valid, sk.nulls_last)
 
 
-def _derived(session, kind, table_name, table, col, build, epoch=None):
-    """State derived from one column and kept in the session: squared
-    norms (``sqnorm``), the SQ8 sidecar (``sq8``), packed binary words
-    (``binary``), the BM25 index (``bm25``), skip-index sidecars and
-    joinGet's sorted keys: ``derived_state`` keyed (kind, table, column)
-    and alive while the column's data is."""
-    return derived_state(session, (kind, table_name, col), table[col].data,
-                         lambda: build(table[col]), epoch)
-
-
-def derived_state(session, key: tuple, live, build, epoch=None):
-    """One cache for everything derived from session data, keyed by
-    ``key`` and the mutation epoch, with one rule: storing an entry drops
-    every entry of an earlier epoch, and an entry whose ``live`` object is
-    no longer the one it was built from (another table under the same
-    name in the same epoch, a CTE of an earlier statement, another
-    dictionary at a reused address) is built anew.  ``build()`` runs
-    under the session's sidecar lock, so of two threads that want the
-    same entry one builds and the other waits.
-
-    An index build may run this on the background executor's thread: on
-    the card a CUDA event recorded after the build orders the reader's
-    stream after the building thread's."""
-    with session.sidecar_lock:
-        if epoch is None:
-            epoch = session._mutation_epoch
-        key = (*key, epoch)
-        hit = session._derived.get(key)
-        if hit is not None and hit[2]() is not live:
-            hit = None
-        if hit is None:
-            out = build()
-            done = None
-            if session.device.type == "cuda":
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(session.device))
-            hit = (out, done, weakref.ref(live))
-            for k in [k for k in session._derived if k[-1] != epoch]:
-                del session._derived[k]
-            session._derived[key] = hit
-    out, done, _ = hit
-    if done is not None:
-        done.wait(torch.cuda.current_stream(session.device))
-    return out
-
-
 def _vector_sidecar(session, table_name, table, col, epoch=None):
     """The scan artifacts of a vector column: its squared norms and, from
     2^16 rows at a supported width, the SQ8 certified-quantization sidecar,
@@ -1255,50 +1207,17 @@ def apply_join(session, left: Table, jc, alias_prefixes: dict,
     ralias = jc.alias or jc.table or "_subquery"
     dev = session.device
     st = settings if settings is not None else session.settings
+    cross = jc.how == "CROSS" and not jc.using and jc.condition is None
+    pairs, asof_term = ([], None) if cross else \
+        _join_on(jc, left, right, ralias)
     if is_distributed(left):
         out = _distributed_join(session, left, right, jc, ralias,
-                                alias_prefixes, st)
+                                alias_prefixes, st, pairs)
         if out is not None:
             return out
     left = _compact_distributed(left)
     right = _compact_distributed(right)
-
-    # extract equality key pairs (+ for ASOF exactly one inequality)
-    pairs = []
-    asof_term = None          # (left_expr, op, right_expr)
-    if jc.using:
-        for c in jc.using:
-            pairs.append((Ident(c), Ident(c)))
-    elif jc.condition is not None:
-        for term in _split_conjuncts(jc.condition):
-            is_eq = isinstance(term, BinOp) and term.op == "="
-            is_ineq = isinstance(term, BinOp) and \
-                term.op in (">=", ">", "<=", "<")
-            if not is_eq and not (is_ineq and jc.strictness == "ASOF"):
-                raise ExecError("JOIN ON supports conjunctions of equalities")
-            l, r = term.left, term.right
-
-            def side(e):
-                if isinstance(e, Ident):
-                    if e.table == ralias or (e.table is None and
-                                             e.name in right and
-                                             e.name not in left):
-                        return "right"
-                    return "left"
-                raise ExecError("JOIN ON terms must be column = column")
-            op = term.op
-            if side(l) == "right" and side(r) == "left":
-                l, r = r, l
-                op = {">=": "<=", ">": "<", "<=": ">=", "<": ">"}.get(op, op)
-            elif not (side(l) == "left" and side(r) == "right"):
-                raise ExecError("JOIN ON must relate left and right columns")
-            if is_eq:
-                pairs.append((l, r))
-            else:
-                if asof_term is not None:
-                    raise ExecError("ASOF JOIN needs exactly one inequality")
-                asof_term = (l, op, r)
-    elif jc.how == "CROSS":
+    if cross:
         # cartesian product (reference: JoinAlgorithm CROSS)
         right = _filter_side(session, right, right_terms, keep)
         nl, nr = left.n_rows, right.n_rows
@@ -1308,8 +1227,6 @@ def apply_join(session, left: Table, jc, alias_prefixes: dict,
         return _gather_join_output(left, right, *_host_pairs(
             left_rows, right_rows, right_has, dev), jc, ralias,
             alias_prefixes, "ALL", dev, keep=keep)
-    else:
-        raise ExecError("JOIN requires ON or USING")
     if jc.strictness == "ASOF":
         if asof_term is None:
             raise ExecError("ASOF JOIN requires an inequality in ON")
@@ -1318,6 +1235,7 @@ def apply_join(session, left: Table, jc, alias_prefixes: dict,
 
     M.increment(M.JOIN_PROBE_ROWS, left.n_rows)
     how, strict = jc.how, jc.strictness
+    all_rows = strict not in ("ANY", "SEMI", "ANTI")
     use_grace = st.join_algorithm == "grace_hash" or (
         st.join_algorithm == "auto" and
         right.n_rows > st.max_rows_in_hash_join_build)
@@ -1326,38 +1244,77 @@ def apply_join(session, left: Table, jc, alias_prefixes: dict,
         with span("join_build"):
             right = _filter_side(session, right, right_terms, None if
                                  keep is None else keep | _clause_reads(jc))
-            lenv = Env(left, device=dev)
-            renv = Env(right, device=dev)
-            lkeys, rkeys = [], []
-            for le, re_ in pairs:
-                lv = eval_expr(Ident(le.name), lenv)
-                rv = eval_expr(Ident(re_.name), renv)
-                lk, rk = _join_key_arrays(lv, rv)
-                lkeys.append(lk)
-                rkeys.append(rk)
-            sorted_build = build_sorted(rkeys[0], probe_rows=left.n_rows) \
-                if not use_grace and sortable_key(rkeys) else None
+            (lkeys,), rkeys = _join_keys(pairs, [Env(left, device=dev)],
+                                         Env(right, device=dev))
+            b = None if use_grace else \
+                build_join(rkeys, probe_rows=left.n_rows)
         with span("join_probe"):
-            # an ALL join over unique build keys is an ANY join
-            as_any = strict in ("ANY", "SEMI", "ANTI") or (
-                sorted_build is not None and sorted_build.unique)
             if use_grace:
-                n_parts = st.grace_hash_join_initial_buckets
-                res = (grace_hash_join_any if as_any else
-                       grace_hash_join_all)(tuple(rkeys), tuple(lkeys),
-                                            n_partitions=n_parts)
-            elif sorted_build is not None:
-                res = (probe_sorted if as_any else probe_sorted_all)(
-                    sorted_build, lkeys[0])
+                res = (grace_hash_join_all if all_rows else
+                       grace_hash_join_any)(
+                    tuple(rkeys), tuple(lkeys),
+                    n_partitions=st.grace_hash_join_initial_buckets)
             else:
-                res = (hash_join_any if as_any else hash_join_all)(
-                    tuple(rkeys), tuple(lkeys))
+                res = probe(b, lkeys, all_rows)
             pairs_ = _join_pairs_on_card(left.n_rows, right.n_rows, res, how,
                                          strict, dev)
         with span("join_gather"):
             return _gather_join_output(left, right, *pairs_, jc, ralias,
                                        alias_prefixes, strict, dev,
                                        keep=keep)
+
+
+def _join_on(jc, left: Table, right: Table, ralias: str):
+    """The ON or USING clause of a join read once for every path: its
+    (left Ident, right Ident) equality pairs and, for ASOF, its one
+    inequality (left Ident, op, right Ident) or None."""
+    if jc.using:
+        return [(Ident(c), Ident(c)) for c in jc.using], None
+    if jc.condition is None:
+        raise ExecError("JOIN requires ON or USING")
+    pairs = []
+    asof_term = None
+
+    def side(e):
+        if isinstance(e, Ident):
+            if e.table == ralias or (e.table is None and e.name in right
+                                     and e.name not in left):
+                return "right"
+            return "left"
+        raise ExecError("JOIN ON terms must be column = column")
+    for term in _split_conjuncts(jc.condition):
+        is_eq = isinstance(term, BinOp) and term.op == "="
+        is_ineq = isinstance(term, BinOp) and \
+            term.op in (">=", ">", "<=", "<")
+        if not is_eq and not (is_ineq and jc.strictness == "ASOF"):
+            raise ExecError("JOIN ON supports conjunctions of equalities")
+        l, r, op = term.left, term.right, term.op
+        if side(l) == "right" and side(r) == "left":
+            l, r = r, l
+            op = {">=": "<=", ">": "<", "<=": ">=", "<": ">"}.get(op, op)
+        elif not (side(l) == "left" and side(r) == "right"):
+            raise ExecError("JOIN ON must relate left and right columns")
+        if is_eq:
+            pairs.append((l, r))
+        else:
+            if asof_term is not None:
+                raise ExecError("ASOF JOIN needs exactly one inequality")
+            asof_term = (l, op, r)
+    return pairs, asof_term
+
+
+def _join_keys(pairs, lenvs, renv):
+    """The aligned key tensors of the equality pairs (``_join_key_arrays``):
+    per left ``Env`` its list of keys, and the right side's keys, its
+    columns evaluated once."""
+    lkeys, rkeys = [[] for _ in lenvs], []
+    for le, re_ in pairs:
+        rv = eval_expr(Ident(re_.name), renv)
+        for keys, env in zip(lkeys, lenvs):
+            lk, rk = _join_key_arrays(eval_expr(Ident(le.name), env), rv)
+            keys.append(lk)
+        rkeys.append(rk)
+    return lkeys, rkeys
 
 
 def _nonzero(mask: torch.Tensor, site: str) -> torch.Tensor:
@@ -1602,33 +1559,8 @@ def _plan_joins(session, q, base: Table):
     return q, _filter_side(session, base, base_terms, carried(q)), plan
 
 
-def _join_pairs(jc, left: Table, right: Table, ralias: str):
-    """The (left Ident, right Ident) equality pairs of a join the
-    distributed paths take, or None (an inequality, an expression)."""
-    if jc.using:
-        return [(Ident(c), Ident(c)) for c in jc.using]
-    pairs = []
-    for term in _split_conjuncts(jc.condition):
-        if not (isinstance(term, BinOp) and term.op == "="):
-            return None
-        l, r = term.left, term.right
-        if not (isinstance(l, Ident) and isinstance(r, Ident)):
-            return None
-
-        def is_right(e):
-            return e.table == ralias or (e.table is None and
-                                         e.name in right and
-                                         e.name not in left)
-        if is_right(l) and not is_right(r):
-            l, r = r, l
-        elif not (is_right(r) and not is_right(l)):
-            return None
-        pairs.append((l, r))
-    return pairs or None
-
-
 def _distributed_join(session, left: Table, right: Table, jc, ralias: str,
-                      alias_prefixes: dict, st) -> Optional[Table]:
+                      alias_prefixes: dict, st, pairs) -> Optional[Table]:
     """A join whose left side is distributed, with no gather of that side
     (StorageDistributed's GLOBAL join; the strategy is
     ``plan.choose_join_strategy``'s, which EXPLAIN prints):
@@ -1639,9 +1571,10 @@ def _distributed_join(session, left: Table, right: Table, jc, ralias: str,
       * both sides distributed and large: the shuffle join
         (``_distributed_shuffle_join``).
 
-    Returns None for what neither covers (ASOF, CROSS, RIGHT/FULL, an ALL
-    join over duplicate build keys under broadcast, an empty or ragged
-    build side): the caller joins the compacted tables on the host."""
+    ``pairs``: the clause's equality pairs (``_join_on``).  Returns None
+    for what neither covers (ASOF, CROSS, RIGHT/FULL, an ALL join over
+    duplicate build keys under broadcast, an empty or ragged build side):
+    the caller joins the compacted tables on the host."""
     how, strict = jc.how, jc.strictness
     if strict == "ASOF" or how == "CROSS" or \
             (jc.condition is None and not jc.using):
@@ -1649,12 +1582,7 @@ def _distributed_join(session, left: Table, right: Table, jc, ralias: str,
     if how not in ("INNER", "LEFT") or strict not in ("ANY", "ALL", "SEMI",
                                                       "ANTI"):
         return None
-    pairs = _join_pairs(jc, left, right, ralias)
-    if pairs is None:
-        return None
     from myscaledb_tpu_torch.sql.plan import choose_join_strategy
-    from myscaledb_tpu_torch.ops.join import (build_join_table,
-                                              probe_join_table)
     strategy = choose_join_strategy(left, right, st, how, strict)
     if strategy == "shuffle":
         return _distributed_shuffle_join(session, left, right, jc, ralias,
@@ -1667,17 +1595,10 @@ def _distributed_join(session, left: Table, right: Table, jc, ralias: str,
         return None
     dev = session.device
     mesh = left.mesh
-    lshards = shard_tables(left)
-    renv = Env(right, device=dev)
-    lkeys, rkeys = [[] for _ in lshards], []
     try:
-        for le, re_ in pairs:
-            rv = eval_expr(Ident(re_.name), renv)
-            for p, lt in enumerate(lshards):
-                lk, rk = _join_key_arrays(
-                    eval_expr(Ident(le.name), Env(lt, device=lt.device)), rv)
-                lkeys[p].append(lk)
-            rkeys.append(rk)
+        lkeys, rkeys = _join_keys(
+            pairs, [Env(lt, device=lt.device) for lt in shard_tables(left)],
+            Env(right, device=dev))
     except (EvalError, ExecError):
         return None
     if strict == "ALL":
@@ -1689,19 +1610,13 @@ def _distributed_join(session, left: Table, right: Table, jc, ralias: str,
     # structure and its columns on each card the shards use
     cards = {}
     for p in range(mesh.size):
-        d = mesh.device(p)
-        if str(d) not in cards:
-            rk_d = tuple(k.to(d) for k in rkeys)
-            if sortable_key(rk_d):
-                b = build_sorted(rk_d[0])
-                cards[str(d)] = (lambda pk, b=b: probe_sorted(b, pk[0]))
-            else:
-                ht = build_join_table(rk_d)
-                cards[str(d)] = (lambda pk, t=ht: probe_join_table(t, pk))
+        d = str(mesh.device(p))
+        if d not in cards:
+            cards[d] = build_join([k.to(d) for k in rkeys])
     M.increment(M.JOIN_PROBE_ROWS, getattr(left, "real_rows", left.n_rows))
     with span("broadcast_join", how=how, strictness=strict,
               probe_rows=left.n_rows, build_rows=right.n_rows):
-        res = [cards[str(mesh.device(p))](tuple(lkeys[p]))
+        res = [probe_any(cards[str(mesh.device(p))], lkeys[p])
                for p in range(mesh.size)]
     founds = [r.found for r in res]
     rv_old = left[ROW_VALID].data.parts
@@ -1761,19 +1676,14 @@ def _distributed_shuffle_join(session, left: Table, right: Table, jc,
     dev = session.device
     if right.mesh.size != left.mesh.size:
         return None
-    lshards, rshards = shard_tables(left), shard_tables(right)
+    lks, rks = [], []
     try:
-        rvs = [eval_expr(Ident(pairs[0][1].name), Env(t, device=t.device))
-               for t in rshards]
-        if any(v.dictionary is not rvs[0].dictionary for v in rvs):
-            return None
-        lks, rks = [], []
-        for p, t in enumerate(lshards):
-            lk, rk = _join_key_arrays(
-                eval_expr(Ident(pairs[0][0].name), Env(t, device=t.device)),
-                rvs[p])
-            lks.append(lk)
-            rks.append(rk)
+        # the shards of a column share its dictionary (``shard_table``)
+        for lt, rt in zip(shard_tables(left), shard_tables(right)):
+            (lk,), rk = _join_keys(pairs, [Env(lt, device=lt.device)],
+                                   Env(rt, device=rt.device))
+            lks += lk
+            rks += rk
     except (EvalError, ExecError):
         return None
     if lks[0].is_floating_point() or lks[0].dtype == torch.bool:
@@ -1929,13 +1839,9 @@ def _apply_asof_join(left: Table, right: Table, jc, ralias: str,
     right side by the composite key, one vectorized searchsorted resolves
     every left row."""
     lenv, renv = Env(left, device=device), Env(right, device=device)
-    lkeys, rkeys = [], []
-    for le, re_ in pairs:
-        lv = eval_expr(Ident(le.name), lenv)
-        rv = eval_expr(Ident(re_.name), renv)
-        lk, rk = _join_key_arrays(lv, rv)
-        lkeys.append(lk.cpu().numpy())
-        rkeys.append(rk.cpu().numpy())
+    (lkeys,), rkeys = _join_keys(pairs, [lenv], renv)
+    lkeys = [k.cpu().numpy() for k in lkeys]
+    rkeys = [k.cpu().numpy() for k in rkeys]
     lexpr, op, rexpr = asof_term
     lval = eval_expr(Ident(lexpr.name), lenv).data.cpu().numpy() \
         .astype(np.float64)

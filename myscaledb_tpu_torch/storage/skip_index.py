@@ -36,6 +36,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from myscaledb_tpu_torch.core.derived import _derived
 from myscaledb_tpu_torch.core.table import BLOCK_ROWS
 from myscaledb_tpu_torch.core.types import physical_dtype
 from myscaledb_tpu_torch.ops.hash import _shr64, _to_i64_bits
@@ -414,6 +415,5 @@ def sidecar_for(session, table, column_name: str, idx: SkipIndexDef):
     current mutation epoch (the session's derived-state cache, which drops
     earlier epochs and rebuilds when the column is no longer the one the
     entry was built from)."""
-    from myscaledb_tpu_torch.sql.executor import _derived
     return _derived(session, ("skip", idx), table.name, table, column_name,
                     lambda col: build_sidecar(col, idx))

@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from myscaledb_tpu_torch.core.derived import derived_state
 from myscaledb_tpu_torch.core.table import Column
 from myscaledb_tpu_torch.text.bm25 import BM25Index, tokenize
 
@@ -34,7 +35,6 @@ def _shard_indexes(session, table_name: str, table, text_col: str) -> list:
     from myscaledb_tpu_torch import native
     from myscaledb_tpu_torch.parallel.dist_table import ROW_VALID
     from myscaledb_tpu_torch.parallel.mesh import row_slices
-    from myscaledb_tpu_torch.sql.executor import derived_state
     c = table[text_col]
     mesh = table.mesh
 

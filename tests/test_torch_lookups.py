@@ -23,6 +23,27 @@ def _setup(s):
     s.sql("CREATE TABLE js (name String, code Int32) "
           "ENGINE = Join(ANY, LEFT, name)")
     s.sql("INSERT INTO js VALUES ('aa', 7), ('bb', 8)")
+    # joinGet's join builds: a dense key range (the direct lookup), a
+    # sparse one (binary search) and two keys probed with NULLs
+    s.sql("CREATE TABLE jdense (k Int64, v Int32) "
+          "ENGINE = Join(ANY, LEFT, k)")
+    s.sql("INSERT INTO jdense VALUES (0, 50), (1, 51), (2, 52), (3, 53), "
+          "(2, 99), (4, 54), (5, 55), (6, 56), (7, 57)")
+    s.sql("CREATE TABLE jsparse (k Int64, v String) "
+          "ENGINE = Join(ANY, LEFT, k)")
+    s.sql("INSERT INTO jsparse VALUES (5, 'five'), (1000000000000, 'tera'), "
+          "(1000000000000000, 'peta'), (5, 'dup')")
+    s.sql("CREATE TABLE probe2 (k Int64) ENGINE = Memory")
+    s.sql("INSERT INTO probe2 VALUES (5), (1000000000000000), (17), "
+          "(1000000000000)")
+    s.sql("CREATE TABLE j2 (a Int32, b String, v Int32) "
+          "ENGINE = Join(ANY, LEFT, a, b)")
+    s.sql("INSERT INTO j2 VALUES (1, 'x', 10), (1, 'y', 11), (2, 'x', 20), "
+          "(1, 'x', 99)")
+    s.sql("CREATE TABLE np (id UInt32, a Nullable(Int32), b String) "
+          "ENGINE = Memory")
+    s.sql("INSERT INTO np VALUES (1, 1, 'x'), (2, NULL, 'x'), (3, 2, 'x'), "
+          "(4, 1, 'y'), (5, 2, 'z'), (6, NULL, 'y')")
     s.sql("CREATE TABLE st (k UInt32) ENGINE = Set")
     s.sql("INSERT INTO st VALUES (1), (9)")
     s.create_table("countries", {
@@ -71,6 +92,11 @@ QUERIES = [
     "SELECT joinGet('js', 'code', 'bb')",
     "SELECT joinGet('js', 'code', name) FROM (SELECT 'aa' AS name)",
     "SELECT joinGet('js', 'code', 'zz')",
+    "SELECT id, joinGetOrDefault('jdense', 'v', k, -1) FROM facts "
+    "ORDER BY id",
+    "SELECT k, joinGetOrNull('jsparse', 'v', k) FROM probe2 ORDER BY k",
+    "SELECT id, joinGetOrNull('j2', 'v', a, b) FROM np ORDER BY id",
+    "SELECT id, joinGet('j2', 'v', a, b) FROM np ORDER BY id",
     "SELECT id, dictGet('country_dict', 'name', country) AS n FROM events "
     "ORDER BY id",
     "SELECT id, dictGetOrDefault('country_dict', 'pop_m', country, -1.0) "

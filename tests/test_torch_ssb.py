@@ -23,6 +23,7 @@ import torch
 
 import myscaledb_tpu
 import myscaledb_tpu_torch
+from myscaledb_tpu_torch.ops import join
 from myscaledb_tpu_torch.runtime import metrics as M
 from myscaledb_tpu_torch.runtime.memory import MemoryLimitExceeded
 from myscaledb_tpu_torch.runtime import tracing
@@ -148,8 +149,8 @@ def _same(sessions, sql):
 def test_unique_key_all_join_against_the_fan_out(sessions, monkeypatch,
                                                  build, how):
     calls = []
-    real = executor.probe_sorted_all
-    monkeypatch.setattr(executor, "probe_sorted_all",
+    real = join.probe_all
+    monkeypatch.setattr(join, "probe_all",
                         lambda *a: calls.append(1) or real(*a))
     before = M.events_snapshot().get(M.JOIN_ROWS_TO_HOST, 0)
     _same(sessions, f"SELECT lv, uv, {build}.t FROM l {how} JOIN {build} "
@@ -170,8 +171,8 @@ def test_unique_key_all_join_against_the_fan_out(sessions, monkeypatch,
 def test_probe_without_a_probe_side_sort(sessions, monkeypatch, sql):
     """Single integer keys never reach the merge sort of build plus probe
     rows, and copy no row index to the host."""
-    monkeypatch.setattr(executor, "hash_join_all", None)
-    monkeypatch.setattr(executor, "hash_join_any", None)
+    monkeypatch.setattr(join, "build_join_table", None)
+    monkeypatch.setattr(join, "probe_join_table", None)
     before = M.events_snapshot().get(M.JOIN_ROWS_TO_HOST, 0)
     _same(sessions, sql)
     assert M.events_snapshot().get(M.JOIN_ROWS_TO_HOST, 0) == before

@@ -7,7 +7,7 @@ Usage (from the repo root, on the machine with the card):
         .:groupby,hits PARENT:groupby,hits
 
 Each argument is ``checkout:phase,phase``; phases are ``groupby``
-(sql_groupby), ``binary`` (sql_binary), ``hits`` (sql_hits), ``arrays``
+(sql_groupby), ``join`` (sql_join), ``binary`` (sql_binary), ``hits`` (sql_hits), ``arrays``
 (sql_arrays), ``subquery`` (sql_subquery), ``text`` (sql_text),
 ``storage`` (sql_storage), ``views`` (sql_views), ``formats``
 (sql_formats), ``server`` (sql_server), ``distributed``
@@ -35,7 +35,8 @@ build.build(); build.library()
 if hasattr(build, 'host_library'):   # older checkouts have none
     build.host_library()
 torch.backends.cuda.matmul.allow_tf32 = False
-names = {'groupby': 'phase_groupby', 'binary': 'phase_sql_binary',
+names = {'groupby': 'phase_groupby', 'join': 'phase_sql_join',
+         'binary': 'phase_sql_binary',
          'hits': 'phase_sql_hits', 'arrays': 'phase_sql_arrays',
          'subquery': 'phase_sql_subquery', 'text': 'phase_sql_text',
          'storage': 'phase_sql_storage', 'views': 'phase_sql_views',
@@ -59,6 +60,10 @@ def summarize(stdout: str) -> None:
             prof = d.get("profile_3_queries", {})
             print(f"  sql_groupby median {d['median_query_ms']:.3f} "
                   f"busy {prof.get('device_busy_share', 0):.3f}")
+        if d.get("phase") == "sql_join":
+            print(f"  sql_join aggregate median {d['median_query_ms']:.3f} "
+                  + " ".join(f"{k} {st['ms']:.3f} ({st['rows']} rows)"
+                             for k, st in d["statements"].items()))
         if d.get("phase") == "sql_binary":
             print(f"  sql_binary load_s {d['load_s']:.3f} median "
                   f"{d['median_query_ms']:.3f}")
