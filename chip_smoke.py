@@ -326,7 +326,13 @@ the stacked (group, key) pairs for distinct_count; none for
 binary_segment_mins, since no single PyTorch call computes a popcount
 distance).  distinct_count (K6) is timed at mix5's shapes: 100M rows of
 the benchmark generator's UserID at G = 1 and grouped by its RegionID
-(``timing_distinct_count_mix5``; ``fill_ms`` the table's fill alone).  ``bound_ms`` is the larger of the bytes over 3.35 TB/s and the
+(``timing_distinct_count_mix5``; ``fill_ms`` the table's fill alone).
+join_probe (K7) is timed at SSB's shape (``timing_join_probe_ssb``):
+600M int32 keys drawn as the benchmark's generator draws lo_custkey,
+probed against the customer table's direct lookup (3M keys), no mask,
+beside the plain chain it replaced (no PyTorch call computes the probe
+in one, so no library time).
+``bound_ms`` is the larger of the bytes over 3.35 TB/s and the
 operations over the H100's peak for their type (integer operations are
 counted against the f32 rate outside the tensor cores; segmin_f32's
 products as three TF32 products each, at 495 TFLOP/s).  The kernels
@@ -336,7 +342,7 @@ non-FMA f32 rate, computed from the shapes beside ``bound_ms``, and under
 ``timing_segmin_sq8_d1152`` the __dp4a branch at 128 queries of d = 1152
 beside the same queries 64 at a time on the wgmma branch.
 
-All six launch counters are zeroed just before each path's run (the
+All seven launch counters are zeroed just before each path's run (the
 twenty certified queries; the three uncertifiable statements; the ten
 config-2 statements; the join build and count probes; the join statements
 up to the last timed one; the ten config-6 statements; on the DDL-built
@@ -443,10 +449,11 @@ def kernel_wrappers() -> dict:
     from myscaledb_tpu_torch.ops.kernels.merge_count import merge_count
     from myscaledb_tpu_torch.ops.kernels.distinct_count import \
         distinct_count
+    from myscaledb_tpu_torch.ops.kernels.join_probe import probe_direct
     return {"segmin_sq8": segmin_sq8, "segmin_f32": segmin_f32,
             "group_aggregate": group_aggregate, "merge_count": merge_count,
             "binary_segment_mins": binary_segment_mins,
-            "distinct_count": distinct_count}
+            "distinct_count": distinct_count, "join_probe": probe_direct}
 
 
 def zero_launches() -> None:
@@ -688,6 +695,7 @@ def phase_kernels(gen):
     timings.update(k5_times)
     report["distinct_count"], k6_times = k6_kernel(gen)
     timings.update({("distinct_count", G): t for G, t in k6_times.items()})
+    report["join_probe"], timings[("join_probe", 1)] = k7_kernel(gen)
     return report, timings, extra
 
 
@@ -1165,6 +1173,64 @@ def k6_kernel(gen):
     del uid, region, mask, table
     torch.cuda.empty_cache()
     return rep, times
+
+
+def k7_kernel(gen):
+    """K7 (join_probe) at SSB's shape: 600M lineorder custkeys against the
+    direct lookup of 3M customers (``build_sorted`` over c_custkey 1..3M,
+    sized for 600M probe rows), no mask.  The keys are drawn as
+    ``portbench/datagen/ssb.py`` draws lo_custkey: an order's four lines
+    share one customer whose key is not a multiple of 3.  Rows and flags
+    equal the plain chain's; then the wrapper, the bare launch and the
+    plain chain are timed."""
+    from myscaledb_tpu_torch.ops.join import build_sorted
+    from myscaledb_tpu_torch.ops.kernels import build
+    from myscaledb_tpu_torch.ops.kernels.join_probe import (
+        probe_direct, probe_direct_plain)
+
+    n, n_cust = 600_000_000, 3_000_000
+    g = torch.Generator(device="cuda").manual_seed(gen.initial_seed() + 7)
+    r = torch.randint(0, n_cust - n_cust // 3, (n // 4,), device="cuda",
+                      generator=g)
+    key = (3 * (r // 2) + r % 2 + 1).to(torch.int32).repeat_interleave(4)
+    del r
+    b = build_sorted(torch.arange(1, n_cust + 1, dtype=torch.int32,
+                                  device="cuda"), probe_rows=n)
+    lookup, lo = b.direct.lookup, b.direct.lo
+    m = lookup.shape[0]
+    row = torch.empty(n, dtype=torch.int32, device="cuda")
+    found = torch.empty(n, dtype=torch.bool, device="cuda")
+
+    def raw():          # the bare launch into preallocated outputs
+        build.check(build.library().msdb_join_probe_direct(
+            key.data_ptr(), 4, lookup.data_ptr(), lo, m, None, n,
+            row.data_ptr(), found.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "join_probe")
+
+    got = probe_direct(key, lookup, lo)
+    raw()
+    want = probe_direct_plain(key, lookup, lo)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            and torch.equal(row, want[0]) and torch.equal(found, want[1])):
+        raise AssertionError("join_probe: rows or flags differ from the "
+                             "plain version")
+    found_share = float(want[1].float().mean())
+    del got, want
+    torch.cuda.empty_cache()
+    # keys read once, rows and flags written once, the lookup read once
+    b_ms, by = bound_ms(n * (4 + 4 + 1) + m * 4, 0.0, F32_FLOPS)
+    t = {"ms": time_ms(lambda: probe_direct(key, lookup, lo), reps=20),
+         "kernel_ms": time_ms(raw, reps=20),
+         "plain_ms": time_ms(lambda: probe_direct_plain(key, lookup, lo),
+                             reps=5),
+         "library_ms": None,
+         "library_note": "none: no single PyTorch call computes the probe",
+         "bound_ms": b_ms, "bound_by": by, "rows": n, "lookup_entries": m,
+         "found_share": found_share}
+    del key, row, found, b, lookup
+    torch.cuda.empty_cache()
+    return {"checks": 1, "max_abs_err": 0.0}, t
 
 
 def vec_sql(v: np.ndarray) -> str:
@@ -1657,11 +1723,14 @@ def phase_join_count(seed: int):
 
 def phase_sql_join(seed: int):
     """Joins through Session.sql over a 10M-row fact and a 1M-row dim
-    table, and an ALL join against a 2M-row dim table whose keys repeat;
-    every result against a searchsorted oracle on the card."""
+    table, an ALL join against a 2M-row dim table whose keys repeat, and
+    a join against a 1M-row dim table of dense keys (the direct lookup,
+    K7; its direct probes must equal K7's launches); every result against
+    an oracle on the card."""
     import myscaledb_tpu_torch as P
     from myscaledb_tpu_torch.ops.kernels.merge_count import (
         build_count_index, prepare_build)
+    from myscaledb_tpu_torch.runtime import metrics as M
 
     rng = np.random.default_rng(seed + 5)
     t0 = time.perf_counter()
@@ -1685,6 +1754,14 @@ def phase_sql_join(seed: int):
     s.create_table("d2", {"k": dim_k[rng.integers(0, NJ_DIM, 2 * NJ_DIM)],
                           "c": rng.integers(0, 100, 2 * NJ_DIM,
                                             dtype=np.int32)})
+    # a dense key range (a permutation of 0 .. NJ_DIM - 1), which the
+    # direct lookup and K7 answer; a generator of its own, so the other
+    # tables stay as they were
+    rng_dense = np.random.default_rng(seed + 6)
+    s.create_table("dd", {"k": rng_dense.permutation(NJ_DIM).astype(
+                              np.int32),
+                          "c": rng_dense.integers(0, 100, NJ_DIM,
+                                                  dtype=np.int32)})
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     f, d, d2 = s.tables["f"], s.tables["d"], s.tables["d2"]
@@ -1716,6 +1793,7 @@ def phase_sql_join(seed: int):
     # the path's own run, from the first statement to the last timed one:
     # counts zeroed just before, read just after
     zero_launches()
+    direct_before = M.events_snapshot().get("DirectProbeJoins", 0)
     for strict in ("ANY", "ALL"):
         res = run(f"inner_{strict.lower()}", "SELECT id, c FROM f "
                   f"{strict} INNER JOIN d ON f.k = d.k")
@@ -1733,6 +1811,15 @@ def phase_sql_join(seed: int):
     same(res["id"].data, fid[found], "SEMI")
     res = run("anti", "SELECT id FROM f ANTI LEFT JOIN d ON f.k = d.k")
     same(res["id"].data, fid[~found], "ANTI")
+    # the fact's Int64 id against the dense keys: ids below NJ_DIM match
+    res = run("inner_dense", "SELECT id, c FROM f INNER JOIN dd "
+              "ON f.id = dd.k")
+    dd = s.tables["dd"]
+    c_of_key = torch.empty_like(dd["c"].data)
+    c_of_key[dd["k"].data.long()] = dd["c"].data
+    same(res["id"].data, fid[:NJ_DIM], "dense ids")
+    same(res["c"].data, c_of_key, "dense c")
+    del dd, c_of_key
     # ALL with repeated build keys: every (fact row, dim row) pair whose
     # keys are equal, from the searchsorted range of each fact key
     res = run("inner_all_fanout", "SELECT id, c FROM f ALL INNER JOIN d2 "
@@ -1767,6 +1854,11 @@ def phase_sql_join(seed: int):
             raise AssertionError("sql_join aggregate: differs from the "
                                  "oracle")
     counts = read_launches()
+    direct_probes = M.events_snapshot().get("DirectProbeJoins", 0) \
+        - direct_before
+    if direct_probes != counts["join_probe"]:
+        raise AssertionError(f"sql_join: {direct_probes} direct probes, "
+                             f"{counts['join_probe']} K7 launches")
     # outside every reported count
     breakdown = profile_statements(s, [agg_sql] * 3)
     # what K4's directory costs over the dim keys, timed alone: no
@@ -1789,7 +1881,7 @@ def phase_sql_join(seed: int):
           "median_query_ms": float(np.median(lat)),
           "p90_query_ms": float(np.percentile(lat, 90)), "query_ms": lat,
           "probe_rows_per_s": NJ_FACT / (float(np.median(lat)) / 1e3),
-          "launches": counts,
+          "launches": counts, "direct_probe_joins": direct_probes,
           "dim_directory_build_ms": float(np.median(dir_ms[1:])),
           "dim_directory_buckets": index.nbuckets,
           "max_memory_bytes_per_query":
@@ -6079,15 +6171,18 @@ def main() -> int:
                         "segmin_f32": [F32_RTOL, F32_ATOL],
                         "group_aggregate": [K3_RTOL, K3_ATOL],
                         "merge_count": "equal counts",
-                        "binary_segment_mins": "bit-equal"},
+                        "binary_segment_mins": "bit-equal",
+                        "join_probe": "equal rows and flags"},
           "checks": report,
           "timing_L2_50pct_mask": {f"{k}/nq={nq}": v
                                    for (k, nq), v in timings.items()
                                    if k not in ("group_aggregate",
-                                                "distinct_count")},
+                                                "distinct_count",
+                                                "join_probe")},
           "timing_distinct_count_mix5": {
               f"G={G}": t for (k, G), t in timings.items()
               if k == "distinct_count"},
+          "timing_join_probe_ssb": timings[("join_probe", 1)],
           "timing_group_aggregate_config2": timings[("group_aggregate", 1)],
           "timing_merge_count_config4": timings[("merge_count", 1)],
           "timing_binary_segment_mins_config6": {
@@ -6095,7 +6190,7 @@ def main() -> int:
               for nq in (1, 10)},
           "kernels": ["segmin_sq8", "segmin_f32", "group_aggregate",
                       "merge_count", "binary_segment_mins",
-                      "distinct_count"]})
+                      "distinct_count", "join_probe"]})
 
     counts = phase_sql(args.seed)
     counts["sql_groupby"] = phase_groupby(args.seed)
@@ -6123,8 +6218,8 @@ def main() -> int:
     # certificate fails (sql_f32), K3 from config 2's statement
     # (sql_groupby), K4 from config 4's count probe (join_count), K5 from
     # config 6's statement (sql_binary), K6 from the hits statements'
-    # distinct counts (sql_hits); every path's counts of it are printed
-    # beside
+    # distinct counts (sql_hits), K7 from the dense-key join of sql_join;
+    # every path's counts of it are printed beside
     for name, path, src, replaces in (
             ("segmin_sq8", "sql_sq8", "myscaledb_tpu_torch/csrc/segmin_sq8.cu",
              "myscaledb_tpu/ops/pallas/distance_q.py:103"),
@@ -6142,7 +6237,11 @@ def main() -> int:
             ("distinct_count", "sql_hits",
              "myscaledb_tpu_torch/csrc/distinct_count.cu",
              "none: the sorts of myscaledb_tpu/sql/agg_fns.py's distinct "
-             "counts")):
+             "counts"),
+            ("join_probe", "sql_join",
+             "myscaledb_tpu_torch/csrc/join_probe.cu",
+             "none: the element-wise probe of myscaledb_tpu_torch/ops/"
+             "join.py::probe_sorted (the JAX package probes with jnp)")):
         if counts[path][name] < 1:
             raise AssertionError(f"{name} never launched on path {path}")
         t = timings[(name, 1)]          # each path scans one query

@@ -22,11 +22,12 @@ with the ANY probe.  SQL joins, the broadcast join, joinGet,
 ``hash_join_any``/``hash_join_all`` and the grace partitions all go
 through them.  One integer key is sorted once (``build_sorted``) and
 probed without sorting the probe side: by a direct lookup where its keys
-occupy a dense range, else by binary search (``probe_sorted``,
-``probe_sorted_all``).  Several keys, or a float key, take the hash
-table (``build_join_table``, ``probe_join_table``, ``probe_table_all``):
-the merge sort of build plus probe rows (ops/hashtable.py).  Each step
-charges its tensors to the query's memory budget (runtime/memory.py).
+occupy a dense range (one pass of K7, ops/kernels/join_probe.py), else
+by binary search (``probe_sorted``, ``probe_sorted_all``).  Several
+keys, or a float key, take the hash table (``build_join_table``,
+``probe_join_table``, ``probe_table_all``): the merge sort of build plus
+probe rows (ops/hashtable.py).  Each step charges its tensors to the
+query's memory budget (runtime/memory.py).
 
 Join keys are tensors on one device; results come back on it.
 """
@@ -42,6 +43,8 @@ from myscaledb_tpu_torch.ops.hash import hash32, hash_combine
 from myscaledb_tpu_torch.ops.hashtable import (HashTable, build_group_ids,
                                                ht_lookup, INT32_MAX,
                                                _charge_sort)
+from myscaledb_tpu_torch.ops.kernels.join_probe import (KEY_DTYPES,
+                                                        probe_direct)
 from myscaledb_tpu_torch.runtime import metrics as M
 from myscaledb_tpu_torch.runtime.memory import charge
 from myscaledb_tpu_torch.runtime.tracing import sync
@@ -339,18 +342,25 @@ def _search_keys(b: SortedBuild, probe_key: torch.Tensor):
 def probe_sorted(b: SortedBuild, probe_key: torch.Tensor,
                  probe_mask=None) -> JoinResult:
     """Each probe row's lowest matching build row (ANY), found by the
-    direct lookup or by binary search; the probe side is never sorted."""
+    direct lookup (K7, ``ops/kernels/join_probe.py``) or by binary search;
+    the probe side is never sorted.  Counts each probe by its route in
+    ``system.events``: ``DirectProbeJoins`` (and its rows,
+    ``DirectProbeRows``) or ``SearchProbeJoins``."""
     npr = probe_key.shape[0]
     dev = probe_key.device
     charge(16 * npr, "join_probe")
     if b.direct is not None:
-        m = b.direct.lookup.shape[0]
-        idx = probe_key.to(torch.int64) - b.direct.lo
-        hit = (idx >= 0) & (idx < m)
-        row = b.direct.lookup[idx.clamp_(0, m - 1)]
-        del idx                     # 8 B a probe row, gone before the next
-        found = _masked(hit & (row != INT32_MAX), probe_mask)
-        return JoinResult(torch.where(found, row, INT32_MAX), found)
+        M.increment("DirectProbeJoins")
+        M.increment("DirectProbeRows", npr)
+        if probe_key.dtype not in KEY_DTYPES:
+            probe_key = probe_key.to(torch.int64)
+        if probe_mask is not None:
+            probe_mask = torch.as_tensor(probe_mask, dtype=torch.bool,
+                                         device=dev).contiguous()
+        return JoinResult(*probe_direct(probe_key.contiguous(),
+                                        b.direct.lookup, b.direct.lo,
+                                        probe_mask))
+    M.increment("SearchProbeJoins")
     n = b.keys.shape[0]
     if n == 0:
         return JoinResult(torch.full((npr,), INT32_MAX, dtype=torch.int32,

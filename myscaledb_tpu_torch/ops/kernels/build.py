@@ -31,7 +31,8 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("binary_scan.cu", "distinct_count.cu", "errors.cu", "group_agg.cu",
-           "merge_count.cu", "segmin_f32.cu", "segmin_sq8.cu")
+           "join_probe.cu", "merge_count.cu", "segmin_f32.cu",
+           "segmin_sq8.cu")
 HEADERS = ("hopper.cuh",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -47,6 +48,8 @@ _SIGNATURES = {
     # gid, key, key_bytes, mask, n, G, table, capacity, counts, overflow,
     # stream
     "msdb_distinct_count": [_P, _P, _I, _P, _L, _I, _P, _L, _P, _P, _P],
+    # key, key_bytes, lookup, lo, m, mask, n, row_out, found_out, stream
+    "msdb_join_probe_direct": [_P, _I, _P, _L, _L, _P, _L, _P, _P, _P],
     # build, nb, starts, lo, hi, shift, steps, probe, n, has_max, out,
     # blocks, stream
     "msdb_merge_count": [_P, _I, _P, _I, _I, _I, _I, _P, _L, _P, _P, _I, _P],

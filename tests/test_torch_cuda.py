@@ -628,6 +628,121 @@ def test_sql_distinct_counts_take_k6_and_equal_cpu(cuda):
         assert rows == cpu.sql(sql).to_rows(), sql
 
 
+def _k7_inputs(gen, n, m, dtype, lo, masked):
+    """n keys over 1.25 m values around [lo, lo + m): ~20% out of range;
+    a lookup of m rows with a quarter of its entries absent; a 50% mask."""
+    span = m * 5 // 4
+    key = (torch.randint(0, span, (n,), device="cuda", generator=gen)
+           + (lo - (span - m) // 2)).to(dtype)
+    lookup = torch.randperm(m, device="cuda", generator=gen).int()
+    lookup[torch.rand(m, device="cuda", generator=gen) < 0.25] = 2 ** 31 - 1
+    mask = (torch.rand(n, device="cuda", generator=gen) < 0.5) if masked \
+        else None
+    return key, lookup, mask
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype,lo", [(torch.int32, -1_000),
+                                      (torch.int64, 2 ** 33 + 5)])
+def test_join_probe_kernel_matches_plain(cuda, dtype, lo, masked):
+    """K7 on 10M random keys (int32, and int64 past the int32 range), ~20%
+    outside the lookup's range, with and without a 50% mask: one launch a
+    call, rows and flags equal to the plain version's."""
+    from myscaledb_tpu_torch.ops.kernels import join_probe as K7
+    key, lookup, mask = _k7_inputs(cuda, 10_000_000, 3_000_000, dtype, lo,
+                                   masked)
+    before = K7.probe_direct.launches
+    row, found = K7.probe_direct(key, lookup, lo, mask)
+    torch.cuda.synchronize()
+    assert K7.probe_direct.launches == before + 1
+    want_row, want_found = K7.probe_direct_plain(key, lookup, lo, mask)
+    assert row.dtype == torch.int32 and found.dtype == torch.bool
+    assert torch.equal(row, want_row) and torch.equal(found, want_found)
+    share = float(found.float().mean())
+    assert 0.2 < share < (0.35 if masked else 0.7)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("n", [1, 7, 100_003])
+def test_join_probe_unaligned_and_ragged_columns(cuda, dtype, offset, n):
+    """Keys and masks that do not start on a 16-byte boundary take the
+    row-at-a-time loop, the last n % 4 rows too; keys at the int64
+    extremes wrap as int64 arithmetic does."""
+    from myscaledb_tpu_torch.ops.kernels import join_probe as K7
+    lo = -7 if dtype == torch.int32 else -(2 ** 62)
+    key, lookup, mask = _k7_inputs(cuda, n + offset, 4_099, dtype, lo, True)
+    if dtype == torch.int64:
+        ends = torch.tensor([2 ** 63 - 1, -2 ** 63], device="cuda")
+        key[:2] = ends[:key.shape[0]]
+    key, mask = key[offset:], mask[offset:]
+    for m in (None, mask):
+        before = K7.probe_direct.launches
+        got = K7.probe_direct(key, lookup, lo, m)
+        torch.cuda.synchronize()
+        assert K7.probe_direct.launches == before + 1
+        want = K7.probe_direct_plain(key, lookup, lo, m)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_join_probe_empty_probe_launches_nothing(cuda):
+    from myscaledb_tpu_torch.ops.kernels import join_probe as K7
+    lookup = torch.arange(5, dtype=torch.int32, device="cuda")
+    before = K7.probe_direct.launches
+    row, found = K7.probe_direct(
+        torch.zeros(0, dtype=torch.int64, device="cuda"), lookup, 3)
+    assert K7.probe_direct.launches == before
+    assert row.device.type == "cuda" and row.shape == found.shape == (0,)
+
+
+def test_sql_direct_joins_take_k7_and_equal_cpu(cuda):
+    """Every join whose build takes the direct lookup launches K7 once
+    (``DirectProbeJoins`` moves with the launches), a spread key takes the
+    binary search and launches nothing; rows equal the CPU session's."""
+    import myscaledb_tpu_torch as P
+    from myscaledb_tpu_torch.ops.kernels import join_probe as K7
+    from myscaledb_tpu_torch.runtime import metrics as M
+    rng = np.random.default_rng(12)
+    n, nd = 1 << 20, 50_000
+    fact = {"id": np.arange(n, dtype=np.int64),
+            "k": rng.integers(-100, nd + 100, n).astype(np.int32),
+            "k64": rng.integers(0, nd, n).astype(np.int64) + 2 ** 40,
+            "v": rng.integers(-50, 50, n).astype(np.int32)}
+    dims = {"d": {"k": rng.permutation(nd).astype(np.int32),
+                  "c": rng.integers(0, 9, nd).astype(np.int32)},
+            "d64": {"k64": rng.permutation(nd).astype(np.int64) + 2 ** 40,
+                    "c": rng.integers(0, 9, nd).astype(np.int32)},
+            "sp": {"k": (rng.permutation(nd) * 40_009).astype(np.int32),
+                   "c": rng.integers(0, 9, nd).astype(np.int32)}}
+    card, cpu = P.connect(), P.connect(device="cpu")
+    for s in (card, cpu):
+        s.create_table("f", fact)
+        for name, data in dims.items():
+            s.create_table(name, data)
+
+    def routes():
+        ev = M.events_snapshot()
+        return (ev.get("DirectProbeJoins", 0), ev.get("SearchProbeJoins", 0))
+
+    for sql, direct, search in [
+            ("SELECT count(), sum(v), sum(c) FROM f INNER JOIN d "
+             "ON f.k = d.k", 1, 0),
+            ("SELECT d.c, count(), sum(v) FROM f INNER JOIN d ON f.k = d.k "
+             "INNER JOIN d64 ON f.k64 = d64.k64 WHERE v > 0 GROUP BY d.c "
+             "ORDER BY d.c", 2, 0),
+            ("SELECT count(), sum(c) FROM f ANY LEFT JOIN d64 "
+             "ON f.k64 = d64.k64", 1, 0),
+            ("SELECT count(), sum(c) FROM f INNER JOIN sp ON f.k = sp.k",
+             0, 1)]:
+        before, ev = K7.probe_direct.launches, routes()
+        rows = card.sql(sql).to_rows()
+        torch.cuda.synchronize()
+        moved = tuple(b - a for a, b in zip(ev, routes()))
+        assert moved == (direct, search), sql
+        assert K7.probe_direct.launches - before == direct, sql
+        assert rows == cpu.sql(sql).to_rows(), sql
+
+
 IMAX = 2 ** 31 - 1
 
 
